@@ -1,0 +1,242 @@
+"""ISSGD — the paper's importance-sampling SGD (section 4), one device.
+
+One train step runs the paper's three actors in order:
+
+  workers   → a scoring pass over a round-robin slice of the dataset with
+              *stale* parameters θ_stale (pushed every `refresh_every`
+              steps — the paper's parameter-push period);
+  database  → the WeightStore (ω̃ + scored_at);
+  master    → proposal read (B.1 staleness filter + B.3 smoothing),
+              two-stage multinomial draw, IS-scaled unbiased loss (§4.1),
+              gradient step.
+
+Modes: ``relaxed`` (the paper's practical algorithm), ``exact`` (rescore
+the whole dataset with fresh params every step, the §4.1 oracle) and
+``uniform`` (plain SGD; scoring still runs for the monitors).  The step
+stays on the device: no host synchronisation happens inside it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import variance
+from repro_torch.core.importance import (ISConfig, effective_sample_size,
+                                         is_loss_scale)
+from repro_torch.core.sampler import two_stage_sample
+from repro_torch.core.weight_store import (EMPTY, WeightStore, init_store,
+                                           read_proposal, write_scores)
+from repro_torch.data.pipeline import gather_batch
+from repro_torch.optim import (Optimizer, clip_by_global_norm, global_norm,
+                               tree_leaves, tree_map)
+
+MODES = ("relaxed", "exact", "uniform")
+
+
+@dataclasses.dataclass(frozen=True)
+class ISSGDConfig:
+    """Step-shape knobs: batch sizes, refresh cadence, mode, smoothing,
+    and the logical scoring decomposition W."""
+    batch_size: int = 64
+    score_batch_size: int = 256        # examples rescored per step ("workers")
+    refresh_every: int = 8             # θ_stale refresh period (param pushes)
+    mode: str = "relaxed"              # relaxed | exact | uniform
+    is_cfg: ISConfig = ISConfig()
+    grad_clip: float = 0.0
+    score_shards: int = 1              # W: logical scoring shards
+
+
+class TrainState(NamedTuple):
+    """Everything a step carries.  ``step`` is a host int; ``rng`` is the
+    generator the master's draws come from (on the params' device)."""
+    params: Any
+    opt_state: Any
+    stale_params: Any                  # the workers' parameter copy
+    store: WeightStore
+    step: int
+    rng: torch.Generator
+
+
+class StepMetrics(NamedTuple):
+    """Per-step monitors (paper fig. 4 traces + sampling diagnostics), as
+    device tensors; reading them is the caller's synchronisation."""
+    loss: torch.Tensor
+    grad_norm: torch.Tensor
+    trace_ideal: torch.Tensor
+    trace_stale: torch.Tensor
+    trace_unif: torch.Tensor
+    ess_frac: torch.Tensor
+    mean_weight: torch.Tensor
+    sample_indices: torch.Tensor
+
+
+def init_train_state(params, optimizer: Optimizer, num_examples: int,
+                     device: torch.device | str, seed: int = 0
+                     ) -> TrainState:
+    """Fresh state: stale params alias θ₀ (updates are functional), the
+    store unscored (uniform proposal until the first sweep)."""
+    return TrainState(
+        params=params, opt_state=optimizer.init(params), stale_params=params,
+        store=init_store(num_examples, device), step=0,
+        rng=torch.Generator(device=device).manual_seed(seed))
+
+
+def _check_mode(cfg: ISSGDConfig) -> None:
+    if cfg.mode not in MODES:
+        raise ValueError(f"mode {cfg.mode!r} is not ported; this port runs "
+                         f"{', '.join(MODES)}")
+
+
+def _resolve_shards(cfg: ISSGDConfig, n: int, sb: int) -> tuple[int, int]:
+    """(n_w, sb_w): logical shard length and per-shard scoring slice."""
+    w = max(cfg.score_shards, 1)
+    if n % w:
+        raise ValueError(f"num_examples={n} not divisible by "
+                         f"score_shards={w}")
+    if sb % w:
+        raise ValueError(f"score_batch_size={sb} not divisible by "
+                         f"score_shards={w}")
+    return n // w, sb // w
+
+
+def _score_slice(step: int, w: int, n_w: int, sb_w: int,
+                 device) -> torch.Tensor:
+    """Indices of this step's round-robin scoring slice: each of the W
+    logical shards contributes `sb_w` examples."""
+    base = (step * sb_w + torch.arange(sb_w, device=device)) % n_w
+    shard = torch.arange(w, device=device)[:, None] * n_w
+    return (shard + base[None, :]).reshape(-1)
+
+
+def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
+                      num_examples: int) -> Callable:
+    """The workers' half: ``scoring_pass(score_params, store, step, data)
+    -> (store, fresh_scores, stale_slice)``.  Rescore this step's
+    round-robin slice and write it; `stale_slice` is the proposal over
+    the slice *before* the write (the eq. 9 monitor input)."""
+    _check_mode(cfg)
+    n = num_examples
+    sb = n if cfg.mode == "exact" else cfg.score_batch_size
+    w = max(cfg.score_shards, 1)
+    n_w, sb_w = _resolve_shards(cfg, n, sb)
+
+    def scoring_pass(score_params, store: WeightStore, step: int, data):
+        score_idx = _score_slice(step, w, n_w, sb_w, store.weights.device)
+        fresh = scorer(score_params, gather_batch(data, score_idx))
+        stale_slice = read_proposal(store, step, cfg.is_cfg)[score_idx]
+        # reserved rows (scored_at == EMPTY) stay inert: score 0, stamp kept
+        live = store.scored_at[score_idx] > EMPTY
+        fresh = torch.where(live, fresh, torch.zeros_like(fresh))
+        stamp = torch.where(live, torch.full_like(score_idx, step),
+                            torch.full_like(score_idx, EMPTY))
+        return write_scores(store, score_idx, fresh, stamp), fresh, stale_slice
+
+    return scoring_pass
+
+
+def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
+                     cfg: ISSGDConfig, num_examples: int) -> Callable:
+    """The master's half: ``master_pass(params, opt_state, stale_params,
+    store, step, generator, data, fresh_scores=None, stale_slice=None,
+    sample_indices=None) -> (params, opt_state, stale_params, metrics)``.
+
+    Proposal read → two-stage draw (or the injected ``sample_indices``)
+    → IS-scaled unbiased update (§4.1) → parameter push.  Without
+    `fresh_scores` the fig-4 traces come back NaN."""
+    _check_mode(cfg)
+    is_cfg = cfg.is_cfg
+    n = num_examples
+    sb = n if cfg.mode == "exact" else cfg.score_batch_size
+    w = max(cfg.score_shards, 1)
+    _resolve_shards(cfg, n, sb)
+
+    def master_pass(params, opt_state, stale_params, store: WeightStore,
+                    step: int, generator: torch.Generator, data,
+                    fresh_scores=None, stale_slice=None,
+                    sample_indices: Optional[torch.Tensor] = None):
+        device = store.weights.device
+        proposal = read_proposal(store, step, is_cfg)
+        sum_w = torch.sum(proposal)
+        mean_weight = sum_w / n
+
+        # ---- compose the minibatch ----------------------------------------
+        if sample_indices is not None:
+            idx = sample_indices.to(device=device, dtype=torch.long)
+        elif cfg.mode == "uniform":
+            idx = torch.randint(0, n, (cfg.batch_size,), generator=generator,
+                                device=device)
+        else:
+            idx = two_stage_sample(proposal, cfg.batch_size, num_shards=w,
+                                   generator=generator)
+        if cfg.mode == "uniform":
+            scales = torch.ones(idx.shape[0], dtype=torch.float32,
+                                device=device)
+        else:
+            scales = is_loss_scale(proposal[idx], mean_weight)
+        batch = gather_batch(data, idx)
+
+        # ---- unbiased IS-scaled update (§4.1) -------------------------------
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = torch.mean(per_example_loss(live, batch) * scales)
+        leaves = tree_leaves(live)
+        flat = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(flat), live)
+        loss = loss.detach()
+        gnorm = global_norm(grads)
+        if cfg.grad_clip > 0:
+            grads, _ = clip_by_global_norm(grads, cfg.grad_clip, norm=gnorm)
+        new_params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 step)
+
+        # ---- parameter push to the workers every K steps ------------------
+        if cfg.mode == "exact" or (step + 1) % cfg.refresh_every == 0:
+            stale_params = new_params
+
+        # ---- paper fig. 4 monitors over the scored slice ------------------
+        with torch.no_grad():
+            if fresh_scores is None:
+                nan = torch.full((), math.nan, device=device)
+                traces = variance.TraceSigma(ideal=nan, stale=nan, unif=nan)
+            else:
+                traces = variance.trace_sigma_all_dist(fresh_scores,
+                                                       stale_slice,
+                                                       n_total=sb)
+            sum_w2 = torch.sum(torch.square(proposal))
+            ess = effective_sample_size(proposal, s1=sum_w, s2=sum_w2) / n
+            metrics = StepMetrics(
+                loss=loss, grad_norm=gnorm,
+                trace_ideal=torch.sqrt(torch.clamp(traces.ideal, min=0.0)),
+                trace_stale=torch.sqrt(torch.clamp(traces.stale, min=0.0)),
+                trace_unif=torch.sqrt(torch.clamp(traces.unif, min=0.0)),
+                ess_frac=ess, mean_weight=mean_weight, sample_indices=idx)
+        return new_params, opt_state, stale_params, metrics
+
+    return master_pass
+
+
+def make_train_step(per_example_loss: Callable, scorer: Callable,
+                    optimizer: Optimizer, cfg: ISSGDConfig,
+                    num_examples: int) -> Callable:
+    """The synchronous step ``master_pass ∘ scoring_pass`` over one store:
+    ``train_step(state, data, sample_indices=None) -> (state, metrics)``.
+    Step t's master samples from a proposal that already holds step t's
+    scoring writes (lag 0)."""
+    scoring = make_scoring_pass(scorer, cfg, num_examples)
+    master = make_master_pass(per_example_loss, optimizer, cfg, num_examples)
+
+    def train_step(state: TrainState, data: dict,
+                   sample_indices: Optional[torch.Tensor] = None):
+        score_params = (state.params if cfg.mode == "exact"
+                        else state.stale_params)
+        store, fresh, stale_slice = scoring(score_params, state.store,
+                                            state.step, data)
+        params, opt_state, stale_params, metrics = master(
+            state.params, state.opt_state, state.stale_params, store,
+            state.step, state.rng, data, fresh, stale_slice, sample_indices)
+        return TrainState(params, opt_state, stale_params, store,
+                          state.step + 1, state.rng), metrics
+
+    return train_step

@@ -1,0 +1,4 @@
+"""Device-resident datasets of the port."""
+from repro_torch.data.pipeline import ArrayDataset, gather_batch, make_svhn_like
+
+__all__ = ["ArrayDataset", "gather_batch", "make_svhn_like"]

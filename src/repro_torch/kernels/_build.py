@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use and load them.
+
+Each ``.cu`` under ``csrc/`` has a plain ``extern "C"`` interface and is
+compiled into its own shared library, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries land in ``build/repro_torch/``
+at the root of the checkout, a git-ignored directory, under a name keyed
+on a hash of the source and the flags: editing a source rebuilds it, and
+an unchanged source is loaded from the previous build.  A failed build
+raises with the compiler's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str | None:
+    """``nvcc`` on PATH, else under the CUDA toolkit PyTorch found."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its keyed library exists; returns
+    the library path.  The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside it as ``.log``."""
+    lib = library_path(name)
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(f"cannot build {name}.cu: no nvcc on PATH or "
+                           f"under CUDA_HOME")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builds never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return ctypes.CDLL(str(build(name)))

@@ -1,0 +1,176 @@
+"""ISSGD training launcher of the PyTorch port (MLP, one device).
+
+Runs the paper's experiment on the card by default:
+
+  PYTHONPATH=src python -m repro_torch.launch.train
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
+      --examples 1024 --device cpu
+
+It prints the reference launcher's per-step log line
+(``src/repro/launch/train.py``) and a closing line with the median step
+time.  Flags of the reference launcher that this port does not carry yet
+are refused by name.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.mlp_svhn import CONFIG, smoke
+from repro_torch.core.importance import ISConfig
+from repro_torch.core.issgd import (ISSGDConfig, TrainState,
+                                    init_train_state, make_train_step)
+from repro_torch.core.scorer import make_mlp_scorer
+from repro_torch.data import make_svhn_like
+from repro_torch.models.mlp import init_mlp_classifier, per_example_loss
+from repro_torch.optim import sgd
+
+SLICE = "slice 1 of the PyTorch port (single-device mlp_svhn)"
+
+# flags of src/repro/launch/train.py this slice does not carry yet
+LATER_FLAGS = (
+    "--seq", "--probe-every", "--proposal-strategy", "--adaptive-is",
+    "--adapt-every", "--index", "--table-dtype", "--score-ttl",
+    "--index-chunk-size", "--mesh", "--model-parallel",
+    "--sequence-parallel", "--no-sequence-parallel", "--save-checkpoint",
+    "--restore-checkpoint", "--score-shards", "--async-scoring",
+    "--swap-every", "--no-trace-monitors", "--stream", "--chunk-size",
+    "--window-chunks", "--prefetch-every", "--serve-loop", "--serve-slots",
+    "--serve-prompt-len", "--serve-max-new", "--serve-rate", "--serve-every",
+    "--serve-publish-every", "--serve-decode-steps", "--serve-reserve-chunks",
+    "--metrics-out", "--metrics-jsonl", "--metrics-every", "--monitors",
+    "--profile-dir", "--profile-steps", "--telemetry-blocking")
+
+
+class TrainResult(NamedTuple):
+    state: TrainState
+    history: list        # one record per logged step
+    step_ms: list        # every step's time (CUDA events on the card)
+
+
+def use_full_f32() -> None:
+    """The reference computes in full f32; TF32 matmuls or convolutions
+    would keep ~3 decimal digits and break parity with it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="mlp_svhn", choices=["mlp_svhn"])
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--score-batch", type=int, default=256)
+    ap.add_argument("--examples", type=int, default=4096)
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--mode", default="relaxed",
+                    choices=["relaxed", "exact", "uniform", "fused"])
+    ap.add_argument("--strategy", default="ghost",
+                    choices=["loss", "logit_grad", "ghost", "ghost_rev",
+                             "full"])
+    ap.add_argument("--refresh-every", type=int, default=8)
+    ap.add_argument("--staleness-threshold", type=int, default=0)
+    ap.add_argument("--smoothing", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the CPU runs only when asked for "
+                    "(--device cpu)")
+    args, unknown = ap.parse_known_args(argv)
+    for flag in unknown:
+        name = flag.split("=", 1)[0]
+        if name in LATER_FLAGS:
+            ap.error(f"{name} is a flag of the JAX launcher that {SLICE} "
+                     f"does not carry yet")
+    if unknown:
+        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.mode == "fused" or args.strategy == "ghost_rev":
+        ap.error(f"--mode fused and --strategy ghost_rev are not in {SLICE}")
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        ap.error(f"--device {args.device}: CUDA is not available; the "
+                 f"launcher runs on the card unless --device cpu is given")
+    return args
+
+
+def build(args: argparse.Namespace):
+    """(state, train_step, data) for ``args``: model, data and step."""
+    use_full_f32()
+    device = torch.device(args.device)
+    cfg = smoke() if args.smoke else CONFIG
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    train, _ = make_svhn_like(gen(args.seed), n=args.examples,
+                              dim=cfg.input_dim)
+    params = init_mlp_classifier(gen(args.seed + 1), cfg, device)
+    opt = sgd(args.lr)
+    tcfg = ISSGDConfig(
+        batch_size=args.batch, score_batch_size=args.score_batch,
+        refresh_every=args.refresh_every, mode=args.mode,
+        is_cfg=ISConfig(smoothing=args.smoothing,
+                        staleness_threshold=args.staleness_threshold))
+    step = make_train_step(lambda p, b: per_example_loss(p, b, cfg),
+                           make_mlp_scorer(cfg, args.strategy), opt, tcfg,
+                           train.size)
+    state = init_train_state(params, opt, train.size, device, seed=args.seed)
+    return state, step, train.arrays
+
+
+def run(args: argparse.Namespace) -> TrainResult:
+    """Build from ``args`` and train, logging every ``--log-every`` steps."""
+    state, step, data = build(args)
+    on_cuda = torch.device(args.device).type == "cuda"
+    marks = []           # (start, end) CUDA events or host clock pairs
+    history = []
+    t0 = time.time()
+    for i in range(args.steps):
+        if on_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, data)
+            end.record()
+        else:
+            start = time.perf_counter()
+            state, m = step(state, data)
+            end = time.perf_counter()
+        marks.append((start, end))
+        if i % args.log_every == 0 or i == args.steps - 1:
+            # ONE host transfer for everything this step logs
+            vals = torch.stack([m.loss, m.grad_norm, m.trace_ideal,
+                                m.trace_stale, m.trace_unif,
+                                m.ess_frac]).tolist()
+            rec = dict(zip(("loss", "grad_norm", "trace_ideal",
+                            "trace_stale", "trace_unif", "ess_frac"), vals))
+            rec = {"step": i, **rec, "elapsed_s": round(time.time() - t0, 2)}
+            history.append(rec)
+            print(f"step {i:5d} loss {rec['loss']:.4f} "
+                  f"√TrΣ ideal/stale/unif = {rec['trace_ideal']:.3f}/"
+                  f"{rec['trace_stale']:.3f}/{rec['trace_unif']:.3f} "
+                  f"ess {rec['ess_frac']:.3f}", flush=True)
+    if on_cuda:
+        torch.cuda.synchronize(args.device)
+        step_ms = [s.elapsed_time(e) for s, e in marks]
+    else:
+        step_ms = [(e - s) * 1e3 for s, e in marks]
+    return TrainResult(state, history, step_ms)
+
+
+def main(argv=None) -> TrainResult:
+    args = parse_args(argv)
+    result = run(args)
+    if result.step_ms:
+        clock = ("CUDA events" if torch.device(args.device).type == "cuda"
+                 else "host clock")
+        print(f"done: {args.steps} steps on {args.device}, median step "
+              f"{statistics.median(result.step_ms):.3f} ms ({clock})",
+              flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

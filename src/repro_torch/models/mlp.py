@@ -1,0 +1,83 @@
+"""The paper's own model: a permutation-invariant MLP classifier
+(4 hidden layers × 2048 units, ReLU, softmax) — section 5.1.
+
+Parameters are a dict ``{"fc{i}": {"w": (din, dout), "b": (dout,)}}`` in
+the JAX reference's layout, so ``params_from_jax`` is a plain copy and
+parity tests compare like with like.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import Params, Tape
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    name: str = "mlp_svhn"
+    arch_type: str = "mlp"
+    input_dim: int = 3072           # 32x32x3, flattened (permutation-invariant)
+    num_classes: int = 10
+    hidden: tuple = (2048, 2048, 2048, 2048)
+    dtype: str = "float32"
+
+
+def mlp_dims(cfg: MLPConfig) -> tuple:
+    return (cfg.input_dim, *cfg.hidden, cfg.num_classes)
+
+
+def init_mlp_classifier(generator: torch.Generator, cfg: MLPConfig,
+                        device: torch.device | str) -> Params:
+    """He-normal weights drawn from ``generator`` (on its own device), zero
+    biases, placed on ``device``."""
+    dims = mlp_dims(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    params = {}
+    for i in range(len(dims) - 1):
+        w = torch.randn(dims[i], dims[i + 1], generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        params[f"fc{i}"] = {
+            "w": (w * (2.0 / dims[i]) ** 0.5).to(device=device, dtype=dtype),
+            "b": torch.zeros(dims[i + 1], device=device, dtype=dtype),
+        }
+    return params
+
+
+def params_from_jax(np_params: dict, device: torch.device | str = "cpu"
+                    ) -> Params:
+    """The reference's parameter tree (numpy leaves, same layout) → the
+    port's, copied onto ``device``."""
+    return {layer: {k: torch.from_numpy(np.array(v)).to(device)
+                    for k, v in leaves.items()}
+            for layer, leaves in np_params.items()}
+
+
+def mlp_forward(params: Params, x: torch.Tensor, cfg: MLPConfig,
+                tape: Optional[Tape] = None) -> torch.Tensor:
+    """x: (B, input_dim) → logits (B, num_classes)."""
+    n = len(cfg.hidden) + 1
+    h = x
+    for i in range(n):
+        p = params[f"fc{i}"]
+        y = h @ p["w"] + p["b"]
+        if tape is not None:
+            y = tape.linear(f"fc{i}", h, y)
+        h = torch.relu(y) if i < n - 1 else y
+    return h
+
+
+def per_example_loss(params: Params, batch: dict, cfg: MLPConfig,
+                     tape: Optional[Tape] = None) -> torch.Tensor:
+    """Cross-entropy per example. batch: {x (B,D), y (B,)}."""
+    logits = mlp_forward(params, batch["x"], cfg, tape)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(lp, 1, batch["y"].long()[:, None])[:, 0]
+
+
+def accuracy(params: Params, batch: dict, cfg: MLPConfig) -> torch.Tensor:
+    logits = mlp_forward(params, batch["x"], cfg)
+    return (torch.argmax(logits, -1) == batch["y"]).float().mean()
