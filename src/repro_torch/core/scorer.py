@@ -1,13 +1,13 @@
 """Per-example gradient-norm scoring — the paper's ω̃_n = ||g(x_n)||₂.
 
-Strategies for the MLP classifier:
+Strategies, for the MLP classifier and for the transformer LMs:
 
   loss        ω̃_n = L(x_n): forward only, a curriculum-style baseline.
   logit_grad  ω̃_n = ||∂L_n/∂logits||₂ in closed form (p − onehot).
-  ghost       EXACT ||∇_θ L_n||₂ over every tapped linear (paper Prop. 1):
-              one forward, one backward to the taps, and the
-              per-example squared-norm kernel; no per-example gradient is
-              ever formed.
+  ghost       EXACT ||∇_θ L_n||₂ over every tapped linear (paper Prop. 1,
+              and the ghost-norm Gram kernel for linears shared across
+              the sequence): one forward, one backward to the taps, and
+              the kernels; no per-example gradient is ever formed.
   full        per-example gradients through ``torch.func`` — the test
               oracle, O(B·|θ|) memory.
 
@@ -15,7 +15,7 @@ All strategies return ω̃ ≥ 0 of shape (B,) in float32.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -23,21 +23,50 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import Tape
 from repro_torch.models.mlp import (MLPConfig, mlp_dims, mlp_forward,
                                     per_example_loss)
+from repro_torch.optim import tree_leaves
 
 STRATEGIES = ("loss", "logit_grad", "ghost", "full")
 
 
-def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict,
-                   device: torch.device | str, with_bias: bool = False
+def _contribution(x: torch.Tensor, dt: torch.Tensor, with_bias: bool,
+                  scanned: bool) -> torch.Tensor:
+    """Squared per-example grad-norm contribution of one tapped linear.
+
+    ``scanned`` declares whether the arrays carry a leading period axis
+    (the stacked layer records); never guessed from shapes.
+
+    Shapes handled:
+      not scanned: (B, d) rank-1 (paper Prop. 1) | (B, S, d) ghost norm
+      scanned:     (P, B, S, d)
+    """
+    if not scanned:
+        if x.ndim == 2:
+            return ops.per_example_sqnorm(x, dt, with_bias=with_bias)
+        return ops.ghost_norm(x, dt)
+    # every (period, example) row is an independent layer copy, so one
+    # call covers all P·B rows
+    p, b = x.shape[:2]
+    r = ops.ghost_norm(x.reshape(p * b, *x.shape[2:]),
+                       dt.reshape(p * b, *dt.shape[2:]))
+    return torch.sum(r.reshape(p, b), dim=0)
+
+
+def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
+                   device: torch.device | str,
+                   scanned_names: Optional[set] = None,
+                   with_bias: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact per-example squared grad-norms via the tap trick.
 
     ``loss_with_taps(taps) -> (per_example_losses (B,), records)``, where
     ``records[name]`` is the input of the linear whose output tap is
-    ``taps[name]``.  Consecutive rank-1 taps form one group and go through
-    ``ops.per_example_sqnorm_multi`` in one launch; a group of one goes
-    through ``ops.per_example_sqnorm`` (the reference's grouping rule,
-    ``src/repro/core/scorer.py::ghost_sq_norms``, on one device).
+    ``taps[name]``.  ``scanned_names``: which records carry a leading
+    period axis (default: every name except "unembed", the transformer
+    convention).  The reference's single-device grouping rule
+    (``src/repro/core/scorer.py::ghost_sq_norms``): consecutive rank-1
+    unscanned taps are batched into one ``ops.per_example_sqnorm_multi``
+    launch (``ops.per_example_sqnorm`` for a group of one), and any other
+    tap flushes the group and adds its ``_contribution``.
 
     Returns (sq_norms (B,), per_example_losses (B,))."""
     taps = {k: torch.zeros(s, dtype=torch.float32, device=device,
@@ -46,19 +75,37 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict,
     names = [k for k in records if k in taps]
     grads = torch.autograd.grad(losses.sum(), [taps[k] for k in names])
     dtaps = dict(zip(names, grads))
+    del taps, grads       # the taps are large on an LM; the walk needs dtaps
 
-    xs = [records[k].detach() for k in names]
-    ds = [dtaps[k].detach() for k in names]
-    for name, x in zip(names, xs):
-        if x.ndim != 2:
-            raise ValueError(f"tap {name!r} records a {x.ndim}-D input; only "
-                             f"rank-1 (B, d) taps are ported (sequence-"
-                             f"shared taps need the ghost_norm kernel)")
-    # every tap is rank-1, so all of them form one consecutive group
-    if len(xs) == 1:
-        sq = ops.per_example_sqnorm(xs[0], ds[0], with_bias=with_bias)
-    else:
-        sq = ops.per_example_sqnorm_multi(xs, ds, with_bias=with_bias)
+    sq = torch.zeros(batch, dtype=torch.float32, device=device)
+    group_x: list = []
+    group_d: list = []
+
+    def flush(sq):
+        if not group_x:
+            return sq
+        if len(group_x) == 1:
+            contrib = ops.per_example_sqnorm(group_x[0], group_d[0],
+                                             with_bias=with_bias)
+        else:
+            contrib = ops.per_example_sqnorm_multi(group_x, group_d,
+                                                   with_bias=with_bias)
+        group_x.clear()
+        group_d.clear()
+        return sq + contrib
+
+    for name in names:
+        x = records[name].detach()
+        dt = dtaps.pop(name)
+        scanned = (name in scanned_names) if scanned_names is not None \
+            else name != "unembed"
+        if not scanned and x.ndim == 2:       # rank-1 tap: groupable
+            group_x.append(x)
+            group_d.append(dt)
+            continue
+        sq = flush(sq)
+        sq = sq + _contribution(x, dt, with_bias, scanned)
+    sq = flush(sq)
     return sq, losses.detach()
 
 
@@ -93,8 +140,9 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
                 losses = per_example_loss(params, batch, cfg, tape=tape)
                 return losses, tape.records
 
-            sq, _ = ghost_sq_norms(loss_with_taps, shapes,
-                                   batch["x"].device, with_bias=True)
+            sq, _ = ghost_sq_norms(loss_with_taps, shapes, b,
+                                   batch["x"].device, scanned_names=set(),
+                                   with_bias=True)
             return torch.sqrt(sq)
         return score
 
@@ -110,6 +158,66 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
             sq = sum(torch.sum(torch.square(g.float()),
                                dim=tuple(range(1, g.ndim)))
                      for layer in grads.values() for g in layer.values())
+            return torch.sqrt(sq)
+        return score
+
+    raise ValueError(f"unknown strategy {strategy!r}; this port has "
+                     f"{', '.join(STRATEGIES)}")
+
+
+# ----------------------------------------------------------- LM strategies
+def make_lm_scorer(cfg, strategy: str) -> Callable:
+    """Scorer for transformer LMs (one device, ``attn_impl="ref"``):
+    fn(params, batch) → ω̃ (B,).  ``ghost_rev`` comes with a later slice."""
+    from repro_torch.models.transformer import (forward, lm_head_metrics,
+                                                per_example_loss,
+                                                tap_structure)
+
+    if strategy == "loss":
+        @torch.no_grad()
+        def score(params, batch):
+            losses, _ = per_example_loss(params, cfg, batch)
+            return torch.clamp(losses.float(), min=0.0)
+        return score
+
+    if strategy == "logit_grad":
+        @torch.no_grad()
+        def score(params, batch):
+            tokens = batch["tokens"]
+            h, _ = forward(params, cfg, tokens[:, :-1], return_hidden=True)
+            # chunked head: never materializes (B,S,V) logits at once
+            _, grad_norm = lm_head_metrics(params, cfg, h, tokens[:, 1:])
+            return grad_norm
+        return score
+
+    if strategy == "ghost":
+        def score(params, batch):
+            b, s = batch["tokens"].shape
+            tap_shapes = tap_structure(cfg, b, s - 1)
+
+            def loss_with_taps(taps):
+                losses, aux = per_example_loss(params, cfg, batch, taps=taps,
+                                               collect=True)
+                return losses, aux.records
+
+            sq, _ = ghost_sq_norms(loss_with_taps, tap_shapes, b,
+                                   batch["tokens"].device, with_bias=False)
+            return torch.sqrt(sq)
+        return score
+
+    if strategy == "full":
+        from torch.func import grad, vmap
+
+        def loss_one(p, tokens):
+            losses, _ = per_example_loss(p, cfg, {"tokens": tokens[None]})
+            return losses[0]
+
+        def score(params, batch):
+            grads = vmap(grad(loss_one), in_dims=(None, 0))(
+                params, batch["tokens"])
+            leaves = tree_leaves(grads)
+            sq = sum(torch.sum(torch.square(g.float()),
+                               dim=tuple(range(1, g.ndim))) for g in leaves)
             return torch.sqrt(sq)
         return score
 

@@ -8,6 +8,7 @@ experiment (the recipe of ``src/repro/data/pipeline.py``, drawn from a
 ``torch.Generator``): a permutation-invariant classification problem
 whose examples have *heterogeneous* gradient norms (cluster structure +
 noisy slices + label noise), the property ISSGD exploits.
+`make_token_dataset` is the synthetic LM corpus of the same module.
 """
 from __future__ import annotations
 
@@ -69,3 +70,32 @@ def make_svhn_like(generator: torch.Generator, n: int = 65_536,
     sd = x_tr.std(dim=0, keepdim=True, correction=0) + 1e-6
     return (ArrayDataset({"x": (x_tr - mu) / sd, "y": y_tr}),
             ArrayDataset({"x": (x_te - mu) / sd, "y": y_te}))
+
+
+def make_token_dataset(generator: torch.Generator, n: int = 4096,
+                       seq: int = 128, vocab: int = 512,
+                       num_patterns: int = 32) -> ArrayDataset:
+    """Synthetic LM corpus on the generator's device (the recipe of
+    ``src/repro/data/pipeline.py::make_token_dataset``): each example
+    repeats one of ``num_patterns`` 16-token motifs, a per-example share
+    in [0, 0.5) of its tokens replaced by noise, so examples genuinely
+    differ in difficulty."""
+    device = generator.device
+
+    def randint(high, shape):
+        return torch.randint(0, high, shape, generator=generator,
+                             device=device)
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=generator, device=device)
+
+    motif_len = 16
+    motifs = randint(vocab, (num_patterns, motif_len))
+    which = randint(num_patterns, (n,))
+    reps = -(-seq // motif_len)
+    base = motifs[which].repeat(1, reps)[:, :seq]
+    rate = uniform(n, 1) * 0.5
+    noise = randint(vocab, (n, seq))
+    corrupt = uniform(n, seq) < rate
+    tokens = torch.where(corrupt, noise, base)
+    return ArrayDataset({"tokens": tokens.to(torch.int32)})

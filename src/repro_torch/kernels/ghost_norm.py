@@ -1,0 +1,91 @@
+"""Wrapper of the CUDA ghost-norm Gram kernel (sequence-shared linears).
+
+The kernel (``csrc/ghost_norm.cu``) replaces the Pallas TPU kernel
+``src/repro/kernels/ghost_norm.py::ghost_norm``.  The wrapper takes CUDA
+tensors only: it checks devices, dtypes, shapes and contiguity, allocates
+the output and the (rows, n_pairs) scratch of per-tile partials, launches
+on the current stream without synchronising, and raises if a launch is
+refused.  ``ghost_norm.launches`` counts calls of the op; each call is
+two kernel launches (the Gram partials, then the fixed-order row sums).
+CPU tensors go to the plain versions through ``kernels/ops.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """Build (at first use), load and type the kernel's library once;
+    every pointer and the stream are c_void_p."""
+    lib = _build.load("ghost_norm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gn_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.gn_launch.restype = i
+    lib.gn_pairs.argtypes = [i, i]
+    lib.gn_pairs.restype = i
+    lib.gn_tile.restype = i
+    lib.gn_max_pairs.restype = i
+    lib.gn_error_string.argtypes = [i]
+    lib.gn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x: torch.Tensor, d: torch.Tensor) -> None:
+    for name, a in (("x", x), ("d", d)):
+        if a.device.type != "cuda" or a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}; the CUDA kernel needs "
+                             f"x and d on one CUDA device")
+        if a.dtype not in _DTYPES:
+            raise TypeError(f"{name} has dtype {a.dtype}; the kernel takes "
+                            f"float32 or bfloat16")
+        if a.ndim != 3:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}; need "
+                             f"(rows, S, width)")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if x.shape[:2] != d.shape[:2]:
+        raise ValueError(f"x {tuple(x.shape)} and d {tuple(d.shape)} differ "
+                         f"in (rows, S)")
+
+
+def ghost_norm(x: torch.Tensor, d: torch.Tensor, *,
+               symmetric: bool = False) -> torch.Tensor:
+    """||X_nᵀD_n||²_F per row. x:(R,S,din) d:(R,S,dout) → f32[R].
+
+    ``symmetric`` computes only the tile pairs j ≥ i and counts j > i
+    twice (the reference kernel's option, and its default False)."""
+    _check(x, d)
+    rows, s, din = x.shape
+    dout = d.shape[2]
+    dev = x.device
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    if rows == 0 or s == 0:
+        return out.zero_()
+    lib = _lib()
+    n_pairs = lib.gn_pairs(s, int(symmetric))
+    if n_pairs > lib.gn_max_pairs():
+        raise ValueError(f"S={s} gives {n_pairs} tile pairs a row; the "
+                         f"kernel's grid takes at most {lib.gn_max_pairs()}")
+    partial = torch.empty(rows, n_pairs, dtype=torch.float32, device=dev)
+    code = lib.gn_launch(x.data_ptr(), d.data_ptr(),
+                         int(x.dtype == torch.bfloat16),
+                         int(d.dtype == torch.bfloat16), rows, s, din, dout,
+                         int(symmetric), dev.index, partial.data_ptr(),
+                         out.data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"ghost_norm launch failed: "
+                           f"{lib.gn_error_string(code).decode()}")
+    ghost_norm.launches += 1
+    return out
+
+
+ghost_norm.launches = 0

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ghost_norm as _gn
 from repro_torch.kernels import per_example_sqnorm as _pes
 from repro_torch.kernels import ref
 
@@ -38,3 +39,48 @@ def per_example_sqnorm_multi(xs, ds, with_bias: bool = True) -> torch.Tensor:
     if _on_cuda(xs + ds):
         return _pes.per_example_sqnorm_multi(xs, ds, with_bias=with_bias)
     return ref.per_example_sqnorm_multi_ref(xs, ds, with_bias=with_bias)
+
+
+# --------------------------------------------------------------- ghost norm
+def ghost_cost(s: int, din: int, dout: int) -> float:
+    """FLOPs of the Gram path per example."""
+    return float(s) * s * (din + dout)
+
+
+def direct_cost(s: int, din: int, dout: int) -> float:
+    """FLOPs of the materialized per-example gradient path."""
+    return float(s) * din * dout
+
+
+def ghost_norm(x: torch.Tensor, d: torch.Tensor, symmetric: bool = True,
+               force: str | None = None) -> torch.Tensor:
+    """||X_nᵀD_n||²_F per example, x:(B,S,din) d:(B,S,dout) → f32[B].
+
+    Takes the cheaper of the Gram path and the direct path by the
+    reference's FLOP rule (``src/repro/kernels/ops.py::ghost_norm``): Gram
+    when S·(din+dout) ≤ din·dout.  ``force`` in {"gram", "direct"} pins
+    either path on either device.
+
+    * Gram path: on CUDA tensors the CUDA kernel, which launches or raises;
+      on CPU tensors ``ref.ghost_norm_ref``.  The reference's CPU branch
+      always takes the direct path, because there the Gram kernel runs in
+      Pallas interpret mode; the port's plain Gram is not an interpreter,
+      so the same cost rule holds on both devices.  (The direct path at an
+      LM's unembed would materialize din·dout f32 per example.)
+    * Direct path: ``ref.ghost_norm_direct_ref``, a plain einsum on both
+      devices, as the reference computes it outside any Pallas kernel.
+    """
+    if force not in (None, "gram", "direct"):
+        raise ValueError(f"force must be None, 'gram' or 'direct', got "
+                         f"{force!r}")
+    _, s, din = x.shape
+    dout = d.shape[2]
+    use_gram = ghost_cost(s, din, dout) <= direct_cost(s, din, dout)
+    if force is not None:
+        use_gram = force == "gram"
+    on_cuda = _on_cuda((x, d))
+    if not use_gram:
+        return ref.ghost_norm_direct_ref(x, d)
+    if on_cuda:
+        return _gn.ghost_norm(x, d, symmetric=symmetric)
+    return ref.ghost_norm_ref(x, d)

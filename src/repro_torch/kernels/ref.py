@@ -4,7 +4,9 @@
 ``kernels/ops.py`` and the oracle the CUDA kernels are held against.
 ``*_blocked`` repeat the CUDA kernel's own reduction order (thread
 layout, shuffle trees, no FMA) with plain f32 tensor operations, so on
-the card a kernel must equal its emulator bitwise.
+the card a kernel must equal its emulator bitwise.  The ghost-norm Gram
+kernel has no such emulator: it is held to run-to-run bitwise equality
+and to ``ghost_norm_ref`` at a stated tolerance.
 """
 from __future__ import annotations
 
@@ -27,6 +29,27 @@ def per_example_sqnorm_ref(x: torch.Tensor, d: torch.Tensor,
     if with_bias:
         out = out + ds
     return out
+
+
+def ghost_norm_ref(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Ghost norm of a layer shared over the sequence, Gram form.
+
+    x: (B, S, d_in), d: (B, S, d_out) = dL/dY.  The per-example gradient
+    of the shared W is G_n = x_nᵀ d_n, and ||G_n||²_F = <x_n x_nᵀ, d_n d_nᵀ>_F.
+    Returns (B,) float32."""
+    x = x.float()
+    d = d.float()
+    gx = torch.einsum("bsk,btk->bst", x, x)
+    gd = torch.einsum("bsk,btk->bst", d, d)
+    return torch.sum(gx * gd, dim=(1, 2))
+
+
+def ghost_norm_direct_ref(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The same quantity through the materialized per-example gradient
+    (O(S·din·dout) work, a (B, din, dout) f32 buffer): the second oracle,
+    and the path when S(d_in+d_out) > d_in·d_out."""
+    g = torch.einsum("bsi,bso->bio", x.float(), d.float())
+    return torch.sum(torch.square(g), dim=(1, 2))
 
 
 def per_example_sqnorm_multi_ref(xs, ds, with_bias: bool = True

@@ -1,10 +1,13 @@
-"""ISSGD training launcher of the PyTorch port (MLP, one device).
+"""ISSGD training launcher of the PyTorch port (one device).
 
-Runs the paper's experiment on the card by default:
+Runs the paper's experiment (mlp_svhn) or a dense GQA transformer LM
+(glm4-9b, deepseek-7b, internlm2-20b) on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.train
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
       --examples 1024 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+      --smoke --device cpu --steps 5
 
 It prints the reference launcher's per-step log line
 (``src/repro/launch/train.py``) and a closing line with the median step
@@ -20,20 +23,23 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs.mlp_svhn import CONFIG, smoke
+from repro_torch import configs
+from repro_torch.configs import mlp_svhn
 from repro_torch.core.importance import ISConfig
 from repro_torch.core.issgd import (ISSGDConfig, TrainState,
                                     init_train_state, make_train_step)
-from repro_torch.core.scorer import make_mlp_scorer
-from repro_torch.data import make_svhn_like
-from repro_torch.models.mlp import init_mlp_classifier, per_example_loss
+from repro_torch.core.scorer import make_lm_scorer, make_mlp_scorer
+from repro_torch.data import make_svhn_like, make_token_dataset
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import transformer
 from repro_torch.optim import sgd
 
-SLICE = "slice 1 of the PyTorch port (single-device mlp_svhn)"
+SLICE = ("slice 2 of the PyTorch port (single-device mlp_svhn and dense "
+         "GQA transformer LMs)")
 
 # flags of src/repro/launch/train.py this slice does not carry yet
 LATER_FLAGS = (
-    "--seq", "--probe-every", "--proposal-strategy", "--adaptive-is",
+    "--probe-every", "--proposal-strategy", "--adaptive-is",
     "--adapt-every", "--index", "--table-dtype", "--score-ttl",
     "--index-chunk-size", "--mesh", "--model-parallel",
     "--sequence-parallel", "--no-sequence-parallel", "--save-checkpoint",
@@ -61,11 +67,14 @@ def use_full_f32() -> None:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="mlp_svhn", choices=["mlp_svhn"])
+    ap.add_argument("--arch", default="mlp_svhn",
+                    help="mlp_svhn, or a ported LM arch by name or alias: "
+                    + ", ".join(configs.PORTED))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--score-batch", type=int, default=256)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--examples", type=int, default=4096)
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--mode", default="relaxed",
@@ -91,6 +100,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.mode == "fused" or args.strategy == "ghost_rev":
         ap.error(f"--mode fused and --strategy ghost_rev are not in {SLICE}")
+    if args.arch != "mlp_svhn":
+        try:
+            configs.resolve(args.arch)
+        except (KeyError, NotImplementedError) as e:
+            ap.error(f"--arch {args.arch}: {e.args[0]}")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         ap.error(f"--device {args.device}: CUDA is not available; the "
@@ -98,31 +112,58 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build(args: argparse.Namespace):
-    """(state, train_step, data) for ``args``: model, data and step."""
-    use_full_f32()
+def _generator(device: torch.device):
+    return lambda seed: torch.Generator(device=device).manual_seed(seed)
+
+
+def build_mlp(args: argparse.Namespace, cfg=None):
+    """(params, train data, per-example loss, scorer) of the MLP."""
     device = torch.device(args.device)
-    cfg = smoke() if args.smoke else CONFIG
-    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    gen = _generator(device)
+    cfg = cfg or (mlp_svhn.smoke() if args.smoke else mlp_svhn.CONFIG)
     train, _ = make_svhn_like(gen(args.seed), n=args.examples,
                               dim=cfg.input_dim)
-    params = init_mlp_classifier(gen(args.seed + 1), cfg, device)
+    params = mlp_mod.init_mlp_classifier(gen(args.seed + 1), cfg, device)
+    return (params, train, lambda p, b: mlp_mod.per_example_loss(p, b, cfg),
+            make_mlp_scorer(cfg, args.strategy))
+
+
+def build_lm(args: argparse.Namespace, cfg=None):
+    """(params, train data, per-example loss, scorer) of a transformer LM
+    (``src/repro/launch/train.py::build_lm`` on one device)."""
+    device = torch.device(args.device)
+    gen = _generator(device)
+    cfg = cfg or (configs.get_smoke_config(args.arch) if args.smoke
+                  else configs.get_config(args.arch))
+    train = make_token_dataset(gen(args.seed), n=args.examples,
+                               seq=args.seq + 1, vocab=cfg.vocab_size)
+    params = transformer.init_transformer(gen(args.seed + 1), cfg, device)
+    pel = lambda p, b: transformer.per_example_loss(p, cfg, b)[0]
+    return params, train, pel, make_lm_scorer(cfg, args.strategy)
+
+
+def build(args: argparse.Namespace, cfg=None):
+    """(state, train_step, data) for ``args``: model, data and step.
+    ``cfg`` overrides the arch's config (e.g. a cut depth)."""
+    use_full_f32()
+    device = torch.device(args.device)
+    builder = build_mlp if args.arch == "mlp_svhn" else build_lm
+    params, train, pel, scorer = builder(args, cfg)
     opt = sgd(args.lr)
     tcfg = ISSGDConfig(
         batch_size=args.batch, score_batch_size=args.score_batch,
         refresh_every=args.refresh_every, mode=args.mode,
         is_cfg=ISConfig(smoothing=args.smoothing,
                         staleness_threshold=args.staleness_threshold))
-    step = make_train_step(lambda p, b: per_example_loss(p, b, cfg),
-                           make_mlp_scorer(cfg, args.strategy), opt, tcfg,
-                           train.size)
+    step = make_train_step(pel, scorer, opt, tcfg, train.size)
     state = init_train_state(params, opt, train.size, device, seed=args.seed)
     return state, step, train.arrays
 
 
-def run(args: argparse.Namespace) -> TrainResult:
-    """Build from ``args`` and train, logging every ``--log-every`` steps."""
-    state, step, data = build(args)
+def run(args: argparse.Namespace, cfg=None) -> TrainResult:
+    """Build from ``args`` (and ``cfg``, see ``build``) and train, logging
+    every ``--log-every`` steps."""
+    state, step, data = build(args, cfg)
     on_cuda = torch.device(args.device).type == "cuda"
     marks = []           # (start, end) CUDA events or host clock pairs
     history = []
@@ -160,9 +201,9 @@ def run(args: argparse.Namespace) -> TrainResult:
     return TrainResult(state, history, step_ms)
 
 
-def main(argv=None) -> TrainResult:
+def main(argv=None, cfg=None) -> TrainResult:
     args = parse_args(argv)
-    result = run(args)
+    result = run(args, cfg)
     if result.step_ms:
         clock = ("CUDA events" if torch.device(args.device).type == "cuda"
                  else "host clock")

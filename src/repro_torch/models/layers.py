@@ -1,4 +1,9 @@
-"""Ghost tape for the tap trick (linear taps only).
+"""Shared layers of the port: the ghost tape and the LM building blocks.
+
+Each function mirrors its namesake in ``src/repro/models/layers.py``:
+parameters are nested dicts in the reference's layout, ``init_*`` draw
+from an explicit ``torch.Generator`` (on its own device) and place the
+result on the given device.
 
 A tap is a zero tensor with ``requires_grad=True`` added to a linear's
 output: the gradient of the loss with respect to it is dL/dY, and the
@@ -10,14 +15,32 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-Params = Any   # {"fc{i}": {"w": (din, dout), "b": (dout,)}}
+from repro_torch.models.config import ModelConfig
+
+Params = Any   # nested dicts of tensors
+
+
+def params_from_jax(np_params: dict, device="cpu") -> Params:
+    """The reference's parameter tree (numpy leaves, same layout) → the
+    port's, copied onto ``device``.  bf16 leaves arrive as ml_dtypes
+    bfloat16 arrays and are rebuilt bit for bit."""
+    if isinstance(np_params, dict):
+        return {k: params_from_jax(v, device) for k, v in np_params.items()}
+    a = np.asarray(np_params)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 @dataclasses.dataclass
 class Tape:
-    """Mutable container threaded through one forward for ghost scoring."""
+    """Mutable container threaded through one forward for ghost scoring
+    (linear taps only)."""
     taps: Optional[dict] = None         # name -> tensor to ADD at the output
     records: Optional[dict] = None      # name -> linear INPUT (if not None)
 
@@ -28,3 +51,119 @@ class Tape:
         if self.taps is not None and name in self.taps:
             y = y + self.taps[name].to(y.dtype)
         return y
+
+
+def tapped_linear(x: torch.Tensor, w: torch.Tensor, name: str,
+                  tape: Optional[Tape]) -> torch.Tensor:
+    """y = x @ w with ghost-tape routing. x: (..., din), w: (din, dout)."""
+    y = torch.matmul(x, w)
+    if tape is not None:
+        y = tape.linear(name, x, y)
+    return y
+
+
+# ------------------------------------------------------------------- inits
+def _dense_init(generator: torch.Generator, din: int, dout: int,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """N(0, 1/din) drawn in f32, cast to ``dtype``."""
+    w = torch.randn(din, dout, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (w * din ** -0.5).to(device=device, dtype=dtype)
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ------------------------------------------------------------------- norms
+def init_rmsnorm(d: int, dtype: torch.dtype, device) -> Params:
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# -------------------------------------------------------------------- rope
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Half-split (not interleaved) rotary embedding, computed in f32.
+    x: (..., S, H, hd) or (..., H, hd) with positions broadcastable."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs        # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------- activation
+def activation(name: str):
+    """The reference's activations; its gelu is jax.nn.gelu's default,
+    the tanh approximation."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# --------------------------------------------------------------------- MLP
+def init_mlp(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
+    dtype = dtype_of(cfg)
+    return {
+        "w_in": _dense_init(generator, cfg.d_model, cfg.d_ff, dtype, device),
+        "w_gate": _dense_init(generator, cfg.d_model, cfg.d_ff, dtype,
+                              device),
+        "w_out": _dense_init(generator, cfg.d_ff, cfg.d_model, dtype, device),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
+        tape: Optional[Tape] = None, prefix: str = "mlp") -> torch.Tensor:
+    """SwiGLU feed-forward: w_out(act(h_gate) * h_in)."""
+    act = activation(cfg.act)
+    h_in = tapped_linear(x, params["w_in"], f"{prefix}.w_in", tape)
+    h_gate = tapped_linear(x, params["w_gate"], f"{prefix}.w_gate", tape)
+    h = act(h_gate) * h_in
+    return tapped_linear(h, params["w_out"], f"{prefix}.w_out", tape)
+
+
+# --------------------------------------------------------------- embeddings
+def init_embed(generator: torch.Generator, cfg: ModelConfig,
+               device) -> Params:
+    dtype = dtype_of(cfg)
+    tokens = torch.randn(cfg.vocab_size, cfg.d_model, generator=generator,
+                         device=generator.device, dtype=torch.float32)
+    p = {"tokens": (tokens * 0.02).to(device=device, dtype=dtype)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = _dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                   dtype, device)
+    return p
+
+
+def embed(params: Params, tokens: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """Token embedding lookup: (B, S) ints → (B, S, D)."""
+    return params["tokens"][tokens.long()]
+
+
+def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig,
+            tape: Optional[Tape] = None) -> torch.Tensor:
+    """Hidden states → vocab logits (tied or untied head), soft-capped
+    when ``cfg.logits_softcap`` > 0.  The ghost tap sits on the logits."""
+    if cfg.tie_embeddings:
+        logits = torch.matmul(h, params["tokens"].t())
+        if tape is not None:
+            logits = tape.linear("unembed", h, logits)
+    else:
+        logits = tapped_linear(h, params["unembed"], "unembed", tape)
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits

@@ -2,15 +2,14 @@
 (4 hidden layers × 2048 units, ReLU, softmax) — section 5.1.
 
 Parameters are a dict ``{"fc{i}": {"w": (din, dout), "b": (dout,)}}`` in
-the JAX reference's layout, so ``params_from_jax`` is a plain copy and
-parity tests compare like with like.
+the JAX reference's layout, so ``layers.params_from_jax`` is a plain
+copy and parity tests compare like with like.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.models.layers import Params, Tape
@@ -45,15 +44,6 @@ def init_mlp_classifier(generator: torch.Generator, cfg: MLPConfig,
             "b": torch.zeros(dims[i + 1], device=device, dtype=dtype),
         }
     return params
-
-
-def params_from_jax(np_params: dict, device: torch.device | str = "cpu"
-                    ) -> Params:
-    """The reference's parameter tree (numpy leaves, same layout) → the
-    port's, copied onto ``device``."""
-    return {layer: {k: torch.from_numpy(np.array(v)).to(device)
-                    for k, v in leaves.items()}
-            for layer, leaves in np_params.items()}
 
 
 def mlp_forward(params: Params, x: torch.Tensor, cfg: MLPConfig,

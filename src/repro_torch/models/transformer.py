@@ -1,0 +1,221 @@
+"""Decoder stack of the port: a loop over layer periods with ghost taps.
+
+Mirrors ``src/repro/models/transformer.py`` for dense stacks of GQA
+attention and SwiGLU MLP layers.  The depth is ``num_periods``
+repetitions of one layer *period* (``ModelConfig.layer_specs``); layer
+parameters are stacked on a leading period axis, as in the reference.
+Where the reference runs a ``lax.scan`` over periods, the port runs a
+Python loop: each layer tap is ONE (P, B, S, dout) leaf, sliced per
+period, so its gradient comes back already stacked, and the records
+leave stacked to (P, B, S, din).  The unembed tap lives outside the loop.
+
+MoE, mamba, MLA and the modality frontends raise; ``remat`` has no
+numeric effect and is not ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
+                                       init_embed, init_mlp, init_rmsnorm,
+                                       mlp, rmsnorm, unembed)
+
+
+class Aux(NamedTuple):
+    records: Optional[dict] = None      # name -> stacked records (P, ...)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense GQA/MHA stack of attn + mlp layers
+    without a frontend: the model code this slice of the port carries."""
+    missing = []
+    if cfg.num_experts > 0:
+        missing.append("MoE")
+    if cfg.ssm_state > 0:
+        missing.append("SSM (mamba)")
+    if cfg.attention != "gqa":
+        missing.append(f"attention={cfg.attention!r}")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name} needs {', '.join(missing)}; this slice of the "
+            f"PyTorch port runs dense GQA attention + MLP stacks only")
+
+
+# ------------------------------------------------------------------- init
+def _init_layer(generator: torch.Generator, cfg: ModelConfig,
+                device) -> Params:
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
+        "mixer": attn_mod.init_attn(generator, cfg, device),
+        "ln2": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
+        "ff": init_mlp(generator, cfg, device),
+    }
+
+
+def _stack(trees: list) -> Params:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_transformer(generator: torch.Generator, cfg: ModelConfig,
+                     device) -> Params:
+    """Random parameters drawn from ``generator`` (on its own device),
+    placed on ``device``; layer leaves stacked on a leading period axis."""
+    check_supported(cfg)
+    specs = cfg.layer_specs()
+    emb = init_embed(generator, cfg, device)
+    periods = [{f"l{i}": _init_layer(generator, cfg, device)
+                for i in range(len(specs))} for _ in range(cfg.num_periods)]
+    return {
+        "embed": emb,
+        "layers": _stack(periods),
+        "final_norm": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
+    }
+
+
+# ---------------------------------------------------------------- forward
+def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, tape: Optional[Tape],
+                 prefix: str) -> torch.Tensor:
+    hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
+                          prefix=f"{prefix}.attn", q_chunk=cfg.attn_chunk)
+    hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp")
+
+
+def _period(tree: Params, p: int) -> Params:
+    if isinstance(tree, dict):
+        return {k: _period(v, p) for k, v in tree.items()}
+    return tree[p]
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            taps: Optional[dict] = None, collect: bool = False,
+            return_hidden: bool = False) -> tuple[torch.Tensor, Aux]:
+    """tokens (B, S) → logits (B, S, vocab) (or the final hidden states
+    with ``return_hidden``) and Aux.
+
+    ``taps``: name → (P, B, S, dout) tensor for every layer tap (period p
+    adds ``taps[name][p]``) and name "unembed" → (B, S, vocab).  With
+    ``collect`` the records come back in Aux, stacked to (P, B, S, din),
+    and the unembed record as (B, S, d_model)."""
+    check_supported(cfg)
+    specs = cfg.layer_specs()
+    h = embed(params["embed"], tokens, cfg)
+    bsz, s, _ = h.shape
+    positions = torch.arange(s, device=h.device)[None].expand(bsz, s)
+
+    layer_taps = dict(taps) if taps is not None else {}
+    head_tap = layer_taps.pop("unembed", None)
+    per_period = []
+    for p in range(cfg.num_periods):
+        pp = _period(params["layers"], p)
+        tape = Tape(taps={k: v[p] for k, v in layer_taps.items()} or None,
+                    records={} if collect else None)
+        for i in range(len(specs)):
+            h = _apply_layer(pp[f"l{i}"], h, cfg, positions, tape, f"l{i}")
+        per_period.append(tape.records)
+
+    records = None
+    if collect:
+        records = {k: torch.stack([r[k] for r in per_period])
+                   for k in per_period[0]}
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if return_hidden:
+        return h, Aux(records=records)
+    head_tape = Tape(taps={"unembed": head_tap} if head_tap is not None
+                     else None, records={} if collect else None)
+    logits = unembed(params["embed"], h, cfg, tape=head_tape)
+    if collect:
+        records.update(head_tape.records)
+    return logits, Aux(records=records)
+
+
+def tap_structure(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """name → shape of every tap, in the forward's record order: layer
+    taps with the leading period axis, then the (B, S, vocab) unembed.
+    Computed from the config's arithmetic (the taps are f32)."""
+    check_supported(cfg)
+    hd = cfg.resolved_head_dim
+    lead = (cfg.num_periods, batch, seq)
+    out = {}
+    for i in range(len(cfg.layer_specs())):
+        out.update({
+            f"l{i}.attn.wq": lead + (cfg.num_heads * hd,),
+            f"l{i}.attn.wk": lead + (cfg.num_kv_heads * hd,),
+            f"l{i}.attn.wv": lead + (cfg.num_kv_heads * hd,),
+            f"l{i}.attn.wo": lead + (cfg.d_model,),
+            f"l{i}.mlp.w_in": lead + (cfg.d_ff,),
+            f"l{i}.mlp.w_gate": lead + (cfg.d_ff,),
+            f"l{i}.mlp.w_out": lead + (cfg.d_model,),
+        })
+    out["unembed"] = (batch, seq, cfg.vocab_size)
+    return out
+
+
+# ------------------------------------------------------------------- loss
+def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                    targets: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked unembed + CE: per-example (mean_nll, logit_grad_norm).
+
+    Projects ``cfg.loss_chunk`` positions at a time (all of them when 0),
+    so the (B, S, V) logits never exist at once.  logit_grad_norm is
+    ||∂L_n/∂logits||₂ of the mean per-example loss."""
+    bsz, s, _ = h.shape
+    chunk = cfg.loss_chunk if cfg.loss_chunk > 0 else s
+    chunk = min(chunk, s)
+    if mask is None:
+        mask = torch.ones(bsz, s, dtype=torch.float32, device=h.device)
+    nll_sum = torch.zeros(bsz, dtype=torch.float32, device=h.device)
+    gsq_sum = torch.zeros(bsz, dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        h_c = h[:, lo:lo + chunk]
+        t_c = targets[:, lo:lo + chunk].long()
+        m_c = mask[:, lo:lo + chunk]
+        logits = unembed(params["embed"], h_c, cfg).float()
+        lp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(lp, -1, t_c[..., None])[..., 0]
+        pr = torch.exp(lp)
+        p_y = torch.gather(pr, -1, t_c[..., None])[..., 0]
+        gsq = torch.sum(torch.square(pr), -1) - 2.0 * p_y + 1.0
+        nll_sum = nll_sum + torch.sum(nll * m_c, -1)
+        gsq_sum = gsq_sum + torch.sum(gsq * m_c, -1)
+    count = torch.clamp(torch.sum(mask, -1), min=1.0)
+    return nll_sum / count, torch.sqrt(gsq_sum) / count
+
+
+def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
+                     taps: Optional[dict] = None, collect: bool = False
+                     ) -> tuple[torch.Tensor, Aux]:
+    """Mean next-token CE per example. batch: {tokens (B, S+1), [mask]}."""
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:].long()
+    mask = batch.get("mask")
+    if cfg.loss_chunk > 0 and taps is None:
+        h, aux = forward(params, cfg, tokens[:, :-1], collect=collect,
+                         return_hidden=True)
+        mean_nll, _ = lm_head_metrics(
+            params, cfg, h, targets,
+            None if mask is None else mask[:, 1:].float())
+        return mean_nll, aux
+    logits, aux = forward(params, cfg, tokens[:, :-1], taps=taps,
+                          collect=collect)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    if mask is not None:
+        m = mask[:, 1:].float()
+        loss = torch.sum(nll * m, -1) / torch.clamp(torch.sum(m, -1),
+                                                     min=1.0)
+    else:
+        loss = torch.mean(nll, dim=-1)
+    return loss, aux

@@ -38,6 +38,7 @@ from repro_torch.core.scorer import make_mlp_scorer  # noqa: E402
 from repro_torch.data import make_svhn_like  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
+from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -113,7 +114,7 @@ def slice_setup():
     train, _ = j_make_svhn_like(jax.random.key(0), n=512, dim=jcfg.input_dim)
     jparams = jmlp.init_mlp_classifier(jax.random.key(1), jcfg)
     data = {k: torch.from_numpy(np.array(v)) for k, v in train.arrays.items()}
-    tparams = tmlp.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
     return jcfg, train, jparams, data, tparams
 
 
@@ -233,9 +234,9 @@ def test_launcher_flags_have_reference_defaults():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2", "--device", "cpu"], "slice 1"),
-    (["--stream", "--device", "cpu"], "slice 1"),
-    (["--mode", "fused", "--device", "cpu"], "not in slice 1"),
+    (["--mesh", "2", "--device", "cpu"], "slice 2"),
+    (["--stream", "--device", "cpu"], "slice 2"),
+    (["--mode", "fused", "--device", "cpu"], "not in slice 2"),
     (["--bogus", "--device", "cpu"], "unrecognized"),
 ])
 def test_launcher_refuses_what_the_slice_lacks(argv, match, capsys):

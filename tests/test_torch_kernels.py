@@ -1,15 +1,18 @@
-"""The port's per-example squared-norm kernels against the JAX reference.
+"""The port's kernels against the JAX reference.
 
 CPU legs: the plain PyTorch versions (``repro_torch.kernels.ref``) against
-the reference's ``repro.kernels.ops`` (Pallas interpret mode on the CPU),
-the exact-order emulators against the plain versions, and the dispatch
-rules of ``repro_torch.kernels.ops``.  CUDA legs (skipped without a card)
-hold the CUDA kernels against their plain versions and emulators.
+the reference's ``repro.kernels.ops`` and Pallas kernels (interpret mode on
+the CPU), the exact-order emulators against the plain versions, and the
+dispatch rules of ``repro_torch.kernels.ops``.  CUDA legs (skipped without
+a card) hold the CUDA kernels against their plain versions and emulators.
 
-Tolerances: f32 rtol 1e-5 — the two frameworks sum the same ≤300 squares
-in different orders (a few ulps each), and the product of two such sums
-doubles the relative error; bf16 inputs are upcast exactly, so the same
-bound holds.
+Tolerances: per-example squared norms f32 rtol 1e-5 — the two frameworks
+sum the same ≤300 squares in different orders (a few ulps each), and the
+product of two such sums doubles the relative error; bf16 inputs are
+upcast exactly, so the same bound holds.  Ghost norms rtol 1e-4, as the
+reference's own kernel test: Σ_{s,t} (x_s·x_t)(d_s·d_t) sums S² products
+of signed dot products, so cancellation costs more digits than a sum of
+squares; bf16 inputs are again upcast exactly.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.ghost_norm import ghost_norm as j_ghost_kernel  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import ghost_norm as gn  # noqa: E402
 from repro_torch.kernels import per_example_sqnorm as pes  # noqa: E402
 
 RTOL = 1e-5
@@ -127,6 +133,111 @@ def test_build_is_keyed_on_source_and_refuses_without_nvcc(monkeypatch,
         _build.build("per_example_sqnorm")
 
 
+# --------------------------------------------------------------- ghost norm
+GN_RTOL = 1e-4
+
+# (rows, S, din, dout): ragged S around the reference's 32-row test tile
+# and the CUDA kernel's 64-row tile, din != dout both ways
+GN_SHAPES = ((2, 16, 32, 32), (3, 100, 64, 24), (2, 70, 20, 90))
+
+
+def _gram_inputs(shape, seed, bf16=False):
+    rows, s, din, dout = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, s, din)).astype(np.float32)
+    d = (rng.standard_normal((rows, s, dout)) * 1e-2).astype(np.float32)
+    return _to_jax(x, bf16), _to_jax(d, bf16), _to_torch(x, bf16), \
+        _to_torch(d, bf16)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_plain_ghost_norm_matches_reference_kernel(shape, bf16, symmetric):
+    """Both plain versions against the reference's Pallas kernel, run as
+    its own tests run it (interpret mode, small tiles), and its oracles."""
+    jx, jd, tx, td = _gram_inputs(shape, seed=sum(shape), bf16=bf16)
+    want = np.asarray(j_ghost_kernel(jx, jd, block_s=32, block_k=64,
+                                     symmetric=symmetric, interpret=True))
+    gram = ref.ghost_norm_ref(tx, td)
+    direct = ref.ghost_norm_direct_ref(tx, td)
+    assert gram.dtype == direct.dtype == torch.float32
+    assert gram.shape == direct.shape == (shape[0],)
+    np.testing.assert_allclose(gram.numpy(), want, rtol=GN_RTOL)
+    np.testing.assert_allclose(direct.numpy(), want, rtol=GN_RTOL)
+    np.testing.assert_allclose(gram.numpy(),
+                               np.asarray(jref.ghost_norm_ref(jx, jd)),
+                               rtol=GN_RTOL)
+    np.testing.assert_allclose(direct.numpy(),
+                               np.asarray(jref.ghost_norm_direct_ref(jx, jd)),
+                               rtol=GN_RTOL)
+
+
+def test_ghost_norm_equals_true_per_example_grad():
+    """||∂L_n/∂W||²_F of a linear shared over S, from autograd, against
+    both plain versions."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 8, 10)).astype(np.float32))
+    tgt = torch.from_numpy(rng.standard_normal((3, 8, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((10, 6)).astype(np.float32))
+    want, ds = [], []
+    for n in range(3):
+        wn = w.clone().requires_grad_(True)
+        y = x[n] @ wn
+        (g,) = torch.autograd.grad(torch.sum((y - tgt[n]) ** 2), wn)
+        want.append(torch.sum(g ** 2))
+        ds.append(2 * (y.detach() - tgt[n]))
+    d = torch.stack(ds)
+    for fn in (ref.ghost_norm_ref, ref.ghost_norm_direct_ref):
+        torch.testing.assert_close(fn(x, d), torch.stack(want), rtol=GN_RTOL,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("s,din,dout,gram", [
+    (64, 4096, 4096, True),       # glm4-9b wq/wo
+    (64, 4096, 256, True),        # glm4-9b wk/wv
+    (64, 4096, 151552, True),     # glm4-9b unembed
+    (64, 64, 64, False),          # S(din+dout) > din·dout
+    (8, 16, 16, True),            # S(din+dout) == din·dout: Gram
+])
+def test_ghost_norm_selection_rule(s, din, dout, gram):
+    """The reference's FLOP rule: Gram when S(din+dout) ≤ din·dout."""
+    assert (ops.ghost_cost(s, din, dout) <= ops.direct_cost(s, din, dout)) \
+        == gram
+    assert ops.ghost_cost(s, din, dout) == \
+        jops.ghost_cost(s, din, dout)
+    assert ops.direct_cost(s, din, dout) == \
+        jops.direct_cost(s, din, dout)
+
+
+def test_ghost_norm_dispatch_on_cpu(monkeypatch):
+    """On CPU tensors the cost rule picks the plain Gram or the direct
+    path, ``force`` pins either, and neither reaches the CUDA wrapper."""
+    calls = []
+    monkeypatch.setattr(ref, "ghost_norm_ref",
+                        lambda x, d: calls.append("gram") or x.new_zeros(1))
+    monkeypatch.setattr(ref, "ghost_norm_direct_ref",
+                        lambda x, d: calls.append("direct") or x.new_zeros(1))
+    gram_shape = (torch.zeros(1, 8, 64), torch.zeros(1, 8, 64))
+    direct_shape = (torch.zeros(1, 64, 8), torch.zeros(1, 64, 8))
+    ops.ghost_norm(*gram_shape)
+    ops.ghost_norm(*direct_shape)
+    ops.ghost_norm(*gram_shape, force="direct")
+    ops.ghost_norm(*direct_shape, force="gram")
+    assert calls == ["gram", "direct", "direct", "gram"]
+    with pytest.raises(ValueError, match="force"):
+        ops.ghost_norm(*gram_shape, force="fast")
+    with pytest.raises(ValueError, match="all CUDA or all CPU"):
+        ops.ghost_norm(gram_shape[0], gram_shape[1].to("meta"))
+
+
+def test_ghost_norm_wrapper_refuses_cpu_and_bad_input():
+    x, d = torch.zeros(2, 8, 4), torch.zeros(2, 8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.ghost_norm(x, d)
+    assert gn.ghost_norm.launches == 0
+
+
 # ------------------------------------------------------------- CUDA legs
 def _cuda_taps(b, widths, dtype, seed):
     if not torch.cuda.is_available():
@@ -156,3 +267,22 @@ def test_cuda_kernel_matches_plain_and_emulator(taps, dtype):
         for s in singles[1:]:
             chained = chained + s
         assert torch.equal(multi, chained)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("bfloat16", "float32")])
+def test_cuda_ghost_norm_matches_plain_and_is_deterministic(shape, dtypes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python3 chip_smoke.py)")
+    _, _, tx, td = _gram_inputs(shape, seed=7)
+    x = tx.to("cuda", getattr(torch, dtypes[0]))
+    d = td.to("cuda", getattr(torch, dtypes[1]))
+    want = ref.ghost_norm_ref(x, d)
+    for symmetric in (False, True):
+        a = gn.ghost_norm(x, d, symmetric=symmetric)
+        b = gn.ghost_norm(x, d, symmetric=symmetric)
+        torch.testing.assert_close(a, want, rtol=GN_RTOL, atol=0)
+        assert torch.equal(a, b)

@@ -26,6 +26,7 @@ from repro_torch.core import importance as timp  # noqa: E402
 from repro_torch.core import variance as tvar  # noqa: E402
 from repro_torch.core.scorer import make_mlp_scorer  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
+from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -41,7 +42,7 @@ def setup():
     x = rng.standard_normal((48, jcfg.input_dim)).astype(np.float32)
     y = rng.integers(0, jcfg.num_classes, 48).astype(np.int32)
     return dict(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
-                tparams=tmlp.params_from_jax(np_params),
+                tparams=params_from_jax(np_params),
                 jbatch={"x": jnp.asarray(x), "y": jnp.asarray(y)},
                 tbatch={"x": torch.from_numpy(x), "y": torch.from_numpy(y)})
 
@@ -126,7 +127,7 @@ def test_sgd_matches_reference(setup, momentum):
     jo, to = jopt.sgd(0.05, momentum), topt.sgd(0.05, momentum)
     jp, js = s["jparams"], jo.init(s["jparams"])
     tp, ts = s["tparams"], to.init(s["tparams"])
-    tgrads = tmlp.params_from_jax(np_grads)
+    tgrads = params_from_jax(np_grads)
     jgrads = jax.tree.map(jnp.asarray, np_grads)
     for step in range(2):
         jp, js = jo.update(jgrads, js, jp, jnp.asarray(step))
