@@ -42,6 +42,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 reduction) per main-path shape, L2 cold, CUDA events, beside
                 the byte and operation bounds; a profiler breakdown of
                 LM steps.
+ 10. attn     — (run right after phase 6) the flash-attention forward and
+                flash-decode kernels against their plain versions: glm4-9b
+                shapes in bf16, ragged S = 100, window 24, decode lengths 0,
+                1, the full ring and random ones, a 32k cache, f32 smoke
+                shapes, MHA and rep 6; f32 within 2e-5 rel + 2e-6 abs, bf16
+                within one bf16 ulp; lse against a plain logsumexp; two
+                launches bitwise equal; length-0 rows zero; refusals.
+ 11. serve    — glm4-9b at full width and full depth (40 layers, bf16)
+                through the serve entry point: batch 8, prompt 2048, 64
+                greedy steps, max_len 2112, default --kernel, every plain
+                version forbidden; flash_attention 40 launches, decode 40 a
+                step; prefill ms, median decode step ms, tok/s, peak memory;
+                a profiler window over decode steps (idle share).
+ 12. batcher  — ContinuousBatcher on the same params, kernel route, 8 slots,
+                16 requests (prompts 17–600, 8–48 new tokens, seeded): all
+                finish; decode steps and prefill shapes.
+ 13. serve parity — glm4-9b at full width, 1 layer, f32: a (2, 64) prefill
+                and 4 teacher-forced decode steps, card (kernels) vs CPU
+                (plain route), logits and caches; relative error ≤ 1e-4.
+ 14. serve times — each kernel vs its plain version and SDPA at the main
+                path's shapes and a 32k decode cache, CUDA events, L2 cold,
+                beside the bound.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -80,11 +102,15 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/per_example_sqnorm.cu",
     "per_example_sqnorm": "src/repro_torch/kernels/csrc/per_example_sqnorm.cu",
     "ghost_norm": "src/repro_torch/kernels/csrc/ghost_norm.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
 REPLACES = {
     "per_example_sqnorm_multi": "src/repro/kernels/per_example_sqnorm.py:128",
     "per_example_sqnorm": "src/repro/kernels/per_example_sqnorm.py:52",
     "ghost_norm": "src/repro/kernels/ghost_norm.py:73",
+    "flash_attention": "src/repro/kernels/flash_attention.py:81",
+    "decode_attention": "src/repro/kernels/decode_attention.py:59",
 }
 
 # --- the LM path: glm4-9b at full width, depth cut to LM_LAYERS
@@ -114,6 +140,22 @@ GHOST_MAIN = (
 # magnitude of the terms it sums, Σ_st |A_st·B_st| (equal to the value
 # when there is no cancellation)
 GHOST_TOL = 1e-4
+
+# --- the serve path: glm4-9b at full width and full depth (40 layers)
+SERVE_B, SERVE_PROMPT, SERVE_STEPS = 8, 2048, 64
+SERVE_MAX = SERVE_PROMPT + SERVE_STEPS
+SERVE_ARGV = ["--arch", "glm4-9b", "--batch", str(SERVE_B), "--prompt-len",
+              str(SERVE_PROMPT), "--steps", str(SERVE_STEPS), "--max-len",
+              str(SERVE_MAX), "--device", "cuda"]
+LONG_S = 32768           # the long-cache decode shape
+BATCHER_SLOTS, BATCHER_REQUESTS, BATCHER_MAX_LEN = 8, 16, 1024
+BATCHER_PROMPT, BATCHER_NEW = (17, 600), (8, 48)
+# attention kernel vs plain: f32 at the JAX kernel tests' bound (the same
+# f32 online softmax in another order); bf16 outputs compared in bf16, where
+# two f32 results that differ in their last bits may round to neighbouring
+# bf16 values, one bf16 ulp (at most 2^-7 of the value) apart
+ATTN_F32 = dict(rtol=2e-5, atol=2e-6)
+ATTN_BF16 = dict(rtol=2 ** -7, atol=1e-5)
 
 
 def fail(msg: str) -> None:
@@ -251,13 +293,13 @@ def phase_kernels(pes, ref):
 def phase_main(train_mod, pes, gn, ref):
     """The trainer at full width through its entry point."""
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(pes, gn)
+    reset_counts()
     result = run_forbidding_plain(ref, lambda: train_mod.main([
         "--arch", "mlp_svhn", "--mode", "relaxed", "--strategy", "ghost",
         "--batch", "64", "--score-batch", "256", "--examples", "65536",
         "--lr", "0.01", "--refresh-every", "8", "--steps",
         str(MAIN_STEPS), "--device", "cuda"]))
-    launches = read_counts(pes, gn)
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches["per_example_sqnorm_multi"] != MAIN_STEPS:
         fail(f"per_example_sqnorm_multi launched "
@@ -414,42 +456,19 @@ def phase_times(pes, ref):
 def phase_profile(train_mod, argv, cfg=None, steps=8, warm=3, tag="profile"):
     """Device time by kernel over a few steady steps of the run ``argv``
     (with the config override ``cfg``) builds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     args = train_mod.parse_args(argv)
     state, step, data = train_mod.build(args, cfg)
+    carry = {"state": state}
+    del state
+
+    def one():
+        carry["state"], _ = step(carry["state"], data)
+
     for _ in range(warm):
-        state, _ = step(state, data)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = step(state, data)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    after = card_state()
-    del state, step, data
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
-    if not by_name:
-        print(f"{tag}: device time not measured (no CUDA events traced)",
-              flush=True)
-        return None
-    device_ms = sum(us for us, _ in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    top = [{"kernel": k[:90], "us_per_step": round(us / steps, 2),
-            "calls_per_step": c / steps} for k, (us, c) in top]
-    print(f"{tag}: {steps} steps, device busy {device_ms:.3f} ms of "
-          f"{wall_ms:.3f} ms wall (idle share "
-          f"{1 - device_ms / wall_ms:.3f}); clock, power, temperature "
-          f"after: {after}; top kernels {json.dumps(top)}", flush=True)
-    return {"steps": steps, "device_ms": device_ms, "wall_ms": wall_ms,
-            "idle_share": 1 - device_ms / wall_ms, "card_after": after,
-            "top": top}
+        one()
+    out = profile_window(one, steps, tag)
+    del carry, step, data
+    return out
 
 
 # ------------------------------------------------------------ the LM path
@@ -547,20 +566,32 @@ def phase_ghost_kernels(gn, ref):
     return max_abs
 
 
-def reset_counts(pes, gn) -> None:
-    pes.per_example_sqnorm.launches = 0
-    pes.per_example_sqnorm_multi.launches = 0
-    gn.ghost_norm.launches = 0
+def kernel_wrappers() -> dict:
+    """name → the wrapper whose ``launches`` counts that kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import per_example_sqnorm as pes
+    return {"per_example_sqnorm_multi": pes.per_example_sqnorm_multi,
+            "per_example_sqnorm": pes.per_example_sqnorm,
+            "ghost_norm": gn.ghost_norm,
+            "flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention}
 
 
-def read_counts(pes, gn) -> dict:
-    return {"per_example_sqnorm_multi": pes.per_example_sqnorm_multi.launches,
-            "per_example_sqnorm": pes.per_example_sqnorm.launches,
-            "ghost_norm": gn.ghost_norm.launches}
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 PLAIN_NAMES = ("per_example_sqnorm_ref", "per_example_sqnorm_multi_ref",
-               "ghost_norm_ref", "ghost_norm_direct_ref")
+               "ghost_norm_ref", "ghost_norm_direct_ref",
+               "flash_attention_ref", "flash_attention_kernel_ref",
+               "decode_attention_ref", "decode_attention_kernel_ref")
 
 
 def run_forbidding_plain(ref, fn):
@@ -581,11 +612,11 @@ def phase_lm_main(train_mod, pes, gn, ref):
     """glm4-9b at full width (depth cut) through the train entry point."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(pes, gn)
+    reset_counts()
     result = run_forbidding_plain(ref, lambda: train_mod.main(
         LM_ARGV + ["--steps", str(LM_STEPS), "--log-every", "1"],
         lm_config()))
-    launches = read_counts(pes, gn)
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches["ghost_norm"] != len(GHOST_MAIN) * LM_STEPS:
         fail(f"ghost_norm called {launches['ghost_norm']} times in "
@@ -733,17 +764,474 @@ def phase_ghost_times(gn, ref, rounds=5):
     return rows_out, step
 
 
+# ---------------------------------------------------------- the serve path
+def serve_config(layers=None, dtype=None):
+    """glm4-9b at its published widths (and depth unless ``layers``)."""
+    from repro_torch.configs import get_config
+    kw = {k: v for k, v in (("num_layers", layers), ("dtype", dtype))
+          if v is not None}
+    return dataclasses.replace(get_config("glm4-9b"), **kw)
+
+
+def attn_inputs(shapes, dtype, seed):
+    """N(0,1) tensors of ``shapes`` on the card, as ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(sh, generator=g, device="cuda").to(dtype)
+            for sh in shapes]
+
+
+def plain_lse(q, k, window, q_chunk=256):
+    """(B, H, S) logsumexp of the masked logits (-inf masks), chunked."""
+    bsz, s, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(bsz, s, hkv, h // hkv, hd).float() * hd ** -0.5
+    pos = torch.arange(s, device=q.device)
+    out = []
+    for lo in range(0, s, q_chunk):
+        lg = torch.einsum("bqgrd,bkgd->bgrqk", qg[:, lo:lo + q_chunk],
+                          k.float())
+        qp = pos[lo:lo + q_chunk]
+        mask = pos[None, :] <= qp[:, None]
+        if window > 0:
+            mask = mask & ((qp[:, None] - pos[None, :]) < window)
+        out.append(torch.logsumexp(torch.where(mask, lg, float("-inf")), -1))
+    return torch.cat(out, dim=-1).reshape(bsz, h, s)
+
+
+def attn_close(got, want, dtype) -> tuple[bool, float]:
+    """(within the stated tolerance, largest absolute difference)."""
+    tol = ATTN_F32 if dtype == torch.float32 else ATTN_BF16
+    err = (got.float() - want.float()).abs().max().item() if got.numel() \
+        else 0.0
+    return torch.allclose(got.float(), want.float(), **tol), err
+
+
+def expect_refusal(what: str, fn) -> None:
+    try:
+        fn()
+    except (TypeError, ValueError):
+        return
+    fail(f"accepted {what}")
+
+
+def phase_attn_kernels(fa, da, ref):
+    """The flash-attention forward and flash-decode kernels against their
+    plain versions on the card."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_abs = {}
+    # (tag, B, S, H, Hkv, hd, window, dtype)
+    flash_cases = [
+        ("glm4-9b prefill", SERVE_B, SERVE_PROMPT, 32, 2, 128, 0, bf16),
+        ("ragged S=100", 2, 100, 32, 2, 128, 0, bf16),
+        ("ragged S=100", 2, 100, 32, 2, 128, 0, f32),
+        ("window 24", 2, 300, 32, 2, 128, 24, bf16),
+        ("window 24", 2, 300, 32, 2, 128, 24, f32),
+        ("glm4-9b-smoke", 2, 64, 8, 2, 32, 0, f32),
+        ("glm4-9b-smoke window 8", 2, 70, 8, 2, 32, 8, f32),
+        ("MHA (deepseek-7b heads)", 1, 100, 32, 32, 128, 0, f32),
+        ("rep 6 (internlm2-20b heads)", 1, 130, 48, 8, 128, 0, bf16),
+        ("hd 64", 2, 90, 4, 1, 64, 0, f32),
+    ]
+    for ci, (tag, b, s, h, hkv, hd, win, dt) in enumerate(flash_cases):
+        q, k, v = attn_inputs([(b, s, h, hd), (b, s, hkv, hd),
+                               (b, s, hkv, hd)], dt, seed=900 + ci)
+        o, lse = fa.flash_attention(q, k, v, window=win, return_lse=True)
+        o2 = fa.flash_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        po, plse = ref.flash_attention_kernel_ref(q, k, v, window=win,
+                                                  return_lse=True)
+        name = (f"flash_attention {tag} {str(dt)[6:]} "
+                f"(B, S, H, Hkv, hd)={(b, s, h, hkv, hd)} window={win}")
+        if not torch.equal(o, o2):
+            fail(f"{name}: two launches differ")
+        ok, err = attn_close(o, po, dt)
+        if not ok:
+            fail(f"{name}: kernel vs plain max abs err {err:.3e}")
+        lse_want = plain_lse(q, k, win)
+        lse_err = (lse - lse_want).abs().max().item()
+        if not torch.allclose(lse, lse_want, **ATTN_F32):
+            fail(f"{name}: lse vs plain logsumexp max abs err {lse_err:.3e}")
+        if not torch.allclose(plse, lse_want, **ATTN_F32):
+            fail(f"{name}: the plain version's lse != logsumexp")
+        if ci == 0:
+            max_abs["flash_attention"] = err
+        print(f"attn: {name} ok: max abs err {err:.3e}, lse err "
+              f"{lse_err:.3e}, two launches bitwise equal", flush=True)
+        del q, k, v, o, o2, lse, po, plse, lse_want
+    # (tag, B, S, H, Hkv, hd, lengths, dtype)
+    g = torch.Generator().manual_seed(950)
+    rand = lambda b, s: torch.randint(1, s + 1, (b,), generator=g).tolist()
+    decode_cases = [
+        ("glm4-9b decode", SERVE_B, SERVE_MAX, 32, 2, 128,
+         [0, 1, SERVE_MAX, SERVE_MAX - 1] + rand(4, SERVE_MAX), bf16),
+        ("glm4-9b 32k cache", SERVE_B, LONG_S, 32, 2, 128,
+         [LONG_S, 0, 1] + rand(5, LONG_S), bf16),
+        ("glm4-9b f32", 4, 300, 32, 2, 128, [0, 1, 300, 177], f32),
+        ("glm4-9b-smoke", 4, 40, 8, 2, 32, [0, 1, 40, 17], f32),
+        ("ragged ring 100", 3, 100, 32, 2, 128, [100, 37, 0], bf16),
+        ("MHA (deepseek-7b heads)", 2, 200, 32, 32, 128, [200, 5], bf16),
+        ("rep 6 (internlm2-20b heads)", 2, 200, 48, 8, 128, [199, 64], f32),
+        ("hd 64", 2, 64, 4, 1, 64, [64, 0], f32),
+    ]
+    for ci, (tag, b, s, h, hkv, hd, lens, dt) in enumerate(decode_cases):
+        q, k, v = attn_inputs([(b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)],
+                              dt, seed=960 + ci)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        o = da.decode_attention(q, k, v, lengths)
+        o2 = da.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        po = ref.decode_attention_kernel_ref(q, k, v, lengths)
+        name = (f"decode_attention {tag} {str(dt)[6:]} "
+                f"(B, S, H, Hkv, hd)={(b, s, h, hkv, hd)}")
+        if not torch.equal(o, o2):
+            fail(f"{name}: two launches differ")
+        ok, err = attn_close(o, po, dt)
+        if not ok:
+            fail(f"{name}: kernel vs plain max abs err {err:.3e}")
+        zero = [i for i, n in enumerate(lens) if n == 0]
+        if zero and o[zero].abs().max().item() != 0.0:
+            fail(f"{name}: a length-0 row is not zeros")
+        live = [i for i, n in enumerate(lens) if n > 0]
+        ok, err_o = attn_close(o[live], ref.decode_attention_ref(
+            q[live], k[live], v[live], lengths[live]), dt)
+        if not ok:
+            fail(f"{name}: kernel vs the -inf oracle max abs err {err_o:.3e}")
+        if ci == 0:
+            max_abs["decode_attention"] = err
+        print(f"attn: {name} lengths {lens} ok: max abs err {err:.3e}, "
+              f"length-0 rows zero, two launches bitwise equal", flush=True)
+        del q, k, v, o, o2, po
+    # the wrappers refuse what the kernels do not take, counting nothing
+    q, k, v = attn_inputs([(1, 8, 4, 32), (1, 8, 2, 32), (1, 8, 2, 32)], f32,
+                          seed=990)
+    q48, k48 = attn_inputs([(1, 8, 4, 48), (1, 8, 2, 48)], f32, seed=991)
+    k1 = k[:, :, :1].contiguous()
+    bad = {"float64": (q.double(), k.double(), v.double()),
+           "cpu k": (q, k.cpu(), v), "bf16 q with f32 k": (q.bfloat16(), k, v),
+           "non-contiguous q": (q[:, :, ::2], k1, k1),
+           "hd 48": (q48, k48, k48), "rep 128": (q.repeat(1, 1, 32, 1), k1, k1)}
+    before = read_counts()
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    for what, (bq, bk, bv) in bad.items():
+        expect_refusal(f"flash_attention: {what}",
+                       lambda: fa.flash_attention(bq, bk, bv))
+        expect_refusal(f"decode_attention: {what}",
+                       lambda: da.decode_attention(bq[:, 0], bk, bv, lens))
+    for what, bl in {"int64 lengths": lens.long(), "cpu lengths": lens.cpu(),
+                     "lengths of 0 rows": lens[:0]}.items():
+        expect_refusal(f"decode_attention: {what}",
+                       lambda: da.decode_attention(q[:, 0], k, v, bl))
+    if read_counts() != before:
+        fail("a refused attention call counted a launch")
+    print(f"attn: wrappers refuse {', '.join(bad)} and bad lengths",
+          flush=True)
+    return max_abs
+
+
+def phase_serve_main(serve_mod, ref):
+    """glm4-9b at full width and depth through the serve entry point."""
+    torch.cuda.empty_cache()
+    reset_counts()
+    result = run_forbidding_plain(ref, lambda: serve_mod.main(SERVE_ARGV))
+    launches = read_counts()
+    cfg = serve_config()
+    if launches["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} times "
+             f"in the prefill; expected {cfg.num_layers}")
+    if launches["decode_attention"] != cfg.num_layers * SERVE_STEPS:
+        fail(f"decode_attention launched {launches['decode_attention']} "
+             f"times in {SERVE_STEPS} decode steps; expected "
+             f"{cfg.num_layers} a step")
+    toks = result.tokens
+    if tuple(toks.shape) != (SERVE_B, SERVE_STEPS + 1) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"serve tokens {tuple(toks.shape)} outside [0, "
+             f"{cfg.vocab_size})")
+    if result.state.lengths.tolist() != [SERVE_MAX] * SERVE_B:
+        fail(f"serve lengths {result.state.lengths.tolist()}")
+    for name, buf in result.state.caches.items():
+        if not torch.isfinite(buf).all():
+            fail(f"serve cache {name} holds a non-finite value")
+    step_ms = statistics.median(result.step_ms)
+    out = {"prefill_ms": result.prefill_ms, "decode_step_ms_median": step_ms,
+           "decode_step_ms": result.step_ms, "tok_per_s": result.tok_per_s,
+           "decode_s": result.decode_s,
+           "peak_mem_gib": result.peak_bytes / 2**30, "launches": launches,
+           "card_after": card_state()}
+    print(f"serve main: glm4-9b × {cfg.num_layers} layers (full depth), "
+          f"batch {SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy "
+          f"steps: launches {launches}; prefill {result.prefill_ms:.3f} ms, "
+          f"median decode step {step_ms:.3f} ms (CUDA events), "
+          f"{result.tok_per_s:.1f} tok/s, peak memory "
+          f"{out['peak_mem_gib']:.2f} GiB; clock, power, temperature after: "
+          f"{out['card_after']}", flush=True)
+    return result, out
+
+
+def profile_window(fn, steps, tag):
+    """Device busy vs wall over ``steps`` calls of fn(), and the top
+    kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    after = card_state()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    if not by_name:
+        print(f"{tag}: device time not measured (no CUDA events traced)",
+              flush=True)
+        return None
+    device_ms = sum(us for us, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = [{"kernel": k[:90], "us_per_step": round(us / steps, 2),
+            "calls_per_step": c / steps} for k, (us, c) in top]
+    print(f"{tag}: {steps} steps, device busy {device_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall (idle share {1 - device_ms / wall_ms:.3f}); "
+          f"clock, power, temperature after: {after}; top kernels "
+          f"{json.dumps(top)}", flush=True)
+    return {"steps": steps, "device_ms": device_ms, "wall_ms": wall_ms,
+            "idle_share": 1 - device_ms / wall_ms, "card_after": after,
+            "top": top}
+
+
+def phase_serve_profile(result, steps=4, warm=2):
+    """A profiler window over decode steps continuing the main path's
+    state (past max_len the ring wraps; slot order does not matter)."""
+    from repro_torch.serving.engine import decode_step
+    cfg = serve_config()
+    carry = {"st": result.state, "tok": result.tokens[:, -1].contiguous()}
+
+    @torch.no_grad()
+    def one():
+        logits, carry["st"] = decode_step(result.params, cfg, carry["tok"],
+                                          carry["st"], "pallas")
+        carry["tok"] = torch.argmax(logits, -1).to(torch.int32)
+
+    for _ in range(warm):
+        one()
+    return profile_window(one, steps, "serve profile (decode steps)")
+
+
+def phase_batcher(params, ref):
+    """ContinuousBatcher on glm4-9b at full width and depth, kernel route:
+    16 requests of seeded prompt lengths and budgets through 8 slots."""
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg = serve_config()
+    g = torch.Generator().manual_seed(31)
+    lens = torch.randint(BATCHER_PROMPT[0], BATCHER_PROMPT[1] + 1,
+                         (BATCHER_REQUESTS,), generator=g).tolist()
+    news = torch.randint(BATCHER_NEW[0], BATCHER_NEW[1] + 1,
+                         (BATCHER_REQUESTS,), generator=g).tolist()
+    gd = torch.Generator(device="cuda").manual_seed(32)
+    reqs = [Request(uid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (n,), generator=gd, device="cuda"),
+                max_new_tokens=m) for i, (n, m) in enumerate(zip(lens, news))]
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batcher = ContinuousBatcher(
+            params, cfg, num_slots=BATCHER_SLOTS, max_len=BATCHER_MAX_LEN,
+            decode_kernel="pallas", attn_impl="pallas")
+        finished = run_forbidding_plain(ref, lambda: batcher.run(reqs))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    if sorted(finished) != list(range(BATCHER_REQUESTS)):
+        fail(f"batcher finished {sorted(finished)} of {BATCHER_REQUESTS}")
+    for r in reqs:
+        if len(finished[r.uid]) != r.max_new_tokens:
+            fail(f"request {r.uid} got {len(finished[r.uid])} tokens, asked "
+                 f"for {r.max_new_tokens}")
+    layers = cfg.num_layers
+    if launches["flash_attention"] != layers * BATCHER_REQUESTS or \
+            launches["decode_attention"] % layers:
+        fail(f"batcher launches {launches}")
+    steps = launches["decode_attention"] // layers
+    out = {"requests": BATCHER_REQUESTS, "slots": BATCHER_SLOTS,
+           "max_len": BATCHER_MAX_LEN, "prompt_lens": lens,
+           "max_new_tokens": news, "decode_steps": steps,
+           "prefill_traces": batcher.prefill_traces, "wall_s": wall_s,
+           "launches": launches}
+    print(f"batcher: glm4-9b × {layers} layers, {BATCHER_SLOTS} slots, "
+          f"{BATCHER_REQUESTS} requests (prompts {min(lens)}–{max(lens)}, "
+          f"{min(news)}–{max(news)} new tokens) all finished in "
+          f"{wall_s:.2f} s: {steps} decode steps, {batcher.prefill_traces} "
+          f"prefill shapes, launches {launches}", flush=True)
+    del batcher
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_parity():
+    """glm4-9b at full width, 1 layer, f32: a (2, 64) prefill and 4
+    teacher-forced decode steps through the kernels on the card, against
+    the plain route on the CPU."""
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.optim import tree_map
+    from repro_torch.serving.engine import decode_step, prefill
+    cfg = serve_config(layers=1, dtype="float32")
+    params = init_transformer(torch.Generator().manual_seed(41), cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64 + 4),
+                         generator=torch.Generator().manual_seed(42))
+    out = {}
+    for dev, route in (("cuda", "pallas"), ("cpu", "ref")):
+        p = tree_map(lambda t: t.to(dev), params)
+        t = toks.to(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            last, st = prefill(p, cfg, t[:, :64], 96, attn_impl=route)
+            res = {"prefill logits": last.cpu()}
+            for i in range(4):
+                last, st = decode_step(p, cfg, t[:, 64 + i], st, route)
+                res[f"decode {i} logits"] = last.cpu()
+        res.update({f"cache {k}": v.cpu() for k, v in st.caches.items()})
+        out[dev] = res
+        print(f"serve parity: {dev} ({route} route) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del p, st, last
+    errs = {k: rel_err(out["cuda"][k], v) for k, v in out["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    print(f"serve parity: glm4-9b full width, 1 layer, f32, card (kernels) "
+          f"vs CPU (plain route): largest relative error {errs[worst]:.3e} "
+          f"({worst}); {json.dumps({k: f'{v:.2e}' for k, v in errs.items()})}",
+          flush=True)
+    if errs[worst] > CARD_VS_CPU_RTOL:
+        fail(f"serve card vs CPU: {worst} relative error {errs[worst]:.3e} > "
+             f"{CARD_VS_CPU_RTOL}")
+    del params
+    torch.cuda.empty_cache()
+    return errs
+
+
+def bound_of(nbytes: float, flops: float, elem: int) -> dict:
+    """The larger of bytes over the HBM rate and flops over the peak for
+    the inputs' type (bf16 tensor cores, or f32 outside them)."""
+    peak = BF16_TC_FLOP_PER_S if elem == 2 else F32_FLOP_PER_S
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = flops / peak * 1e3
+    return {"bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def flash_bound(b, s, h, hkv, hd, elem) -> dict:
+    """q, k, v read and out written once; 4·B·H·hd·S(S+1)/2 flops (the
+    causal half of q·k and p·v)."""
+    nbytes = (2 * b * s * h * hd + 2 * b * s * hkv * hd) * elem
+    return bound_of(nbytes, 4.0 * b * h * hd * s * (s + 1) / 2, elem)
+
+
+def decode_bound(lengths, h, hkv, hd, elem) -> dict:
+    """K and V up to each row's length, q and lengths read, out written
+    once; 4·H·hd flops per valid slot of a row."""
+    slots, b = sum(lengths), len(lengths)
+    nbytes = (2 * slots * hkv * hd + 2 * b * h * hd) * elem + 4 * b
+    return bound_of(nbytes, 4.0 * h * hd * slots, elem)
+
+
+def sdpa(*args, **kw):
+    """The library yardstick; the port never calls it."""
+    return torch.nn.functional.scaled_dot_product_attention(*args, **kw)
+
+
+def phase_serve_times(fa, da, ref, rounds=3):
+    """Each serve kernel against its plain version and one PyTorch call
+    (SDPA) at the main path's shapes, decode also at a 32k cache; CUDA
+    events around loops, input sets rotated past the L2 cache."""
+    bf16 = torch.bfloat16
+    rows = {}
+    b, s, h, hkv, hd = SERVE_B, SERVE_PROMPT, 32, 2, 128
+    q, k, v = attn_inputs([(b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)],
+                          bf16, seed=1000)
+    lib_args = [tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))]
+    args = [(q, k, v)]
+    kern = lambda *a: fa.flash_attention(*a)
+    plain = lambda *a: ref.flash_attention_kernel_ref(*a)
+    lib = lambda *a: sdpa(*a, is_causal=True, enable_gqa=True)
+    # plain, kernel, kernel, plain: compare within one call, in turns
+    p1, k1 = time_events(plain, args, 1), time_events(kern, args, rounds)
+    k2, p2 = time_events(kern, args, rounds), time_events(plain, args, 1)
+    l1 = time_events(lib, lib_args, rounds)
+    rows["flash_attention"] = {
+        "shape": [b, s, h, hkv, hd], "dtype": "bfloat16", "ms": min(k1, k2),
+        "plain_ms": min(p1, p2), "library_ms": l1,
+        **flash_bound(b, s, h, hkv, hd, 2), "ms_runs": [k1, k2],
+        "plain_ms_runs": [p1, p2]}
+    r = rows["flash_attention"]
+    print(f"serve times: flash_attention (B, S, H, Hkv, hd)="
+          f"{(b, s, h, hkv, hd)} bf16, window 0: kernel {k1:.3f}/{k2:.3f} "
+          f"ms, plain {p1:.3f}/{p2:.3f} ms, SDPA {l1:.3f} ms; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
+          f"{r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})", flush=True)
+    del q, k, v, args, lib_args
+    torch.cuda.empty_cache()
+    for tag, s in (("main", SERVE_MAX), ("32k", LONG_S)):
+        sets = max(1, math.ceil(2 * L2_BYTES / (2 * b * s * hkv * hd * 2)))
+        inputs, lib_in = [], []
+        for i in range(sets):
+            q, k, v = attn_inputs([(b, h, hd), (b, s, hkv, hd),
+                                   (b, s, hkv, hd)], bf16, seed=1010 + i)
+            lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+            inputs.append((q, k, v, lengths))
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            lib_in.append((q[:, :, None], k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), mask))
+        kern = lambda *a: da.decode_attention(*a)
+        plain = lambda *a: ref.decode_attention_kernel_ref(*a)
+        lib = lambda q_, k_, v_, m_: sdpa(q_, k_, v_, attn_mask=m_,
+                                         enable_gqa=True)
+        p1 = time_events(plain, inputs, rounds)
+        k1 = time_events(kern, inputs, 10 * rounds)
+        k2 = time_events(kern, inputs, 10 * rounds)
+        p2 = time_events(plain, inputs, rounds)
+        l1 = time_events(lib, lib_in, 10 * rounds)
+        r = rows[f"decode_attention {tag}"] = {
+            "shape": [b, s, h, hkv, hd], "lengths": s, "dtype": "bfloat16",
+            "input_sets": sets, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": l1, **decode_bound([s] * b, h, hkv, hd, 2),
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+        print(f"serve times: decode_attention {tag} (B, S, H, Hkv, hd)="
+              f"{(b, s, h, hkv, hd)} bf16, all {s} slots, {sets} input "
+              f"sets: kernel {k1 * 1e3:.2f}/{k2 * 1e3:.2f} us, plain "
+              f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us, SDPA {l1 * 1e3:.2f} us; "
+              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"(bytes {r['bytes_ms'] * 1e3:.2f}, ops "
+              f"{r['ops_ms'] * 1e3:.2f})", flush=True)
+        del inputs, lib_in
+        torch.cuda.empty_cache()
+    rows["card_after"] = card_state()
+    print(f"serve times: clock, power, temperature after: "
+          f"{rows['card_after']}", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import per_example_sqnorm as pes
     from repro_torch.kernels import ref
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
@@ -754,10 +1242,15 @@ def main() -> int:
         fail(f"kernel block size {lib.pes_threads()} != emulator's "
              f"{ref.SQNORM_THREADS}")
     gn._lib()
+    if fa._lib().fa_max_rep() != fa.MAX_REP or \
+            da._lib().da_slots() != da.SLOTS or \
+            da._lib().da_max_rep() != da.MAX_REP:
+        fail("the attention wrappers' constants differ from their builds'")
 
     max_err = phase_kernels(pes, ref)
     max_err["ghost_norm"] = phase_ghost_kernels(gn, ref)
-    counts_after_check = read_counts(pes, gn)
+    max_err.update(phase_attn_kernels(fa, da, ref))
+    counts_after_check = read_counts()
     launches, step_ms, peak_gib = phase_main(train_mod, pes, gn, ref)
     errs = phase_parity()
     rows = phase_times(pes, ref)
@@ -769,6 +1262,15 @@ def main() -> int:
     ghost_rows, ghost_step = phase_ghost_times(gn, ref)
     lm_prof = phase_profile(train_mod, LM_ARGV, lm_config(), steps=3,
                             warm=2, tag="lm profile")
+    serve_result, serve = phase_serve_main(serve_mod, ref)
+    serve_prof = phase_serve_profile(serve_result)
+    serve_params = serve_result.params
+    del serve_result
+    batcher = phase_batcher(serve_params, ref)
+    del serve_params
+    torch.cuda.empty_cache()
+    serve_errs = phase_serve_parity()
+    serve_rows = phase_serve_times(fa, da, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -787,9 +1289,19 @@ def main() -> int:
         "library_note": "no single PyTorch call computes <XXᵀ, DDᵀ>; the "
                         "plain version is two cuBLAS bmm and a reduction",
         "card_vs_cpu_rel_err": lm_errs, "profile": lm_prof}), flush=True)
+    print("serve times " + json.dumps({
+        "card": card, "arch": "glm4-9b", "layers": serve_config().num_layers,
+        "argv": SERVE_ARGV, **serve, "profile": serve_prof,
+        "batcher": batcher, "card_vs_cpu_rel_err": serve_errs,
+        "kernel_ms": serve_rows,
+        "library_note": "scaled_dot_product_attention(is_causal / boolean "
+                        "length mask, enable_gqa), timed only",
+        "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
-                   "ghost_norm": lm_launches}
+                   "ghost_norm": lm_launches,
+                   "flash_attention": serve["launches"],
+                   "decode_attention": serve["launches"]}
     timing = dict(rows)
     # ghost_norm: the work of one LM step, its 8 calls
     timing["ghost_norm"] = {
@@ -797,9 +1309,19 @@ def main() -> int:
         "bound_ms": max(ghost_step["bytes_ms"], ghost_step["ops_ms"]),
         "bound_by": ("bytes" if ghost_step["bytes_ms"] >= ghost_step["ops_ms"]
                      else "operations")}
+    timing["flash_attention"] = serve_rows["flash_attention"]
+    timing["decode_attention"] = serve_rows["decode_attention main"]
+    timed = {
+        "per_example_sqnorm_multi": "one call at the MLP main-path shapes",
+        "per_example_sqnorm": "one call at the MLP main-path shapes",
+        "ghost_norm": "the 8 calls of one LM step",
+        "flash_attention": "one prefill call (B=8, S=2048, 32/2 heads, hd "
+                           "128, bf16); 40 a prefill",
+        "decode_attention": "one decode call at the last step's cache (B=8, "
+                            "2112 slots, 32/2 heads, hd 128, bf16); 40 a "
+                            "token step"}
     kernels = []
-    for name in ("per_example_sqnorm_multi", "per_example_sqnorm",
-                 "ghost_norm"):
+    for name in SOURCES:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -807,13 +1329,15 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": timing[name]["ms"],
             "plain_ms": timing[name]["plain_ms"],
             "bound_ms": timing[name]["bound_ms"],
-            "bound_by": timing[name]["bound_by"], "library_ms": None,
+            "bound_by": timing[name]["bound_by"],
+            "library_ms": timing[name].get("library_ms"),
             "on_main_path": name != "per_example_sqnorm",
-            "timed": ("the 8 calls of one LM step" if name == "ghost_norm"
-                      else "one call at the MLP main-path shapes"),
+            "timed": timed[name],
             "phases": {"kernels": counts_after_check[name],
                        "main_mlp": launches[name],
-                       "main_lm": lm_launches[name]},
+                       "main_lm": lm_launches[name],
+                       "main_serve": serve["launches"][name],
+                       "batcher": batcher["launches"][name]},
         })
     print(card, flush=True)   # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)

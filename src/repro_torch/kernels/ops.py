@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ghost_norm as _gn
 from repro_torch.kernels import per_example_sqnorm as _pes
 from repro_torch.kernels import ref
@@ -84,3 +86,26 @@ def ghost_norm(x: torch.Tensor, d: torch.Tensor, symmetric: bool = True,
     if on_cuda:
         return _gn.ghost_norm(x, d, symmetric=symmetric)
     return ref.ghost_norm_ref(x, d)
+
+
+# ---------------------------------------------------------------- attention
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0, return_lse: bool = False):
+    """Causal GQA flash attention forward (the prefill hot path).
+    q:(B,S,H,hd) k,v:(B,S,Hkv,hd) → (B,S,H,hd) in q's dtype, plus the
+    (B,H,S) f32 logsumexp with ``return_lse``."""
+    if _on_cuda((q, k, v)):
+        return _fa.flash_attention(q, k, v, window=window,
+                                   return_lse=return_lse)
+    return ref.flash_attention_kernel_ref(q, k, v, window=window,
+                                          return_lse=return_lse)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Flash-decode GQA attention over a (possibly partial) KV cache.
+    q:(B,H,hd) k,v:(B,S,Hkv,hd) lengths:(B,) → (B,H,hd); zeros for a row
+    of length 0."""
+    if _on_cuda((q, k, v, lengths)):
+        return _da.decode_attention(q, k, v, lengths.to(torch.int32))
+    return ref.decode_attention_kernel_ref(q, k, v, lengths)

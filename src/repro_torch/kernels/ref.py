@@ -7,6 +7,14 @@ layout, shuffle trees, no FMA) with plain f32 tensor operations, so on
 the card a kernel must equal its emulator bitwise.  The ghost-norm Gram
 kernel has no such emulator: it is held to run-to-run bitwise equality
 and to ``ghost_norm_ref`` at a stated tolerance.
+
+The attention oracles ``flash_attention_ref`` and ``decode_attention_ref``
+mask with ``-inf``, as the reference's do.  Beside them,
+``flash_attention_kernel_ref`` and ``decode_attention_kernel_ref`` are the
+plain versions of the two attention *kernels* (the CPU path of
+``kernels/ops.py``): they mask as the Pallas kernels do, with ``_NEG``,
+``p = exp(s - m)·mask`` and ``max(l, 1e-20)`` in the denominator, so a
+decode row of length 0 gives zeros where the oracle gives NaN.
 """
 from __future__ import annotations
 
@@ -14,6 +22,8 @@ import torch
 
 # threads per block of kernels/csrc/per_example_sqnorm.cu (kThreads)
 SQNORM_THREADS = 256
+# the attention kernels' mask value (src/repro/kernels/flash_attention.py)
+_NEG = -1e30
 
 
 # ----------------------------------------------------- per-example sq-norms
@@ -103,3 +113,108 @@ def per_example_sqnorm_multi_blocked(xs, ds, with_bias: bool = True
     for x, d in zip(xs[1:], ds[1:]):
         res = res + per_example_sqnorm_blocked(x, d, with_bias)
     return res
+
+
+# --------------------------------------------------------- flash attention
+def _causal_window(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   window: int) -> torch.Tensor:
+    """(Q, K) bool: key k_pos visible from query q_pos."""
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0) -> torch.Tensor:
+    """Causal GQA attention oracle. q:(B,S,H,hd) k,v:(B,S,Hkv,hd)."""
+    bsz, s, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = hd ** -0.5
+    qg = q.reshape(bsz, s, hkv, rep, hd).float() * scale
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
+    pos = torch.arange(s, device=q.device)
+    mask = _causal_window(pos, pos, window)
+    logits = torch.where(mask, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return o.reshape(bsz, s, h, hd).to(q.dtype)
+
+
+def flash_attention_kernel_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, window: int = 0,
+                               return_lse: bool = False,
+                               q_chunk: int = 512):
+    """The flash-attention kernel's function in plain PyTorch
+    (``src/repro/kernels/flash_attention.py``): q in f32 times the scale
+    before the dot, ``_NEG`` masking, p = exp(s − m)·mask, output
+    o / max(l, 1e-20) in q's dtype and, with ``return_lse``, the (B, H, S)
+    f32 logsumexp m + log(max(l, 1e-20)).  Query rows are independent, so
+    they are taken ``q_chunk`` at a time: the (S, S) logits of all heads
+    never exist at once."""
+    bsz, s, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = hd ** -0.5
+    qg = q.reshape(bsz, s, hkv, rep, hd).float() * scale
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s, device=q.device)
+    outs, lses = [], []
+    for lo in range(0, s, q_chunk):
+        qc = qg[:, lo:lo + q_chunk]
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qc, kf)
+        mask = _causal_window(pos[lo:lo + q_chunk], pos, window)
+        logits = torch.where(mask, logits, _NEG)
+        m = logits.amax(dim=-1)
+        p = torch.exp(logits - m[..., None]) * mask
+        denom = torch.clamp(p.sum(dim=-1), min=1e-20)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
+        outs.append(o / denom.permute(0, 3, 1, 2)[..., None])
+        lses.append(m + torch.log(denom))                    # (B,g,r,qc)
+    o = torch.cat(outs, dim=1).reshape(bsz, s, h, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.cat(lses, dim=-1).reshape(bsz, h, s)
+
+
+# -------------------------------------------------------- decode attention
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length=None) -> torch.Tensor:
+    """One-token GQA attention against a KV cache (flash-decode oracle).
+    q:(B,H,hd) k,v:(B,S,Hkv,hd) length:(B,) valid prefix lengths."""
+    bsz, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / (hd ** 0.5)
+    qg = (q.float() * scale).reshape(bsz, hkv, rep, hd)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k.float())
+    if length is not None:
+        pos = torch.arange(k.shape[1], device=q.device)
+        mask = pos[None, None, None, :] < length[:, None, None, None]
+        logits = torch.where(mask, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bgrs,bsgd->bgrd", p, v.float())
+    return o.reshape(bsz, h, hd).to(q.dtype)
+
+
+def decode_attention_kernel_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """The flash-decode kernel's function in plain PyTorch
+    (``src/repro/kernels/decode_attention.py``): ``_NEG`` masking,
+    p = exp(s − m)·mask and o / max(l, 1e-20), so a row of length 0 gives
+    zeros.  Returns (B, H, hd) in q's dtype."""
+    bsz, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / (hd ** 0.5)
+    qg = (q.float() * scale).reshape(bsz, hkv, rep, hd)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k.float())
+    pos = torch.arange(k.shape[1], device=q.device)
+    mask = pos[None, None, None, :] < lengths[:, None, None, None]
+    logits = torch.where(mask, logits, _NEG)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m) * mask
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    o = torch.einsum("bgrs,bsgd->bgrd", p, v.float()) / denom
+    return o.reshape(bsz, h, hd).to(q.dtype)

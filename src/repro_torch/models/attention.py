@@ -1,12 +1,14 @@
-"""GQA self-attention for training and scoring (``impl="ref"``).
+"""GQA self-attention for training, scoring and prefill.
 
-Mirrors the GQA part of ``src/repro/models/attention.py``: the query
-dimension is cut into chunks so the S×S logits of the whole sequence
-never exist at once, logits and softmax are f32, masked entries take
-``_NEG``, and the output is cast back to q's dtype.  The GQA grouping
+Mirrors the GQA part of ``src/repro/models/attention.py``.  ``impl="ref"``
+cuts the query dimension into chunks so the S×S logits of the whole
+sequence never exist at once; logits and softmax are f32, masked entries
+take ``_NEG``, and the output is cast back to q's dtype.  The GQA grouping
 reshapes q to (B, S, Hkv, rep, hd) against (B, S, Hkv, hd) keys and
-values.  The flash kernels (``impl`` "pallas" and "flash", the fused
-score taps) and MLA come with later slices of the port.
+values.  ``impl="pallas"`` is the forward-only flash-attention kernel of
+``kernels/ops.py`` (the serving-prefill path; the name is the reference's).
+The trainable flash path (``impl="flash"``, the fused score taps) and MLA
+come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
                                        rope, tapped_linear)
@@ -70,14 +73,21 @@ def _chunked_attention(q, k, v, q_pos, k_pos, window: int,
 
 def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor, tape: Optional[Tape] = None,
-         prefix: str = "attn", q_chunk: int = 512, impl: str = "ref",
+         prefix: str = "attn", q_chunk: int = 512,
+         collector: Optional[dict] = None, impl: str = "ref",
          attn_scores: Optional[str] = None) -> torch.Tensor:
-    """GQA self-attention for training and scoring. x: (B,S,D)."""
-    if impl != "ref":
+    """GQA self-attention. x: (B,S,D).
+
+    impl="pallas" runs the flash-attention forward kernel (no autograd:
+    the serving-prefill path), "ref" the chunked plain path.  With a
+    ``collector`` dict the roped K and V (B,S,Hkv,hd) are recorded under
+    ``{prefix}.k`` and ``{prefix}.v`` for the decode cache."""
+    if impl not in ("ref", "pallas"):
         raise NotImplementedError(
-            f"attention impl {impl!r} needs the flash-attention kernels, "
-            f"which a later slice of the PyTorch port carries; this slice "
-            f"runs impl='ref'")
+            f"attention impl {impl!r} needs the trainable flash-attention "
+            f"kernels (backward and score sweep), which a later slice of "
+            f"the PyTorch port carries; this slice runs impl='ref' and "
+            f"impl='pallas'")
     if attn_scores is not None:
         raise NotImplementedError(
             "attn_scores (the fused flash-backward score tap) comes with the "
@@ -92,8 +102,14 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     q = rope(q.reshape(bsz, s, h, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(bsz, s, hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(bsz, s, hkv, hd)
-    qg = q.reshape(bsz, s, hkv, rep, hd)
-    out = _chunked_attention(qg, k, v, positions, positions,
-                             cfg.sliding_window, q_chunk)
+    if collector is not None:     # prefill: roped K and V feed the KV cache
+        collector[f"{prefix}.k"] = k
+        collector[f"{prefix}.v"] = v
+    if impl == "pallas":
+        out = ops.flash_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        qg = q.reshape(bsz, s, hkv, rep, hd)
+        out = _chunked_attention(qg, k, v, positions, positions,
+                                 cfg.sliding_window, q_chunk)
     out = out.reshape(bsz, s, h * hd)
     return tapped_linear(out, params["wo"], f"{prefix}.wo", tape)

@@ -9,6 +9,10 @@ Python loop: each layer tap is ONE (P, B, S, dout) leaf, sliced per
 period, so its gradient comes back already stacked, and the records
 leave stacked to (P, B, S, din).  The unembed tap lives outside the loop.
 
+With ``collect_cache`` the forward also returns the decode caches of the
+serving engine: the roped K and V of every attention layer, stacked over
+periods to (P, B, S, Hkv, hd).
+
 MoE, mamba, MLA and the modality frontends raise; ``remat`` has no
 numeric effect and is not ported.
 """
@@ -27,6 +31,7 @@ from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
 
 class Aux(NamedTuple):
     records: Optional[dict] = None      # name -> stacked records (P, ...)
+    cache: Optional[dict] = None        # name -> stacked K/V (P, B, S, ...)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -83,10 +88,12 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------- forward
 def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, tape: Optional[Tape],
-                 prefix: str) -> torch.Tensor:
+                 prefix: str, collector: Optional[dict] = None,
+                 attn_impl: str = "ref") -> torch.Tensor:
     hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
     h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
-                          prefix=f"{prefix}.attn", q_chunk=cfg.attn_chunk)
+                          prefix=f"{prefix}.attn", q_chunk=cfg.attn_chunk,
+                          collector=collector, impl=attn_impl)
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
     return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp")
 
@@ -99,6 +106,7 @@ def _period(tree: Params, p: int) -> Params:
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             taps: Optional[dict] = None, collect: bool = False,
+            collect_cache: bool = False, attn_impl: str = "ref",
             return_hidden: bool = False) -> tuple[torch.Tensor, Aux]:
     """tokens (B, S) → logits (B, S, vocab) (or the final hidden states
     with ``return_hidden``) and Aux.
@@ -106,7 +114,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``taps``: name → (P, B, S, dout) tensor for every layer tap (period p
     adds ``taps[name][p]``) and name "unembed" → (B, S, vocab).  With
     ``collect`` the records come back in Aux, stacked to (P, B, S, din),
-    and the unembed record as (B, S, d_model)."""
+    and the unembed record as (B, S, d_model).  With ``collect_cache``
+    Aux.cache holds the roped K and V of every attention layer, stacked to
+    (P, B, S, Hkv, hd): the prefill of the serving engine.  ``attn_impl``
+    is "ref" or "pallas" (the flash-attention forward kernel)."""
     check_supported(cfg)
     specs = cfg.layer_specs()
     h = embed(params["embed"], tokens, cfg)
@@ -115,28 +126,35 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     layer_taps = dict(taps) if taps is not None else {}
     head_tap = layer_taps.pop("unembed", None)
-    per_period = []
+    per_period, per_cache = [], []
     for p in range(cfg.num_periods):
         pp = _period(params["layers"], p)
         tape = Tape(taps={k: v[p] for k, v in layer_taps.items()} or None,
                     records={} if collect else None)
+        cache = {} if collect_cache else None
         for i in range(len(specs)):
-            h = _apply_layer(pp[f"l{i}"], h, cfg, positions, tape, f"l{i}")
+            h = _apply_layer(pp[f"l{i}"], h, cfg, positions, tape, f"l{i}",
+                             collector=cache, attn_impl=attn_impl)
         per_period.append(tape.records)
+        per_cache.append(cache)
 
-    records = None
-    if collect:
-        records = {k: torch.stack([r[k] for r in per_period])
-                   for k in per_period[0]}
+    records = _stack_periods(per_period) if collect else None
+    caches = _stack_periods(per_cache) if collect_cache else None
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if return_hidden:
-        return h, Aux(records=records)
+        return h, Aux(records=records, cache=caches)
     head_tape = Tape(taps={"unembed": head_tap} if head_tap is not None
                      else None, records={} if collect else None)
     logits = unembed(params["embed"], h, cfg, tape=head_tape)
     if collect:
         records.update(head_tape.records)
-    return logits, Aux(records=records)
+    return logits, Aux(records=records, cache=caches)
+
+
+def _stack_periods(per_period: list) -> dict:
+    """[{name: tensor}] over periods → {name: stacked (P, ...)}."""
+    return {k: torch.stack([r[k] for r in per_period])
+            for k in per_period[0]}
 
 
 def tap_structure(cfg: ModelConfig, batch: int, seq: int) -> dict:

@@ -1,0 +1,208 @@
+"""Batched serving engine: prefill + one-token decode over layer caches.
+
+Mirrors ``src/repro/serving/engine.py`` for dense GQA stacks on one
+device.  Every cache buffer carries a leading period axis P, as the
+decoder's stacked parameters do:
+
+  k/v   (P, B, W, Hkv, hd)   W = sliding window (ring) or max_len
+
+Every cache is a ring buffer: slot = position mod W.  RoPE is applied at
+write time with absolute positions, so ring order is harmless (softmax is
+permutation-invariant; validity is tracked by ``lengths`` alone, because a
+full ring holds exactly the last W tokens).  For a full-attention config a
+wrapped ring forgets the oldest context; the batcher finishes a request
+before that happens.
+
+``decode_kernel="pallas"`` routes cache attention through
+``kernels/ops.py::decode_attention`` (the CUDA flash-decode kernel on the
+card, its plain version on the CPU); "ref" takes the reference's oracle
+``kernels/ref.py::decode_attention_ref``.
+
+Where the reference returns new arrays (``.at[].set``), the port writes
+the preallocated caches IN PLACE: ``decode_step`` updates the cache
+tensors of the state it is given and returns a state that shares them.
+A caller that needs the old caches clones them first.  MLA, mamba, MoE,
+frontends and the model-axis (``model_axes``) paths are not ported.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (dtype_of, embed, mlp, rmsnorm, rope,
+                                       unembed)
+from repro_torch.models.transformer import _period, check_supported, forward
+
+
+class ServeState(NamedTuple):
+    """Decode-loop carry: per-layer caches + per-row absolute positions."""
+    caches: dict          # name -> (P, ...) cache tensors
+    lengths: torch.Tensor  # (B,) int32 absolute tokens processed
+
+
+def _window(cfg: ModelConfig, max_len: int) -> int:
+    return (min(cfg.sliding_window, max_len) if cfg.sliding_window > 0
+            else max_len)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """name → (shape, dtype) of every cache buffer."""
+    check_supported(cfg)
+    w = _window(cfg, max_len)
+    kv = (cfg.num_periods, batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+    out = {}
+    for i, _ in enumerate(cfg.layer_specs()):
+        out[f"l{i}.attn.k"] = (kv, dtype_of(cfg))
+        out[f"l{i}.attn.v"] = (kv, dtype_of(cfg))
+    return out
+
+
+def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
+                     device) -> ServeState:
+    """Zeroed caches (see ``cache_shapes``) and zero lengths on ``device``."""
+    caches = {k: torch.zeros(shape, dtype=dt, device=device)
+              for k, (shape, dt) in cache_shapes(cfg, batch, max_len).items()}
+    return ServeState(caches=caches,
+                      lengths=torch.zeros(batch, dtype=torch.int32,
+                                          device=device))
+
+
+# ------------------------------------------------------------------ decode
+def _gqa_decode(lp, hn: torch.Tensor, cfg: ModelConfig,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos: torch.Tensor, window: int, decode_kernel: str,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """hn: (B,D); caches (B,W,Hkv,hd), written in place; pos: (B,)
+    absolute position.  ``active`` (B,) bool leaves the cache rows of
+    evicted batcher slots as they were (None = all rows live)."""
+    bsz = hn.shape[0]
+    hd = cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = (hn @ lp["wq"]).reshape(bsz, h, hd)
+    k_new = (hn @ lp["wk"]).reshape(bsz, hkv, hd)
+    v_new = (hn @ lp["wv"]).reshape(bsz, hkv, hd)
+    q = rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k_new = rope(k_new[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+
+    slot = (pos % window).long()
+    rows = torch.arange(bsz, device=hn.device)
+    k_w = k_new.to(k_cache.dtype)
+    v_w = v_new.to(v_cache.dtype)
+    if active is not None:
+        keep = active[:, None, None]
+        k_w = torch.where(keep, k_w, k_cache[rows, slot])
+        v_w = torch.where(keep, v_w, v_cache[rows, slot])
+    k_cache[rows, slot] = k_w
+    v_cache[rows, slot] = v_w
+    lengths = torch.clamp(pos + 1, max=window).to(torch.int32)
+
+    if decode_kernel == "pallas":
+        o = ops.decode_attention(q, k_cache, v_cache, lengths)
+    else:
+        o = ref.decode_attention_ref(q, k_cache, v_cache, lengths)
+    return o.reshape(bsz, h * hd) @ lp["wo"]
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                state: ServeState, decode_kernel: str = "ref",
+                active: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, ServeState]:
+    """One new token per sequence. tokens: (B,) → (logits (B,V), state).
+
+    The caches of ``state`` are written in place and shared by the
+    returned state.  ``active`` (B,) bool gates rows the batcher has
+    evicted: inactive rows advance neither their length nor any cache
+    buffer (their logits are garbage and discarded by the caller)."""
+    if decode_kernel not in ("ref", "pallas"):
+        raise ValueError(f"decode_kernel must be 'ref' or 'pallas', got "
+                         f"{decode_kernel!r}")
+    check_supported(cfg)
+    specs = cfg.layer_specs()
+    pos = state.lengths                                   # (B,)
+    h = embed(params["embed"], tokens[:, None], cfg)[:, 0]
+    for p in range(cfg.num_periods):
+        pp = _period(params["layers"], p)
+        for i in range(len(specs)):
+            lp = pp[f"l{i}"]
+            k_cache = state.caches[f"l{i}.attn.k"][p]
+            v_cache = state.caches[f"l{i}.attn.v"][p]
+            hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+            h = h + _gqa_decode(lp["mixer"], hn, cfg, k_cache, v_cache, pos,
+                                k_cache.shape[1], decode_kernel, active)
+            hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+            h = h + mlp(lp["ff"], hn[:, None], cfg)[:, 0]
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = unembed(params["embed"], h, cfg)
+    lengths = (state.lengths + 1 if active is None
+               else torch.where(active, state.lengths + 1, state.lengths))
+    return logits, ServeState(caches=state.caches,
+                              lengths=lengths.to(torch.int32))
+
+
+# ----------------------------------------------------------------- prefill
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+            attn_impl: str = "ref", true_len: Optional[int] = None
+            ) -> tuple[torch.Tensor, ServeState]:
+    """Process the prompt and build decode caches.
+
+    tokens: (B, S_prompt).  Returns (last_logits (B,V), ServeState).
+    attn_impl="pallas" routes prefill attention through the flash kernel.
+
+    ``true_len`` enables bucketed prefill: the prompt arrives right-padded
+    to a bucket length S and only the first ``true_len`` tokens are real
+    (causal attention never lets a real query see a padded key).  Cache
+    slot s of a cap-W buffer takes source position
+    ``s + W·⌊(true_len−1−s)/W⌋``: the plain copy when true_len ≤ W and
+    the ring layout that ``slot = pos mod W`` continues when it is not."""
+    bsz, s = tokens.shape
+    if true_len is not None:
+        true_len = int(true_len)
+        if not 1 <= true_len <= s:
+            raise ValueError(f"true_len {true_len} outside [1, {s}]")
+    logits, aux = forward(params, cfg, tokens, collect_cache=True,
+                          attn_impl=attn_impl)
+    caches = {}
+    for name, (shape, dt) in cache_shapes(cfg, bsz, max_len).items():
+        got = aux.cache[name]                     # (P, B, S, Hkv, hd)
+        cap = shape[2]
+        buf = torch.zeros(shape, dtype=dt, device=got.device)
+        if true_len is None:
+            if s <= cap:
+                buf[:, :, :s] = got
+            else:  # ring placement of the last `cap` positions
+                slots = torch.arange(s - cap, s, device=got.device) % cap
+                buf[:, :, slots] = got[:, :, -cap:].to(dt)
+        else:
+            sidx = torch.arange(cap, device=got.device)
+            src = sidx + cap * torch.div(true_len - 1 - sidx, cap,
+                                         rounding_mode="floor")
+            take = got[:, :, torch.clamp(src, 0, s - 1)]
+            valid = (src >= 0)[None, None, :, None, None]
+            buf = torch.where(valid, take.to(dt), buf)
+        caches[name] = buf
+    if true_len is None:
+        lengths = torch.full((bsz,), s, dtype=torch.int32,
+                             device=tokens.device)
+        last = logits[:, -1].clone()      # not a view: frees the (B,S,V)
+    else:
+        lengths = torch.full((bsz,), true_len, dtype=torch.int32,
+                             device=tokens.device)
+        last = logits[:, true_len - 1].clone()
+    return last, ServeState(caches=caches, lengths=lengths)
+
+
+def generate(params, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
+             max_len: int, decode_kernel: str = "ref") -> torch.Tensor:
+    """Greedy generation. Returns (B, steps) sampled tokens."""
+    logits, st = prefill(params, cfg, prompt, max_len)
+    toks = []
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    for _ in range(steps):
+        toks.append(tok)
+        logits, st = decode_step(params, cfg, tok, st,
+                                 decode_kernel=decode_kernel)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    return torch.stack(toks, dim=1)

@@ -6,7 +6,10 @@ the CPU), the exact-order emulators against the plain versions, and the
 dispatch rules of ``repro_torch.kernels.ops``.  CUDA legs (skipped without
 a card) hold the CUDA kernels against their plain versions and emulators.
 
-Tolerances: per-example squared norms f32 rtol 1e-5 — the two frameworks
+Tolerances: attention f32 rtol 2e-5 / atol 2e-6 and bf16 the reference's
+own kernel-test bounds (``tests/test_kernels.py``), since both sides run
+the same f32 online-softmax arithmetic in another order.  Per-example
+squared norms f32 rtol 1e-5 — the two frameworks
 sum the same ≤300 squares in different orders (a few ulps each), and the
 product of two such sums doubles the relative error; bf16 inputs are
 upcast exactly, so the same bound holds.  Ghost norms rtol 1e-4, as the
@@ -22,8 +25,14 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import \
+    decode_attention as j_decode_kernel  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as j_flash_kernel  # noqa: E402
 from repro.kernels.ghost_norm import ghost_norm as j_ghost_kernel  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ghost_norm as gn  # noqa: E402
 from repro_torch.kernels import per_example_sqnorm as pes  # noqa: E402
 
@@ -286,3 +295,175 @@ def test_cuda_ghost_norm_matches_plain_and_is_deterministic(shape, dtypes):
         b = gn.ghost_norm(x, d, symmetric=symmetric)
         torch.testing.assert_close(a, want, rtol=GN_RTOL, atol=0)
         assert torch.equal(a, b)
+
+
+
+# ---------------------------------------------------------------- attention
+ATTN_F32 = dict(rtol=2e-5, atol=2e-6)
+# the reference's kernel tests: bf16 outputs may land one bf16 ulp apart
+DECODE_BF16 = dict(rtol=3e-2, atol=3e-2)
+FLASH_BF16 = dict(rtol=4e-2, atol=2e-2)
+
+
+def _attn_inputs(shapes, seed, bf16=False):
+    """numpy N(0,1) arrays of ``shapes`` as (jax, torch) pairs."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    return ([_to_jax(a, bf16) for a in arrs],
+            [_to_torch(a, bf16) for a in arrs])
+
+
+def _f32(t):
+    return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().numpy()
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,win", [(1, 40, 4, 2, 32, 0),
+                                              (1, 48, 4, 1, 16, 24)])
+def test_plain_flash_attention_matches_reference_kernel(b, s, h, hkv, hd,
+                                                        win):
+    """The plain kernel version (and its lse) against the reference's
+    Pallas kernel in interpret mode, at tiny shapes."""
+    (jq, jk, jv), (tq, tk, tv) = _attn_inputs(
+        [(b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)], seed=s + h)
+    want_o, want_lse = j_flash_kernel(jq, jk, jv, window=win, block_q=16,
+                                      block_k=16, interpret=True,
+                                      return_lse=True)
+    got_o, got_lse = ref.flash_attention_kernel_ref(tq, tk, tv, window=win,
+                                                    return_lse=True,
+                                                    q_chunk=17)
+    assert got_o.dtype == torch.float32 and got_lse.shape == (b, h, s)
+    np.testing.assert_allclose(_f32(got_o), _f32(want_o), **ATTN_F32)
+    np.testing.assert_allclose(_f32(got_lse), _f32(want_lse), **ATTN_F32)
+
+
+def test_plain_decode_attention_matches_reference_kernel():
+    """The plain kernel version against the reference's Pallas kernel in
+    interpret mode, with a row of length 0: zeros in both."""
+    (jq, jk, jv), (tq, tk, tv) = _attn_inputs(
+        [(3, 8, 32), (3, 40, 2, 32), (3, 40, 2, 32)], seed=9)
+    lengths = np.array([0, 1, 37], np.int32)
+    want = j_decode_kernel(jq, jk, jv, jnp.asarray(lengths), block_s=16,
+                           interpret=True)
+    got = ref.decode_attention_kernel_ref(tq, tk, tv,
+                                          torch.from_numpy(lengths))
+    np.testing.assert_allclose(_f32(got), _f32(want), **ATTN_F32)
+    assert not got[0].any() and not np.asarray(want[0]).any()
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,win", [
+    (2, 64, 4, 2, 32, 0), (1, 100, 8, 8, 16, 0), (2, 128, 4, 1, 32, 24),
+    (1, 96, 6, 3, 64, 32),
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plain_flash_attention_matches_oracles(b, s, h, hkv, hd, win, bf16):
+    """Both plain versions against the reference's oracle, at the shapes
+    of its own kernel test (windows, ragged S)."""
+    (jq, jk, jv), (tq, tk, tv) = _attn_inputs(
+        [(b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)], seed=s + h,
+        bf16=bf16)
+    want = _f32(jref.flash_attention_ref(jq, jk, jv, window=win))
+    tol = FLASH_BF16 if bf16 else ATTN_F32
+    for got in (ref.flash_attention_ref(tq, tk, tv, window=win),
+                ref.flash_attention_kernel_ref(tq, tk, tv, window=win,
+                                               q_chunk=48)):
+        assert got.dtype == tq.dtype
+        np.testing.assert_allclose(_f32(got), want, **tol)
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd", [
+    (2, 64, 4, 4, 32), (2, 128, 8, 2, 64), (1, 100, 6, 1, 16),
+    (3, 256, 16, 8, 128),
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plain_decode_attention_matches_oracle(b, s, h, hkv, hd, bf16):
+    (jq, jk, jv), (tq, tk, tv) = _attn_inputs(
+        [(b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)], seed=s + h,
+        bf16=bf16)
+    lengths = np.random.default_rng(s).integers(1, s + 1, b).astype(np.int32)
+    want = _f32(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths)))
+    tol = DECODE_BF16 if bf16 else ATTN_F32
+    tl = torch.from_numpy(lengths)
+    for got in (ref.decode_attention_ref(tq, tk, tv, tl),
+                ref.decode_attention_kernel_ref(tq, tk, tv, tl)):
+        assert got.dtype == tq.dtype
+        np.testing.assert_allclose(_f32(got), want, **tol)
+
+
+def test_attention_dispatch_on_cpu(monkeypatch):
+    """CPU tensors take the plain kernel versions; mixed devices raise."""
+    calls = []
+    monkeypatch.setattr(ref, "flash_attention_kernel_ref",
+                        lambda *a, **k: calls.append("flash"))
+    monkeypatch.setattr(ref, "decode_attention_kernel_ref",
+                        lambda *a, **k: calls.append("decode"))
+    q4, kv4 = torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 1, 32)
+    q3, lens = torch.zeros(1, 2, 32), torch.ones(1, dtype=torch.int32)
+    ops.flash_attention(q4, kv4, kv4)
+    ops.decode_attention(q3, kv4, kv4, lens)
+    assert calls == ["flash", "decode"]
+    with pytest.raises(ValueError, match="all CUDA or all CPU"):
+        ops.flash_attention(q4, kv4.to("meta"), kv4)
+    with pytest.raises(ValueError, match="all CUDA or all CPU"):
+        ops.decode_attention(q3, kv4, kv4, lens.to("meta"))
+
+
+def test_attention_wrappers_refuse_cpu_tensors():
+    q4, kv4 = torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q4, kv4, kv4)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(torch.zeros(1, 2, 32), kv4, kv4,
+                            torch.ones(1, dtype=torch.int32))
+    assert fa.flash_attention.launches == 0
+    assert da.decode_attention.launches == 0
+
+
+@pytest.mark.parametrize("b,hkv,s", [(8, 2, 2112), (8, 2, 32768),
+                                     (1, 1, 5), (64, 8, 4096)])
+def test_decode_split_plan_covers_the_cache(b, hkv, s):
+    """The split covers every slot once, in whole 32-slot tiles, and fills
+    about BLOCKS_PER_SM blocks per SM of a 132-SM card where S allows it."""
+    chunk, n_split = da.split_plan(b, hkv, s, 132)
+    assert chunk % da.SLOTS == 0 and chunk * n_split >= s
+    assert chunk * (n_split - 1) < s
+    tiles = -(-s // da.SLOTS)
+    assert b * hkv * n_split >= \
+        min(da.BLOCKS_PER_SM * 132, b * hkv * tiles) * 0.9
+
+
+def _cuda_attn(shapes, dtype, seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python3 chip_smoke.py)")
+    _, ts = _attn_inputs(shapes, seed)
+    return [t.to("cuda", dtype) for t in ts]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,hd,win", [(2, 100, 8, 2, 32, 0),
+                                              (1, 130, 32, 2, 128, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_matches_plain(b, s, h, hkv, hd, win, dtype):
+    q, k, v = _cuda_attn([(b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)],
+                         getattr(torch, dtype), seed=3)
+    o, lse = fa.flash_attention(q, k, v, window=win, return_lse=True)
+    po, plse = ref.flash_attention_kernel_ref(q, k, v, window=win,
+                                              return_lse=True)
+    tol = ATTN_F32 if dtype == "float32" else dict(rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(o, po, **tol)
+    torch.testing.assert_close(lse, plse, **ATTN_F32)
+    assert torch.equal(o, fa.flash_attention(q, k, v, window=win))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_attention_matches_plain(dtype):
+    q, k, v = _cuda_attn([(4, 32, 128), (4, 300, 2, 128), (4, 300, 2, 128)],
+                         getattr(torch, dtype), seed=4)
+    lengths = torch.tensor([0, 1, 300, 177], dtype=torch.int32,
+                           device="cuda")
+    got = da.decode_attention(q, k, v, lengths)
+    want = ref.decode_attention_kernel_ref(q, k, v, lengths)
+    tol = ATTN_F32 if dtype == "float32" else dict(rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(got, want, **tol)
+    assert not got[0].any()
+    assert torch.equal(got, da.decode_attention(q, k, v, lengths))
