@@ -64,6 +64,33 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  14. serve times — each kernel vs its plain version and SDPA at the main
                 path's shapes and a 32k decode cache, CUDA events, L2 cold,
                 beside the bound.
+ 15. flash bwd — the flash-attention backward kernel (without and with the
+                score) and the score sweep against their plain versions:
+                the glm4-9b trainer's shape (16, 512, 32/2 heads, 128) in
+                bf16, ragged S = 100, window 24 and 1, f32 smoke shapes,
+                MHA, rep 6, hd 32/64/128; f32 gradients within rtol 1e-4 /
+                atol 1e-5, bf16 within that plus half a bf16 ulp; scores
+                within rtol 1e-4; fused == sweep bitwise (f32); the sweep
+                == its exact-order plain version bitwise; two launches
+                bitwise equal; the autograd Functions against autograd
+                through the plain oracle; refusals.
+ 16. lm flash main — glm4-9b at full width, 4 layers, seq 512, batch and
+                score batch 16, bf16, relaxed, ghost, through
+                launch/train.py's run with attn_impl="flash" (master) and
+                attn_scores="fused" (scorer), every plain version
+                forbidden: per step 8 flash forward, 8 backward (4 with
+                scores), 0 sweep and 5 ghost_norm launches; losses and
+                √TrΣ finite; median step ms, peak memory.  Then 3 steps
+                with attn_scores="separate": 4 sweeps a step.
+ 17. lm flash parity — glm4-9b at full width, 1 layer, f32, seq 128: the
+                fused, separate and exact flash scoring passes and a flash
+                master step, card vs CPU, relative error ≤ 1e-4; fused ==
+                separate bitwise on both.
+ 18. lm flash times — the backward (with and without scores) and the
+                sweep at the main shape, L2 cold, CUDA events, beside the
+                bound, the plain version and (backward) autograd through
+                SDPA; the fused, separate and exact scorers; a profiler
+                window over steps of the fused path (idle share).
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -104,6 +131,9 @@ SOURCES = {
     "ghost_norm": "src/repro_torch/kernels/csrc/ghost_norm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "attn_score_sweep": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "per_example_sqnorm_multi": "src/repro/kernels/per_example_sqnorm.py:128",
@@ -111,6 +141,8 @@ REPLACES = {
     "ghost_norm": "src/repro/kernels/ghost_norm.py:73",
     "flash_attention": "src/repro/kernels/flash_attention.py:81",
     "decode_attention": "src/repro/kernels/decode_attention.py:59",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention_bwd.py:166",
+    "attn_score_sweep": "src/repro/kernels/flash_attention_bwd.py:314",
 }
 
 # --- the LM path: glm4-9b at full width, depth cut to LM_LAYERS
@@ -156,6 +188,29 @@ BATCHER_PROMPT, BATCHER_NEW = (17, 600), (8, 48)
 # bf16 values, one bf16 ulp (at most 2^-7 of the value) apart
 ATTN_F32 = dict(rtol=2e-5, atol=2e-6)
 ATTN_BF16 = dict(rtol=2 ** -7, atol=1e-5)
+
+# --- the trainable flash path: glm4-9b at full width, depth cut to
+# LM_LAYERS, seq 512; the master on attn_impl="flash", the scorer on
+# attn_impl="flash", attn_scores="fused"
+FLASH_B, FLASH_S = 16, 512
+FLASH_STEPS, FLASH_WARMUP, FLASH_SEP_STEPS = 12, 2, 3
+FLASH_ARGV = ["--arch", "glm4-9b", "--mode", "relaxed", "--strategy",
+              "ghost", "--seq", str(FLASH_S), "--batch", str(FLASH_B),
+              "--score-batch", str(FLASH_B), "--examples", "4096", "--lr",
+              "0.01", "--refresh-every", "8", "--device", "cuda"]
+# its ghost_norm calls a step: the score tap replaces the wq/wk/wv Grams
+FLASH_GHOST = ("wo", "w_in", "w_gate", "w_out", "unembed")
+# kernel 5 against its plain version: f32 gradients at the reference's own
+# bound for its backward (tests/test_kernels.py); bf16 gradients against the
+# plain version's f32 gradients (inputs upcast exactly) at that bound plus
+# the cast's rounding, half a bf16 ulp (2^-8 of the value).  Scores are sums
+# of squares (no cancellation): rtol 1e-4.
+BWD_F32 = dict(rtol=1e-4, atol=1e-5)
+BWD_BF16 = dict(rtol=2 ** -8 + 1e-4, atol=1e-5)
+SCORE_RTOL = 1e-4
+# bf16: the sweep squares the cast gradients, each within 2^-8 of the f32
+# value the fused epilogue squares, so the sums differ by < 2^-7 of the sum
+SWEEP_BF16_RTOL = 2 ** -7
 
 
 def fail(msg: str) -> None:
@@ -453,11 +508,13 @@ def phase_times(pes, ref):
     return rows
 
 
-def phase_profile(train_mod, argv, cfg=None, steps=8, warm=3, tag="profile"):
+def phase_profile(train_mod, argv, cfg=None, steps=8, warm=3, tag="profile",
+                  **attn):
     """Device time by kernel over a few steady steps of the run ``argv``
-    (with the config override ``cfg``) builds."""
+    (with the config override ``cfg`` and the attention path ``attn``)
+    builds."""
     args = train_mod.parse_args(argv)
-    state, step, data = train_mod.build(args, cfg)
+    state, step, data = train_mod.build(args, cfg, **attn)
     carry = {"state": state}
     del state
 
@@ -570,18 +627,22 @@ def kernel_wrappers() -> dict:
     """name → the wrapper whose ``launches`` counts that kernel."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import per_example_sqnorm as pes
     return {"per_example_sqnorm_multi": pes.per_example_sqnorm_multi,
             "per_example_sqnorm": pes.per_example_sqnorm,
             "ghost_norm": gn.ghost_norm,
             "flash_attention": fa.flash_attention,
-            "decode_attention": da.decode_attention}
+            "decode_attention": da.decode_attention,
+            "flash_attention_bwd": fab.flash_attention_bwd,
+            "attn_score_sweep": fab.attn_score_sweep}
 
 
 def reset_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["flash_attention_bwd"].scored = 0
 
 
 def read_counts() -> dict:
@@ -591,7 +652,9 @@ def read_counts() -> dict:
 PLAIN_NAMES = ("per_example_sqnorm_ref", "per_example_sqnorm_multi_ref",
                "ghost_norm_ref", "ghost_norm_direct_ref",
                "flash_attention_ref", "flash_attention_kernel_ref",
-               "decode_attention_ref", "decode_attention_kernel_ref")
+               "decode_attention_ref", "decode_attention_kernel_ref",
+               "flash_attention_bwd_kernel_ref",
+               "attn_score_sweep_kernel_ref", "attn_grad_sqnorm_ref")
 
 
 def run_forbidding_plain(ref, fn):
@@ -928,6 +991,405 @@ def phase_attn_kernels(fa, da, ref):
     return max_abs
 
 
+# ------------------------------------------------- the trainable flash path
+def bwd_inputs(b, s, h, hkv, hd, window, dtype, seed, fa):
+    """q, k, v ~ N(0,1)·0.5 (as the reference's backward test), the forward
+    kernel's o and lse, and dO ~ N(0,1), on the card as ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = [(torch.randn(sh, generator=g, device="cuda") * 0.5).to(dtype)
+               for sh in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd))]
+    do = torch.randn(b, s, h, hd, generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def grads_close(got, want, dtype) -> tuple[bool, float]:
+    """(within BWD_F32 or BWD_BF16 of the f32 ``want``, largest abs diff)."""
+    tol = BWD_F32 if dtype == torch.float32 else BWD_BF16
+    err = (got.float() - want).abs().max().item()
+    return torch.allclose(got.float(), want, **tol), err
+
+
+def check_trainable(ops, ref, q, k, v, do, window, name, scores):
+    """The autograd Functions (f32) against torch.autograd.grad through the
+    plain -inf oracle, and their score taps against the kernel's score."""
+    leaves = lambda: [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+    lw = leaves()
+    want = torch.autograd.grad(ref.flash_attention_ref(*lw, window=window),
+                               lw, do)
+    lf = leaves()
+    got = torch.autograd.grad(
+        ops.make_flash_attention_trainable(window=window)(*lf), lf, do)
+    for tag, a, b in zip("qkv", got, want):
+        if not torch.allclose(a, b, **BWD_F32):
+            fail(f"{name}: autograd Function d{tag} vs autograd through the "
+                 f"oracle max abs err {(a - b).abs().max().item():.3e}")
+    ls = leaves()
+    tap = torch.zeros(q.shape[0], device="cuda", requires_grad=True)
+    fused = torch.autograd.grad(ops.make_flash_attention_trainable(
+        window=window, with_scores=True)(*ls, tap), ls + [tap], do)
+    lp = leaves()
+    tap2 = torch.zeros(q.shape[0], device="cuda", requires_grad=True)
+    probed = ops.make_qkv_score_probe()(*lp, tap2)
+    sep = torch.autograd.grad(ops.make_flash_attention_trainable(
+        window=window)(*probed), lp + [tap2], do)
+    if not all(torch.equal(a, b) for a, b in zip(fused[:3], got)) or \
+            not all(torch.equal(a, b) for a, b in zip(sep[:3], got)):
+        fail(f"{name}: the score taps changed the gradients")
+    if not torch.equal(fused[3], scores) or not torch.equal(sep[3], scores):
+        fail(f"{name}: the fused and probe taps' gradients != the kernel's "
+             f"score")
+
+
+def phase_flash_bwd_kernels(fa, fab, ops, ref):
+    """Kernel 5 (with and without scores) and kernel 6 against their plain
+    versions on the card, fused == sweep, launch == launch, the autograd
+    Functions, and the refusals."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_abs = {}
+    # (tag, B, S, H, Hkv, hd, window, dtype)
+    cases = [
+        ("glm4-9b train", FLASH_B, FLASH_S, 32, 2, 128, 0, bf16),
+        ("ragged S=100", 2, 100, 32, 2, 128, 0, bf16),
+        ("ragged S=100", 2, 100, 32, 2, 128, 0, f32),
+        ("window 24", 2, 300, 32, 2, 128, 24, bf16),
+        ("window 24", 2, 300, 32, 2, 128, 24, f32),
+        ("glm4-9b-smoke", 2, 64, 8, 2, 32, 0, f32),
+        ("glm4-9b-smoke window 8", 2, 70, 8, 2, 32, 8, f32),
+        ("MHA (deepseek-7b heads)", 1, 100, 32, 32, 128, 0, f32),
+        ("rep 6 (internlm2-20b heads)", 1, 130, 48, 8, 128, 0, bf16),
+        ("rep 6 (internlm2-20b heads)", 1, 130, 48, 8, 128, 5, f32),
+        ("hd 64", 2, 90, 4, 1, 64, 0, f32),
+        ("hd 32 window 1", 2, 50, 4, 2, 32, 1, f32),
+    ]
+    for ci, (tag, b, s, h, hkv, hd, win, dt) in enumerate(cases):
+        q, k, v, o, lse, do = bwd_inputs(b, s, h, hkv, hd, win, dt,
+                                         1100 + ci, fa)
+        name = (f"flash bwd {tag} {str(dt)[6:]} (B, S, H, Hkv, hd)="
+                f"{(b, s, h, hkv, hd)} window={win}")
+        grads = fab.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+        *grads_s, sc = fab.flash_attention_bwd(q, k, v, o, lse, do,
+                                               window=win, with_scores=True)
+        *_, sc2 = fab.flash_attention_bwd(q, k, v, o, lse, do, window=win,
+                                          with_scores=True)
+        sw = fab.attn_score_sweep(*grads)
+        sw2 = fab.attn_score_sweep(*grads)
+        torch.cuda.synchronize()
+        *plain, psc = ref.flash_attention_bwd_kernel_ref(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            window=win, with_scores=True)
+        psw = ref.attn_score_sweep_kernel_ref(*grads)
+        if not all(torch.isfinite(t).all() for t in (*grads, sc, sw)):
+            fail(f"{name}: a non-finite gradient or score")
+        if not all(torch.equal(a, c) for a, c in zip(grads, grads_s)):
+            fail(f"{name}: with_scores changed the gradients")
+        if not torch.equal(sc, sc2) or not torch.equal(sw, sw2):
+            fail(f"{name}: two launches differ")
+        errs = []
+        for t, got, want in zip("qkv", grads, plain):
+            ok, err = grads_close(got, want, dt)
+            if not ok:
+                fail(f"{name}: d{t} kernel vs plain max abs err {err:.3e}")
+            errs.append(err)
+        sc_err = ((sc - psc).abs() / psc).max().item()
+        if sc_err > SCORE_RTOL:
+            fail(f"{name}: fused score vs plain rel err {sc_err:.3e}")
+        if not torch.equal(sw, psw):
+            fail(f"{name}: sweep != its exact-order plain version")
+        if dt == f32 and not torch.equal(sc, sw):
+            fail(f"{name}: fused score != sweep (f32, must be bitwise)")
+        sw_err = ((sw - sc).abs() / sc).max().item()
+        if sw_err > SWEEP_BF16_RTOL:
+            fail(f"{name}: sweep vs fused score rel err {sw_err:.3e}")
+        if dt == f32:
+            check_trainable(ops, ref, q, k, v, do, win, name, sc)
+        if ci == 0:
+            max_abs["flash_attention_bwd"] = max(errs)
+            max_abs["attn_score_sweep"] = (sw - psw).abs().max().item()
+        print(f"flash bwd: {name} ok: grads max abs err "
+              f"{max(errs):.3e}, score rel err {sc_err:.3e}, sweep vs fused "
+              f"{'bitwise' if dt == f32 else f'{sw_err:.2e}'}, sweep == "
+              f"plain sweep bitwise, two launches bitwise equal"
+              f"{', autograd Functions ok' if dt == f32 else ''}",
+              flush=True)
+        del q, k, v, o, lse, do, grads, grads_s, plain
+    # the wrappers refuse what the kernels do not take, counting nothing
+    q, k, v, o, lse, do = bwd_inputs(1, 8, 4, 2, 32, 0, f32, 1190, fa)
+    q48, k48 = attn_inputs([(1, 8, 4, 48), (1, 8, 2, 48)], f32, seed=1191)
+    k1 = k[:, :, :1].contiguous()
+    q128 = q.repeat(1, 1, 32, 1)
+    lse128 = lse.repeat(1, 32, 1)
+    non_contig = do.transpose(1, 2).contiguous().transpose(1, 2)
+    bad = {"float64": (q.double(), k.double(), v.double(), o.double(), lse,
+                       do.double()),
+           "cpu do": (q, k, v, o, lse, do.cpu()),
+           "non-contiguous do": (q, k, v, o, lse, non_contig),
+           "bf16 do with f32 q": (q, k, v, o, lse, do.bfloat16()),
+           "bf16 lse": (q, k, v, o, lse.bfloat16(), do),
+           "lse of 2 heads": (q, k, v, o, lse[:, :2].contiguous(), do),
+           "hd 48": (q48, k48, k48, q48, lse, q48),
+           "rep 128": (q128, k1, k1, q128, lse128, q128)}
+    before = read_counts()
+    for what, args in bad.items():
+        expect_refusal(f"flash_attention_bwd: {what}",
+                       lambda: fab.flash_attention_bwd(*args))
+    sweep_bad = {"float64": (q.double(), k.double(), v.double()),
+                 "cpu dk": (q, k.cpu(), v), "non-contiguous dq":
+                 (non_contig, k, v), "hd 48": (q48, k48, k48),
+                 "S mismatch": (q[:, :7].contiguous(), k, v),
+                 "rep 128": (q128, k1, k1)}
+    for what, args in sweep_bad.items():
+        expect_refusal(f"attn_score_sweep: {what}",
+                       lambda: fab.attn_score_sweep(*args))
+    if read_counts() != before:
+        fail("a refused flash backward or sweep call counted a launch")
+    print(f"flash bwd: wrappers refuse {', '.join(bad)}; the sweep "
+          f"{', '.join(sweep_bad)}", flush=True)
+    return max_abs
+
+
+def phase_flash_main(train_mod, ref):
+    """glm4-9b at full width (depth cut) through the train entry point on
+    the trainable flash path: the master on attn_impl="flash", the scorer
+    on attn_scores="fused"; then a few steps with attn_scores="separate",
+    the path of the score sweep."""
+    fab = kernel_wrappers()["flash_attention_bwd"]
+    keys = ("loss", "grad_norm", "trace_ideal", "trace_stale", "trace_unif")
+    out = {}
+    for variant, steps in (("fused", FLASH_STEPS),
+                           ("separate", FLASH_SEP_STEPS)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        args = train_mod.parse_args(FLASH_ARGV + ["--steps", str(steps),
+                                                  "--log-every", "1"])
+        result = run_forbidding_plain(ref, lambda: train_mod.run(
+            args, lm_config(), attn_impl="flash", attn_scores=variant))
+        launches = read_counts()
+        scored = fab.scored
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {"flash_attention": 2 * LM_LAYERS,
+                    "flash_attention_bwd": 2 * LM_LAYERS,
+                    "attn_score_sweep": LM_LAYERS if variant == "separate"
+                    else 0, "ghost_norm": len(FLASH_GHOST),
+                    "per_example_sqnorm_multi": 0, "per_example_sqnorm": 0,
+                    "decode_attention": 0}
+        want = {k: n * steps for k, n in per_step.items()}
+        want_scored = LM_LAYERS * steps if variant == "fused" else 0
+        if launches != want or scored != want_scored:
+            fail(f"lm flash {variant}: launches {launches} ({scored} scored "
+                 f"backward calls) in {steps} steps; expected {want} "
+                 f"({want_scored} scored)")
+        for rec in result.history:
+            if not all(math.isfinite(rec[k]) for k in keys):
+                fail(f"non-finite lm flash metrics at step {rec['step']}: "
+                     f"{rec}")
+        warm = FLASH_WARMUP if steps > FLASH_WARMUP else 0
+        step_ms = statistics.median(result.step_ms[warm:])
+        hist, all_ms = result.history, result.step_ms
+        del result
+        torch.cuda.empty_cache()
+        out[variant] = {"steps": steps, "launches": launches,
+                        "scored_bwd_calls": scored, "step_ms_median": step_ms,
+                        "step_ms": all_ms, "peak_mem_gib": peak_gib,
+                        "losses": [r["loss"] for r in hist]}
+        print(f"lm flash main ({variant}): glm4-9b × {LM_LAYERS} layers, "
+              f"seq {FLASH_S}, batch {FLASH_B}, score batch {FLASH_B}, "
+              f"{steps} steps, launches {launches} ({scored} backward calls "
+              f"with scores), loss {hist[0]['loss']:.4f} → "
+              f"{hist[-1]['loss']:.4f}, median step {step_ms:.3f} ms (CUDA "
+              f"events, {warm} warm-up), peak memory {peak_gib:.2f} GiB",
+              flush=True)
+    return out
+
+
+def phase_flash_parity():
+    """glm4-9b at full width, 1 layer, f32, seq 128: the fused, separate
+    and exact flash scoring passes and a flash master step with injected
+    indices, card (kernels) against CPU (plain versions); on the card
+    fused == separate bitwise."""
+    from repro_torch.core.issgd import (ISSGDConfig, make_master_pass,
+                                        make_scoring_pass)
+    from repro_torch.core.scorer import make_lm_scorer
+    from repro_torch.core.weight_store import init_store
+    from repro_torch.data import make_token_dataset
+    from repro_torch.models.transformer import (init_transformer,
+                                                per_example_loss)
+    from repro_torch.optim import sgd, tree_leaves, tree_map
+
+    cfg = dataclasses.replace(lm_config(), num_layers=1, dtype="float32")
+    n, sb, b, seq = 64, 4, 2, 128
+    train = make_token_dataset(torch.Generator("cuda").manual_seed(51), n=n,
+                               seq=seq + 1, vocab=cfg.vocab_size)
+    params = init_transformer(torch.Generator("cuda").manual_seed(52), cfg,
+                              "cuda")
+    idx = torch.randint(0, n, (b,), generator=torch.Generator().manual_seed(53))
+    tcfg = ISSGDConfig(batch_size=b, score_batch_size=sb, refresh_every=8)
+    opt = sgd(1.0)    # the update stands far above the params' rounding
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = {k: v.to(dev) for k, v in train.arrays.items()}
+        p = tree_map(lambda t: t.to(dev), params)
+        t0 = time.perf_counter()
+        res = {}
+        for variant in ("fused", "separate", None):
+            scoring = make_scoring_pass(make_lm_scorer(
+                cfg, "ghost", attn_impl="flash", attn_scores=variant),
+                tcfg, n)
+            store, fresh, stale = scoring(p, init_store(n, dev), 0, data)
+            res[f"scores {variant or 'exact'}"] = fresh.cpu()
+        master = make_master_pass(
+            lambda pp, bb: per_example_loss(pp, cfg, bb,
+                                            attn_impl="flash")[0],
+            opt, tcfg, n)
+        new_p, _, _, m = master(p, (), p, store, 0, None, data, fresh, stale,
+                                sample_indices=idx)
+        deltas = tree_map(lambda a, c: (a - c).cpu(), new_p, p)
+        res.update({"loss": m.loss.cpu(), "grad_norm": m.grad_norm.cpu(),
+                    **{f"update {i}": t for i, t in
+                       enumerate(tree_leaves(deltas))}})
+        out[dev] = res
+        print(f"lm flash parity: {dev} passes in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del p, new_p, deltas, data
+    card = out["cuda"]
+    if not torch.equal(card["scores fused"], card["scores separate"]) or \
+            not torch.equal(out["cpu"]["scores fused"],
+                            out["cpu"]["scores separate"]):
+        fail("lm flash parity: fused != separate scores (f32, must be "
+             "bitwise) on the card or on the CPU")
+    errs = {}
+    for key, want in out["cpu"].items():
+        if key.startswith("scores"):   # elementwise: every score positive
+            errs[key] = ((card[key] - want).abs() / want.abs()).max().item()
+        else:
+            errs[key] = rel_err(card[key], want)
+    worst = max(errs, key=errs.get)
+    print(f"lm flash parity: glm4-9b full width, 1 layer, f32, seq {seq}, "
+          f"card (kernels) vs CPU (plain versions): largest relative error "
+          f"{errs[worst]:.3e} ({worst}); "
+          f"{json.dumps({k: f'{v:.2e}' for k, v in errs.items() if not k.startswith('update')})}"
+          f"; fused == separate bitwise on both", flush=True)
+    if errs[worst] > CARD_VS_CPU_RTOL:
+        fail(f"lm flash card vs CPU: {worst} relative error "
+             f"{errs[worst]:.3e} > {CARD_VS_CPU_RTOL}")
+    del params
+    torch.cuda.empty_cache()
+    return errs
+
+
+def bwd_bound(b, s, h, hkv, hd, elem) -> dict:
+    """q, k, v, O, dO and lse read and dQ, dK, dV and the (B,) scores
+    written once; five causal-half products, 10·B·H·hd·S(S+1)/2 flops
+    (S = QKᵀ, dP = dO·Vᵀ, dV, dK, dQ)."""
+    nbytes = (4 * b * s * h * hd + 4 * b * s * hkv * hd) * elem \
+        + 4 * b * h * s + 4 * b
+    return bound_of(nbytes, 10.0 * b * h * hd * s * (s + 1) / 2, elem)
+
+
+def sweep_bound(b, s, h, hkv, hd, elem) -> dict:
+    """dQ, dK, dV read once and the (B,) scores written once; a multiply
+    and an add per element in f32."""
+    elems = b * s * (h + 2 * hkv) * hd
+    return bound_of(elems * elem + 4 * b, 2.0 * elems, 4)
+
+
+def phase_flash_times(train_mod, fa, fab, ref, rounds=5):
+    """Kernels 5 and 6 at the main shape against their bounds, plain
+    versions and (kernel 5) autograd through SDPA; the three scorers; a
+    profiler window over a few steps of the fused path."""
+    from repro_torch.core.scorer import make_lm_scorer
+    from repro_torch.data import make_token_dataset
+    from repro_torch.models.transformer import init_transformer
+    bf16 = torch.bfloat16
+    cfg = lm_config()
+    b, s, h, hkv, hd = (FLASH_B, FLASH_S, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.resolved_head_dim)
+    rows = {}
+    sets = [bwd_inputs(b, s, h, hkv, hd, 0, bf16, 1200 + i, fa)
+            for i in range(2)]                  # 2 × 286 MB: L2 cold
+    kern = lambda *a: fab.flash_attention_bwd(*a)
+    kern_s = lambda *a: fab.flash_attention_bwd(*a, with_scores=True)
+    plain = lambda *a: ref.flash_attention_bwd_kernel_ref(*a)
+    # plain, kernel, kernel, plain: compare within one call, in turns
+    p1 = time_events(plain, sets[:1], 1)
+    k1, ks1 = time_events(kern, sets, rounds), time_events(kern_s, sets,
+                                                           rounds)
+    ks2, k2 = time_events(kern_s, sets, rounds), time_events(kern, sets,
+                                                             rounds)
+    p2 = time_events(plain, sets[:1], 1)
+    # the library: autograd through one SDPA call, the backward only
+    q, k, v, _, _, do = sets[0]
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    lo = sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+    ldo = do.transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo,
+                                      retain_graph=True)
+    l1 = time_events(lib, [()], rounds)
+    del lq, lk, lv, lo, ldo
+    rows["flash_attention_bwd"] = {
+        "shape": [b, s, h, hkv, hd], "dtype": "bfloat16", "ms": min(k1, k2),
+        "ms_with_scores": min(ks1, ks2), "plain_ms": min(p1, p2),
+        "library_ms": l1, **bwd_bound(b, s, h, hkv, hd, 2),
+        "ms_runs": [k1, k2], "ms_with_scores_runs": [ks1, ks2],
+        "plain_ms_runs": [p1, p2]}
+    r = rows["flash_attention_bwd"]
+    print(f"lm flash times: flash_attention_bwd (B, S, H, Hkv, hd)="
+          f"{(b, s, h, hkv, hd)} bf16, window 0, 2 input sets: kernel "
+          f"{k1:.3f}/{k2:.3f} ms, with scores {ks1:.3f}/{ks2:.3f} ms, plain "
+          f"{p1:.3f}/{p2:.3f} ms, autograd through SDPA {l1:.3f} ms; bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
+          f"{r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})", flush=True)
+    grads = [fab.flash_attention_bwd(*st) for st in sets]
+    del sets
+    kern = lambda *a: fab.attn_score_sweep(*a)
+    plain = lambda *a: ref.attn_score_sweep_kernel_ref(*a)
+    p1, k1 = time_events(plain, grads, 1), time_events(kern, grads, rounds)
+    k2, p2 = time_events(kern, grads, rounds), time_events(plain, grads, 1)
+    rows["attn_score_sweep"] = {
+        "shape": [b, s, h, hkv, hd], "dtype": "bfloat16", "ms": min(k1, k2),
+        "plain_ms": min(p1, p2), "library_ms": None,
+        **sweep_bound(b, s, h, hkv, hd, 2), "ms_runs": [k1, k2],
+        "plain_ms_runs": [p1, p2]}
+    r = rows["attn_score_sweep"]
+    print(f"lm flash times: attn_score_sweep dq {(b, s, h, hd)}, dk/dv "
+          f"{(b, s, hkv, hd)} bf16, 2 input sets: kernel {k1 * 1e3:.1f}/"
+          f"{k2 * 1e3:.1f} us, plain {p1:.3f}/{p2:.3f} ms; bound "
+          f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}", flush=True)
+    del grads
+    torch.cuda.empty_cache()
+    # the three scorers at the main shape (the reference's
+    # benchmarks/scoring_throughput.py::_transformer_fused_vs_separate)
+    params = init_transformer(torch.Generator("cuda").manual_seed(61), cfg,
+                              "cuda")
+    batch = {"tokens": make_token_dataset(
+        torch.Generator("cuda").manual_seed(62), n=b, seq=s + 1,
+        vocab=cfg.vocab_size).arrays["tokens"]}
+    scorers = {name: make_lm_scorer(cfg, "ghost", attn_impl="flash",
+                                    attn_scores=variant)
+               for name, variant in (("fused", "fused"),
+                                     ("separate", "separate"),
+                                     ("exact", None))}
+    order = ["fused", "separate", "exact", "exact", "separate", "fused"]
+    runs = {name: [] for name in scorers}
+    for name in order:
+        runs[name].append(time_events(scorers[name], [(params, batch)], 2))
+    rows["scorers"] = {name: {"ms": min(v), "ms_runs": v}
+                       for name, v in runs.items()}
+    print(f"lm flash times: ghost scorer at glm4-9b × {LM_LAYERS} layers, "
+          f"B={b}, S={s}, bf16, ms a call (two runs, in turns): "
+          f"{json.dumps(runs)}", flush=True)
+    del params, batch, scorers
+    torch.cuda.empty_cache()
+    rows["card_after"] = card_state()
+    prof = phase_profile(train_mod, FLASH_ARGV, lm_config(), steps=3, warm=2,
+                         tag="lm flash profile", attn_impl="flash",
+                         attn_scores="fused")
+    return rows, prof
+
+
 def phase_serve_main(serve_mod, ref):
     """glm4-9b at full width and depth through the serve entry point."""
     torch.cuda.empty_cache()
@@ -1225,7 +1687,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import ops
     from repro_torch.kernels import per_example_sqnorm as pes
     from repro_torch.kernels import ref
     from repro_torch.launch import serve as serve_mod
@@ -1244,7 +1708,8 @@ def main() -> int:
     gn._lib()
     if fa._lib().fa_max_rep() != fa.MAX_REP or \
             da._lib().da_slots() != da.SLOTS or \
-            da._lib().da_max_rep() != da.MAX_REP:
+            da._lib().da_max_rep() != da.MAX_REP or \
+            fab._lib().fab_max_rep() != fab.MAX_REP:
         fail("the attention wrappers' constants differ from their builds'")
 
     max_err = phase_kernels(pes, ref)
@@ -1271,6 +1736,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_errs = phase_serve_parity()
     serve_rows = phase_serve_times(fa, da, ref)
+    max_err.update(phase_flash_bwd_kernels(fa, fab, ops, ref))
+    flash = phase_flash_main(train_mod, ref)
+    flash_errs = phase_flash_parity()
+    flash_rows, flash_prof = phase_flash_times(train_mod, fa, fab, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -1295,13 +1764,24 @@ def main() -> int:
         "batcher": batcher, "card_vs_cpu_rel_err": serve_errs,
         "kernel_ms": serve_rows,
         "library_note": "scaled_dot_product_attention(is_causal / boolean "
-                        "length mask, enable_gqa), timed only",
+                        "length mask, enable_gqa), timed only"}), flush=True)
+    print("lm flash times " + json.dumps({
+        "card": card, "arch": "glm4-9b", "layers": LM_LAYERS,
+        "argv": FLASH_ARGV, "attn_impl": "flash", "attn_scores": "fused",
+        "warmup_steps": FLASH_WARMUP, **flash, "kernel_ms": flash_rows,
+        "card_vs_cpu_rel_err": flash_errs, "profile": flash_prof,
+        "library_note": "torch.autograd.grad through one "
+                        "scaled_dot_product_attention(is_causal, enable_gqa) "
+                        "call, the backward only, timed only; no single "
+                        "call computes the score sweep",
         "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
                    "ghost_norm": lm_launches,
                    "flash_attention": serve["launches"],
-                   "decode_attention": serve["launches"]}
+                   "decode_attention": serve["launches"],
+                   "flash_attention_bwd": flash["fused"]["launches"],
+                   "attn_score_sweep": flash["separate"]["launches"]}
     timing = dict(rows)
     # ghost_norm: the work of one LM step, its 8 calls
     timing["ghost_norm"] = {
@@ -1311,6 +1791,8 @@ def main() -> int:
                      else "operations")}
     timing["flash_attention"] = serve_rows["flash_attention"]
     timing["decode_attention"] = serve_rows["decode_attention main"]
+    timing["flash_attention_bwd"] = flash_rows["flash_attention_bwd"]
+    timing["attn_score_sweep"] = flash_rows["attn_score_sweep"]
     timed = {
         "per_example_sqnorm_multi": "one call at the MLP main-path shapes",
         "per_example_sqnorm": "one call at the MLP main-path shapes",
@@ -1319,7 +1801,13 @@ def main() -> int:
                            "128, bf16); 40 a prefill",
         "decode_attention": "one decode call at the last step's cache (B=8, "
                             "2112 slots, 32/2 heads, hd 128, bf16); 40 a "
-                            "token step"}
+                            "token step",
+        "flash_attention_bwd": "one call without scores (B=16, S=512, 32/2 "
+                               "heads, hd 128, bf16); 8 a step of the LM "
+                               "flash trainer, 4 of them with scores",
+        "attn_score_sweep": "one call at the same shape; 4 a step of the LM "
+                            "flash trainer with attn_scores='separate', 0 "
+                            "with 'fused'"}
     kernels = []
     for name in SOURCES:
         kernels.append({
@@ -1331,13 +1819,17 @@ def main() -> int:
             "bound_ms": timing[name]["bound_ms"],
             "bound_by": timing[name]["bound_by"],
             "library_ms": timing[name].get("library_ms"),
-            "on_main_path": name != "per_example_sqnorm",
+            "on_main_path": name not in ("per_example_sqnorm",
+                                         "attn_score_sweep"),
             "timed": timed[name],
             "phases": {"kernels": counts_after_check[name],
                        "main_mlp": launches[name],
                        "main_lm": lm_launches[name],
                        "main_serve": serve["launches"][name],
-                       "batcher": batcher["launches"][name]},
+                       "batcher": batcher["launches"][name],
+                       "main_lm_flash": flash["fused"]["launches"][name],
+                       "lm_flash_separate":
+                           flash["separate"]["launches"][name]},
         })
     print(card, flush=True)   # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -66,7 +66,9 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
     (``src/repro/core/scorer.py::ghost_sq_norms``): consecutive rank-1
     unscanned taps are batched into one ``ops.per_example_sqnorm_multi``
     launch (``ops.per_example_sqnorm`` for a group of one), and any other
-    tap flushes the group and adds its ``_contribution``.
+    tap flushes the group and adds its ``_contribution``.  A score tap
+    (a name ending in ``.qkv_scores``) flushes the group and adds its
+    gradient itself, summed over the periods when scanned.
 
     Returns (sq_norms (B,), per_example_losses (B,))."""
     taps = {k: torch.zeros(s, dtype=torch.float32, device=device,
@@ -99,6 +101,11 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
         dt = dtaps.pop(name)
         scanned = (name in scanned_names) if scanned_names is not None \
             else name != "unembed"
+        if name.endswith(".qkv_scores"):      # the gradient IS the score
+            sq = flush(sq)
+            contrib = dt.float()
+            sq = sq + (torch.sum(contrib, dim=0) if scanned else contrib)
+            continue
         if not scanned and x.ndim == 2:       # rank-1 tap: groupable
             group_x.append(x)
             group_d.append(dt)
@@ -166,12 +173,37 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
 
 
 # ----------------------------------------------------------- LM strategies
-def make_lm_scorer(cfg, strategy: str) -> Callable:
-    """Scorer for transformer LMs (one device, ``attn_impl="ref"``):
-    fn(params, batch) → ω̃ (B,).  ``ghost_rev`` comes with a later slice."""
+def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
+                   attn_scores: Optional[str] = None) -> Callable:
+    """Scorer for transformer LMs (one device): fn(params, batch) → ω̃ (B,).
+    ``ghost_rev`` comes with a later slice.
+
+    ``attn_impl`` selects the attention path of the ghost strategy ("ref"
+    chunked plain, "flash" the trainable flash kernels).  ``attn_scores``
+    ("fused"/"separate", ghost with attn_impl="flash" only) swaps each
+    attention layer's wq/wk/wv Gram terms for the flash-backward score
+    ||dQ||²+||dK||²+||dV||² at the attention interface: "fused" from the
+    backward kernel's epilogue, "separate" from the score sweep (its
+    bitwise twin for f32).  ω̃ is then no longer the exact full-parameter
+    gradient norm; every other layer's term stays exact."""
     from repro_torch.models.transformer import (forward, lm_head_metrics,
                                                 per_example_loss,
                                                 tap_structure)
+    if attn_scores is not None:
+        if attn_scores not in ("fused", "separate"):
+            raise ValueError(f"attn_scores must be 'fused', 'separate' or "
+                             f"None, got {attn_scores!r}")
+        if strategy != "ghost":
+            raise ValueError(
+                f"attn_scores={attn_scores!r} modifies the ghost-tap walk; "
+                f"it has no effect on strategy {strategy!r}; use 'ghost'")
+        if attn_impl != "flash":
+            raise ValueError(
+                f"attn_scores={attn_scores!r} needs the trainable flash "
+                f"kernel (attn_impl='flash'), got attn_impl={attn_impl!r}")
+        if cfg.attention == "mla":
+            raise ValueError("attn_scores is a GQA flash-kernel feature; "
+                             "attention='mla' has no flash backward")
 
     if strategy == "loss":
         @torch.no_grad()
@@ -193,11 +225,13 @@ def make_lm_scorer(cfg, strategy: str) -> Callable:
     if strategy == "ghost":
         def score(params, batch):
             b, s = batch["tokens"].shape
-            tap_shapes = tap_structure(cfg, b, s - 1)
+            tap_shapes = tap_structure(cfg, b, s - 1, attn_impl=attn_impl,
+                                       attn_scores=attn_scores)
 
             def loss_with_taps(taps):
-                losses, aux = per_example_loss(params, cfg, batch, taps=taps,
-                                               collect=True)
+                losses, aux = per_example_loss(
+                    params, cfg, batch, taps=taps, collect=True,
+                    attn_impl=attn_impl, attn_scores=attn_scores)
                 return losses, aux.records
 
             sq, _ = ghost_sq_norms(loss_with_taps, tap_shapes, b,

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ghost_norm as _gn
 from repro_torch.kernels import per_example_sqnorm as _pes
 from repro_torch.kernels import ref
@@ -109,3 +110,87 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cuda((q, k, v, lengths)):
         return _da.decode_attention(q, k, v, lengths.to(torch.int32))
     return ref.decode_attention_kernel_ref(q, k, v, lengths)
+
+
+# ------------------------------------------------- trainable flash attention
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        window: int = 0, with_scores: bool = False):
+    """FlashAttention-2 backward from the forward's lse: (dq, dk, dv) and,
+    with ``with_scores``, the (B,) f32 ||dQ_n||²+||dK_n||²+||dV_n||²."""
+    if _on_cuda((q, k, v, o, lse, do)):
+        return _fab.flash_attention_bwd(q, k, v, o, lse, do, window=window,
+                                        with_scores=with_scores)
+    return ref.flash_attention_bwd_kernel_ref(q, k, v, o, lse, do,
+                                              window=window,
+                                              with_scores=with_scores)
+
+
+def attn_grad_sqnorm(dq: torch.Tensor, dk: torch.Tensor,
+                     dv: torch.Tensor) -> torch.Tensor:
+    """(B,) per-example ||dQ||²+||dK||²+||dV||² through the score sweep:
+    for f32 gradients bitwise equal to the fused ``with_scores`` score."""
+    if _on_cuda((dq, dk, dv)):
+        return _fab.attn_score_sweep(dq, dk, dv)
+    return ref.attn_score_sweep_kernel_ref(dq, dk, dv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel (saving its lse), backward kernel.  ``score_tap`` is
+    None or a (B,) tap the primal ignores; when it needs a gradient, that
+    gradient is the fused score of the backward's epilogue."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, score_tap, window):
+        o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        with_scores = ctx.needs_input_grad[3]
+        out = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                  window=ctx.window, with_scores=with_scores)
+        return (*out, None) if with_scores else (*out, None, None)
+
+
+def make_flash_attention_trainable(window: int = 0,
+                                   with_scores: bool = False):
+    """Differentiable flash attention: the forward kernel and the
+    FlashAttention-2 backward kernel as one ``torch.autograd.Function``,
+    the forward's lse the residual; no S×S tensor in either direction.
+
+    With ``with_scores`` the op takes a fourth (B,) f32 ``score_tap``
+    argument, ignored by the primal, whose gradient is the per-example
+    score ||dQ_n||²+||dK_n||²+||dV_n||² of the backward's epilogue."""
+    if with_scores:
+        return lambda q, k, v, score_tap: _FlashAttention.apply(
+            q, k, v, score_tap, window)
+    return lambda q, k, v: _FlashAttention.apply(q, k, v, None, window)
+
+
+class _QKVScoreProbe(torch.autograd.Function):
+    """Identity on (q, k, v); the backward sweeps the cotangents."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, score_tap):
+        return q.view_as(q), k.view_as(k), v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        scores = None
+        if ctx.needs_input_grad[3]:
+            scores = attn_grad_sqnorm(dq.contiguous(), dk.contiguous(),
+                                      dv.contiguous())
+        return dq, dk, dv, scores
+
+
+def make_qkv_score_probe():
+    """Identity op (q, k, v, score_tap) → (q, k, v) whose backward runs
+    the score sweep on the gradients and returns it as the tap's gradient.
+    Placed before the plain trainable flash attention it is the separate
+    twin of ``with_scores=True``: the same score, re-read from the
+    materialized dQ, dK, dV."""
+    return _QKVScoreProbe.apply

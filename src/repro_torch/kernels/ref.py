@@ -15,13 +15,24 @@ plain versions of the two attention *kernels* (the CPU path of
 ``kernels/ops.py``): they mask as the Pallas kernels do, with ``_NEG``,
 ``p = exp(s - m)·mask`` and ``max(l, 1e-20)`` in the denominator, so a
 decode row of length 0 gives zeros where the oracle gives NaN.
+``flash_attention_bwd_kernel_ref`` and ``attn_score_sweep_kernel_ref`` are
+the plain versions of the backward and score-sweep kernels; both reduce
+the score through ``_attn_score_blocked``, the CUDA kernels' tiles and
+order, so the plain fused and separate scores are bitwise equal, and on
+the card the sweep kernel equals its plain version bitwise.
 """
 from __future__ import annotations
 
 import torch
 
-# threads per block of kernels/csrc/per_example_sqnorm.cu (kThreads)
+# threads per block of kernels/csrc/per_example_sqnorm.cu and of
+# kernels/csrc/flash_attention_bwd.cu (kThreads)
 SQNORM_THREADS = 256
+# the flash-attention backward's tiles (flash_attention_bwd.cu kKeys, kRows):
+# 64 keys of one KV head, and 64 query rows, (position, head) pairs of one KV
+# group (64 // rep positions times its rep heads)
+ATTN_KEYS = 64
+ATTN_ROWS = 64
 # the attention kernels' mask value (src/repro/kernels/flash_attention.py)
 _NEG = -1e30
 
@@ -74,9 +85,10 @@ def per_example_sqnorm_multi_ref(xs, ds, with_bias: bool = True
 
 
 def _blocked_sumsq(a: torch.Tensor) -> torch.Tensor:
-    """(B, n) → (B,) Σa² in the CUDA kernel's order: thread t sums
-    elements t, t+T, ... in sequence (zero padding adds exact +0), then a
-    shuffle-down tree inside each warp and one over the warps."""
+    """(B, n) → (B,) Σa² in the CUDA kernels' order (``per_example_sqnorm.cu``
+    and ``tile_sumsq`` of ``flash_attention_bwd.cu``, both 256 threads):
+    thread t sums elements t, t+T, ... in sequence (zero padding adds exact
+    +0), then a shuffle-down tree inside each warp and one over the warps."""
     b, n = a.shape
     a = torch.nn.functional.pad(a.float(), (0, (-n) % SQNORM_THREADS))
     a = a.reshape(b, -1, SQNORM_THREADS)
@@ -176,6 +188,108 @@ def flash_attention_kernel_ref(q: torch.Tensor, k: torch.Tensor,
     if not return_lse:
         return o
     return o, torch.cat(lses, dim=-1).reshape(bsz, h, s)
+
+
+def attn_grad_sqnorm_ref(dq: torch.Tensor, dk: torch.Tensor,
+                         dv: torch.Tensor) -> torch.Tensor:
+    """Oracle of the fused score tap: per-example ||dQ_n||² + ||dK_n||² +
+    ||dV_n||² over the (S, H, hd) axes, (B,) f32."""
+    def _sq(a):
+        return torch.sum(torch.square(a.float()), dim=(1, 2, 3))
+    return _sq(dq) + _sq(dk) + _sq(dv)
+
+
+def _attn_score_blocked(dq: torch.Tensor, dk: torch.Tensor,
+                        dv: torch.Tensor) -> torch.Tensor:
+    """The (B,) score ||dQ||² + ||dK||² + ||dV||² in the order of
+    ``flash_attention_bwd.cu``: one ``_blocked_sumsq`` partial per tile —
+    ||dK tile||² + ||dV tile||² for each (KV head g, 64-key tile) and
+    ||dQ tile||² for each (g, 64-row tile) — then the dK/dV partials summed
+    in (g, tile) order, the dQ partials likewise, and the two sums added.
+    Both plain versions reduce through it, so their scores are equal
+    bitwise; on the card the two kernels share the same order."""
+    bsz, s, h, hd = dq.shape
+    hkv = dk.shape[2]
+    rep = h // hkv
+    nk = -(-s // ATTN_KEYS)
+    bq = ATTN_ROWS // rep
+    nq = -(-s // bq)
+
+    def key_tiles(a):                   # (B,S,Hkv,hd) → (B·Hkv·nk, 64·hd)
+        a = torch.nn.functional.pad(a.float(), (0, 0, 0, 0, 0,
+                                                nk * ATTN_KEYS - s))
+        a = a.reshape(bsz, nk, ATTN_KEYS, hkv, hd).permute(0, 3, 1, 2, 4)
+        return a.reshape(bsz * hkv * nk, ATTN_KEYS * hd)
+
+    kv = (_blocked_sumsq(key_tiles(dk)) + _blocked_sumsq(key_tiles(dv)))
+    kv = kv.reshape(bsz, hkv * nk)
+    # rows (position, head) of a tile; dead rows are the zero padding
+    a = torch.nn.functional.pad(dq.float(), (0, 0, 0, 0, 0, nq * bq - s))
+    a = a.reshape(bsz, nq, bq, hkv, rep, hd).permute(0, 3, 1, 2, 4, 5)
+    qp = _blocked_sumsq(a.reshape(bsz * hkv * nq, bq * rep * hd))
+    qp = qp.reshape(bsz, hkv * nq)
+    skv = torch.zeros(bsz, dtype=torch.float32, device=dq.device)
+    for t in range(kv.shape[1]):
+        skv = skv + kv[:, t]
+    sq = torch.zeros(bsz, dtype=torch.float32, device=dq.device)
+    for t in range(qp.shape[1]):
+        sq = sq + qp[:, t]
+    return skv + sq
+
+
+def flash_attention_bwd_kernel_ref(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor,
+                                   window: int = 0, with_scores: bool = False,
+                                   q_chunk: int = 512):
+    """The flash-attention backward kernel's function in plain PyTorch
+    (``src/repro/kernels/flash_attention_bwd.py::flash_attention_bwd``):
+    D = rowsum(dO∘O) in f32, p = exp(where(mask, (q·scale)·kᵀ, _NEG) − lse)
+    ·mask with q times the scale in f32 before the dot, dV = PᵀdO,
+    dS = P∘(dO·Vᵀ − D), dQ = scale·dS·K, dK = scale·dSᵀ·Q, dK and dV summed
+    over the rep query heads of each KV head.  Returns (dq, dk, dv) in the
+    operands' dtypes and, with ``with_scores``, the (B,) f32 score of the
+    f32 gradients before the cast (``_attn_score_blocked``).  Query rows
+    are taken ``q_chunk`` at a time."""
+    bsz, s, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = hd ** -0.5
+    qf = q.reshape(bsz, s, hkv, rep, hd).float()
+    dof = do.reshape(bsz, s, hkv, rep, hd).float()
+    dvec = torch.sum(dof * o.reshape(bsz, s, hkv, rep, hd).float(), dim=-1)
+    lse_g = lse.reshape(bsz, hkv, rep, s)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s, device=q.device)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for lo in range(0, s, q_chunk):
+        hi = min(lo + q_chunk, s)
+        qc, doc = qf[:, lo:hi], dof[:, lo:hi]
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qc * scale, kf)
+        mask = _causal_window(pos[lo:hi], pos, window)
+        logits = torch.where(mask, logits, _NEG)
+        p = torch.exp(logits - lse_g[..., lo:hi, None]) * mask
+        dv = dv + torch.einsum("bgrqk,bqgrd->bkgd", p, doc)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", doc, vf)
+        ds = p * (dp - dvec[:, lo:hi].permute(0, 2, 3, 1)[..., None])
+        dq[:, lo:hi] = scale * torch.einsum("bgrqk,bkgd->bqgrd", ds, kf)
+        dk = dk + scale * torch.einsum("bgrqk,bqgrd->bkgd", ds, qc)
+    dq = dq.reshape(bsz, s, h, hd)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if with_scores:
+        return grads + (_attn_score_blocked(dq, dk, dv),)
+    return grads
+
+
+def attn_score_sweep_kernel_ref(dq: torch.Tensor, dk: torch.Tensor,
+                                dv: torch.Tensor) -> torch.Tensor:
+    """The score-sweep kernel's function in plain PyTorch
+    (``flash_attention_bwd.py::attn_score_sweep``): the (B,) f32
+    ||dQ||² + ||dK||² + ||dV||² of materialized gradients, reduced as the
+    fused score is, so for f32 gradients the two are bitwise equal."""
+    return _attn_score_blocked(dq, dk, dv)
 
 
 # -------------------------------------------------------- decode attention

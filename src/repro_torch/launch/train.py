@@ -12,7 +12,10 @@ Runs the paper's experiment (mlp_svhn) or a dense GQA transformer LM
 It prints the reference launcher's per-step log line
 (``src/repro/launch/train.py``) and a closing line with the median step
 time.  Flags of the reference launcher that this port does not carry yet
-are refused by name.
+are refused by name.  As in the reference, the attention path of an LM
+(``attn_impl``, ``attn_scores``) is no flag: ``build`` and ``run`` take
+it as keyword arguments, e.g. ``run(args, attn_impl="flash",
+attn_scores="fused")``.
 """
 from __future__ import annotations
 
@@ -116,8 +119,15 @@ def _generator(device: torch.device):
     return lambda seed: torch.Generator(device=device).manual_seed(seed)
 
 
-def build_mlp(args: argparse.Namespace, cfg=None):
-    """(params, train data, per-example loss, scorer) of the MLP."""
+def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
+              attn_scores=None):
+    """(params, train data, per-example loss, scorer) of the MLP, which
+    has no attention: ``attn_impl``/``attn_scores`` must keep their
+    defaults."""
+    if attn_impl != "ref" or attn_scores is not None:
+        raise ValueError(f"mlp_svhn has no attention; attn_impl="
+                         f"{attn_impl!r}, attn_scores={attn_scores!r} "
+                         f"apply to the LM archs")
     device = torch.device(args.device)
     gen = _generator(device)
     cfg = cfg or (mlp_svhn.smoke() if args.smoke else mlp_svhn.CONFIG)
@@ -128,9 +138,12 @@ def build_mlp(args: argparse.Namespace, cfg=None):
             make_mlp_scorer(cfg, args.strategy))
 
 
-def build_lm(args: argparse.Namespace, cfg=None):
+def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
+             attn_scores=None):
     """(params, train data, per-example loss, scorer) of a transformer LM
-    (``src/repro/launch/train.py::build_lm`` on one device)."""
+    (``src/repro/launch/train.py::build_lm`` on one device).  The master's
+    loss runs the ``attn_impl`` attention path and the scorer runs it with
+    ``attn_scores``; the master never sees a score tap."""
     device = torch.device(args.device)
     gen = _generator(device)
     cfg = cfg or (configs.get_smoke_config(args.arch) if args.smoke
@@ -138,17 +151,23 @@ def build_lm(args: argparse.Namespace, cfg=None):
     train = make_token_dataset(gen(args.seed), n=args.examples,
                                seq=args.seq + 1, vocab=cfg.vocab_size)
     params = transformer.init_transformer(gen(args.seed + 1), cfg, device)
-    pel = lambda p, b: transformer.per_example_loss(p, cfg, b)[0]
-    return params, train, pel, make_lm_scorer(cfg, args.strategy)
+    pel = lambda p, b: transformer.per_example_loss(
+        p, cfg, b, attn_impl=attn_impl)[0]
+    return params, train, pel, make_lm_scorer(
+        cfg, args.strategy, attn_impl=attn_impl, attn_scores=attn_scores)
 
 
-def build(args: argparse.Namespace, cfg=None):
+def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
+          attn_scores=None):
     """(state, train_step, data) for ``args``: model, data and step.
-    ``cfg`` overrides the arch's config (e.g. a cut depth)."""
+    ``cfg`` overrides the arch's config (e.g. a cut depth); ``attn_impl``
+    ("ref" or "flash") and ``attn_scores`` (None, "fused" or "separate")
+    pick an LM's attention path (``build_lm``)."""
     use_full_f32()
     device = torch.device(args.device)
     builder = build_mlp if args.arch == "mlp_svhn" else build_lm
-    params, train, pel, scorer = builder(args, cfg)
+    params, train, pel, scorer = builder(args, cfg, attn_impl=attn_impl,
+                                         attn_scores=attn_scores)
     opt = sgd(args.lr)
     tcfg = ISSGDConfig(
         batch_size=args.batch, score_batch_size=args.score_batch,
@@ -160,10 +179,12 @@ def build(args: argparse.Namespace, cfg=None):
     return state, step, train.arrays
 
 
-def run(args: argparse.Namespace, cfg=None) -> TrainResult:
-    """Build from ``args`` (and ``cfg``, see ``build``) and train, logging
-    every ``--log-every`` steps."""
-    state, step, data = build(args, cfg)
+def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
+        attn_scores=None) -> TrainResult:
+    """Build from ``args`` (and ``cfg``, ``attn_impl``, ``attn_scores``, see
+    ``build``) and train, logging every ``--log-every`` steps."""
+    state, step, data = build(args, cfg, attn_impl=attn_impl,
+                              attn_scores=attn_scores)
     on_cuda = torch.device(args.device).type == "cuda"
     marks = []           # (start, end) CUDA events or host clock pairs
     history = []

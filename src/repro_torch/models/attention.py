@@ -6,9 +6,10 @@ sequence never exist at once; logits and softmax are f32, masked entries
 take ``_NEG``, and the output is cast back to q's dtype.  The GQA grouping
 reshapes q to (B, S, Hkv, rep, hd) against (B, S, Hkv, hd) keys and
 values.  ``impl="pallas"`` is the forward-only flash-attention kernel of
-``kernels/ops.py`` (the serving-prefill path; the name is the reference's).
-The trainable flash path (``impl="flash"``, the fused score taps) and MLA
-come with later slices of the port.
+``kernels/ops.py`` (the serving-prefill path; the name is the reference's);
+``impl="flash"`` is the same kernel made trainable through the
+FlashAttention-2 backward kernel, with the optional score tap
+(``attn_scores``).  MLA comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -71,6 +72,22 @@ def _chunked_attention(q, k, v, q_pos, k_pos, window: int,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
+IMPLS = ("ref", "pallas", "flash")
+
+
+def check_attn_scores(impl: str, attn_scores: Optional[str]) -> None:
+    """The reference's two refusals of a score tap."""
+    if attn_scores is None:
+        return
+    if attn_scores not in ("fused", "separate"):
+        raise ValueError(f"attn_scores must be 'fused', 'separate' or "
+                         f"None, got {attn_scores!r}")
+    if impl != "flash":
+        raise ValueError(
+            f"attn_scores={attn_scores!r} needs the trainable flash "
+            f"kernel (impl='flash'), got impl={impl!r}")
+
+
 def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor, tape: Optional[Tape] = None,
          prefix: str = "attn", q_chunk: int = 512,
@@ -79,26 +96,31 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """GQA self-attention. x: (B,S,D).
 
     impl="pallas" runs the flash-attention forward kernel (no autograd:
-    the serving-prefill path), "ref" the chunked plain path.  With a
-    ``collector`` dict the roped K and V (B,S,Hkv,hd) are recorded under
-    ``{prefix}.k`` and ``{prefix}.v`` for the decode cache."""
-    if impl not in ("ref", "pallas"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} needs the trainable flash-attention "
-            f"kernels (backward and score sweep), which a later slice of "
-            f"the PyTorch port carries; this slice runs impl='ref' and "
-            f"impl='pallas'")
-    if attn_scores is not None:
-        raise NotImplementedError(
-            "attn_scores (the fused flash-backward score tap) comes with the "
-            "trainable flash-attention slice of the PyTorch port")
+    the serving-prefill path), "flash" the same kernel made trainable
+    through the FlashAttention-2 backward kernel, "ref" the chunked plain
+    path.  With a ``collector`` dict the roped K and V (B,S,Hkv,hd) are
+    recorded under ``{prefix}.k`` and ``{prefix}.v`` for the decode cache.
+
+    ``attn_scores`` (impl="flash" only) swaps the wq/wk/wv ghost taps for
+    ONE (B,) score tap ``{prefix}.qkv_scores`` whose gradient is the
+    per-example ||dQ||²+||dK||²+||dV||² of the post-rope attention
+    operands: "fused" from the backward kernel's epilogue, "separate" from
+    the score sweep over the materialized gradients (the bitwise twin).
+    The wo tap is unaffected."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl must be one of {IMPLS}, got "
+                         f"{impl!r}")
+    check_attn_scores(impl, attn_scores)
     bsz, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     rep = h // hkv
-    q = tapped_linear(x, params["wq"], f"{prefix}.wq", tape)
-    k = tapped_linear(x, params["wk"], f"{prefix}.wk", tape)
-    v = tapped_linear(x, params["wv"], f"{prefix}.wv", tape)
+    # with a score tap the attention-interface score replaces the wq/wk/wv
+    # ghost Gram terms: those taps are suppressed
+    qkv_tape = None if attn_scores is not None else tape
+    q = tapped_linear(x, params["wq"], f"{prefix}.wq", qkv_tape)
+    k = tapped_linear(x, params["wk"], f"{prefix}.wk", qkv_tape)
+    v = tapped_linear(x, params["wv"], f"{prefix}.wv", qkv_tape)
     q = rope(q.reshape(bsz, s, h, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(bsz, s, hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(bsz, s, hkv, hd)
@@ -107,6 +129,21 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         collector[f"{prefix}.v"] = v
     if impl == "pallas":
         out = ops.flash_attention(q, k, v, window=cfg.sliding_window)
+    elif impl == "flash":
+        win = cfg.sliding_window
+        if attn_scores is None:
+            out = ops.make_flash_attention_trainable(window=win)(q, k, v)
+        else:
+            tap = (tape.score_tap(f"{prefix}.qkv_scores", bsz, x.device)
+                   if tape is not None else
+                   torch.zeros(bsz, dtype=torch.float32, device=x.device))
+            if attn_scores == "fused":
+                fa = ops.make_flash_attention_trainable(window=win,
+                                                        with_scores=True)
+                out = fa(q, k, v, tap)
+            else:
+                q, k, v = ops.make_qkv_score_probe()(q, k, v, tap)
+                out = ops.make_flash_attention_trainable(window=win)(q, k, v)
     else:
         qg = q.reshape(bsz, s, hkv, rep, hd)
         out = _chunked_attention(qg, k, v, positions, positions,

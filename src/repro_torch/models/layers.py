@@ -39,8 +39,8 @@ def params_from_jax(np_params: dict, device="cpu") -> Params:
 
 @dataclasses.dataclass
 class Tape:
-    """Mutable container threaded through one forward for ghost scoring
-    (linear taps only)."""
+    """Mutable container threaded through one forward for ghost scoring:
+    linear taps and score taps."""
     taps: Optional[dict] = None         # name -> tensor to ADD at the output
     records: Optional[dict] = None      # name -> linear INPUT (if not None)
 
@@ -51,6 +51,21 @@ class Tape:
         if self.taps is not None and name in self.taps:
             y = y + self.taps[name].to(y.dtype)
         return y
+
+    def score_tap(self, name: str, batch: int,
+                  device: torch.device) -> torch.Tensor:
+        """A (B,) f32 score tap: the input of an op whose backward returns
+        a finished per-example score as the tap's gradient (the fused
+        flash-attention backward, ``kernels/ops.py``).  The record is a
+        (B, 0) placeholder so the scorer's walk sees the name; it takes
+        the tap's gradient as the contribution (``.qkv_scores`` names).
+        Zeros when the name has no tap."""
+        if self.records is not None:
+            self.records[name] = torch.zeros(batch, 0, dtype=torch.float32,
+                                             device=device)
+        if self.taps is not None and name in self.taps:
+            return self.taps[name].float()
+        return torch.zeros(batch, dtype=torch.float32, device=device)
 
 
 def tapped_linear(x: torch.Tensor, w: torch.Tensor, name: str,

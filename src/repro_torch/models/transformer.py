@@ -89,11 +89,13 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig,
 def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, tape: Optional[Tape],
                  prefix: str, collector: Optional[dict] = None,
-                 attn_impl: str = "ref") -> torch.Tensor:
+                 attn_impl: str = "ref",
+                 attn_scores: Optional[str] = None) -> torch.Tensor:
     hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
     h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
                           prefix=f"{prefix}.attn", q_chunk=cfg.attn_chunk,
-                          collector=collector, impl=attn_impl)
+                          collector=collector, impl=attn_impl,
+                          attn_scores=attn_scores)
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
     return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp")
 
@@ -107,6 +109,7 @@ def _period(tree: Params, p: int) -> Params:
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             taps: Optional[dict] = None, collect: bool = False,
             collect_cache: bool = False, attn_impl: str = "ref",
+            attn_scores: Optional[str] = None,
             return_hidden: bool = False) -> tuple[torch.Tensor, Aux]:
     """tokens (B, S) → logits (B, S, vocab) (or the final hidden states
     with ``return_hidden``) and Aux.
@@ -117,7 +120,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     and the unembed record as (B, S, d_model).  With ``collect_cache``
     Aux.cache holds the roped K and V of every attention layer, stacked to
     (P, B, S, Hkv, hd): the prefill of the serving engine.  ``attn_impl``
-    is "ref" or "pallas" (the flash-attention forward kernel)."""
+    is "ref", "pallas" (the flash-attention forward kernel) or "flash"
+    (the trainable flash kernels); ``attn_scores`` ("fused"/"separate",
+    with "flash") puts a (P, B) score tap ``l{i}.attn.qkv_scores`` in
+    place of the wq/wk/wv taps (``models/attention.attn``)."""
     check_supported(cfg)
     specs = cfg.layer_specs()
     h = embed(params["embed"], tokens, cfg)
@@ -134,7 +140,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         cache = {} if collect_cache else None
         for i in range(len(specs)):
             h = _apply_layer(pp[f"l{i}"], h, cfg, positions, tape, f"l{i}",
-                             collector=cache, attn_impl=attn_impl)
+                             collector=cache, attn_impl=attn_impl,
+                             attn_scores=attn_scores)
         per_period.append(tape.records)
         per_cache.append(cache)
 
@@ -157,19 +164,30 @@ def _stack_periods(per_period: list) -> dict:
             for k in per_period[0]}
 
 
-def tap_structure(cfg: ModelConfig, batch: int, seq: int) -> dict:
+def tap_structure(cfg: ModelConfig, batch: int, seq: int,
+                  attn_impl: str = "ref",
+                  attn_scores: Optional[str] = None) -> dict:
     """name → shape of every tap, in the forward's record order: layer
     taps with the leading period axis, then the (B, S, vocab) unembed.
-    Computed from the config's arithmetic (the taps are f32)."""
+    Computed from the config's arithmetic (the taps are f32).
+    ``attn_impl``/``attn_scores`` must match the forward the taps feed:
+    an active score tap replaces the wq/wk/wv taps of each attention layer
+    with one (P, B) ``qkv_scores`` tap."""
     check_supported(cfg)
+    attn_mod.check_attn_scores(attn_impl, attn_scores)
     hd = cfg.resolved_head_dim
     lead = (cfg.num_periods, batch, seq)
     out = {}
     for i in range(len(cfg.layer_specs())):
+        if attn_scores is not None:
+            out[f"l{i}.attn.qkv_scores"] = (cfg.num_periods, batch)
+        else:
+            out.update({
+                f"l{i}.attn.wq": lead + (cfg.num_heads * hd,),
+                f"l{i}.attn.wk": lead + (cfg.num_kv_heads * hd,),
+                f"l{i}.attn.wv": lead + (cfg.num_kv_heads * hd,),
+            })
         out.update({
-            f"l{i}.attn.wq": lead + (cfg.num_heads * hd,),
-            f"l{i}.attn.wk": lead + (cfg.num_kv_heads * hd,),
-            f"l{i}.attn.wv": lead + (cfg.num_kv_heads * hd,),
             f"l{i}.attn.wo": lead + (cfg.d_model,),
             f"l{i}.mlp.w_in": lead + (cfg.d_ff,),
             f"l{i}.mlp.w_gate": lead + (cfg.d_ff,),
@@ -213,21 +231,26 @@ def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
 
 
 def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
-                     taps: Optional[dict] = None, collect: bool = False
+                     taps: Optional[dict] = None, collect: bool = False,
+                     attn_impl: str = "ref",
+                     attn_scores: Optional[str] = None
                      ) -> tuple[torch.Tensor, Aux]:
-    """Mean next-token CE per example. batch: {tokens (B, S+1), [mask]}."""
+    """Mean next-token CE per example. batch: {tokens (B, S+1), [mask]}.
+    ``attn_impl``/``attn_scores`` go to ``forward``."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:].long()
     mask = batch.get("mask")
     if cfg.loss_chunk > 0 and taps is None:
         h, aux = forward(params, cfg, tokens[:, :-1], collect=collect,
+                         attn_impl=attn_impl, attn_scores=attn_scores,
                          return_hidden=True)
         mean_nll, _ = lm_head_metrics(
             params, cfg, h, targets,
             None if mask is None else mask[:, 1:].float())
         return mean_nll, aux
     logits, aux = forward(params, cfg, tokens[:, :-1], taps=taps,
-                          collect=collect)
+                          collect=collect, attn_impl=attn_impl,
+                          attn_scores=attn_scores)
     lp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     if mask is not None:

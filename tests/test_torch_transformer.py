@@ -98,8 +98,8 @@ def test_unported_model_code_raises():
             ttf.init_transformer(torch.Generator().manual_seed(0), cfg,
                                  "cpu")
     _, cfg = _small_cfg()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tattn.attn(None, torch.zeros(1, 2, 32), cfg, None, impl="flash")
+    with pytest.raises(ValueError, match="impl must be one of"):
+        tattn.attn(None, torch.zeros(1, 2, 32), cfg, None, impl="splash")
 
 
 # ------------------------------------------------------------------ layers
