@@ -91,6 +91,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 bound, the plain version and (backward) autograd through
                 SDPA; the fused, separate and exact scorers; a profiler
                 window over steps of the fused path (idle share).
+ 19. scan     — the selective-scan kernel against its plain version on the
+                card: falcon-mamba-7b's scoring shape (8, 2048, 8192, 16) in
+                bf16 with B and C column slices of the x_proj output and a
+                falcon-init Δ, ragged S and d_inner in bf16 and f32, f32
+                smoke shapes, d_state 8 and 4; f32 within rtol 1e-5 and an
+                atol of 1e-5 of the largest output, bf16 within one bf16 ulp
+                of the plain version's f32 result (plus that atol); two
+                launches bitwise equal; refusals (dtypes, shapes, layouts,
+                CPU/CUDA mix, autograd).
+ 20. mamba main — falcon-mamba-7b at full width, depth cut to 10, bf16,
+                through launch/train.py's run: (a) logit_grad scorer with
+                ssm_mode="pallas" under every plain version forbidden, 10
+                scan launches a scoring pass, the master on the ref scan;
+                (b) the ghost scorer with ssm_mode="ref", 4 ghost_norm
+                launches a step (in_proj, x_proj, out_proj, unembed), no
+                scan launch; (c) the build's logit_grad/pallas scorer alone
+                at full depth (64 layers, 7.27 B params): one pass over 8 ×
+                2048 tokens, 64 scan launches.  Step ms, pass ms, peak memory.
+ 21. mamba parity — falcon-mamba-7b at full width, 1 layer, f32: a
+                logit_grad/pallas scoring pass, a ghost/ref scoring pass and
+                a master step, card vs CPU; relative error ≤ 1e-4.
+ 22. mamba times — the scan kernel at the main shape, L2 cold, CUDA events,
+                beside its plain version and its bound (exponentials over the
+                SFU rate vs bytes); a profiler window over steps of 20a.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -134,6 +158,7 @@ SOURCES = {
     "flash_attention_bwd":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "attn_score_sweep": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
 }
 REPLACES = {
     "per_example_sqnorm_multi": "src/repro/kernels/per_example_sqnorm.py:128",
@@ -143,6 +168,7 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:59",
     "flash_attention_bwd": "src/repro/kernels/flash_attention_bwd.py:166",
     "attn_score_sweep": "src/repro/kernels/flash_attention_bwd.py:314",
+    "selective_scan": "src/repro/kernels/selective_scan.py:56",
 }
 
 # --- the LM path: glm4-9b at full width, depth cut to LM_LAYERS
@@ -211,6 +237,32 @@ SCORE_RTOL = 1e-4
 # bf16: the sweep squares the cast gradients, each within 2^-8 of the f32
 # value the fused epilogue squares, so the sums differ by < 2^-7 of the sum
 SWEEP_BF16_RTOL = 2 ** -7
+
+# --- the mamba path: falcon-mamba-7b at full width (d_model 4096, d_inner
+# 8192, d_state 16, dt_rank 256, vocab 65024, bf16), depth cut to
+# MAMBA_LAYERS for the trainer: the deepest whose ghost leg stays under 70
+# GiB, as autograd keeps each layer's ref-scan graph, ~5.9 GiB a layer at
+# these sizes (tools/torch_mamba_depth_probe.py; 12 layers do not fit in
+# 80 GB); seq 256 keeps every ghost tap on the Gram path (x_proj:
+# S·(8192 + 288) ≤ 8192·288 needs S ≤ 278)
+MAMBA_LAYERS = 10
+MAMBA_S, MAMBA_B, MAMBA_SB = 256, 8, 16
+MAMBA_STEPS, MAMBA_GHOST_STEPS, MAMBA_WARMUP = 6, 4, 1
+MAMBA_ARGV = ["--arch", "falcon-mamba-7b", "--mode", "relaxed", "--seq",
+              str(MAMBA_S), "--batch", str(MAMBA_B), "--score-batch",
+              str(MAMBA_SB), "--examples", "2048", "--lr", "0.01",
+              "--refresh-every", "8", "--device", "cuda"]
+# its ghost_norm calls a step: one per tap name over all P·B rows
+MAMBA_GHOST = ("in_proj", "x_proj", "out_proj", "unembed")
+# the full-depth scoring pass and the kernel's main shape
+SCAN_B, SCAN_S = 8, 2048
+# scan kernel vs plain: the same f32 recurrence with FMA contraction and
+# another exp; y sums signed terms over the states, so entries near zero
+# are held to an atol of SCAN_RTOL of the largest output
+SCAN_RTOL = 1e-5
+# H100 SXM: 16 SFU results a clock on each of 132 SMs at the 1.98 GHz boost
+# clock (exp is one MUFU op)
+SFU_PER_S = 16 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -630,13 +682,15 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import per_example_sqnorm as pes
+    from repro_torch.kernels import selective_scan as ss
     return {"per_example_sqnorm_multi": pes.per_example_sqnorm_multi,
             "per_example_sqnorm": pes.per_example_sqnorm,
             "ghost_norm": gn.ghost_norm,
             "flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention,
             "flash_attention_bwd": fab.flash_attention_bwd,
-            "attn_score_sweep": fab.attn_score_sweep}
+            "attn_score_sweep": fab.attn_score_sweep,
+            "selective_scan": ss.selective_scan}
 
 
 def reset_counts() -> None:
@@ -654,7 +708,8 @@ PLAIN_NAMES = ("per_example_sqnorm_ref", "per_example_sqnorm_multi_ref",
                "flash_attention_ref", "flash_attention_kernel_ref",
                "decode_attention_ref", "decode_attention_kernel_ref",
                "flash_attention_bwd_kernel_ref",
-               "attn_score_sweep_kernel_ref", "attn_grad_sqnorm_ref")
+               "attn_score_sweep_kernel_ref", "attn_grad_sqnorm_ref",
+               "selective_scan_kernel_ref")
 
 
 def run_forbidding_plain(ref, fn):
@@ -1174,7 +1229,7 @@ def phase_flash_main(train_mod, ref):
                     "attn_score_sweep": LM_LAYERS if variant == "separate"
                     else 0, "ghost_norm": len(FLASH_GHOST),
                     "per_example_sqnorm_multi": 0, "per_example_sqnorm": 0,
-                    "decode_attention": 0}
+                    "decode_attention": 0, "selective_scan": 0}
         want = {k: n * steps for k, n in per_step.items()}
         want_scored = LM_LAYERS * steps if variant == "fused" else 0
         if launches != want or scored != want_scored:
@@ -1679,6 +1734,348 @@ def phase_serve_times(fa, da, ref, rounds=3):
     return rows
 
 
+# ------------------------------------------------------------ the mamba path
+def mamba_config(layers=None):
+    """falcon-mamba-7b at its published widths, depth cut to ``layers``
+    (MAMBA_LAYERS by default)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("falcon-mamba-7b"),
+                               num_layers=layers or MAMBA_LAYERS)
+
+
+def scan_inputs(b, s, di, ds, dtype, seed, falcon=False):
+    """The scan's operands on the card: u ~ N(0,1); B and C column slices
+    of a (B, S, 256 + 2·d_state) projection, as the model hands them over;
+    D ~ N(0,1).  With ``falcon`` Δ and A as falcon-mamba's init gives
+    them (Δ log-uniform in [1e-3, 1e-1], A = −[1 .. d_state], so
+    exp(Δ·A) reaches 0.999 and the state sums ~1000 steps); else the
+    reference's kernel test's, Δ = softplus(N(0,1)), A = −exp(N(0,1)/2)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    u = rn(b, s, di)
+    if falcon:
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        delta = torch.exp(lo + (hi - lo) * torch.rand(
+            b, s, di, generator=g, device="cuda"))
+        a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device="cuda")[None].repeat(di, 1)
+    else:
+        delta = torch.nn.functional.softplus(rn(b, s, di))
+        a = -torch.exp(0.5 * rn(di, ds))
+    proj = rn(b, s, 256 + 2 * ds).to(dtype)
+    return (u.to(dtype), delta.to(dtype), a.contiguous(),
+            proj[..., 256:256 + ds], proj[..., 256 + ds:], rn(di))
+
+
+def scan_check(y, plain, dtype) -> tuple[bool, float]:
+    """(within the stated tolerance, largest absolute difference) of the
+    kernel's y against the plain version's f32 result: f32 within rtol
+    SCAN_RTOL, bf16 within one bf16 ulp of the f32 result rounded; both
+    with an atol of SCAN_RTOL of the largest |plain|."""
+    atol = SCAN_RTOL * plain.abs().max().item()
+    if dtype == torch.float32:
+        err = (y - plain).abs()
+        ok = bool((err <= SCAN_RTOL * plain.abs() + atol).all())
+    else:
+        rounded = plain.to(torch.bfloat16).float()
+        ulp = torch.exp2(torch.floor(torch.log2(rounded.abs())) - 7)
+        err = (y.float() - rounded).abs()
+        ok = bool((err <= ulp + atol).all())
+    return ok, (y.float() - plain).abs().max().item()
+
+
+def phase_scan_kernels(ss, ops, ref):
+    """The selective-scan kernel against its plain version on the card."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (tag, B, S, d_inner, d_state, dtype, falcon init)
+    cases = [
+        ("falcon-mamba-7b scoring", SCAN_B, SCAN_S, 8192, 16, bf16, True),
+        ("falcon-mamba-7b trainer", MAMBA_SB, MAMBA_S, 8192, 16, bf16, True),
+        ("falcon-mamba-7b f32", 2, 512, 8192, 16, f32, True),
+        ("ragged S and d_inner", 2, 100, 300, 16, bf16, False),
+        ("ragged S and d_inner", 3, 37, 130, 16, f32, False),
+        ("falcon-mamba-7b-smoke", 4, 64, 512, 8, f32, False),
+        ("reference test shape", 2, 100, 30, 8, f32, False),
+        ("d_state 4", 2, 16, 32, 4, f32, False),
+    ]
+    max_abs = 0.0
+    for ci, (tag, b, s, di, ds, dt, falcon) in enumerate(cases):
+        args = scan_inputs(b, s, di, ds, dt, seed=1900 + ci, falcon=falcon)
+        with torch.no_grad():
+            y = ss.selective_scan(*args)
+            y2 = ops.selective_scan(*args)
+        torch.cuda.synchronize()
+        name = (f"selective_scan {tag} {str(dt)[6:]} (B, S, d_inner, "
+                f"d_state)={(b, s, di, ds)}")
+        if not torch.equal(y, y2):
+            fail(f"{name}: two launches differ")
+        plain = ref.selective_scan_kernel_ref(*[t.float() for t in args])
+        ok, err = scan_check(y, plain, dt)
+        if not ok:
+            fail(f"{name}: kernel vs plain max abs err {err:.3e}")
+        if ci == 0:
+            max_abs = err
+        print(f"scan: {name} ok: max abs err {err:.3e} (largest |y| "
+              f"{plain.abs().max().item():.3e}), two launches bitwise equal",
+              flush=True)
+        del args, y, y2, plain
+    # the wrapper refuses what the kernel does not take, counting nothing
+    u, dl, a, bm, cm, d = scan_inputs(2, 8, 32, 4, f32, seed=1990)
+    bad = {"float64 u": (u.double(), dl, a, bm, cm, d),
+           "float16 u and delta": (u.half(), dl.half(), a, bm, cm, d),
+           "bf16 u with f32 delta": (u.bfloat16(), dl, a, bm, cm, d),
+           "bf16 A": (u, dl, a.bfloat16(), bm, cm, d),
+           "delta shape": (u, dl[:, :7], a, bm, cm, d),
+           "A rows": (u, dl, a[:31], bm, cm, d),
+           "B shape": (u, dl, a, bm[:, :7], cm, d),
+           "d_state 3": (u, dl, a[:, :3].contiguous(), bm[..., :3],
+                         cm[..., :3], d),
+           "non-contiguous u": (torch.randn(2, 8, 64, device="cuda")[
+               ..., ::2], dl, a, bm, cm, d),
+           "B with strided states": (u, dl, a, torch.randn(
+               2, 8, 8, device="cuda")[..., ::2], cm, d),
+           "B with rows of two strides": (u, dl, a, bm.transpose(
+               0, 1).contiguous().transpose(0, 1), cm, d),
+           "CPU C": (u, dl, a, bm, cm.cpu(), d)}
+    before = read_counts()
+    for what, args in bad.items():
+        expect_refusal(f"selective_scan: {what}",
+                       lambda: ss.selective_scan(*args))
+    expect_refusal("ops.selective_scan: CPU/CUDA mix",
+                   lambda: ops.selective_scan(u, dl, a, bm, cm.cpu(), d))
+    for fn in (ss.selective_scan, ops.selective_scan):
+        try:
+            fn(u.clone().requires_grad_(True), dl, a, bm, cm, d)
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+        else:
+            fail("selective_scan ran under autograd")
+    if read_counts() != before:
+        fail("a refused selective_scan call counted a launch")
+    print(f"scan: wrappers refuse {', '.join(bad)}, a CPU/CUDA mix and "
+          f"autograd", flush=True)
+    return max_abs
+
+
+def phase_mamba_main(train_mod, ref):
+    """falcon-mamba-7b at full width (depth cut) through the train entry
+    point: (a) the logit_grad scorer on the scan kernel, (b) the ghost
+    scorer on the ref scan, then (c) the build's scorer alone at full
+    depth."""
+    keys = ("loss", "grad_norm", "trace_ideal", "trace_stale", "trace_unif")
+    out = {}
+    for leg, strategy, mode, steps in (
+            ("logit_grad", "logit_grad", "pallas", MAMBA_STEPS),
+            ("ghost", "ghost", "ref", MAMBA_GHOST_STEPS)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        args = train_mod.parse_args(MAMBA_ARGV + [
+            "--strategy", strategy, "--steps", str(steps), "--log-every",
+            "1"])
+        result = run_forbidding_plain(ref, lambda: train_mod.run(
+            args, mamba_config(), ssm_mode=mode))
+        launches = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {k: 0 for k in launches}
+        if mode == "pallas":
+            per_step["selective_scan"] = MAMBA_LAYERS
+        else:
+            per_step["ghost_norm"] = len(MAMBA_GHOST)
+        want = {k: n * steps for k, n in per_step.items()}
+        if launches != want:
+            fail(f"mamba {leg}: launches {launches} in {steps} steps; "
+                 f"expected {want}")
+        for rec in result.history:
+            if not all(math.isfinite(rec[k]) for k in keys):
+                fail(f"non-finite mamba {leg} metrics at step "
+                     f"{rec['step']}: {rec}")
+        step_ms = statistics.median(result.step_ms[MAMBA_WARMUP:])
+        hist, all_ms = result.history, result.step_ms
+        del result
+        torch.cuda.empty_cache()
+        out[leg] = {"strategy": strategy, "ssm_mode": mode, "steps": steps,
+                    "launches": launches, "step_ms_median": step_ms,
+                    "step_ms": all_ms, "peak_mem_gib": peak_gib,
+                    "losses": [r["loss"] for r in hist]}
+        print(f"mamba main ({leg}, ssm_mode={mode!r}): falcon-mamba-7b × "
+              f"{MAMBA_LAYERS} layers, seq {MAMBA_S}, batch {MAMBA_B}, score "
+              f"batch {MAMBA_SB}, {steps} steps, launches {launches}, loss "
+              f"{hist[0]['loss']:.4f} → {hist[-1]['loss']:.4f}, median step "
+              f"{step_ms:.3f} ms (CUDA events, {MAMBA_WARMUP} warm-up), peak "
+              f"memory {peak_gib:.2f} GiB", flush=True)
+    out["full_depth"] = phase_mamba_full_depth(train_mod, ref)
+    return out
+
+
+def phase_mamba_full_depth(train_mod, ref, rounds=2):
+    """The build's logit_grad/pallas scorer at full width and full depth:
+    one counted pass over SCAN_B × SCAN_S tokens, then ``rounds`` timed."""
+    cfg = mamba_config(layers=64)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train_mod.parse_args(
+        ["--arch", "falcon-mamba-7b", "--strategy", "logit_grad", "--seq",
+         str(SCAN_S), "--examples", str(SCAN_B), "--device", "cuda"])
+    params, train, _, scorer = train_mod.build_lm(args, cfg,
+                                                  ssm_mode="pallas")
+    batch = {"tokens": train.arrays["tokens"]}
+    from repro_torch.optim import tree_leaves
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = run_forbidding_plain(ref, lambda: scorer(params, batch))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want["selective_scan"] = cfg.num_layers
+    if launches != want:
+        fail(f"mamba full depth: launches {launches} in one scoring pass; "
+             f"expected {want}")
+    if tuple(scores.shape) != (SCAN_B,) or not torch.isfinite(scores).all() \
+            or (scores < 0).any():
+        fail(f"mamba full depth: scores {scores.tolist()}")
+    pass_ms = [time_events(scorer, [(params, batch)], 1)
+               for _ in range(rounds)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out = {"layers": cfg.num_layers, "params": n_params, "tokens":
+           [SCAN_B, SCAN_S], "launches": launches, "first_pass_s": first_s,
+           "pass_ms": pass_ms, "peak_mem_gib": peak_gib,
+           "scores": scores.tolist(), "card_after": card_state()}
+    print(f"mamba full depth: falcon-mamba-7b × {cfg.num_layers} layers "
+          f"({n_params / 1e9:.2f} B params, {cfg.dtype}), logit_grad scorer "
+          f"with "
+          f"ssm_mode='pallas' over {SCAN_B} × {SCAN_S} tokens: launches "
+          f"{launches}; first pass {first_s:.2f} s (host), then "
+          f"{', '.join(f'{m:.1f}' for m in pass_ms)} ms a pass (CUDA "
+          f"events); peak memory {peak_gib:.2f} GiB; clock, power, "
+          f"temperature after: {out['card_after']}", flush=True)
+    del params, train, scorer, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mamba_parity():
+    """falcon-mamba-7b at full width, 1 layer, f32: a logit_grad/pallas
+    scoring pass (the kernel on the card, its plain version on the CPU), a
+    ghost/ref scoring pass and a master step with injected indices, card
+    against CPU."""
+    from repro_torch.core.issgd import (ISSGDConfig, make_master_pass,
+                                        make_scoring_pass)
+    from repro_torch.core.scorer import make_lm_scorer
+    from repro_torch.core.weight_store import init_store
+    from repro_torch.data import make_token_dataset
+    from repro_torch.models.transformer import (init_transformer,
+                                                per_example_loss)
+    from repro_torch.optim import sgd, tree_leaves, tree_map
+
+    cfg = dataclasses.replace(mamba_config(layers=1), dtype="float32")
+    n, sb, b, seq = 64, 4, 2, 64
+    train = make_token_dataset(torch.Generator("cuda").manual_seed(71), n=n,
+                               seq=seq + 1, vocab=cfg.vocab_size)
+    params = init_transformer(torch.Generator("cuda").manual_seed(72), cfg,
+                              "cuda")
+    idx = torch.randint(0, n, (b,), generator=torch.Generator().manual_seed(73))
+    tcfg = ISSGDConfig(batch_size=b, score_batch_size=sb, refresh_every=8)
+    # lr 1e3: dt_bias and a_log are O(1–7) against gradients of O(1e-3), so
+    # at lr 1 the update new − old would carry the f32 rounding of the
+    # params themselves (~1e-4 of the update); at 1e3 it stands far above
+    opt = sgd(1e3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = {k: v.to(dev) for k, v in train.arrays.items()}
+        p = tree_map(lambda t: t.to(dev), params)
+        t0 = time.perf_counter()
+        res = {}
+        for strategy, mode in (("logit_grad", "pallas"), ("ghost", "ref")):
+            scoring = make_scoring_pass(
+                make_lm_scorer(cfg, strategy, ssm_mode=mode), tcfg, n)
+            store, fresh, stale = scoring(p, init_store(n, dev), 0, data)
+            res[f"scores {strategy}/{mode}"] = fresh.cpu()
+        master = make_master_pass(
+            lambda pp, bb: per_example_loss(pp, cfg, bb)[0], opt, tcfg, n)
+        new_p, _, _, m = master(p, (), p, store, 0, None, data, fresh, stale,
+                                sample_indices=idx)
+        deltas = tree_map(lambda a, c: (a - c).cpu(), new_p, p)
+        res.update({"loss": m.loss.cpu(), "grad_norm": m.grad_norm.cpu(),
+                    **{f"update {i}": t for i, t in
+                       enumerate(tree_leaves(deltas))}})
+        out[dev] = res
+        print(f"mamba parity: {dev} passes in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del p, new_p, deltas, data
+    errs = {}
+    for key, want in out["cpu"].items():
+        card = out["cuda"][key]
+        if key.startswith("scores"):   # elementwise: every score positive
+            errs[key] = ((card - want).abs() / want.abs()).max().item()
+        else:
+            errs[key] = rel_err(card, want)
+    worst = max(errs, key=errs.get)
+    print(f"mamba parity: falcon-mamba-7b full width, 1 layer, f32, seq "
+          f"{seq}, card (kernels) vs CPU (plain versions): largest relative "
+          f"error {errs[worst]:.3e} ({worst}); "
+          f"{json.dumps({k: f'{v:.2e}' for k, v in errs.items() if not k.startswith('update')})}",
+          flush=True)
+    if errs[worst] > CARD_VS_CPU_RTOL:
+        fail(f"mamba card vs CPU: {worst} relative error {errs[worst]:.3e} "
+             f"> {CARD_VS_CPU_RTOL}")
+    del params
+    torch.cuda.empty_cache()
+    return errs
+
+
+def scan_bound(b, s, di, ds, elem) -> dict:
+    """u and Δ read and y written once (``elem`` bytes each), B and C read
+    once (their d_state columns), A and D once in f32; the operations are
+    the exponentials, B·S·d_inner·d_state, one SFU result each (the f32
+    arithmetic around them, ~6 flops an element, takes ~0.4 of that at
+    67 TFLOP/s)."""
+    nbytes = 3 * b * s * di * elem + 2 * b * s * ds * elem + (di * ds + di) * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = b * s * di * ds / SFU_PER_S * 1e3
+    return {"bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "exps": b * s * di * ds, "flops_ms": 6.0 * b * s * di * ds
+            / F32_FLOP_PER_S * 1e3}
+
+
+def phase_mamba_times(train_mod, ss, ref, rounds=5):
+    """The scan kernel at the full-depth pass's shape (u, Δ and y 268 MB
+    each in bf16: every call finds them outside the 50 MB L2) against its
+    plain version, CUDA events, in turns; a profiler window over steps of
+    phase 20a."""
+    b, s, di, ds = SCAN_B, SCAN_S, 8192, 16
+    args = [scan_inputs(b, s, di, ds, torch.bfloat16, seed=2200,
+                        falcon=True)]
+    kern = lambda *a: ss.selective_scan(*a)
+    plain = lambda *a: ref.selective_scan_kernel_ref(*a)
+    with torch.no_grad():
+        # plain, kernel, kernel, plain: compare within one call, in turns
+        p1, k1 = time_events(plain, args, 1), time_events(kern, args, rounds)
+        k2, p2 = time_events(kern, args, rounds), time_events(plain, args, 1)
+    row = {"shape": [b, s, di, ds], "dtype": "bfloat16", "ms": min(k1, k2),
+           "plain_ms": min(p1, p2), "library_ms": None,
+           **scan_bound(b, s, di, ds, 2), "ms_runs": [k1, k2],
+           "plain_ms_runs": [p1, p2], "card_after": card_state()}
+    print(f"mamba times: selective_scan (B, S, d_inner, d_state)="
+          f"{(b, s, di, ds)} bf16, falcon-init Δ: kernel {k1:.3f}/{k2:.3f} "
+          f"ms, plain {p1:.3f}/{p2:.3f} ms; bound {row['bound_ms']:.4f} ms "
+          f"by {row['bound_by']} (bytes {row['bytes_ms']:.4f}, exps on the "
+          f"SFU {row['ops_ms']:.4f}, f32 arithmetic {row['flops_ms']:.4f}); "
+          f"clock, power, temperature after: {row['card_after']}",
+          flush=True)
+    del args
+    torch.cuda.empty_cache()
+    prof = phase_profile(train_mod, MAMBA_ARGV + ["--strategy",
+                                                  "logit_grad"],
+                         mamba_config(), steps=3, warm=1,
+                         tag="mamba profile", ssm_mode="pallas")
+    return row, prof
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1692,6 +2089,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import per_example_sqnorm as pes
     from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
 
@@ -1711,6 +2109,9 @@ def main() -> int:
             da._lib().da_max_rep() != da.MAX_REP or \
             fab._lib().fab_max_rep() != fab.MAX_REP:
         fail("the attention wrappers' constants differ from their builds'")
+    if [n for n in range(1, 33) if ss._lib().ss_supports(n)] != \
+            list(ss.STATE_SIZES):
+        fail("the scan wrapper's d_state sizes differ from its build's")
 
     max_err = phase_kernels(pes, ref)
     max_err["ghost_norm"] = phase_ghost_kernels(gn, ref)
@@ -1740,6 +2141,10 @@ def main() -> int:
     flash = phase_flash_main(train_mod, ref)
     flash_errs = phase_flash_parity()
     flash_rows, flash_prof = phase_flash_times(train_mod, fa, fab, ref)
+    max_err["selective_scan"] = phase_scan_kernels(ss, ops, ref)
+    mamba = phase_mamba_main(train_mod, ref)
+    mamba_errs = phase_mamba_parity()
+    scan_row, mamba_prof = phase_mamba_times(train_mod, ss, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -1773,7 +2178,13 @@ def main() -> int:
         "library_note": "torch.autograd.grad through one "
                         "scaled_dot_product_attention(is_causal, enable_gqa) "
                         "call, the backward only, timed only; no single "
-                        "call computes the score sweep",
+                        "call computes the score sweep"}), flush=True)
+    print("mamba times " + json.dumps({
+        "card": card, "arch": "falcon-mamba-7b", "layers": MAMBA_LAYERS,
+        "argv": MAMBA_ARGV, "warmup_steps": MAMBA_WARMUP, **mamba,
+        "kernel_ms": {"selective_scan": scan_row},
+        "card_vs_cpu_rel_err": mamba_errs, "profile": mamba_prof,
+        "library_note": "no single PyTorch call computes the selective scan",
         "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
@@ -1781,7 +2192,8 @@ def main() -> int:
                    "flash_attention": serve["launches"],
                    "decode_attention": serve["launches"],
                    "flash_attention_bwd": flash["fused"]["launches"],
-                   "attn_score_sweep": flash["separate"]["launches"]}
+                   "attn_score_sweep": flash["separate"]["launches"],
+                   "selective_scan": mamba["logit_grad"]["launches"]}
     timing = dict(rows)
     # ghost_norm: the work of one LM step, its 8 calls
     timing["ghost_norm"] = {
@@ -1793,6 +2205,7 @@ def main() -> int:
     timing["decode_attention"] = serve_rows["decode_attention main"]
     timing["flash_attention_bwd"] = flash_rows["flash_attention_bwd"]
     timing["attn_score_sweep"] = flash_rows["attn_score_sweep"]
+    timing["selective_scan"] = scan_row
     timed = {
         "per_example_sqnorm_multi": "one call at the MLP main-path shapes",
         "per_example_sqnorm": "one call at the MLP main-path shapes",
@@ -1807,7 +2220,12 @@ def main() -> int:
                                "flash trainer, 4 of them with scores",
         "attn_score_sweep": "one call at the same shape; 4 a step of the LM "
                             "flash trainer with attn_scores='separate', 0 "
-                            "with 'fused'"}
+                            "with 'fused'",
+        "selective_scan": "one call at the full-depth scoring pass's shape "
+                          "(B=8, S=2048, d_inner 8192, d_state 16, bf16); "
+                          f"{MAMBA_LAYERS} a step of the falcon-mamba trainer "
+                          f"({MAMBA_LAYERS} layers, ssm_mode='pallas'), 64 a "
+                          "full-depth scoring pass"}
     kernels = []
     for name in SOURCES:
         kernels.append({
@@ -1829,7 +2247,11 @@ def main() -> int:
                        "batcher": batcher["launches"][name],
                        "main_lm_flash": flash["fused"]["launches"][name],
                        "lm_flash_separate":
-                           flash["separate"]["launches"][name]},
+                           flash["separate"]["launches"][name],
+                       "main_mamba": mamba["logit_grad"]["launches"][name],
+                       "mamba_ghost": mamba["ghost"]["launches"][name],
+                       "mamba_full_depth":
+                           mamba["full_depth"]["launches"][name]},
         })
     print(card, flush=True)   # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)

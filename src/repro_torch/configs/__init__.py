@@ -2,7 +2,8 @@
 
 ``get_config(name)`` / ``get_smoke_config(name)`` / ``ARCH_NAMES`` follow
 ``src/repro/configs/__init__.py``, aliases included.  The dense GQA/MHA
-SwiGLU archs are ported; the others name the model code they still need.
+SwiGLU archs and the attention-free mamba stack (falcon-mamba-7b) are
+ported; the others name the model code they still need.
 """
 from __future__ import annotations
 
@@ -21,18 +22,18 @@ ARCH_NAMES = (
     "falcon_mamba_7b",
 )
 
-# archs whose model code this port runs: dense attention + SwiGLU MLP
-PORTED = ("deepseek_7b", "glm4_9b", "internlm2_20b")
+# archs whose model code this port runs: dense attention + SwiGLU MLP, and
+# mamba-only stacks
+PORTED = ("deepseek_7b", "glm4_9b", "internlm2_20b", "falcon_mamba_7b")
 
 # what each other arch needs before it can run in the port
 NEEDS = {
     "grok_1_314b": "MoE",
     "minicpm3_4b": "MLA attention",
     "musicgen_medium": "the audio frontend",
-    "jamba_v0_1_52b": "SSM (mamba) and MoE",
+    "jamba_v0_1_52b": "MoE",
     "dbrx_132b": "MoE",
     "llava_next_34b": "the vision frontend",
-    "falcon_mamba_7b": "SSM (mamba)",
 }
 
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}

@@ -173,10 +173,15 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
 
 
 # ----------------------------------------------------------- LM strategies
-def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
+def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
+                   attn_impl: str = "ref",
                    attn_scores: Optional[str] = None) -> Callable:
     """Scorer for transformer LMs (one device): fn(params, batch) → ω̃ (B,).
     ``ghost_rev`` comes with a later slice.
+
+    ``ssm_mode`` is the mamba layers' scan in every strategy: "ref" (the
+    plain oracle) or "pallas" (the selective-scan kernel, forward-only, so
+    only with the forward-only strategies ``loss`` and ``logit_grad``).
 
     ``attn_impl`` selects the attention path of the ghost strategy ("ref"
     chunked plain, "flash" the trainable flash kernels).  ``attn_scores``
@@ -186,9 +191,17 @@ def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
     backward kernel's epilogue, "separate" from the score sweep (its
     bitwise twin for f32).  ω̃ is then no longer the exact full-parameter
     gradient norm; every other layer's term stays exact."""
+    from repro_torch.models.ssm import check_ssm_mode
     from repro_torch.models.transformer import (forward, lm_head_metrics,
                                                 per_example_loss,
                                                 tap_structure)
+    check_ssm_mode(ssm_mode)
+    if ssm_mode == "pallas" and strategy in ("ghost", "full"):
+        raise ValueError(
+            f"strategy {strategy!r} differentiates the model, and the "
+            f"selective-scan kernel (ssm_mode='pallas') has no backward; "
+            f"use ssm_mode='ref', or the forward-only 'loss' or "
+            f"'logit_grad'")
     if attn_scores is not None:
         if attn_scores not in ("fused", "separate"):
             raise ValueError(f"attn_scores must be 'fused', 'separate' or "
@@ -208,7 +221,8 @@ def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
     if strategy == "loss":
         @torch.no_grad()
         def score(params, batch):
-            losses, _ = per_example_loss(params, cfg, batch)
+            losses, _ = per_example_loss(params, cfg, batch,
+                                         ssm_mode=ssm_mode)
             return torch.clamp(losses.float(), min=0.0)
         return score
 
@@ -216,7 +230,8 @@ def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
         @torch.no_grad()
         def score(params, batch):
             tokens = batch["tokens"]
-            h, _ = forward(params, cfg, tokens[:, :-1], return_hidden=True)
+            h, _ = forward(params, cfg, tokens[:, :-1], ssm_mode=ssm_mode,
+                           return_hidden=True)
             # chunked head: never materializes (B,S,V) logits at once
             _, grad_norm = lm_head_metrics(params, cfg, h, tokens[:, 1:])
             return grad_norm
@@ -231,7 +246,8 @@ def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
             def loss_with_taps(taps):
                 losses, aux = per_example_loss(
                     params, cfg, batch, taps=taps, collect=True,
-                    attn_impl=attn_impl, attn_scores=attn_scores)
+                    attn_impl=attn_impl, attn_scores=attn_scores,
+                    ssm_mode=ssm_mode)
                 return losses, aux.records
 
             sq, _ = ghost_sq_norms(loss_with_taps, tap_shapes, b,
@@ -243,7 +259,8 @@ def make_lm_scorer(cfg, strategy: str, attn_impl: str = "ref",
         from torch.func import grad, vmap
 
         def loss_one(p, tokens):
-            losses, _ = per_example_loss(p, cfg, {"tokens": tokens[None]})
+            losses, _ = per_example_loss(p, cfg, {"tokens": tokens[None]},
+                                         ssm_mode=ssm_mode)
             return losses[0]
 
         def score(params, batch):

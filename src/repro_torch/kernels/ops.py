@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ghost_norm as _gn
 from repro_torch.kernels import per_example_sqnorm as _pes
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _ss
 
 
 def _on_cuda(tensors) -> bool:
@@ -87,6 +88,26 @@ def ghost_norm(x: torch.Tensor, d: torch.Tensor, symmetric: bool = True,
     if on_cuda:
         return _gn.ghost_norm(x, d, symmetric=symmetric)
     return ref.ghost_norm_ref(x, d)
+
+
+# ----------------------------------------------------------- selective scan
+def selective_scan(u: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """Mamba-1 selective scan (``src/repro/kernels/ops.py::selective_scan``).
+    u, delta: (B, S, d_inner); a: (d_inner, d_state); b, c:
+    (B, S, d_state); d: (d_inner,) → y (B, S, d_inner) in u's dtype.
+
+    Forward-only, like the TPU kernel: with grad mode on, an input that
+    requires grad raises on either device.  Any S and d_inner: the
+    reference's padding to its tiles (Δ padded with 1) changes no real
+    output, since padded steps follow every real step and channels are
+    independent, so neither the CUDA kernel (which bounds-checks) nor the
+    plain version on CPU tensors pads."""
+    _ss.refuse_grad(u, delta, a, b, c, d)
+    if _on_cuda((u, delta, a, b, c, d)):
+        return _ss.selective_scan(u, delta, a, b, c, d)
+    return ref.selective_scan_kernel_ref(u, delta, a, b, c, d)
 
 
 # ---------------------------------------------------------------- attention

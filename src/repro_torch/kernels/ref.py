@@ -20,6 +20,11 @@ the plain versions of the backward and score-sweep kernels; both reduce
 the score through ``_attn_score_blocked``, the CUDA kernels' tiles and
 order, so the plain fused and separate scores are bitwise equal, and on
 the card the sweep kernel equals its plain version bitwise.
+
+``selective_scan_ref`` is the mamba oracle and the model's
+``ssm_mode="ref"`` path; ``selective_scan_kernel_ref``, kept apart from
+it, is the plain version of the selective-scan *kernel* (the CPU path of
+``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -332,3 +337,47 @@ def decode_attention_kernel_ref(q: torch.Tensor, k: torch.Tensor,
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
     o = torch.einsum("bgrs,bsgd->bgrd", p, v.float()) / denom
     return o.reshape(bsz, h, hd).to(q.dtype)
+
+
+# --------------------------------------------------------- selective scan
+def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                       return_state: bool = False,
+                       scan_dtype: torch.dtype = torch.float32):
+    """Mamba-1 selective SSM scan, the sequential oracle and the model's
+    ``ssm_mode="ref"`` path (differentiable by autograd).
+
+    u, delta: (B, S, d_inner) (delta already softplus'd, > 0); a:
+    (d_inner, d_state) (negative, the continuous A); b, c:
+    (B, S, d_state); d: (d_inner,) skip connection.
+        h_t = exp(Δ_t ⊙ A) ⊙ h_{t-1} + (Δ_t ⊙ u_t) ⊗ B_t
+        y_t = (h_t · C_t) + D ⊙ u_t
+    Returns y (B, S, d_inner) in u's dtype, and with ``return_state`` the
+    final (B, d_inner, d_state) state.  ``scan_dtype`` is the precision
+    of the recurrence and its inputs, as in the reference (whose
+    ``lax.scan`` unroll has no counterpart in eager PyTorch)."""
+    u32, dl32 = u.to(scan_dtype), delta.to(scan_dtype)
+    b32, c32 = b.to(scan_dtype), c.to(scan_dtype)
+    a32 = a.to(scan_dtype)
+    bsz, s, di = u.shape
+    h = torch.zeros(bsz, di, a.shape[-1], dtype=scan_dtype, device=u.device)
+    ys = []
+    for t in range(s):
+        dl_t, u_t = dl32[:, t], u32[:, t]
+        da = torch.exp(dl_t[..., None] * a32[None])
+        h = h * da + (dl_t * u_t)[..., None] * b32[:, t, None, :]
+        ys.append(torch.sum(h * c32[:, t, None, :], dim=-1))
+    y = (torch.stack(ys, dim=1) + u32 * d.float()[None, None]).to(u.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def selective_scan_kernel_ref(u: torch.Tensor, delta: torch.Tensor,
+                              a: torch.Tensor, b: torch.Tensor,
+                              c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The selective-scan kernel's function in plain PyTorch
+    (``src/repro/kernels/selective_scan.py::_kernel``): the oracle at f32
+    scan dtype.  A name of its own, so that the kernel's plain version can
+    be told apart from the model's ref path."""
+    return selective_scan_ref(u, delta, a, b, c, d)

@@ -27,7 +27,8 @@ import torch
 from repro_torch import configs
 from repro_torch.launch.train import use_full_f32
 from repro_torch.models.transformer import init_transformer
-from repro_torch.serving.engine import ServeState, decode_step, prefill
+from repro_torch.serving.engine import (ServeState, check_servable,
+                                       decode_step, prefill)
 
 
 class ServeResult(NamedTuple):
@@ -44,8 +45,9 @@ class ServeResult(NamedTuple):
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="glm4-9b",
-                    help="a ported LM arch by name or alias: "
-                    + ", ".join(configs.PORTED))
+                    help="a ported dense LM arch by name or alias: "
+                    + ", ".join(n for n in configs.PORTED
+                                if configs.get_config(n).ssm_state == 0))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -60,7 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "(--device cpu)")
     args = ap.parse_args(argv)
     try:
-        configs.resolve(args.arch)
+        check_servable(configs.get_config(args.arch))
     except (KeyError, NotImplementedError) as e:
         ap.error(f"--arch {args.arch}: {e.args[0]}")
     if torch.device(args.device).type == "cuda" \

@@ -1,7 +1,8 @@
 """ISSGD training launcher of the PyTorch port (one device).
 
-Runs the paper's experiment (mlp_svhn) or a dense GQA transformer LM
-(glm4-9b, deepseek-7b, internlm2-20b) on the card by default:
+Runs the paper's experiment (mlp_svhn), a dense GQA transformer LM
+(glm4-9b, deepseek-7b, internlm2-20b) or the attention-free mamba LM
+falcon-mamba-7b on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.train
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
@@ -13,9 +14,11 @@ It prints the reference launcher's per-step log line
 (``src/repro/launch/train.py``) and a closing line with the median step
 time.  Flags of the reference launcher that this port does not carry yet
 are refused by name.  As in the reference, the attention path of an LM
-(``attn_impl``, ``attn_scores``) is no flag: ``build`` and ``run`` take
-it as keyword arguments, e.g. ``run(args, attn_impl="flash",
-attn_scores="fused")``.
+(``attn_impl``, ``attn_scores``) and the scorer's mamba scan
+(``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
+arguments, e.g. ``run(args, attn_impl="flash", attn_scores="fused")`` or
+``run(parse_args(["--arch", "falcon-mamba-7b", "--strategy",
+"logit_grad"]), ssm_mode="pallas")``.
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer
 from repro_torch.optim import sgd
 
-SLICE = ("slice 2 of the PyTorch port (single-device mlp_svhn and dense "
-         "GQA transformer LMs)")
+SLICE = ("slice 2 of the PyTorch port (single-device mlp_svhn, dense GQA "
+         "transformer LMs and mamba LMs)")
 
 # flags of src/repro/launch/train.py this slice does not carry yet
 LATER_FLAGS = (
@@ -120,14 +123,15 @@ def _generator(device: torch.device):
 
 
 def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-              attn_scores=None):
+              attn_scores=None, ssm_mode: str = "ref"):
     """(params, train data, per-example loss, scorer) of the MLP, which
-    has no attention: ``attn_impl``/``attn_scores`` must keep their
-    defaults."""
-    if attn_impl != "ref" or attn_scores is not None:
-        raise ValueError(f"mlp_svhn has no attention; attn_impl="
-                         f"{attn_impl!r}, attn_scores={attn_scores!r} "
-                         f"apply to the LM archs")
+    has neither attention nor mamba layers: ``attn_impl``,
+    ``attn_scores`` and ``ssm_mode`` must keep their defaults."""
+    if attn_impl != "ref" or attn_scores is not None or ssm_mode != "ref":
+        raise ValueError(f"mlp_svhn has no attention or mamba layers; "
+                         f"attn_impl={attn_impl!r}, attn_scores="
+                         f"{attn_scores!r}, ssm_mode={ssm_mode!r} apply to "
+                         f"the LM archs")
     device = torch.device(args.device)
     gen = _generator(device)
     cfg = cfg or (mlp_svhn.smoke() if args.smoke else mlp_svhn.CONFIG)
@@ -139,11 +143,13 @@ def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
 
 
 def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-             attn_scores=None):
+             attn_scores=None, ssm_mode: str = "ref"):
     """(params, train data, per-example loss, scorer) of a transformer LM
     (``src/repro/launch/train.py::build_lm`` on one device).  The master's
     loss runs the ``attn_impl`` attention path and the scorer runs it with
-    ``attn_scores``; the master never sees a score tap."""
+    ``attn_scores``; the master never sees a score tap.  ``ssm_mode``
+    reaches the scorer only: the master differentiates its loss, so its
+    mamba layers scan with "ref", as in the reference."""
     device = torch.device(args.device)
     gen = _generator(device)
     cfg = cfg or (configs.get_smoke_config(args.arch) if args.smoke
@@ -154,20 +160,23 @@ def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     pel = lambda p, b: transformer.per_example_loss(
         p, cfg, b, attn_impl=attn_impl)[0]
     return params, train, pel, make_lm_scorer(
-        cfg, args.strategy, attn_impl=attn_impl, attn_scores=attn_scores)
+        cfg, args.strategy, ssm_mode=ssm_mode, attn_impl=attn_impl,
+        attn_scores=attn_scores)
 
 
 def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-          attn_scores=None):
+          attn_scores=None, ssm_mode: str = "ref"):
     """(state, train_step, data) for ``args``: model, data and step.
     ``cfg`` overrides the arch's config (e.g. a cut depth); ``attn_impl``
     ("ref" or "flash") and ``attn_scores`` (None, "fused" or "separate")
-    pick an LM's attention path (``build_lm``)."""
+    pick an LM's attention path, ``ssm_mode`` ("ref" or "pallas") its
+    scorer's mamba scan (``build_lm``)."""
     use_full_f32()
     device = torch.device(args.device)
     builder = build_mlp if args.arch == "mlp_svhn" else build_lm
     params, train, pel, scorer = builder(args, cfg, attn_impl=attn_impl,
-                                         attn_scores=attn_scores)
+                                         attn_scores=attn_scores,
+                                         ssm_mode=ssm_mode)
     opt = sgd(args.lr)
     tcfg = ISSGDConfig(
         batch_size=args.batch, score_batch_size=args.score_batch,
@@ -180,11 +189,12 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
 
 
 def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-        attn_scores=None) -> TrainResult:
-    """Build from ``args`` (and ``cfg``, ``attn_impl``, ``attn_scores``, see
-    ``build``) and train, logging every ``--log-every`` steps."""
+        attn_scores=None, ssm_mode: str = "ref") -> TrainResult:
+    """Build from ``args`` (and ``cfg``, ``attn_impl``, ``attn_scores``,
+    ``ssm_mode``, see ``build``) and train, logging every ``--log-every``
+    steps."""
     state, step, data = build(args, cfg, attn_impl=attn_impl,
-                              attn_scores=attn_scores)
+                              attn_scores=attn_scores, ssm_mode=ssm_mode)
     on_cuda = torch.device(args.device).type == "cuda"
     marks = []           # (start, end) CUDA events or host clock pairs
     history = []

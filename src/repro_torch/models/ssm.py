@@ -1,0 +1,122 @@
+"""Mamba-1 block of the port (the falcon-mamba mixer), one device.
+
+Mirrors ``src/repro/models/ssm.py``'s ``init_mamba``, ``_causal_conv`` and
+``mamba``.  The sequence recurrence runs through the plain oracle
+``kernels/ref.selective_scan_ref`` (``mode="ref"``, differentiable) or
+the hand-written selective-scan kernel through ``kernels/ops.py``
+(``mode="pallas"``, the reference's name; forward-only).  The serving
+paths (the prefill ``collector``, ``pad_mask``, ``MambaState``,
+``mamba_decode``) and the channel-parallel ones (``mamba_shard_info``,
+``model_axes``) come with later slices of the port.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
+                                       tapped_linear)
+
+SSM_MODES = ("ref", "pallas")
+
+
+def check_ssm_mode(mode: str) -> None:
+    if mode not in SSM_MODES:
+        raise ValueError(f"ssm_mode must be one of {SSM_MODES}, got {mode!r}")
+
+
+def init_mamba(generator: torch.Generator, cfg: ModelConfig,
+               device) -> Params:
+    """The reference's mamba parameters: model-dtype projections and
+    conv, f32 dt_proj, dt_bias, a_log and d_skip."""
+    dtype = dtype_of(cfg)
+    d, di = cfg.d_model, cfg.resolved_d_inner
+    ds, dtr, w = cfg.ssm_state, cfg.resolved_dt_rank, cfg.conv_width
+    gd = generator.device
+    f32 = torch.float32
+    in_proj = _dense_init(generator, d, 2 * di, dtype, device)
+    conv_w = torch.randn(w, di, generator=generator, device=gd, dtype=f32)
+    conv_w = (conv_w * w ** -0.5).to(device=device, dtype=dtype)
+    x_proj = _dense_init(generator, di, dtr + 2 * ds, dtype, device)
+    dt_proj = _dense_init(generator, dtr, di, f32, device)
+    # softplus⁻¹ of a log-uniform dt in [1e-3, 1e-1]
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    log_dt = torch.rand(di, generator=generator, device=gd, dtype=f32)
+    dt_bias = torch.log(torch.expm1(torch.exp(lo + (hi - lo) * log_dt)))
+    a_init = torch.arange(1, ds + 1, dtype=f32, device=device)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(di, dtype=dtype, device=device),
+        "x_proj": x_proj,
+        "dt_proj": dt_proj,
+        "dt_bias": dt_bias.to(device),
+        "a_log": torch.log(a_init)[None].repeat(di, 1),
+        "d_skip": torch.ones(di, dtype=f32, device=device),
+        "out_proj": _dense_init(generator, di, d, dtype, device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence. x: (B, S, di), w: (W, di);
+    the reference's unrolled taps, in its order."""
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    y = xp[:, 0:s, :] * w[0][None, None]
+    for i in range(1, width):
+        y = y + xp[:, i:i + s, :] * w[i][None, None]
+    return y + b[None, None]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus, log(1 + eˣ) as logaddexp(x, 0)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
+          tape: Optional[Tape] = None, prefix: str = "mamba",
+          mode: str = "ref", collector: Optional[dict] = None
+          ) -> torch.Tensor:
+    """Full-sequence mamba mixer. x: (B, S, D) → (B, S, D).
+
+    ``mode="ref"`` scans with ``ref.selective_scan_ref`` at the config's
+    ``ssm_scan_dtype``; ``mode="pallas"`` runs ``ops.selective_scan`` (the
+    CUDA kernel on the card) on Δ cast to the activations' dtype, as the
+    reference does, so a bf16 model hands the kernel a bf16 Δ.  The
+    taps are ``{prefix}.in_proj``, ``.x_proj`` and ``.out_proj``."""
+    check_ssm_mode(mode)
+    if collector is not None:
+        raise NotImplementedError(
+            "the mamba prefill collector (decode state for serving) comes "
+            "with the mamba serving slice of the PyTorch port")
+    di, ds, dtr = cfg.resolved_d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+
+    xz = tapped_linear(x, params["in_proj"], f"{prefix}.in_proj", tape)
+    x_in, z = xz[..., :di], xz[..., di:]
+    x_c = F.silu(_causal_conv(x_in, params["conv_w"], params["conv_b"]))
+
+    proj = tapped_linear(x_c, params["x_proj"], f"{prefix}.x_proj", tape)
+    dt_r = proj[..., :dtr]
+    b_mat = proj[..., dtr:dtr + ds]
+    c_mat = proj[..., dtr + ds:]
+    delta = _softplus(torch.matmul(dt_r.float(), params["dt_proj"])
+                      + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+
+    if mode == "pallas":
+        y = ops.selective_scan(x_c, delta.to(x_c.dtype), a, b_mat, c_mat,
+                               params["d_skip"])
+    else:
+        y = ref.selective_scan_ref(x_c, delta, a, b_mat, c_mat,
+                                   params["d_skip"],
+                                   scan_dtype=getattr(torch,
+                                                      cfg.ssm_scan_dtype))
+
+    y = y * F.silu(z)
+    return tapped_linear(y, params["out_proj"], f"{prefix}.out_proj", tape)

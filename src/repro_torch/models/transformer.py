@@ -1,7 +1,8 @@
 """Decoder stack of the port: a loop over layer periods with ghost taps.
 
-Mirrors ``src/repro/models/transformer.py`` for dense stacks of GQA
-attention and SwiGLU MLP layers.  The depth is ``num_periods``
+Mirrors ``src/repro/models/transformer.py`` for stacks of GQA attention
+or mamba mixers, each followed by a SwiGLU MLP unless ``d_ff`` is 0 (the
+pure-SSM stacks, falcon-mamba).  The depth is ``num_periods``
 repetitions of one layer *period* (``ModelConfig.layer_specs``); layer
 parameters are stacked on a leading period axis, as in the reference.
 Where the reference runs a ``lax.scan`` over periods, the port runs a
@@ -13,8 +14,10 @@ With ``collect_cache`` the forward also returns the decode caches of the
 serving engine: the roped K and V of every attention layer, stacked over
 periods to (P, B, S, Hkv, hd).
 
-MoE, mamba, MLA and the modality frontends raise; ``remat`` has no
-numeric effect and is not ported.
+``ssm_mode`` picks the mamba scan: "ref" (the plain oracle, which autograd
+differentiates) or "pallas" (the forward-only selective-scan kernel).
+MoE, MLA and the modality frontends raise; ``remat`` has no numeric
+effect and is not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
                                        init_embed, init_mlp, init_rmsnorm,
                                        mlp, rmsnorm, unembed)
@@ -35,32 +39,33 @@ class Aux(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA/MHA stack of attn + mlp layers
-    without a frontend: the model code this slice of the port carries."""
+    """Raise unless ``cfg`` is a stack of GQA/MHA attention or mamba
+    mixers with MLPs (or none, ``d_ff`` 0) and no frontend: the model code
+    the port carries."""
     missing = []
     if cfg.num_experts > 0:
         missing.append("MoE")
-    if cfg.ssm_state > 0:
-        missing.append("SSM (mamba)")
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "none"):
         missing.append(f"attention={cfg.attention!r}")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(missing)}; this slice of the "
-            f"PyTorch port runs dense GQA attention + MLP stacks only")
+            f"{cfg.name} needs {', '.join(missing)}; the PyTorch port runs "
+            f"dense GQA attention and mamba stacks only")
 
 
 # ------------------------------------------------------------------- init
 def _init_layer(generator: torch.Generator, cfg: ModelConfig,
-                device) -> Params:
-    return {
-        "ln1": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
-        "mixer": attn_mod.init_attn(generator, cfg, device),
-        "ln2": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
-        "ff": init_mlp(generator, cfg, device),
-    }
+                spec: LayerSpec, device) -> Params:
+    p = {"ln1": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
+         "mixer": (attn_mod.init_attn(generator, cfg, device)
+                   if spec.mixer == "attn"
+                   else ssm_mod.init_mamba(generator, cfg, device))}
+    if cfg.d_ff > 0:  # pure-SSM stacks (falcon-mamba) have no FF sub-layer
+        p["ln2"] = init_rmsnorm(cfg.d_model, dtype_of(cfg), device)
+        p["ff"] = init_mlp(generator, cfg, device)
+    return p
 
 
 def _stack(trees: list) -> Params:
@@ -76,8 +81,9 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig,
     check_supported(cfg)
     specs = cfg.layer_specs()
     emb = init_embed(generator, cfg, device)
-    periods = [{f"l{i}": _init_layer(generator, cfg, device)
-                for i in range(len(specs))} for _ in range(cfg.num_periods)]
+    periods = [{f"l{i}": _init_layer(generator, cfg, spec, device)
+                for i, spec in enumerate(specs)}
+               for _ in range(cfg.num_periods)]
     return {
         "embed": emb,
         "layers": _stack(periods),
@@ -87,15 +93,23 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig,
 
 # ---------------------------------------------------------------- forward
 def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, tape: Optional[Tape],
-                 prefix: str, collector: Optional[dict] = None,
-                 attn_impl: str = "ref",
-                 attn_scores: Optional[str] = None) -> torch.Tensor:
+                 spec: LayerSpec, positions: torch.Tensor,
+                 tape: Optional[Tape], prefix: str,
+                 collector: Optional[dict] = None, attn_impl: str = "ref",
+                 attn_scores: Optional[str] = None,
+                 ssm_mode: str = "ref") -> torch.Tensor:
     hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-    h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
-                          prefix=f"{prefix}.attn", q_chunk=cfg.attn_chunk,
-                          collector=collector, impl=attn_impl,
-                          attn_scores=attn_scores)
+    if spec.mixer == "attn":
+        h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
+                              prefix=f"{prefix}.attn",
+                              q_chunk=cfg.attn_chunk, collector=collector,
+                              impl=attn_impl, attn_scores=attn_scores)
+    else:
+        h = h + ssm_mod.mamba(lp["mixer"], hn, cfg, tape,
+                              prefix=f"{prefix}.mamba", mode=ssm_mode,
+                              collector=collector)
+    if cfg.d_ff == 0:
+        return h
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
     return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp")
 
@@ -109,7 +123,7 @@ def _period(tree: Params, p: int) -> Params:
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             taps: Optional[dict] = None, collect: bool = False,
             collect_cache: bool = False, attn_impl: str = "ref",
-            attn_scores: Optional[str] = None,
+            attn_scores: Optional[str] = None, ssm_mode: str = "ref",
             return_hidden: bool = False) -> tuple[torch.Tensor, Aux]:
     """tokens (B, S) → logits (B, S, vocab) (or the final hidden states
     with ``return_hidden``) and Aux.
@@ -123,7 +137,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     is "ref", "pallas" (the flash-attention forward kernel) or "flash"
     (the trainable flash kernels); ``attn_scores`` ("fused"/"separate",
     with "flash") puts a (P, B) score tap ``l{i}.attn.qkv_scores`` in
-    place of the wq/wk/wv taps (``models/attention.attn``)."""
+    place of the wq/wk/wv taps (``models/attention.attn``).  ``ssm_mode``
+    ("ref" or "pallas") is the mamba layers' scan (``models/ssm.mamba``)."""
     check_supported(cfg)
     specs = cfg.layer_specs()
     h = embed(params["embed"], tokens, cfg)
@@ -138,10 +153,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         tape = Tape(taps={k: v[p] for k, v in layer_taps.items()} or None,
                     records={} if collect else None)
         cache = {} if collect_cache else None
-        for i in range(len(specs)):
-            h = _apply_layer(pp[f"l{i}"], h, cfg, positions, tape, f"l{i}",
-                             collector=cache, attn_impl=attn_impl,
-                             attn_scores=attn_scores)
+        for i, spec in enumerate(specs):
+            h = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions, tape,
+                             f"l{i}", collector=cache, attn_impl=attn_impl,
+                             attn_scores=attn_scores, ssm_mode=ssm_mode)
         per_period.append(tape.records)
         per_cache.append(cache)
 
@@ -172,14 +187,24 @@ def tap_structure(cfg: ModelConfig, batch: int, seq: int,
     Computed from the config's arithmetic (the taps are f32).
     ``attn_impl``/``attn_scores`` must match the forward the taps feed:
     an active score tap replaces the wq/wk/wv taps of each attention layer
-    with one (P, B) ``qkv_scores`` tap."""
+    with one (P, B) ``qkv_scores`` tap.  A mamba layer taps in_proj
+    (2·d_inner), x_proj (dt_rank + 2·d_state) and out_proj (d_model),
+    whichever scan its forward runs."""
     check_supported(cfg)
     attn_mod.check_attn_scores(attn_impl, attn_scores)
     hd = cfg.resolved_head_dim
+    di = cfg.resolved_d_inner
     lead = (cfg.num_periods, batch, seq)
     out = {}
-    for i in range(len(cfg.layer_specs())):
-        if attn_scores is not None:
+    for i, spec in enumerate(cfg.layer_specs()):
+        if spec.mixer == "mamba":
+            out.update({
+                f"l{i}.mamba.in_proj": lead + (2 * di,),
+                f"l{i}.mamba.x_proj": lead + (cfg.resolved_dt_rank
+                                              + 2 * cfg.ssm_state,),
+                f"l{i}.mamba.out_proj": lead + (cfg.d_model,),
+            })
+        elif attn_scores is not None:
             out[f"l{i}.attn.qkv_scores"] = (cfg.num_periods, batch)
         else:
             out.update({
@@ -187,12 +212,14 @@ def tap_structure(cfg: ModelConfig, batch: int, seq: int,
                 f"l{i}.attn.wk": lead + (cfg.num_kv_heads * hd,),
                 f"l{i}.attn.wv": lead + (cfg.num_kv_heads * hd,),
             })
-        out.update({
-            f"l{i}.attn.wo": lead + (cfg.d_model,),
-            f"l{i}.mlp.w_in": lead + (cfg.d_ff,),
-            f"l{i}.mlp.w_gate": lead + (cfg.d_ff,),
-            f"l{i}.mlp.w_out": lead + (cfg.d_model,),
-        })
+        if spec.mixer == "attn":
+            out[f"l{i}.attn.wo"] = lead + (cfg.d_model,)
+        if cfg.d_ff > 0:
+            out.update({
+                f"l{i}.mlp.w_in": lead + (cfg.d_ff,),
+                f"l{i}.mlp.w_gate": lead + (cfg.d_ff,),
+                f"l{i}.mlp.w_out": lead + (cfg.d_model,),
+            })
     out["unembed"] = (batch, seq, cfg.vocab_size)
     return out
 
@@ -233,24 +260,24 @@ def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
 def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
                      taps: Optional[dict] = None, collect: bool = False,
                      attn_impl: str = "ref",
-                     attn_scores: Optional[str] = None
-                     ) -> tuple[torch.Tensor, Aux]:
+                     attn_scores: Optional[str] = None,
+                     ssm_mode: str = "ref") -> tuple[torch.Tensor, Aux]:
     """Mean next-token CE per example. batch: {tokens (B, S+1), [mask]}.
-    ``attn_impl``/``attn_scores`` go to ``forward``."""
+    ``attn_impl``/``attn_scores``/``ssm_mode`` go to ``forward``."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:].long()
     mask = batch.get("mask")
     if cfg.loss_chunk > 0 and taps is None:
         h, aux = forward(params, cfg, tokens[:, :-1], collect=collect,
                          attn_impl=attn_impl, attn_scores=attn_scores,
-                         return_hidden=True)
+                         ssm_mode=ssm_mode, return_hidden=True)
         mean_nll, _ = lm_head_metrics(
             params, cfg, h, targets,
             None if mask is None else mask[:, 1:].float())
         return mean_nll, aux
     logits, aux = forward(params, cfg, tokens[:, :-1], taps=taps,
                           collect=collect, attn_impl=attn_impl,
-                          attn_scores=attn_scores)
+                          attn_scores=attn_scores, ssm_mode=ssm_mode)
     lp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     if mask is not None:

@@ -37,6 +37,18 @@ from repro_torch.models.layers import (dtype_of, embed, mlp, rmsnorm, rope,
 from repro_torch.models.transformer import _period, check_supported, forward
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise unless the engine serves ``cfg``: a model the port runs
+    (``transformer.check_supported``) without mamba layers, whose decode
+    state comes with the mamba serving slice."""
+    check_supported(cfg)
+    if cfg.ssm_state > 0:
+        raise NotImplementedError(
+            f"{cfg.name} needs SSM (mamba) serving (MambaState, "
+            f"mamba_decode), which the PyTorch port does not carry yet; it "
+            f"serves dense GQA stacks")
+
+
 class ServeState(NamedTuple):
     """Decode-loop carry: per-layer caches + per-row absolute positions."""
     caches: dict          # name -> (P, ...) cache tensors
@@ -50,7 +62,7 @@ def _window(cfg: ModelConfig, max_len: int) -> int:
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """name → (shape, dtype) of every cache buffer."""
-    check_supported(cfg)
+    check_servable(cfg)
     w = _window(cfg, max_len)
     kv = (cfg.num_periods, batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
     out = {}
@@ -119,7 +131,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     if decode_kernel not in ("ref", "pallas"):
         raise ValueError(f"decode_kernel must be 'ref' or 'pallas', got "
                          f"{decode_kernel!r}")
-    check_supported(cfg)
+    check_servable(cfg)
     specs = cfg.layer_specs()
     pos = state.lengths                                   # (B,)
     h = embed(params["embed"], tokens[:, None], cfg)[:, 0]

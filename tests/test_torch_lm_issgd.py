@@ -251,7 +251,7 @@ def test_launcher_takes_a_config_override():
 
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "dbrx-132b", "--device", "cpu"], "needs MoE"),
-    (["--arch", "falcon-mamba-7b", "--device", "cpu"], "needs SSM"),
+    (["--arch", "jamba-v0.1-52b", "--device", "cpu"], "needs MoE"),
     (["--arch", "no-such-arch", "--device", "cpu"], "unknown arch"),
 ])
 def test_launcher_refuses_unported_archs(argv, match, capsys):

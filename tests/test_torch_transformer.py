@@ -91,12 +91,16 @@ def test_arch_registry_matches_reference_and_names_what_is_missing():
 
 def test_unported_model_code_raises():
     for kw in (dict(num_experts=4, num_experts_per_tok=2),
-               dict(ssm_state=4, d_ff=0, attention="none"),
                dict(attention="mla"), dict(frontend="vision")):
         _, cfg = _small_cfg(**kw)
         with pytest.raises(NotImplementedError, match="dense GQA"):
             ttf.init_transformer(torch.Generator().manual_seed(0), cfg,
                                  "cpu")
+    # a mamba stack without MLPs is ported: it builds
+    _, cfg = _small_cfg(ssm_state=4, d_ff=0, attention="none")
+    p = ttf.init_transformer(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert set(p["layers"]["l0"]) == {"ln1", "mixer"}
+    assert p["layers"]["l0"]["mixer"]["a_log"].shape == (2, 64, 4)
     _, cfg = _small_cfg()
     with pytest.raises(ValueError, match="impl must be one of"):
         tattn.attn(None, torch.zeros(1, 2, 32), cfg, None, impl="splash")
