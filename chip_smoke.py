@@ -46,14 +46,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 flash-decode kernels against their plain versions: glm4-9b
                 shapes in bf16, ragged S = 100, window 24, decode lengths 0,
                 1, the full ring and random ones, a 32k cache, f32 smoke
-                shapes, MHA and rep 6; f32 within 2e-5 rel + 2e-6 abs, bf16
-                within one bf16 ulp; lse against a plain logsumexp; two
-                launches bitwise equal; length-0 rows zero; refusals.
+                shapes, MHA and rep 6; the forward's bf16 (tensor-core)
+                kernel also at hd 32 and 64, MHA and rep 64; f32 within
+                2e-5 rel + 2e-6 abs, bf16 within one bf16 ulp; lse against a
+                plain logsumexp; two launches bitwise equal; length-0 rows
+                zero; refusals.
  11. serve    — glm4-9b at full width and full depth (40 layers, bf16)
                 through the serve entry point: batch 8, prompt 2048, 64
                 greedy steps, max_len 2112, default --kernel, every plain
-                version forbidden; flash_attention 40 launches, decode 40 a
-                step; prefill ms, median decode step ms, tok/s, peak memory;
+                version forbidden; flash_attention 40 launches, all of its
+                tensor-core kernel, decode 40 a step; prefill ms, median
+                decode step ms, tok/s, peak memory;
                 a profiler window over decode steps (idle share).
  12. batcher  — ContinuousBatcher on the same params, kernel route, 8 slots,
                 16 requests (prompts 17–600, 8–48 new tokens, seeded): all
@@ -63,12 +66,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 (plain route), logits and caches; relative error ≤ 1e-4.
  14. serve times — each kernel vs its plain version and SDPA at the main
                 path's shapes and a 32k decode cache, CUDA events, L2 cold,
-                beside the bound.
+                beside the bound; the forward's achieved TFLOP/s.
  15. flash bwd — the flash-attention backward kernel (without and with the
                 score) and the score sweep against their plain versions:
                 the glm4-9b trainer's shape (16, 512, 32/2 heads, 128) in
                 bf16, ragged S = 100, window 24 and 1, f32 smoke shapes,
-                MHA, rep 6, hd 32/64/128; f32 gradients within rtol 1e-4 /
+                MHA, rep 6, hd 32/64/128, and the bf16 (tensor-core)
+                kernels also at hd 32 and 64, MHA and rep 64; f32 gradients
+                within rtol 1e-4 /
                 atol 1e-5, bf16 within that plus half a bf16 ulp; scores
                 within rtol 1e-4; fused == sweep bitwise (f32); the sweep
                 == its exact-order plain version bitwise; two launches
@@ -79,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 launch/train.py's run with attn_impl="flash" (master) and
                 attn_scores="fused" (scorer), every plain version
                 forbidden: per step 8 flash forward, 8 backward (4 with
-                scores), 0 sweep and 5 ghost_norm launches; losses and
+                scores), all of the tensor-core kernels, 0 sweep and 5
+                ghost_norm launches; losses and
                 √TrΣ finite; median step ms, peak memory.  Then 3 steps
                 with attn_scores="separate": 4 sweeps a step.
  17. lm flash parity — glm4-9b at full width, 1 layer, f32, seq 128: the
@@ -89,8 +95,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  18. lm flash times — the backward (with and without scores) and the
                 sweep at the main shape, L2 cold, CUDA events, beside the
                 bound, the plain version and (backward) autograd through
-                SDPA; the fused, separate and exact scorers; a profiler
-                window over steps of the fused path (idle share).
+                SDPA, with the backward's achieved TFLOP/s; the fused,
+                separate and exact scorers; a profiler window over steps of
+                the fused path (idle share).
  19. scan     — the selective-scan kernel against its plain version on the
                 card: falcon-mamba-7b's scoring shape (8, 2048, 8192, 16) in
                 bf16 with B and C column slices of the x_proj output and a
@@ -693,10 +700,29 @@ def kernel_wrappers() -> dict:
             "selective_scan": ss.selective_scan}
 
 
+# the attention kernels with a bf16 tensor-core instance (tc_launches)
+TC_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
 def reset_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-    kernel_wrappers()["flash_attention_bwd"].scored = 0
+    wrappers = kernel_wrappers()
+    wrappers["flash_attention_bwd"].scored = 0
+    for name in TC_KERNELS:
+        wrappers[name].tc_launches = 0
+
+
+
+def check_tc(launches: dict, what: str) -> None:
+    """Fail unless every launch of a TC_KERNELS kernel (all bf16 on the
+    main paths) went to its tensor-core instance."""
+    wrappers = kernel_wrappers()
+    for name in TC_KERNELS:
+        if wrappers[name].tc_launches != launches[name]:
+            fail(f"{what}: {name} launched {launches[name]} times, "
+                 f"{wrappers[name].tc_launches} of them the tensor-core "
+                 f"kernel; the bf16 path must take it every time")
 
 
 def read_counts() -> dict:
@@ -949,6 +975,11 @@ def phase_attn_kernels(fa, da, ref):
         ("MHA (deepseek-7b heads)", 1, 100, 32, 32, 128, 0, f32),
         ("rep 6 (internlm2-20b heads)", 1, 130, 48, 8, 128, 0, bf16),
         ("hd 64", 2, 90, 4, 1, 64, 0, f32),
+        # the tensor-core kernel's other instances and row mappings
+        ("glm4-9b-smoke hd 32 window 8", 2, 70, 8, 2, 32, 8, bf16),
+        ("hd 64", 2, 90, 4, 1, 64, 0, bf16),
+        ("MHA (deepseek-7b heads)", 1, 100, 32, 32, 128, 0, bf16),
+        ("rep 64", 1, 50, 64, 1, 64, 0, bf16),
     ]
     for ci, (tag, b, s, h, hkv, hd, win, dt) in enumerate(flash_cases):
         q, k, v = attn_inputs([(b, s, h, hd), (b, s, hkv, hd),
@@ -1117,6 +1148,11 @@ def phase_flash_bwd_kernels(fa, fab, ops, ref):
         ("rep 6 (internlm2-20b heads)", 1, 130, 48, 8, 128, 5, f32),
         ("hd 64", 2, 90, 4, 1, 64, 0, f32),
         ("hd 32 window 1", 2, 50, 4, 2, 32, 1, f32),
+        # the tensor-core kernels' other instances and row mappings
+        ("glm4-9b-smoke hd 32 window 8", 2, 70, 8, 2, 32, 8, bf16),
+        ("hd 64", 2, 90, 4, 1, 64, 0, bf16),
+        ("MHA (deepseek-7b heads)", 1, 100, 32, 32, 128, 0, bf16),
+        ("rep 64", 1, 50, 64, 1, 64, 3, bf16),
     ]
     for ci, (tag, b, s, h, hkv, hd, win, dt) in enumerate(cases):
         q, k, v, o, lse, do = bwd_inputs(b, s, h, hkv, hd, win, dt,
@@ -1236,6 +1272,7 @@ def phase_flash_main(train_mod, ref):
             fail(f"lm flash {variant}: launches {launches} ({scored} scored "
                  f"backward calls) in {steps} steps; expected {want} "
                  f"({want_scored} scored)")
+        check_tc(launches, f"lm flash {variant}")
         for rec in result.history:
             if not all(math.isfinite(rec[k]) for k in keys):
                 fail(f"non-finite lm flash metrics at step {rec['step']}: "
@@ -1391,9 +1428,11 @@ def phase_flash_times(train_mod, fa, fab, ref, rounds=5):
         "ms_runs": [k1, k2], "ms_with_scores_runs": [ks1, ks2],
         "plain_ms_runs": [p1, p2]}
     r = rows["flash_attention_bwd"]
+    r["tflop_s"] = achieved_tflops(r)
     print(f"lm flash times: flash_attention_bwd (B, S, H, Hkv, hd)="
           f"{(b, s, h, hkv, hd)} bf16, window 0, 2 input sets: kernel "
-          f"{k1:.3f}/{k2:.3f} ms, with scores {ks1:.3f}/{ks2:.3f} ms, plain "
+          f"{k1:.3f}/{k2:.3f} ms ({r['tflop_s']:.1f} TFLOP/s), with scores "
+          f"{ks1:.3f}/{ks2:.3f} ms, plain "
           f"{p1:.3f}/{p2:.3f} ms, autograd through SDPA {l1:.3f} ms; bound "
           f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
           f"{r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})", flush=True)
@@ -1459,6 +1498,7 @@ def phase_serve_main(serve_mod, ref):
         fail(f"decode_attention launched {launches['decode_attention']} "
              f"times in {SERVE_STEPS} decode steps; expected "
              f"{cfg.num_layers} a step")
+    check_tc(launches, "serve main")
     toks = result.tokens
     if tuple(toks.shape) != (SERVE_B, SERVE_STEPS + 1) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
@@ -1639,7 +1679,13 @@ def bound_of(nbytes: float, flops: float, elem: int) -> dict:
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / peak * 1e3
     return {"bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "flops": flops}
+
+
+def achieved_tflops(row: dict) -> float:
+    """The bound's operations over the kernel's time, TFLOP/s."""
+    return row["flops"] / (row["ms"] * 1e-3) / 1e12
 
 
 def flash_bound(b, s, h, hkv, hd, elem) -> dict:
@@ -1686,11 +1732,13 @@ def phase_serve_times(fa, da, ref, rounds=3):
         **flash_bound(b, s, h, hkv, hd, 2), "ms_runs": [k1, k2],
         "plain_ms_runs": [p1, p2]}
     r = rows["flash_attention"]
+    r["tflop_s"] = achieved_tflops(r)
     print(f"serve times: flash_attention (B, S, H, Hkv, hd)="
           f"{(b, s, h, hkv, hd)} bf16, window 0: kernel {k1:.3f}/{k2:.3f} "
-          f"ms, plain {p1:.3f}/{p2:.3f} ms, SDPA {l1:.3f} ms; bound "
-          f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
-          f"{r['bytes_ms']:.4f}, ops {r['ops_ms']:.4f})", flush=True)
+          f"ms ({r['tflop_s']:.1f} TFLOP/s), plain {p1:.3f}/{p2:.3f} ms, "
+          f"SDPA {l1:.3f} ms; bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']} (bytes {r['bytes_ms']:.4f}, ops "
+          f"{r['ops_ms']:.4f})", flush=True)
     del q, k, v, args, lib_args
     torch.cuda.empty_cache()
     for tag, s in (("main", SERVE_MAX), ("32k", LONG_S)):
@@ -2237,6 +2285,7 @@ def main() -> int:
             "bound_ms": timing[name]["bound_ms"],
             "bound_by": timing[name]["bound_by"],
             "library_ms": timing[name].get("library_ms"),
+            "tflop_s": timing[name].get("tflop_s"),
             "on_main_path": name not in ("per_example_sqnorm",
                                          "attn_score_sweep"),
             "timed": timed[name],

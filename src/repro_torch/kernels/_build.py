@@ -4,9 +4,10 @@ Each ``.cu`` under ``csrc/`` has a plain ``extern "C"`` interface and is
 compiled into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries land in ``build/repro_torch/``
 at the root of the checkout, a git-ignored directory, under a name keyed
-on a hash of the source and the flags: editing a source rebuilds it, and
-an unchanged source is loaded from the previous build.  A failed build
-raises with the compiler's output; nothing falls back.
+on a hash of the source, every shared header ``csrc/*.cuh`` and the flags:
+editing a source or a header rebuilds it, and an unchanged one is loaded
+from the previous build.  A failed build raises with the compiler's output;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -38,10 +39,14 @@ def find_nvcc() -> str | None:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed on the
+    source, the headers it may include (every ``csrc/*.cuh``, in sorted
+    order) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

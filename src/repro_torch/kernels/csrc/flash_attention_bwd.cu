@@ -16,55 +16,106 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_attention_bwd.py:
 //   flash_attention_bwd (_dkdv_kernel, _dq_kernel)    -> fab_launch
 //   attn_score_sweep (_sweep_kv_kernel, _sweep_q_kernel) -> fab_sweep_launch
-// and computes their functions: q in f32 times the scale before the dot,
-// masked entries give p = 0, the score taken from the f32 gradients before
-// they are cast to the operands' type.
+// and computes their functions: masked entries give p = 0, the score taken
+// from the f32 gradients before they are cast to the operands' type.
 //
 // What bounds the function on an H100: operations.  At the glm4-9b trainer's
 // shape (B = 16, S = 512, H = 32, Hkv = 2, hd = 128, bf16) the backward needs
 // five causal-half products, 10 B H hd S(S+1)/2 = 86 GFLOP, 0.087 ms on the
 // bf16 tensor cores, against 286 MB of q, k, v, O, dO, lse, dQ, dK, dV
-// (0.085 ms).  This first kernel runs its products with f32 FMA on the CUDA
-// cores and recomputes S and dP in the dQ kernel (seven products), so it
-// stays far above that bound; tensor cores (wgmma) are the next step.
+// (0.085 ms).  The dQ kernel recomputes S and dP (seven products in all);
+// f32 FMA on the CUDA cores (67 TFLOP/s) cannot run them below ~1.8 ms, so
+// the bf16 instance runs them on the tensor cores.
 //
-// What the design does about it:
+// Shared by both instances:
 //   * the TPU dK/dV kernel ran a grid (B, Hkv, key blocks, q blocks x rep),
 //     summing the rep heads' contributions and the score by revisiting the
 //     same output block along a sequential axis.  CUDA blocks run in no
-//     order, so here one block owns one (b, KV group g, 64-key tile): K and V
-//     stay in shared memory, and a loop inside the block walks the query
-//     tiles.  A query tile is 64 rows, (position, head) pairs of group g (64 /
-//     rep positions times all rep heads), the row mapping of the forward
-//     kernel (flash_attention.cu), so every staged K/V tile serves every head
-//     of the group.  dK and dV accumulate in f32 registers (a 4-key x hd/16
-//     micro-tile per thread) and are written once.
-//   * the dQ kernel owns one (b, g, 64-row tile) and walks the key tiles,
-//     as the forward does.  Tiles wholly in the past of the window or
-//     wholly before the key tile are skipped without being loaded (the
-//     Pallas kernels' `live` test).  Blocks are issued longest first.
-//   * 256 threads in a 16 x 16 grid: thread (ty, tx) computes S and dP of
-//     rows ty*4..ty*4+3 against keys tx, tx+16, tx+32, tx+48.  All staged
-//     tiles are row-major with a row stride of hd + 1 floats (conflict-free
-//     column reads); P and dS tiles have rows of 68 floats (float4 reads).
-//   * with a score, each block reduces the finished f32 accumulator tile
-//     with tile_sumsq() (round-to-nearest intrinsics, a fixed shuffle tree:
-//     no FMA contraction can differ between kernels) into its own slot of an
-//     f32 scratch of per-tile partials, and a last small kernel sums a row's
-//     partials in one fixed order: the dK/dV partials by (g, key tile), then
-//     the dQ partials by (g, row tile), then the two sums, as the reference
-//     adds kv_res[2] + q_res[1].  No float atomics.  The sweep reads the
-//     materialized dQ, dK, dV with the same tiles, the same tile_sumsq() and
-//     the same reducer, so for f32 gradients fused == sweep bitwise, and two
-//     launches are bitwise equal.
-//   * the ragged tail of S is masked in the loads (keys and queries past S
-//     read as 0 and give exact zeros in gradients and score): no padded
-//     copies.
-//   * each entry point returns cudaGetLastError(); the wrapper raises if it
-//     is not cudaSuccess.
+//     order, so here a 64-key tile of one (b, KV group g) stays in shared
+//     memory and a loop walks the query tiles that see it.  A query tile is
+//     64 rows, (position, head) pairs of group g (64 / rep positions times
+//     all rep heads), the row mapping of the forward kernel
+//     (flash_attention.cu), so every K/V tile serves every head of the
+//     group.  dK and dV accumulate in f32 registers and are written once.
+//   * the dQ kernel owns a 64-row tile and walks the key tiles, as the
+//     forward does; no float atomics.  Tiles wholly in the past of the
+//     window or wholly before the key tile are skipped without being loaded
+//     (the Pallas kernels' `live` test).  Blocks are issued longest first.
+//   * with a score, each 64-key tile of the dK/dV kernel and each 64-row
+//     tile of the dQ kernel writes the sum of squares of its finished f32
+//     accumulators into its own slot of an f32 scratch of per-tile partials
+//     (slots: Plan), and a last small kernel sums a row's partials in one
+//     fixed order: the dK/dV partials by (g, key tile), then the dQ partials
+//     by (g, row tile), then the two sums, as the reference adds kv_res[2] +
+//     q_res[1].  Two launches are bitwise equal.
+//
+// bf16: dkdv_tc and dq_tc, wgmma on tiles that TMA brings into shared
+//   memory.  A block is two consumer warpgroups (256 threads, up to 255
+//   registers each); thread 0 also issues the TMA loads, refilling a stage
+//   of the ring once both warpgroups have released it (hopper::Ring).  A
+//   separate producer warp or warpgroup would make the block 288 or 384
+//   threads, and ptxas then holds every thread to 168 registers:
+//   setmaxnreg did not raise the consumers' budget (measured on the card,
+//   -Xptxas -v and the SASS), and the dK/dV warpgroup needs ~200.
+//   * dK/dV: each consumer owns 64 keys (the M of its products); the
+//     block's K and V tiles are loaded once and thread 0 streams the Q
+//     and dO tiles of the query tiles that see them through a ring of
+//     kKvStages stages (full/empty mbarriers).  Per query tile a consumer
+//     computes S^T = K Q^T and dP^T = V dO^T by SS wgmma, P^T and dS^T in
+//     registers (lse, D and each row's position staged by the consumer's
+//     threads), and dV += P^T dO, dK += dS^T Q by RS wgmma with dO and Q
+//     read MN-major; dK is scaled once at the end.
+//   * dQ: each consumer owns one 64-row query tile (Q and dO loaded once),
+//     thread 0 streams K and V tiles; S = Q K^T, dP = dO V^T by SS
+//     wgmma, dQ += dS K by RS wgmma with K read MN-major, scaled at the end.
+//   * tensors are mapped for TMA as 4-D (hd, heads, S, B): a query tile is
+//     one box (hd chunk, rep, 64 / rep, 1), a key tile (hd chunk, 1, 64, 1);
+//     S is a true bound, so the ragged tail reads as zeros.  Rows past
+//     64 / rep * rep are never written by TMA and are zeroed once, and P
+//     and dS are masked by selection, so 0 * garbage never reaches dV or dK.
+//   * numerics: products of bf16 inputs (K Q^T, V dO^T) are exact up to
+//     the f32 accumulation.  P and dS are f32; each is split into bf16
+//     parts (split_tile: each part the rounding of what the earlier leave)
+//     and its product is one wgmma a part.  The bf16 gradients are held
+//     to half a bf16 ulp plus 1e-4 of the value and 1e-5, which leaves the
+//     kernel's own error ~1e-4 of the value and ~1e-5 absolute.  dV sums
+//     P dO, terms up to |dO| (P <= 1): two parts (2^-17 a term) reach
+//     1e-5 on gradients near zero where P is large (rep 64, window 3: 192
+//     terms of P ~ 1/3), so P takes three parts (2^-26).  dK and dQ carry
+//     the scale and a Q or K factor; two parts keep them at the f32
+//     kernel's error (the split emulation, tests/test_torch_flash_split.py).
+//     The tensor cores' f32 accumulation truncates, ~3x the error of f32
+//     adds (measured on the card); over the 1024 products that sum dV of
+//     an early key at S = 512 that too would exceed the budget, so each
+//     tile's contribution is summed by wgmma in a fresh accumulator and
+//     added to the running dV, dK, dQ with f32 adds (tile_product).  The
+//     running dK of the dK/dV kernel lives in shared memory, each thread
+//     owning its entries, to leave the registers to dV, S, dP and the
+//     fragments.  The scale multiplies S after the product.
+//   * the score: each consumer reduces its f32 accumulators in one fixed
+//     order of its own (wg_sumsq).  It does not repeat tile_sumsq's order:
+//     fused == sweep bitwise is a contract of f32 gradients only.
+//
+// f32: dkdv_kernel and dq_kernel, f32 FMA on the CUDA cores (the f32 parity
+//   path; wgmma has no f32 input that keeps f32 accuracy).  q is multiplied
+//   by the scale before the dot.  256 threads in a 16 x 16 grid: thread
+//   (ty, tx) computes S and dP of rows ty*4..ty*4+3 against keys tx, tx+16,
+//   tx+32, tx+48.  All staged tiles are row-major with a row stride of hd + 1
+//   floats (conflict-free column reads); P and dS tiles have rows of 68
+//   floats (float4 reads).  Each score partial is reduced with tile_sumsq()
+//   (round-to-nearest intrinsics, a fixed shuffle tree: no FMA contraction
+//   can differ between kernels).  The sweep reads the materialized dQ, dK,
+//   dV with the same tiles, the same tile_sumsq() and the same reducer, so
+//   for f32 gradients fused == sweep bitwise.  The ragged tail of S is
+//   masked in the loads (keys and queries past S read as 0).
+//
+// Each entry point returns cudaGetLastError(); the wrapper raises if it is
+// not cudaSuccess.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,10 +129,6 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 // Sum of squares of a tile's n elements (row-major order, n a multiple of
@@ -123,8 +170,8 @@ struct RowTile {
 
 // Stage 64 query rows of tile q0 (positions) of group g from src into
 // dst[row][d] (row stride hd + 1), times mul; dead rows as 0.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int b,
+template <int HD>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int b,
                                            int g, int s, int h, int q0,
                                            RowTile rt, float mul, float* dst) {
   for (int e = threadIdx.x; e < kRows * HD; e += kThreads) {
@@ -133,16 +180,16 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int b,
     const int pos = q0 + row / rt.rep;
     float val = 0.0f;
     if (rt.live(row, pos, s))
-      val = to_f32(src[((static_cast<size_t>(b) * s + pos) * h +
-                        g * rt.rep + row % rt.rep) * HD + d]) * mul;
+      val = src[((static_cast<size_t>(b) * s + pos) * h + g * rt.rep +
+                 row % rt.rep) * HD + d] * mul;
     dst[row * (HD + 1) + d] = val;
   }
 }
 
 // Stage keys [k0, k0 + 64) of group g into dst[j][d] (row stride hd + 1);
 // keys at or past S as 0.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_keys(const T* __restrict__ src, int b,
+template <int HD>
+__device__ __forceinline__ void stage_keys(const float* __restrict__ src, int b,
                                            int g, int s, int hkv, int k0,
                                            float* dst) {
   for (int e = threadIdx.x; e < kKeys * HD; e += kThreads) {
@@ -150,8 +197,7 @@ __device__ __forceinline__ void stage_keys(const T* __restrict__ src, int b,
     const int d = e % HD;
     const int kp = k0 + j;
     dst[j * (HD + 1) + d] =
-        kp < s ? to_f32(src[((static_cast<size_t>(b) * s + kp) * hkv + g) *
-                                HD + d])
+        kp < s ? src[((static_cast<size_t>(b) * s + kp) * hkv + g) * HD + d]
                : 0.0f;
   }
 }
@@ -245,12 +291,12 @@ constexpr size_t dq_smem_bytes() {
 
 // grid (n_ktiles, hkv, b).  partial: f32[b][n_parts] or null; this block
 // writes slot g * n_ktiles + kt.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+    dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dvec,
-                T* __restrict__ dk, T* __restrict__ dv,
+                float* __restrict__ dk, float* __restrict__ dv,
                 float* __restrict__ partial, int s, int h, int hkv,
                 int window, float scale, int n_qtiles, int n_parts) {
   constexpr int kLd = HD + 1;
@@ -276,8 +322,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  stage_keys<T, HD>(k, b, g, s, hkv, k0, k_s);
-  stage_keys<T, HD>(v, b, g, s, hkv, k0, v_s);
+  stage_keys<HD>(k, b, g, s, hkv, k0, k_s);
+  stage_keys<HD>(v, b, g, s, hkv, k0, v_s);
 
   float dk_acc[4][kCols], dv_acc[4][kCols];  // keys ty*4+a, dims tx+16c
 #pragma unroll
@@ -291,8 +337,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (window > 0) qt_hi = min(qt_hi, (k0 + kKeys - 1 + window - 1) / bq);
   for (int qt = k0 / bq; qt <= qt_hi; ++qt) {
     const int q0 = qt * bq;
-    stage_rows<T, HD>(q, b, g, s, h, q0, rt, scale, q_s);
-    stage_rows<T, HD>(dout, b, g, s, h, q0, rt, 1.0f, do_s);
+    stage_rows<HD>(q, b, g, s, h, q0, rt, scale, q_s);
+    stage_rows<HD>(dout, b, g, s, h, q0, rt, 1.0f, do_s);
     stage_row_stats(lse, dvec, b, g, s, h, q0, rt, lse_s, dvec_s);
     __syncthreads();
 
@@ -335,8 +381,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const size_t base = ((static_cast<size_t>(b) * s + kp) * hkv + g) * HD;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        store_as(&dk[base + tx + 16 * c], dk_acc[a][c]);
-        store_as(&dv[base + tx + 16 * c], dv_acc[a][c]);
+        dk[base + tx + 16 * c] = dk_acc[a][c];
+        dv[base + tx + 16 * c] = dv_acc[a][c];
       }
     }
   }
@@ -364,12 +410,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // grid (n_qtiles, hkv, b).  partial: this block writes slot
 // n_kv_parts + g * n_qtiles + qt.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dvec,
-              T* __restrict__ dq, float* __restrict__ partial, int s, int h,
+              float* __restrict__ dq, float* __restrict__ partial, int s, int h,
               int hkv, int window, float scale, int n_qtiles, int n_kv_parts,
               int n_parts) {
   constexpr int kLd = HD + 1;
@@ -396,8 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  stage_rows<T, HD>(q, b, g, s, h, q0, rt, scale, q_s);
-  stage_rows<T, HD>(dout, b, g, s, h, q0, rt, 1.0f, do_s);
+  stage_rows<HD>(q, b, g, s, h, q0, rt, scale, q_s);
+  stage_rows<HD>(dout, b, g, s, h, q0, rt, 1.0f, do_s);
   stage_row_stats(lse, dvec, b, g, s, h, q0, rt, lse_s, dvec_s);
 
   float acc[4][kCols];                    // rows ty*4+a, dims tx+16c
@@ -409,8 +455,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int kt = k_lo / kKeys; kt <= q_last / kKeys; ++kt) {
     const int k0 = kt * kKeys;
-    stage_keys<T, HD>(k, b, g, s, hkv, k0, k_s);
-    stage_keys<T, HD>(v, b, g, s, hkv, k0, v_s);
+    stage_keys<HD>(k, b, g, s, hkv, k0, k_s);
+    stage_keys<HD>(v, b, g, s, hkv, k0, v_s);
     __syncthreads();
 
     float pv[4][4], dsv[4][4];
@@ -446,8 +492,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < kCols; ++c) {
       acc[a][c] = live ? acc[a][c] * scale : 0.0f;
       if (live)
-        store_as(&dq[((static_cast<size_t>(b) * s + pos) * h + g * rep +
-                      row % rep) * HD + tx + 16 * c], acc[a][c]);
+        dq[((static_cast<size_t>(b) * s + pos) * h + g * rep + row % rep) *
+               HD + tx + 16 * c] = acc[a][c];
     }
   }
   if (partial == nullptr) return;
@@ -547,7 +593,7 @@ cudaError_t reduce(const float* partial, int b, const Plan& p, float* scores,
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* dvec,
                        void* dq, void* dk, void* dv, float* partial,
@@ -557,25 +603,24 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   constexpr size_t kv_bytes = dkdv_smem_bytes<HD>();
   constexpr size_t q_bytes = dq_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kv_bytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<T, HD>,
+  err = cudaFuncSetAttribute(dq_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_bytes));
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, HD><<<dim3(p.n_ktiles, hkv, b), kThreads, kv_bytes,
-                       stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
-      static_cast<T*>(dk), static_cast<T*>(dv), partial, s, h, hkv, window,
-      scale, p.n_qtiles, p.n_parts);
+  dkdv_kernel<HD><<<dim3(p.n_ktiles, hkv, b), kThreads, kv_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, dvec,
+      static_cast<float*>(dk), static_cast<float*>(dv), partial, s, h, hkv,
+      window, scale, p.n_qtiles, p.n_parts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, HD><<<dim3(p.n_qtiles, hkv, b), kThreads, q_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
-      static_cast<T*>(dq), partial, s, h, hkv, window, scale, p.n_qtiles,
+  dq_kernel<HD><<<dim3(p.n_qtiles, hkv, b), kThreads, q_bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, dvec,
+      static_cast<float*>(dq), partial, s, h, hkv, window, scale, p.n_qtiles,
       p.n_kv, p.n_parts);
   err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return err;
@@ -594,6 +639,538 @@ cudaError_t launch_sweep(const void* dq, const void* dk, const void* dv,
   if (err != cudaSuccess) return err;
   return reduce(partial, b, p, scores, stream);
 }
+
+// ------------------------------------------------ bf16: wgmma on TMA tiles
+namespace tc {
+
+// Two consumer warpgroups; thread 0 also issues the TMA loads.  (A separate
+// producer warp or warpgroup makes a block of 288 or 384 threads, and ptxas
+// then holds every thread to 168 registers: measured, setmaxnreg did not
+// raise the consumers' budget.  256 threads leave them 255.)
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * kConsumers;
+
+// Sum of squares of this warpgroup's accumulators (each thread's in
+// register order, a shuffle-down tree in each warp, the four warps in
+// order), valid in every thread of the warpgroup.  red: 4 floats of this
+// warpgroup; named barrier 1 + wg.
+template <int N>
+__device__ float wg_sumsq(const float (&acc)[N], float* red, int wg) {
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v = __fadd_rn(v, __fmul_rn(acc[i], acc[i]));
+  for (int off = 16; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_down_sync(kFull, v, off));
+  const int wl = (threadIdx.x / 32) % 4;
+  hopper::named_sync(1 + wg, 128);        // red of an earlier call is read
+  if (threadIdx.x % 32 == 0) red[wl] = v;
+  hopper::named_sync(1 + wg, 128);
+  return __fadd_rn(__fadd_rn(red[0], red[1]), __fadd_rn(red[2], red[3]));
+}
+
+// P and dS of one (64 x 64) accumulator pair in place: st holds S (scores
+// before the scale), dp holds dP; entry j of this thread is at accumulator
+// row a = (j / 2) % 2 and column c = 8 (j / 4) + 2 (lane % 4) + j % 2.  The
+// caller says for each entry whether it is visible and gives its lse and D.
+// The memory clobber every four entries keeps the compiler from loading
+// the statistics of all 32 entries at once.
+template <typename Entry>
+__device__ __forceinline__ void p_and_ds(float (&st)[32], float (&dp)[32],
+                                         float scale, Entry entry) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if ((j & 3) == 0) asm volatile("" ::: "memory");
+    float lse_e, d_e;
+    const bool ok = entry(j, lse_e, d_e);
+    const float p = ok ? expf(st[j] * scale - lse_e) : 0.0f;
+    st[j] = p;
+    dp[j] = ok ? p * (dp[j] - d_e) : 0.0f;
+  }
+}
+
+// The split A fragments f (NP bf16 parts, split_tile) times the tile (64
+// rows x HD, bf16) read MN-major.  Each slice of kSlice columns is summed
+// by wgmma in a fresh accumulator, held in `scratch` (an accumulator the
+// caller no longer needs), and handed to add(c, part) for slice c, which
+// adds it to the running sum with f32 adds: the tensor cores'
+// accumulation rounds less exactly than an f32 add, and over a long chain
+// of tiles (dV and dK of an early key sum 8192 query rows at S = 512) its
+// error would exceed the f32 kernel's.
+template <int HD>
+constexpr int kSlice = HD < 64 ? HD : 64;
+
+template <int HD, int NP, typename Add>
+__device__ __forceinline__ void tile_product(uint32_t (&f)[4][NP][4],
+                                             uint32_t tile,
+                                             float (&scratch)[32], Add add) {
+  using Tl = hopper::Tile<HD>;
+  constexpr int kN = kSlice<HD>;
+  float (&part)[kN / 2] = *reinterpret_cast<float (*)[kN / 2]>(&scratch[0]);
+#pragma unroll
+  for (int c = 0; c < HD / kN; ++c) {
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) part[j] = 0.0f;
+    hopper::fence_regs(part);
+    hopper::fence_regs(f);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = hopper::mnmajor_desc<HD, 64>(
+          tile + c * 64 * Tl::kRowBytes, kk);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) hopper::wgmma_rs<kN>(part, f[kk][p], d);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+    hopper::fence_regs(f);
+    add(c, part);
+  }
+}
+
+// S = A B^T and D = C E^T over HD (both m64 x n64): SS wgmma, A, C tiles of
+// 64 rows and B, E tiles of 64 rows, all K-major; waits for both.
+template <int HD>
+__device__ __forceinline__ void two_products(float (&s)[32], uint32_t a,
+                                             uint32_t b, float (&d)[32],
+                                             uint32_t c, uint32_t e) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = d[j] = 0.0f;
+  hopper::fence_regs(s);
+  hopper::fence_regs(d);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    hopper::wgmma_ss_n64(s, hopper::kmajor_desc<HD, 64>(a, kk),
+                         hopper::kmajor_desc<HD, 64>(b, kk), kk > 0);
+    hopper::wgmma_ss_n64(d, hopper::kmajor_desc<HD, 64>(c, kk),
+                         hopper::kmajor_desc<HD, 64>(e, kk), kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  hopper::fence_regs(d);
+}
+
+// The dK/dV kernel's dynamic shared memory: K and V tiles of the
+// consumers' keys, the Q and dO ring (kKvStages stages), each consumer's
+// running dK (f32, entry j of thread t at j * 128 + t: a thread reads and
+// writes only its own column), double-buffered row statistics (lse, D,
+// position) and score scratch, the mbarriers (kv, full[kKvStages],
+// empty[kKvStages]); 1024 bytes of slack align the base.
+constexpr int kKvStages = 2;
+template <int HD>
+struct KvSmem {
+  static constexpr int kT = hopper::Tile<HD>::bytes(64);
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kConsumers * kT;
+  static constexpr int kQ = kV + kConsumers * kT;
+  static constexpr int kDo = kQ + kKvStages * kT;
+  static constexpr int kDk = kDo + kKvStages * kT;    // [wg][HD / 2][128]
+  static constexpr int kStats = kDk + kConsumers * (HD / 2) * 128 * 4;
+  static constexpr int kRed = kStats + kConsumers * 2 * 3 * 64 * 4;
+  static constexpr int kBars = kRed + kConsumers * 4 * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kKvStages) + 1024;
+};
+
+// The dQ kernel's: Q and dO tiles of the consumers, the K and V ring, score
+// scratch, the mbarriers (q[kConsumers], full, empty).
+constexpr int kQStages = 3;
+template <int HD>
+struct QSmem {
+  static constexpr int kT = hopper::Tile<HD>::bytes(64);
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kConsumers * kT;
+  static constexpr int kK = kDo + kConsumers * kT;
+  static constexpr int kV = kK + kQStages * kT;
+  static constexpr int kRed = kV + kQStages * kT;
+  static constexpr int kBars = kRed + kConsumers * 4 * 4;
+  static constexpr int kBytes =
+      kBars + 8 * (kConsumers + 2 * kQStages) + 1024;
+};
+
+// grid (ceil(s / 128), hkv, b): block x owns keys [128 x, 128 x + 128) of
+// group g, consumer wg the 64-key tile kt = 2 x + wg.  partial: f32[b][n_parts]
+// or null; consumer wg writes slot g * n_ktiles + kt.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_tc(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse, const float* __restrict__ dvec,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+            float* __restrict__ partial, int s, int h, int hkv, int window,
+            float scale, int n_qtiles, int n_ktiles, int n_parts) {
+  using Tl = hopper::Tile<HD>;
+  using L = KvSmem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::align_1024(smem_raw);
+  uint8_t* const base_ptr = smem_raw + (base - hopper::smem_u32(smem_raw));
+  const uint32_t bar_kv = base + L::kBars;
+
+  const int rep = h / hkv;
+  const int bq = kRows / rep;
+  const int live_rows = bq * rep;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kb0 = blockIdx.x * kConsumers * kKeys;
+  const int n_live = min(kConsumers, (s - kb0 + kKeys - 1) / kKeys);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  // query tiles that see a key of [k0, k0 + 64): positions >= k0 and, with
+  // a window, <= the tile's last key + window - 1
+  auto qt_hi = [&](int k0) {
+    return window > 0 ? min(n_qtiles - 1, (k0 + kKeys - 1 + window - 1) / bq)
+                      : n_qtiles - 1;
+  };
+  const int qt_begin = kb0 / bq;
+  const hopper::Ring<kKvStages, 4 * kConsumers> ring{
+      bar_kv + 8, bar_kv + 8 + 8 * kKvStages,
+      qt_hi(kb0 + (n_live - 1) * kKeys) - qt_begin + 1};
+  // tile i of the ring: the Q and dO rows of query tile qt_begin + i
+  auto load = [&](int i, int st, uint32_t bar) {
+    hopper::mbar_expect_tx(bar, 2 * Tl::bytes(live_rows));
+    const int q0 = (qt_begin + i) * bq;
+    hopper::load_tile<HD, kRows>(base + L::kQ + st * L::kT, &tm_q, bar,
+                                 g * rep, q0, b);
+    hopper::load_tile<HD, kRows>(base + L::kDo + st * L::kT, &tm_do, bar,
+                                 g * rep, q0, b);
+  };
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_kv, 1);
+    ring.init();
+    hopper::fence_mbar_init();
+  }
+  // Q, dO
+  hopper::zero_dead_rows<HD>(base_ptr + L::kQ, 2 * kKvStages, live_rows);
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar_kv, 2 * n_live * L::kT);
+    for (int w = 0; w < n_live; ++w) {
+      hopper::load_tile<HD, kKeys>(base + L::kK + w * L::kT, &tm_k, bar_kv,
+                                   g, kb0 + w * kKeys, b);
+      hopper::load_tile<HD, kKeys>(base + L::kV + w * L::kT, &tm_v, bar_kv,
+                                   g, kb0 + w * kKeys, b);
+    }
+    ring.start(load);
+  }
+
+  // consumer wg: keys k0 .. k0 + 63, rows kp[a] = k0 + r0 + 8 a of its
+  // accumulators in this thread
+  const int k0 = kb0 + wg * kKeys;
+  const bool kv_live = wg < n_live;
+  const int my_lo = k0 / bq - qt_begin;   // ring tiles it works on
+  const int my_hi = kv_live ? qt_hi(k0) - qt_begin : -1;
+  const int t = threadIdx.x % 128;
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  const int kp[2] = {k0 + r0, k0 + r0 + 8};
+  const uint32_t k_base = base + L::kK + wg * L::kT;
+  const uint32_t v_base = base + L::kV + wg * L::kT;
+  float* const stats =
+      reinterpret_cast<float*>(base_ptr + L::kStats) + wg * 2 * 3 * 64;
+  float* const dk_s = reinterpret_cast<float*>(base_ptr + L::kDk) +
+                      wg * (HD / 2) * 128 + t;
+  float dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    dv_acc[i] = 0.0f;
+    dk_s[i * 128] = 0.0f;
+  }
+  if (kv_live) hopper::mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < ring.n; ++i) {
+    ring.wait(i);
+    if (i >= my_lo && i <= my_hi) {
+      const int st = i % kKvStages;
+      const int q0 = (qt_begin + i) * bq;
+      const uint32_t q_tile = base + L::kQ + st * L::kT;
+      const uint32_t do_tile = base + L::kDo + st * L::kT;
+      // lse, D and position of the tile's 64 rows (position -1: dead)
+      float* const lse_s = stats + (i & 1) * 3 * 64;
+      float* const d_s = lse_s + 64;
+      int* const pos_s = reinterpret_cast<int*>(d_s + 64);
+      {
+        const int row = t % 64;
+        const int pos = q0 + row / rep;
+        const bool lv = row < live_rows && pos < s;
+        const size_t idx =
+            (static_cast<size_t>(b) * h + g * rep + row % rep) * s + pos;
+        if (t < 64) {
+          lse_s[row] = lv ? lse[idx] : 0.0f;
+          pos_s[row] = lv ? pos : -1;
+        } else {
+          d_s[row] = lv ? dvec[idx] : 0.0f;
+        }
+      }
+      hopper::named_sync(1 + wg, 128);
+
+      // S^T = K Q^T and dP^T = V dO^T: rows keys, columns query rows
+      float st_acc[32], dp_acc[32];
+      two_products<HD>(st_acc, hopper::opaque(k_base), q_tile, dp_acc,
+                       hopper::opaque(v_base), do_tile);
+      p_and_ds(st_acc, dp_acc, scale, [&](int j, float& l_e, float& d_e) {
+        const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int key = kp[(j >> 1) & 1];
+        const int pos = pos_s[c];
+        l_e = lse_s[c];
+        d_e = d_s[c];
+        return pos >= 0 && key <= pos && (window <= 0 || pos - key < window);
+      });
+
+      // dK += dS^T Q (shared memory; dS in two parts, dp_acc the
+      // scratch), then dV += P^T dO (registers; P in three, st_acc the
+      // scratch)
+      constexpr int kN = kSlice<HD>;
+      {
+        uint32_t f[4][2][4];
+        hopper::split_tile<2>(dp_acc, f);
+        tile_product<HD>(f, q_tile, dp_acc,
+                         [&](int c, const float (&part)[kN / 2]) {
+#pragma unroll
+                           for (int j = 0; j < kN / 2; ++j)
+                             dk_s[(c * kN / 2 + j) * 128] += part[j];
+                         });
+      }
+      hopper::fence_regs(st_acc);         // split P after the dK product
+      uint32_t f[4][3][4];
+      hopper::split_tile<3>(st_acc, f);
+      tile_product<HD>(f, do_tile, st_acc,
+                       [&](int c, const float (&part)[kN / 2]) {
+#pragma unroll
+                         for (int j = 0; j < kN / 2; ++j)
+                           dv_acc[c * kN / 2 + j] += part[j];
+                       });
+    }
+    ring.release(i, load);
+  }
+  if (!kv_live) return;
+
+  float dk_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dk_s[i * 128] * scale;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (kp[a] >= s) continue;
+    const size_t row = ((static_cast<size_t>(b) * s + kp[a]) * hkv + g) * HD;
+#pragma unroll
+    for (int j = 2 * a; j < HD / 2; j += 4) {
+      const int col = 8 * (j >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
+          __floats2bfloat162_rn(dk_acc[j], dk_acc[j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
+          __floats2bfloat162_rn(dv_acc[j], dv_acc[j + 1]);
+    }
+  }
+  if (partial == nullptr) return;
+  float* const red = reinterpret_cast<float*>(base_ptr + L::kRed) + wg * 4;
+  const float sk = wg_sumsq(dk_acc, red, wg);
+  const float sv = wg_sumsq(dv_acc, red, wg);
+  if (t == 0)
+    partial[static_cast<size_t>(b) * n_parts + g * n_ktiles + k0 / kKeys] =
+        __fadd_rn(sk, sv);
+}
+
+// grid (ceil(n_qtiles / 2), hkv, b): block x owns query tiles 2 x' and
+// 2 x' + 1 (x' = gridDim.x - 1 - x, longest first), one a consumer.
+// partial: consumer wg writes slot n_kv_parts + g * n_qtiles + qt.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_tc(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse, const float* __restrict__ dvec,
+          __nv_bfloat16* __restrict__ dq, float* __restrict__ partial, int s,
+          int h, int hkv, int window, float scale, int n_qtiles,
+          int n_kv_parts, int n_parts) {
+  using Tl = hopper::Tile<HD>;
+  using L = QSmem<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::align_1024(smem_raw);
+  uint8_t* const base_ptr = smem_raw + (base - hopper::smem_u32(smem_raw));
+  const uint32_t bar_q = base + L::kBars;
+
+  const int rep = h / hkv;
+  const int bq = kRows / rep;
+  const int live_rows = bq * rep;
+  const int qt0 = 2 * (static_cast<int>(gridDim.x) - 1 -
+                       static_cast<int>(blockIdx.x));
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  auto kt_lo = [&](int qt) {
+    return window > 0 ? max(0, qt * bq - window + 1) / kKeys : 0;
+  };
+  auto kt_hi = [&](int qt) { return (min(qt * bq + bq, s) - 1) / kKeys; };
+  const int kt_begin = kt_lo(qt0);
+  const int n_live = min(kConsumers, n_qtiles - qt0);
+  const hopper::Ring<kQStages, 4 * kConsumers> ring{
+      bar_q + 8 * kConsumers, bar_q + 8 * (kConsumers + kQStages),
+      kt_hi(qt0 + n_live - 1) - kt_begin + 1};
+  // tile i of the ring: the K and V of key tile kt_begin + i
+  auto load = [&](int i, int st, uint32_t bar) {
+    hopper::mbar_expect_tx(bar, 2 * L::kT);
+    const int k0 = (kt_begin + i) * kKeys;
+    hopper::load_tile<HD, kKeys>(base + L::kK + st * L::kT, &tm_k, bar, g,
+                                 k0, b);
+    hopper::load_tile<HD, kKeys>(base + L::kV + st * L::kT, &tm_v, bar, g,
+                                 k0, b);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kConsumers; ++i) hopper::mbar_init(bar_q + 8 * i, 1);
+    ring.init();
+    hopper::fence_mbar_init();
+  }
+  // Q, dO
+  hopper::zero_dead_rows<HD>(base_ptr + L::kQ, 2 * kConsumers, live_rows);
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < n_live; ++w) {
+      hopper::mbar_expect_tx(bar_q + 8 * w, 2 * Tl::bytes(live_rows));
+      hopper::load_tile<HD, kRows>(base + L::kQ + w * L::kT, &tm_q,
+                                   bar_q + 8 * w, g * rep, (qt0 + w) * bq, b);
+      hopper::load_tile<HD, kRows>(base + L::kDo + w * L::kT, &tm_do,
+                                   bar_q + 8 * w, g * rep, (qt0 + w) * bq, b);
+    }
+    ring.start(load);
+  }
+
+  // consumer wg: query tile qt, rows r0 and r0 + 8 in this thread
+  const int qt = qt0 + wg;
+  const bool tile_live = wg < n_live;
+  const int my_lo = kt_lo(qt) - kt_begin;  // ring tiles it works on
+  const int my_hi = tile_live ? kt_hi(qt) - kt_begin : -1;
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  int pos[2], head[2];
+  bool live[2];
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int row = r0 + 8 * a;
+    pos[a] = qt * bq + row / rep;
+    head[a] = g * rep + row % rep;
+    live[a] = tile_live && row < live_rows && pos[a] < s;
+    const size_t idx = (static_cast<size_t>(b) * h + head[a]) * s + pos[a];
+    lse_r[a] = live[a] ? lse[idx] : 0.0f;
+    d_r[a] = live[a] ? dvec[idx] : 0.0f;
+  }
+  const uint32_t q_base = base + L::kQ + wg * L::kT;
+  const uint32_t do_base = base + L::kDo + wg * L::kT;
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  if (tile_live) hopper::mbar_wait(bar_q + 8 * wg, 0);
+
+  for (int i = 0; i < ring.n; ++i) {
+    ring.wait(i);
+    if (i >= my_lo && i <= my_hi) {
+      const int st = i % kQStages;
+      const uint32_t k_tile = base + L::kK + st * L::kT;
+      const uint32_t v_tile = base + L::kV + st * L::kT;
+      // S = Q K^T and dP = dO V^T: rows query rows, columns keys
+      float s_acc[32], dp_acc[32];
+      two_products<HD>(s_acc, hopper::opaque(q_base), k_tile, dp_acc,
+                       hopper::opaque(do_base), v_tile);
+      const int k0 = (kt_begin + i) * kKeys;
+      p_and_ds(s_acc, dp_acc, scale, [&](int j, float& l_e, float& d_e) {
+        const int a = (j >> 1) & 1;
+        const int key = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        l_e = lse_r[a];
+        d_e = d_r[a];
+        return live[a] && key <= pos[a] &&
+               (window <= 0 || pos[a] - key < window);
+      });
+
+      // dQ += dS K, dS split in two; s_acc is the product's scratch
+      constexpr int kN = kSlice<HD>;
+      uint32_t f[4][2][4];
+      hopper::split_tile<2>(dp_acc, f);
+      tile_product<HD>(f, k_tile, s_acc,
+                       [&](int c, const float (&part)[kN / 2]) {
+#pragma unroll
+                         for (int j = 0; j < kN / 2; ++j)
+                           acc[c * kN / 2 + j] += part[j];
+                       });
+    }
+    ring.release(i, load);
+  }
+  if (!tile_live) return;
+
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] *= scale;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (!live[a]) continue;
+    __nv_bfloat16* const dst =
+        dq + ((static_cast<size_t>(b) * s + pos[a]) * h + head[a]) * HD;
+#pragma unroll
+    for (int j = 2 * a; j < HD / 2; j += 4) {
+      const int col = 8 * (j >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+          __floats2bfloat162_rn(acc[j], acc[j + 1]);
+    }
+  }
+  if (partial == nullptr) return;
+  float* const red = reinterpret_cast<float*>(base_ptr + L::kRed) + wg * 4;
+  const float sq = wg_sumsq(acc, red, wg);
+  if (threadIdx.x % 128 == 0)
+    partial[static_cast<size_t>(b) * n_parts + n_kv_parts + g * n_qtiles +
+            qt] = sq;
+}
+
+template <int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* dvec,
+                       void* dq, void* dk, void* dv, float* partial,
+                       float* scores, int b, int s, int h, int hkv,
+                       int window, float scale, cudaStream_t stream) {
+  const Plan p = plan(s, h, hkv);
+  const int rep = h / hkv;
+  const int bq = kRows / rep;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = hopper::tile_map<HD>(&tm_q, q, h, s, b, rep, bq);
+  if (err == cudaSuccess)
+    err = hopper::tile_map<HD>(&tm_do, dout, h, s, b, rep, bq);
+  if (err == cudaSuccess)
+    err = hopper::tile_map<HD>(&tm_k, k, hkv, s, b, 1, kKeys);
+  if (err == cudaSuccess)
+    err = hopper::tile_map<HD>(&tm_v, v, hkv, s, b, 1, kKeys);
+  if (err != cudaSuccess) return err;
+  constexpr int kv_bytes = KvSmem<HD>::kBytes;
+  constexpr int q_bytes = QSmem<HD>::kBytes;
+  err = cudaFuncSetAttribute(dkdv_tc<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_tc<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q_bytes);
+  if (err != cudaSuccess) return err;
+  const int n_kblocks = (s + kConsumers * kKeys - 1) / (kConsumers * kKeys);
+  dkdv_tc<HD><<<dim3(n_kblocks, hkv, b), kThreads, kv_bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse, dvec, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), partial, s, h, hkv, window, scale,
+      p.n_qtiles, p.n_ktiles, p.n_parts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_tc<HD><<<dim3((p.n_qtiles + 1) / 2, hkv, b), kThreads, q_bytes,
+              stream>>>(tm_q, tm_k, tm_v, tm_do, lse, dvec,
+                        static_cast<__nv_bfloat16*>(dq), partial, s, h, hkv,
+                        window, scale, p.n_qtiles, p.n_kv, p.n_parts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return err;
+  return reduce(partial, b, p, scores, stream);
+}
+
+}  // namespace tc
 
 bool shape_ok(int b, int s, int h, int hkv) {
   return b >= 1 && s >= 1 && hkv >= 1 && h % hkv == 0 && h / hkv <= kRows &&
@@ -624,16 +1201,16 @@ int fab_launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FAB_CASE(T, HD)                                                     \
-  err = launch_bwd<T, HD>(q, k, v, dout, lse, dvec, dq, dk, dv, partial,    \
-                          scores, b, s, h, hkv, window, scale, st)
+#define FAB_CASE(F)                                                         \
+  err = F(q, k, v, dout, lse, dvec, dq, dk, dv, partial, scores, b, s, h,   \
+          hkv, window, scale, st)
   switch (hd * 2 + (bf16 ? 1 : 0)) {
-    case 64: FAB_CASE(float, 32); break;
-    case 65: FAB_CASE(__nv_bfloat16, 32); break;
-    case 128: FAB_CASE(float, 64); break;
-    case 129: FAB_CASE(__nv_bfloat16, 64); break;
-    case 256: FAB_CASE(float, 128); break;
-    case 257: FAB_CASE(__nv_bfloat16, 128); break;
+    case 64: FAB_CASE(launch_bwd<32>); break;
+    case 65: FAB_CASE(tc::launch_bwd<32>); break;
+    case 128: FAB_CASE(launch_bwd<64>); break;
+    case 129: FAB_CASE(tc::launch_bwd<64>); break;
+    case 256: FAB_CASE(launch_bwd<128>); break;
+    case 257: FAB_CASE(tc::launch_bwd<128>); break;
     default: err = cudaErrorInvalidValue;
   }
 #undef FAB_CASE

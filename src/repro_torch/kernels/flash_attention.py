@@ -4,9 +4,12 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention``.  The wrapper
 takes CUDA tensors only: it checks devices, dtypes, shapes, contiguity and
 alignment, allocates the output (and the lse), launches on the current
-stream without synchronising, and raises if a launch is refused.
-``flash_attention.launches`` counts calls, one kernel launch each.  CPU
-tensors go to the plain version through ``kernels/ops.py``.
+stream without synchronising, and raises if a launch is refused.  The
+dtype alone picks the kernel: bf16 runs the tensor-core instance (wgmma on
+TMA-fed tiles), f32 the SIMT one.  ``flash_attention.launches`` counts
+calls, one kernel launch each, and ``flash_attention.tc_launches`` those of
+the tensor-core instance.  CPU tensors go to the plain version through
+``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -97,7 +100,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise RuntimeError(f"flash_attention launch failed: "
                                f"{lib.fa_error_string(code).decode()}")
         flash_attention.launches += 1
+        flash_attention.tc_launches += int(q.dtype == torch.bfloat16)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0        # of those, the bf16 tensor-core kernel

@@ -9,9 +9,12 @@ allocate the outputs and the (B, parts) scratch of per-tile score
 partials, launch on the current stream without synchronising, and raise
 if a launch is refused.
 
+The dtype alone picks the kernels: bf16 runs the tensor-core instances
+(wgmma on TMA-fed tiles), f32 the SIMT ones.
 ``flash_attention_bwd.launches`` counts calls (the dK/dV and dQ kernels,
 and with scores the row reducer: two or three kernel launches a call),
-``flash_attention_bwd.scored`` those with scores;
+``flash_attention_bwd.scored`` those with scores,
+``flash_attention_bwd.tc_launches`` those of the tensor-core instances;
 ``attn_score_sweep.launches`` counts calls (the sweep and the reducer).
 CPU tensors go to the plain versions through ``kernels/ops.py``.
 """
@@ -98,11 +101,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.scored += int(with_scores)
+    flash_attention_bwd.tc_launches += int(q.dtype == torch.bfloat16)
     return (dq, dk, dv, scores) if with_scores else (dq, dk, dv)
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.scored = 0         # of those, calls with scores
+flash_attention_bwd.tc_launches = 0    # of those, the bf16 tensor-core kernels
 
 
 def attn_score_sweep(dq: torch.Tensor, dk: torch.Tensor,

@@ -21,6 +21,13 @@ the score through ``_attn_score_blocked``, the CUDA kernels' tiles and
 order, so the plain fused and separate scores are bitwise equal, and on
 the card the sweep kernel equals its plain version bitwise.
 
+``flash_attention_split_emulation`` and
+``flash_attention_bwd_split_emulation`` repeat the arithmetic of the bf16
+tensor-core attention kernels (bf16 operands, f32 accumulation, the scale
+after Q·Kᵀ, the f32 P split into bf16 parts, two in the forward and three
+for the backward's dV, dS into two): the tests hold them to the plain
+versions at the card's tolerances.  No path calls them.
+
 ``selective_scan_ref`` is the mamba oracle and the model's
 ``ssm_mode="ref"`` path; ``selective_scan_kernel_ref``, kept apart from
 it, is the plain version of the selective-scan *kernel* (the CPU path of
@@ -295,6 +302,92 @@ def attn_score_sweep_kernel_ref(dq: torch.Tensor, dk: torch.Tensor,
     ||dQ||² + ||dK||² + ||dV||² of materialized gradients, reduced as the
     fused score is, so for f32 gradients the two are bitwise equal."""
     return _attn_score_blocked(dq, dk, dv)
+
+
+# ---------------------------------- the bf16 tensor-core kernels' arithmetic
+def split_bf16(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """An f32 tensor as a sum of bf16 parts, each the bf16 rounding of what
+    the earlier ones leave (the differences are exact in f32): two parts
+    keep a normal x to about 2^-17 of its value, three to about 2^-26."""
+    out = []
+    for _ in range(parts):
+        out.append(x.to(torch.bfloat16))
+        x = x - out[-1].float()
+    return out
+
+
+def _split_einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
+                  parts: int) -> torch.Tensor:
+    """einsum(eq, x, y) for an f32 x and a bf16-exact y as the kernels take
+    it: one product for each of x's bf16 parts, summed in f32."""
+    return sum(torch.einsum(eq, p.float(), y) for p in split_bf16(x, parts))
+
+
+def flash_attention_split_emulation(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, window: int = 0):
+    """The bf16 forward kernel's arithmetic (``flash_fwd_tc``): S = q·kᵀ of
+    the bf16 operands in f32, times the scale after the product; the online
+    softmax over 64-key tiles in f32 with ``_NEG`` masking; O += P_hi·V +
+    P_lo·V in f32 (P split in two); l sums the f32 P.  Returns the output
+    in q's dtype and the (B, H, S) f32 logsumexp."""
+    bsz, s, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = hd ** -0.5
+    qf = q.float().reshape(bsz, s, hkv, rep, hd)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s, device=q.device)
+    m = torch.full((bsz, hkv, rep, s), _NEG, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(bsz, hkv, rep, s, hd, device=q.device)
+    for k0 in range(0, s, ATTN_KEYS):
+        kc, vc = kf[:, k0:k0 + ATTN_KEYS], vf[:, k0:k0 + ATTN_KEYS]
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", qf, kc) * scale
+        mask = _causal_window(pos, pos[k0:k0 + ATTN_KEYS], window)
+        sc = torch.where(mask, sc, _NEG)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + _split_einsum("bgrqk,bkgd->bgrqd", p, vc,
+                                                 2)
+        m = m_new
+    denom = torch.clamp(l, min=1e-20)
+    out = (o / denom[..., None]).permute(0, 3, 1, 2, 4).reshape(bsz, s, h, hd)
+    return out.to(q.dtype), (m + torch.log(denom)).reshape(bsz, h, s)
+
+
+def flash_attention_bwd_split_emulation(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor, o: torch.Tensor,
+                                        lse: torch.Tensor, do: torch.Tensor,
+                                        window: int = 0):
+    """The bf16 backward kernels' arithmetic (``dkdv_tc``, ``dq_tc``): S and
+    dP from the bf16 operands in f32, the scale after q·kᵀ, P = exp(S·scale −
+    lse) and dS = P∘(dP − D) in f32 and masked, then dV = Pᵀ·dO (P split
+    into three bf16 parts), dK = scale·dSᵀ·Q and dQ = scale·dS·K (dS split
+    into two), one product a part, summed in f32.  Returns (dq, dk, dv) in
+    the operands' dtypes."""
+    bsz, s, h, hd = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    scale = hd ** -0.5
+    qf = q.float().reshape(bsz, s, hkv, rep, hd)
+    dof = do.float().reshape(bsz, s, hkv, rep, hd)
+    dvec = torch.sum(dof * o.float().reshape(bsz, s, hkv, rep, hd), dim=-1)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s, device=q.device)
+    mask = _causal_window(pos, pos, window)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf) * scale
+    p = torch.where(mask, torch.exp(sc - lse.reshape(bsz, hkv, rep, s)[
+        ..., None]), 0.0)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, vf)
+    ds = torch.where(mask, p * (dp - dvec.permute(0, 2, 3, 1)[..., None]),
+                     0.0)
+    dv = _split_einsum("bgrqk,bqgrd->bkgd", p, dof, 3)
+    dk = scale * _split_einsum("bgrqk,bqgrd->bkgd", ds, qf, 2)
+    dq = scale * _split_einsum("bgrqk,bkgd->bqgrd", ds, kf, 2)
+    return (dq.reshape(bsz, s, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # -------------------------------------------------------- decode attention

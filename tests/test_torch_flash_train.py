@@ -450,7 +450,8 @@ def _cuda_inputs(b, s, h, hkv, hd, dtype, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,hkv,hd,win", [(2, 100, 8, 2, 32, 0),
-                                              (1, 130, 32, 2, 128, 24)])
+                                              (1, 130, 32, 2, 128, 24),
+                                              (2, 90, 4, 1, 64, 0)])
 def test_cuda_flash_bwd_matches_plain(b, s, h, hkv, hd, win, dtype):
     q, k, v, do = _cuda_inputs(b, s, h, hkv, hd, getattr(torch, dtype), 7)
     o, lse = ops.flash_attention(q, k, v, window=win, return_lse=True)

@@ -142,6 +142,29 @@ def test_build_is_keyed_on_source_and_refuses_without_nvcc(monkeypatch,
         _build.build("per_example_sqnorm")
 
 
+def test_build_key_covers_the_headers(monkeypatch, tmp_path):
+    """A library is keyed on its source and every csrc/*.cuh: editing a
+    shared header (hopper.cuh) rebuilds each library that may include it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text("// a\n")
+    (csrc / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build.library_path("k")
+    assert first.parent == tmp_path / "build"
+    assert _build.library_path("k") == first
+    keys = {first}
+    for name, text in (("b.cuh", "// b, edited\n"), ("a.cuh", "// a2\n"),
+                       ("k.cu", '#include "a.cuh"\n// edited\n')):
+        (csrc / name).write_text(text)
+        keys.add(_build.library_path("k"))
+        assert len(keys) == 1 + ("b.cuh", "a.cuh", "k.cu").index(name) + 1
+    (csrc / "c.cuh").write_text("// a new header\n")
+    assert _build.library_path("k") not in keys
+
+
 # --------------------------------------------------------------- ghost norm
 GN_RTOL = 1e-4
 
@@ -441,7 +464,8 @@ def _cuda_attn(shapes, dtype, seed):
 
 
 @pytest.mark.parametrize("b,s,h,hkv,hd,win", [(2, 100, 8, 2, 32, 0),
-                                              (1, 130, 32, 2, 128, 24)])
+                                              (1, 130, 32, 2, 128, 24),
+                                              (2, 90, 4, 1, 64, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(b, s, h, hkv, hd, win, dtype):
     q, k, v = _cuda_attn([(b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)],
