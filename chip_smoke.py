@@ -25,23 +25,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 main-path shapes with the L2 cache cold, the byte bound, and
                 a profiler breakdown of a few steps.
   6. ghost    — the ghost-norm Gram kernel against its plain version on the
-                card: the LM path's 8 tap shapes, S = 2048 (several tiles,
-                the symmetric skip) and S = 100 (ragged), x/d types f32/f32,
-                bf16/bf16 and bf16/f32, symmetric and not; tolerance
-                GHOST_TOL × Σ_st |A_st·B_st| per row; two launches bitwise
-                equal; the plain Gram against the direct plain version; the
-                wrapper refuses bad input.
+                card: the tap shapes of the seq-64 LM step, the S = 512
+                flash-trainer step and the falcon-mamba ghost step, S = 2048
+                (several tiles, the symmetric skip), S = 100 (ragged) and
+                ragged widths, x/d types f32/f32, bf16/bf16 and bf16/f32,
+                symmetric and not, and a d whose every value rounds to bf16
+                the same way; tolerance GHOST_TOL × Σ_st |A_st·B_st| per
+                row; two launches bitwise equal; which instance (tensor
+                cores or SIMT) each case took; the plain Gram against the
+                direct plain version; the wrapper refuses bad input.
   7. lm main  — glm4-9b at full width, depth cut to 4 layers, relaxed,
                 ghost, through the train entry point: losses and √TrΣ
-                finite, ghost_norm called 8 times a step, its plain
-                versions never; median step ms and peak memory.
+                finite, ghost_norm called 8 times a step, every call on
+                its tensor-core instance, its plain versions never; median
+                step ms and peak memory.
   8. lm parity — glm4-9b at full width, 1 layer, float32: one scoring pass
                 and one master step on the card and on the CPU (plain Gram)
                 with injected sample indices; relative error ≤ 1e-4.
   9. lm times — ghost_norm vs its plain version (two cuBLAS bmm and a
-                reduction) per main-path shape, L2 cold, CUDA events, beside
-                the byte and operation bounds; a profiler breakdown of
-                LM steps.
+                reduction) per call of three steps (the seq-64 LM step, the
+                S = 512 flash-trainer step, the falcon-mamba ghost step), L2
+                cold, CUDA events, beside the byte and operation bounds; a
+                profiler breakdown of LM steps.
  10. attn     — (run right after phase 6) the flash-attention forward and
                 flash-decode kernels against their plain versions: glm4-9b
                 shapes in bf16, ragged S = 100, window 24, decode lengths 0,
@@ -85,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 attn_scores="fused" (scorer), every plain version
                 forbidden: per step 8 flash forward, 8 backward (4 with
                 scores), all of the tensor-core kernels, 0 sweep and 5
-                ghost_norm launches; losses and
+                ghost_norm launches, all of the tensor-core instance;
+                losses and
                 √TrΣ finite; median step ms, peak memory.  Then 3 steps
                 with attn_scores="separate": 4 sweeps a step.
  17. lm flash parity — glm4-9b at full width, 1 layer, f32, seq 128: the
@@ -112,8 +118,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 ssm_mode="pallas" under every plain version forbidden, 10
                 scan launches a scoring pass, the master on the ref scan;
                 (b) the ghost scorer with ssm_mode="ref", 4 ghost_norm
-                launches a step (in_proj, x_proj, out_proj, unembed), no
-                scan launch; (c) the build's logit_grad/pallas scorer alone
+                launches a step (in_proj, x_proj, out_proj, unembed), all
+                of the tensor-core instance, no scan launch; (c) the build's logit_grad/pallas scorer alone
                 at full depth (64 layers, 7.27 B params): one pass over 8 ×
                 2048 tokens, 64 scan launches.  Step ms, pass ms, peak memory.
  21. mamba parity — falcon-mamba-7b at full width, 1 layer, f32: a
@@ -231,8 +237,15 @@ FLASH_ARGV = ["--arch", "glm4-9b", "--mode", "relaxed", "--strategy",
               "ghost", "--seq", str(FLASH_S), "--batch", str(FLASH_B),
               "--score-batch", str(FLASH_B), "--examples", "4096", "--lr",
               "0.01", "--refresh-every", "8", "--device", "cuda"]
-# its ghost_norm calls a step: the score tap replaces the wq/wk/wv Grams
-FLASH_GHOST = ("wo", "w_in", "w_gate", "w_out", "unembed")
+# its ghost_norm calls a step, as GHOST_MAIN: the score tap replaces the
+# wq/wk/wv Grams; the layer taps cover P·B = 4·16 rows, the unembed B = 16
+FLASH_GHOST = (
+    ("wo", LM_LAYERS * FLASH_B, FLASH_S, 4096, 4096),
+    ("w_in", LM_LAYERS * FLASH_B, FLASH_S, 4096, 13696),
+    ("w_gate", LM_LAYERS * FLASH_B, FLASH_S, 4096, 13696),
+    ("w_out", LM_LAYERS * FLASH_B, FLASH_S, 13696, 4096),
+    ("unembed", FLASH_B, FLASH_S, 4096, 151552),
+)
 # kernel 5 against its plain version: f32 gradients at the reference's own
 # bound for its backward (tests/test_kernels.py); bf16 gradients against the
 # plain version's f32 gradients (inputs upcast exactly) at that bound plus
@@ -259,8 +272,16 @@ MAMBA_ARGV = ["--arch", "falcon-mamba-7b", "--mode", "relaxed", "--seq",
               str(MAMBA_S), "--batch", str(MAMBA_B), "--score-batch",
               str(MAMBA_SB), "--examples", "2048", "--lr", "0.01",
               "--refresh-every", "8", "--device", "cuda"]
-# its ghost_norm calls a step: one per tap name over all P·B rows
-MAMBA_GHOST = ("in_proj", "x_proj", "out_proj", "unembed")
+# its ghost_norm calls a step, as GHOST_MAIN: one per tap name over all
+# P·B = 10·16 rows (x_proj: dt_rank 256 + 2 d_state), the unembed B = 16
+MAMBA_GHOST = (
+    ("in_proj", MAMBA_LAYERS * MAMBA_SB, MAMBA_S, 4096, 16384),
+    ("x_proj", MAMBA_LAYERS * MAMBA_SB, MAMBA_S, 8192, 288),
+    ("out_proj", MAMBA_LAYERS * MAMBA_SB, MAMBA_S, 8192, 4096),
+    ("unembed", MAMBA_SB, MAMBA_S, 4096, 65024),
+)
+# the three steps whose ghost_norm calls phase 9 times
+GHOST_STEPS = {"lm": GHOST_MAIN, "flash": FLASH_GHOST, "mamba": MAMBA_GHOST}
 # the full-depth scoring pass and the kernel's main shape
 SCAN_B, SCAN_S = 8, 2048
 # scan kernel vs plain: the same f32 recurrence with FMA contraction and
@@ -594,10 +615,18 @@ def lm_config():
     return dataclasses.replace(get_config("glm4-9b"), num_layers=LM_LAYERS)
 
 
-def gram_inputs(rows, s, din, dout, x_dtype, d_dtype, seed):
-    """x ~ N(0,1) activations, d ~ N(0,1)·1e-2 cotangents on the card."""
+def gram_inputs(rows, s, din, dout, x_dtype, d_dtype, seed,
+                one_way=False):
+    """x ~ N(0,1) activations, d ~ N(0,1)·1e-2 cotangents on the card.
+    ``one_way``: d = 1e-2·(b + 0.45·2^-7), b bf16 in [1, 2), so every d
+    value rounds to bf16 in the same direction and a Gram built from one
+    bf16 part of d errs coherently (tests/test_torch_ghost_split.py)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, s, din, generator=g, device="cuda").to(x_dtype)
+    if one_way:
+        b = (1 + torch.rand(rows, s, dout, generator=g, device="cuda")
+             ).to(torch.bfloat16).float()
+        return x, (1e-2 * (b + 0.45 * 2.0 ** -7)).to(d_dtype)
     d = (torch.randn(rows, s, dout, generator=g, device="cuda")
          * 1e-2).to(d_dtype)
     return x, d
@@ -620,19 +649,25 @@ def phase_ghost_kernels(gn, ref):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []   # (tag, rows, S, din, dout, x dtype, d dtype)
     seen = set()
-    for name, rows, s, din, dout in GHOST_MAIN:
-        if (rows, s, din, dout) not in seen:       # wq = wo, wk = wv, ...
-            seen.add((rows, s, din, dout))
-            cases.append((f"main {name}", rows, s, din, dout, bf16, f32))
+    for step, calls in GHOST_STEPS.items():
+        for name, rows, s, din, dout in calls:
+            if (rows, s, din, dout) not in seen:   # wq = wo, wk = wv, ...
+                seen.add((rows, s, din, dout))
+                cases.append((f"main {step} {name}", rows, s, din, dout,
+                              bf16, f32))
     for xt, dt in ((f32, f32), (bf16, bf16), (bf16, f32)):
         types = f"{str(xt)[6:]}/{str(dt)[6:]}"
         cases += [(f"S=2048 {types}", 2, 2048, 4096, 256, xt, dt),
                   (f"S=2048 {types}", 2, 2048, 4096, 4096, xt, dt),
                   (f"S=100 {types}", 16, 100, 4096, 256, xt, dt),
                   (f"S=100 ragged widths {types}", 8, 100, 300, 77, xt, dt)]
+    cases.append(("one-way rounding bfloat16/float32", 2, 64, 256, 4096,
+                  bf16, f32))
     max_abs = 0.0
     for ci, (tag, rows, s, din, dout, xt, dt) in enumerate(cases):
-        x, d = gram_inputs(rows, s, din, dout, xt, dt, seed=700 + ci)
+        x, d = gram_inputs(rows, s, din, dout, xt, dt, seed=700 + ci,
+                           one_way=tag.startswith("one-way"))
+        tc_before = gn.ghost_norm.tc_launches
         worst = 0.0
         for symmetric in (True, False):
             k1 = gn.ghost_norm(x, d, symmetric=symmetric)
@@ -652,9 +687,16 @@ def phase_ghost_kernels(gn, ref):
             worst = max(worst, err)
             if tag.startswith("main"):
                 max_abs = max(max_abs, abs_err)
-        print(f"ghost: {tag} (R={rows}, S={s}, {din}→{dout}) ok: symmetric "
-              f"and not, error ≤ {worst:.2e} of Σ|A·B|, two launches "
-              f"bitwise equal", flush=True)
+        tc = gn.ghost_norm.tc_launches - tc_before
+        if tc not in (0, 4):
+            fail(f"ghost_norm {tag}: {tc} of 4 calls on the tensor cores")
+        if tag.startswith(("main", "one-way")) and tc != 4:
+            fail(f"ghost_norm {tag}: a main-path shape took the SIMT "
+                 f"instance")
+        print(f"ghost: {tag} (R={rows}, S={s}, {din}→{dout}) ok on the "
+              f"{'tensor-core' if tc else 'SIMT'} instance: symmetric and "
+              f"not, error ≤ {worst:.2e} of Σ|A·B|, two launches bitwise "
+              f"equal", flush=True)
         del x, d
     # the two plain versions agree (the direct one materializes din·dout)
     x, d = gram_inputs(8, 100, 300, 77, f32, f32, seed=690)
@@ -700,8 +742,9 @@ def kernel_wrappers() -> dict:
             "selective_scan": ss.selective_scan}
 
 
-# the attention kernels with a bf16 tensor-core instance (tc_launches)
-TC_KERNELS = ("flash_attention", "flash_attention_bwd")
+# the kernels with a tensor-core instance (tc_launches): bf16 attention,
+# bf16-x ghost norm
+TC_KERNELS = ("flash_attention", "flash_attention_bwd", "ghost_norm")
 
 
 def reset_counts() -> None:
@@ -715,14 +758,14 @@ def reset_counts() -> None:
 
 
 def check_tc(launches: dict, what: str) -> None:
-    """Fail unless every launch of a TC_KERNELS kernel (all bf16 on the
-    main paths) went to its tensor-core instance."""
+    """Fail unless every launch of a TC_KERNELS kernel (all bf16, or bf16
+    x, on the main paths) went to its tensor-core instance."""
     wrappers = kernel_wrappers()
     for name in TC_KERNELS:
         if wrappers[name].tc_launches != launches[name]:
             fail(f"{what}: {name} launched {launches[name]} times, "
                  f"{wrappers[name].tc_launches} of them the tensor-core "
-                 f"kernel; the bf16 path must take it every time")
+                 f"kernel; the main path must take it every time")
 
 
 def read_counts() -> dict:
@@ -765,6 +808,7 @@ def phase_lm_main(train_mod, pes, gn, ref):
     if launches["ghost_norm"] != len(GHOST_MAIN) * LM_STEPS:
         fail(f"ghost_norm called {launches['ghost_norm']} times in "
              f"{LM_STEPS} LM steps; expected {len(GHOST_MAIN)} a step")
+    check_tc(launches, "lm main")
     keys = ("loss", "grad_norm", "trace_ideal", "trace_stale", "trace_unif")
     for rec in result.history:
         if not all(math.isfinite(rec[k]) for k in keys):
@@ -846,66 +890,78 @@ def phase_lm_parity():
 def ghost_bounds(rows, s, din, dout):
     """(bytes ms, operations ms) of ghost_norm on bf16 x and f32 d: inputs
     read once and f32[R] written once over the HBM rate; the operations
-    are the two symmetric Grams, S(S+1)·width flops a row each (S(S+1)/2
-    entries of one multiply-add per feature): the bf16 x Gram over the
-    bf16 tensor-core peak, where it is exact, plus the f32 d Gram over
-    the f32 peak."""
+    are the algorithm's two symmetric Grams, S(S+1)·(din + dout) flops a
+    row (S(S+1)/2 entries of one multiply-add per feature), over the bf16
+    tensor-core peak, where the kernel runs them (as ``flash_bound`` counts
+    the flash kernels, whose P split also makes the tensor cores do more
+    than the algorithm)."""
     nbytes = rows * s * (din * 2 + dout * 4) + rows * 4
-    x_flops = float(s * (s + 1) * din * rows)
-    d_flops = float(s * (s + 1) * dout * rows)
-    ops_s = x_flops / BF16_TC_FLOP_PER_S + d_flops / F32_FLOP_PER_S
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+    flops = float(s * (s + 1) * (din + dout) * rows)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            flops / BF16_TC_FLOP_PER_S * 1e3)
 
 
 def phase_ghost_times(gn, ref, rounds=5):
-    """ghost_norm vs its plain version at each main-path shape.  Every
-    input set is larger than the L2 cache, so one set keeps calls cold.
+    """ghost_norm vs its plain version at each call of the three steps of
+    GHOST_STEPS.  Every input set is larger than the L2 cache, so one set
+    keeps calls cold.
 
     Each call keeps the card busy for 0.3 ms or more while the host
     enqueues the next in far less, so CUDA events around a loop of calls
     give the device time.  (The profiler's kernel sum is not used here:
     it has dropped records of these long kernels.)"""
-    rows_out = {}
-    for name, rows, s, din, dout in GHOST_MAIN:
-        if any(r["shape"] == [rows, s, din, dout] for r in rows_out.values()):
-            rows_out[name] = next(r for r in rows_out.values()
-                                  if r["shape"] == [rows, s, din, dout])
-            continue
-        x, d = gram_inputs(rows, s, din, dout, torch.bfloat16, torch.float32,
-                           seed=800)
-        if x.numel() * 2 + d.numel() * 4 < 2 * L2_BYTES:
-            fail(f"ghost times {name}: inputs fit in L2")
-        kern = lambda a, b: gn.ghost_norm(a, b, symmetric=True)
-        plain = lambda a, b: ref.ghost_norm_ref(a, b)
-        args = [(x, d)]
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = time_events(plain, args, rounds)
-        k1 = time_events(kern, args, rounds)
-        k2 = time_events(kern, args, rounds)
-        p2 = time_events(plain, args, rounds)
-        b_ms, o_ms = ghost_bounds(rows, s, din, dout)
-        rows_out[name] = {
-            "shape": [rows, s, din, dout], "ms": min(k1, k2),
-            "plain_ms": min(p1, p2), "bytes_ms": b_ms, "ops_ms": o_ms,
-            "bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
-        print(f"lm times: ghost_norm {name} (R={rows}, S={s}, {din}→{dout}, "
-              f"bf16 x, f32 d, L2 cold): CUDA events kernel "
-              f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain (2 bmm + reduce) "
-              f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us; bound bytes "
-              f"{b_ms * 1e3:.1f} us, ops (bf16 x Gram on tensor cores, f32 "
-              f"d Gram) {o_ms * 1e3:.1f} us", flush=True)
-        del x, d
-    step = {k: sum(r[k] for r in rows_out.values())
-            for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
-    step["card_after"] = card_state()
-    print(f"lm times: ghost_norm per LM step ({len(GHOST_MAIN)} calls): "
-          f"kernel {step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, "
-          f"bound bytes {step['bytes_ms']:.3f} ms, ops "
-          f"{step['ops_ms']:.3f} ms; clock, power, temperature after: "
-          f"{step['card_after']}", flush=True)
-    return rows_out, step
+    shapes = {}
+    for calls in GHOST_STEPS.values():
+        for _, rows, s, din, dout in calls:
+            shape = (rows, s, din, dout)
+            if shape in shapes:
+                continue
+            x, d = gram_inputs(rows, s, din, dout, torch.bfloat16,
+                               torch.float32, seed=800)
+            if x.numel() * 2 + d.numel() * 4 < 2 * L2_BYTES:
+                fail(f"ghost times {shape}: inputs fit in L2")
+            kern = lambda a, b: gn.ghost_norm(a, b, symmetric=True)
+            plain = lambda a, b: ref.ghost_norm_ref(a, b)
+            args = [(x, d)]
+            # plain, kernel, kernel, plain: compare within one call, in turns
+            p1 = time_events(plain, args, rounds)
+            k1 = time_events(kern, args, rounds)
+            k2 = time_events(kern, args, rounds)
+            p2 = time_events(plain, args, rounds)
+            b_ms, o_ms = ghost_bounds(rows, s, din, dout)
+            shapes[shape] = {
+                "shape": list(shape), "ms": min(k1, k2),
+                "plain_ms": min(p1, p2), "bytes_ms": b_ms, "ops_ms": o_ms,
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+            print(f"lm times: ghost_norm (R={rows}, S={s}, {din}→{dout}, "
+                  f"bf16 x, f32 d, L2 cold): CUDA events kernel "
+                  f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain (2 bmm + "
+                  f"reduce) {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us; bound bytes "
+                  f"{b_ms * 1e3:.1f} us, ops (tensor cores) "
+                  f"{o_ms * 1e3:.1f} us", flush=True)
+            del x, d
+    rows_out, steps = {}, {}
+    for step, calls in GHOST_STEPS.items():
+        rows_out[step] = {name: shapes[(rows, s, din, dout)]
+                          for name, rows, s, din, dout in calls}
+        steps[step] = {k: sum(r[k] for r in rows_out[step].values())
+                       for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+        steps[step]["bound_ms"] = max(steps[step]["bytes_ms"],
+                                      steps[step]["ops_ms"])
+        steps[step]["bound_by"] = ("bytes" if steps[step]["bytes_ms"] >=
+                                   steps[step]["ops_ms"] else "operations")
+        steps[step]["calls"] = len(calls)
+    card_after = card_state()
+    for step, t in steps.items():
+        print(f"lm times: ghost_norm per {step} step ({t['calls']} calls): "
+              f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"bound bytes {t['bytes_ms']:.3f} ms, ops {t['ops_ms']:.3f} "
+              f"ms", flush=True)
+    print(f"lm times: clock, power, temperature after: {card_after}",
+          flush=True)
+    return rows_out, steps, card_after
 
 
 # ---------------------------------------------------------- the serve path
@@ -1935,6 +1991,7 @@ def phase_mamba_main(train_mod, ref):
         if launches != want:
             fail(f"mamba {leg}: launches {launches} in {steps} steps; "
                  f"expected {want}")
+        check_tc(launches, f"mamba {leg}")
         for rec in result.history:
             if not all(math.isfinite(rec[k]) for k in keys):
                 fail(f"non-finite mamba {leg} metrics at step "
@@ -2173,7 +2230,7 @@ def main() -> int:
     lm_launches, lm_step_ms, lm_peak, lm_hist = phase_lm_main(
         train_mod, pes, gn, ref)
     lm_errs = phase_lm_parity()
-    ghost_rows, ghost_step = phase_ghost_times(gn, ref)
+    ghost_rows, ghost_steps, ghost_card = phase_ghost_times(gn, ref)
     lm_prof = phase_profile(train_mod, LM_ARGV, lm_config(), steps=3,
                             warm=2, tag="lm profile")
     serve_result, serve = phase_serve_main(serve_mod, ref)
@@ -2206,7 +2263,8 @@ def main() -> int:
         "argv": LM_ARGV, "steps": LM_STEPS, "warmup_steps": LM_WARMUP,
         "step_ms_median": lm_step_ms, "peak_mem_gib": lm_peak,
         "losses": [r["loss"] for r in lm_hist],
-        "ghost_norm_ms": ghost_rows, "ghost_norm_per_step": ghost_step,
+        "ghost_norm_ms": ghost_rows, "ghost_norm_per_step": ghost_steps,
+        "ghost_norm_card_after": ghost_card,
         "library_ms": None,
         "library_note": "no single PyTorch call computes <XXᵀ, DDᵀ>; the "
                         "plain version is two cuBLAS bmm and a reduction",
@@ -2243,12 +2301,15 @@ def main() -> int:
                    "attn_score_sweep": flash["separate"]["launches"],
                    "selective_scan": mamba["logit_grad"]["launches"]}
     timing = dict(rows)
-    # ghost_norm: the work of one LM step, its 8 calls
+    # ghost_norm: the work of one seq-64 LM step, its 8 calls; beside it
+    # the flash-trainer and falcon-mamba ghost steps
     timing["ghost_norm"] = {
-        "ms": ghost_step["ms"], "plain_ms": ghost_step["plain_ms"],
-        "bound_ms": max(ghost_step["bytes_ms"], ghost_step["ops_ms"]),
-        "bound_by": ("bytes" if ghost_step["bytes_ms"] >= ghost_step["ops_ms"]
-                     else "operations")}
+        k: ghost_steps["lm"][k]
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    timing["ghost_norm"]["steps"] = {
+        step: {k: t[k] for k in ("calls", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")}
+        for step, t in ghost_steps.items()}
     timing["flash_attention"] = serve_rows["flash_attention"]
     timing["decode_attention"] = serve_rows["decode_attention main"]
     timing["flash_attention_bwd"] = flash_rows["flash_attention_bwd"]
@@ -2257,7 +2318,9 @@ def main() -> int:
     timed = {
         "per_example_sqnorm_multi": "one call at the MLP main-path shapes",
         "per_example_sqnorm": "one call at the MLP main-path shapes",
-        "ghost_norm": "the 8 calls of one LM step",
+        "ghost_norm": "the 8 calls of one seq-64 LM step; 'steps' gives "
+                      "the 5 of a flash-trainer step and the 4 of a "
+                      "falcon-mamba ghost step",
         "flash_attention": "one prefill call (B=8, S=2048, 32/2 heads, hd "
                            "128, bf16); 40 a prefill",
         "decode_attention": "one decode call at the last step's cache (B=8, "
@@ -2302,6 +2365,8 @@ def main() -> int:
                        "mamba_full_depth":
                            mamba["full_depth"]["launches"][name]},
         })
+        if "steps" in timing[name]:
+            kernels[-1]["steps"] = timing[name]["steps"]
     print(card, flush=True)   # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

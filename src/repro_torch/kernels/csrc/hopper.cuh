@@ -1,8 +1,8 @@
 // Thin wrappers of the Hopper (sm_90a) instructions that the tensor-core
-// attention kernels (flash_attention.cu, flash_attention_bwd.cu) are built
-// from: mbarriers and the ring of tile stages built on them (Ring), TMA tile
-// loads, wgmma with its shared-memory matrix descriptors, the split of f32
-// accumulators into bf16 A fragments, and the host-side encoding of TMA
+// kernels (flash_attention.cu, flash_attention_bwd.cu, ghost_norm.cu) are
+// built from: mbarriers and the ring of tile stages built on them (Ring), TMA
+// tile loads, wgmma with its shared-memory matrix descriptors, the split of
+// f32 accumulators into bf16 A fragments, and the host-side encoding of TMA
 // tensor maps.
 //
 // Tiles.  A bf16 tile of R rows and HD values a row lives in shared memory as
@@ -115,6 +115,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of the 3-D tensor map at coordinates (c0, c1, c2), innermost
+// first, into shared memory at dst; completes `bar`'s transactions.
+// Coordinates past the tensor's extent read as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -459,6 +474,35 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, int heads, int s,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       T::kSwizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Map of a contiguous (b, rows, width) tensor of bf16 or f32 as the 3-D
+// tensor (width, rows, b), with boxes of (box_w, box_rows, 1): a box lands as
+// box_rows rows of box_w values, under the 128-byte swizzle when `swizzle`
+// (box_w values must then fill 128 bytes), else densely.  Width and rows
+// are true bounds, so what lies past them reads as zeros.  TMA needs the
+// base address and the row pitch (width values) to be multiples of 16 bytes.
+inline cudaError_t rows_map(CUtensorMap* map, const void* ptr, bool bf16,
+                            int width, int rows, int b, int box_w,
+                            int box_rows, bool swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = fn(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

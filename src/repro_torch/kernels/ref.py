@@ -27,6 +27,9 @@ tensor-core attention kernels (bf16 operands, f32 accumulation, the scale
 after Q·Kᵀ, the f32 P split into bf16 parts, two in the forward and three
 for the backward's dV, dS into two): the tests hold them to the plain
 versions at the card's tolerances.  No path calls them.
+``ghost_norm_split_emulation`` does the same for the ghost-norm kernel's
+tensor-core instance (bf16 x, f32 d split into two bf16 parts, feature
+splits summed as scalars).
 
 ``selective_scan_ref`` is the mamba oracle and the model's
 ``ssm_mode="ref"`` path; ``selective_scan_kernel_ref``, kept apart from
@@ -45,6 +48,10 @@ SQNORM_THREADS = 256
 # group (64 // rep positions times its rep heads)
 ATTN_KEYS = 64
 ATTN_ROWS = 64
+# positions a tile of the ghost-norm kernel (ghost_norm.cu kTile) and
+# features a k-tile of its tensor-core instance (tc::kKT)
+GN_TILE = 64
+GN_KTILE = 64
 # the attention kernels' mask value (src/repro/kernels/flash_attention.py)
 _NEG = -1e30
 
@@ -388,6 +395,53 @@ def flash_attention_bwd_split_emulation(q: torch.Tensor, k: torch.Tensor,
     dq = scale * _split_einsum("bgrqk,bkgd->bqgrd", ds, kf, 2)
     return (dq.reshape(bsz, s, h, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def ghost_norm_split_emulation(x: torch.Tensor, d: torch.Tensor,
+                               splits: int = 1, symmetric: bool = False,
+                               d_parts: int | None = None) -> torch.Tensor:
+    """The ghost-norm tensor-core instance's arithmetic (``ghost_norm.cu``,
+    namespace ``tc``) on a bf16 x: the x Gram tiles A_ij of the 64-position
+    tiles of the bf16-exact x in f32; d as a sum of bf16 parts
+    (``split_bf16``: two for an f32 d, one for a bf16 d, or ``d_parts``),
+    the d Gram as the products p_a·p_bᵀ with a + b < parts (hi·hiᵀ + hi·loᵀ +
+    lo·hiᵀ for two) over each of ``splits`` feature ranges (split c takes the
+    64-feature k-tiles [c·n/splits, (c+1)·n/splits), empty when splits > n);
+    then ⟨A_ij, B_ij,c⟩ summed over the splits of a pair in order and over
+    the pairs in order, j > i counted twice when ``symmetric`` (which visits
+    only j ≥ i).  Positions past S are zeros, as TMA reads them.  Returns
+    (R,) f32."""
+    rows, s, din = x.shape
+    dout = d.shape[2]
+    ns = -(-s // GN_TILE)
+    pad = ns * GN_TILE - s
+
+    def tiles(a):                          # (R, S, w) → (R, ns, 64, w)
+        a = torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
+        return a.reshape(rows, ns, GN_TILE, a.shape[-1])
+
+    xt = tiles(x)
+    gx = torch.einsum("bisk,bjtk->bijst", xt, xt)
+    if d_parts is None:
+        d_parts = 1 if d.dtype == torch.bfloat16 else 2
+    parts = [tiles(p) for p in split_bf16(d.float(), d_parts)]
+    n_kt = -(-dout // GN_KTILE)
+    contrib = []
+    for c in range(splits):
+        k0 = c * n_kt // splits * GN_KTILE
+        k1 = min((c + 1) * n_kt // splits * GN_KTILE, dout)
+        gd = sum(torch.einsum("bisk,bjtk->bijst", parts[a][..., k0:k1],
+                              parts[b][..., k0:k1])
+                 for a in range(d_parts) for b in range(d_parts - a))
+        contrib.append(torch.sum(gx * gd, dim=(3, 4)))   # (R, ns, ns)
+    out = torch.zeros(rows, dtype=torch.float32, device=x.device)
+    for i in range(ns):
+        for j in range(i if symmetric else 0, ns):
+            pair = contrib[0][:, i, j]
+            for c in range(1, splits):
+                pair = pair + contrib[c][:, i, j]
+            out = out + (2.0 * pair if symmetric and j > i else pair)
+    return out
 
 
 # -------------------------------------------------------- decode attention
