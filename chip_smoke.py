@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. build    — compile every CUDA source of src/repro_torch/kernels/csrc
                 (sm_90a), one nvcc per source, all started together; print
-                each build time and the card.
+                each build time, the card, and ptxas's registers and spills
+                for each kernel instance; check the wrappers' constants
+                against their builds' (the scan's d_state sizes and lanes).
   2. kernels  — the per-example squared-norm kernels against their plain
                 PyTorch versions on the card (f32 rtol 1e-5, atol 0: sums
                 of up to 3072 squares taken in another order), against
@@ -108,7 +110,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 card: falcon-mamba-7b's scoring shape (8, 2048, 8192, 16) in
                 bf16 with B and C column slices of the x_proj output and a
                 falcon-init Δ, ragged S and d_inner in bf16 and f32, f32
-                smoke shapes, d_state 8 and 4; f32 within rtol 1e-5 and an
+                smoke shapes, d_state 8 and 4 (also at a ragged and an odd
+                d_inner), f32 at falcon init over S = 2048, |Δ·A| up to 100
+                (decays flushed to 0), B and C slices at odd columns (bases
+                off 16 bytes); each case prints its lanes a channel
+                (L); f32 within rtol 1e-5 and an
                 atol of 1e-5 of the largest output, bf16 within one bf16 ulp
                 of the plain version's f32 result (plus that atol); two
                 launches bitwise equal; refusals (dtypes, shapes, layouts,
@@ -125,9 +131,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  21. mamba parity — falcon-mamba-7b at full width, 1 layer, f32: a
                 logit_grad/pallas scoring pass, a ghost/ref scoring pass and
                 a master step, card vs CPU; relative error ≤ 1e-4.
- 22. mamba times — the scan kernel at the main shape, L2 cold, CUDA events,
-                beside its plain version and its bound (exponentials over the
-                SFU rate vs bytes); a profiler window over steps of 20a.
+ 22. mamba times — the scan kernel at the full-depth pass's shape and at
+                the trainer's (16, 256, 8192, 16), with its L, L2 cold, CUDA
+                events, beside its plain version and its bound (exponentials
+                over the SFU rate vs bytes); a profiler window over steps of
+                20a.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -136,6 +144,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -349,7 +358,31 @@ def phase_build(_build, card: str) -> dict:
         ptxas = log.read_text().strip() if log.exists() else "(cached build)"
         print(f"build: {name}.cu in {secs[name]:.2f} s on {card} → "
               f"{log.parent}\n{ptxas}", flush=True)
+        for fn, regs, spill_st, spill_ld in ptxas_summary(ptxas):
+            print(f"build: {name}.cu {fn}: {regs} registers, spill stores "
+                  f"{spill_st} B, spill loads {spill_ld} B", flush=True)
     return secs
+
+
+def ptxas_summary(log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill-store bytes, spill-load bytes) for each
+    entry function in an ``-Xptxas -v`` log."""
+    out, fn, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *spills))
+            fn, spills = None, (0, 0)
+    return out
 
 
 def phase_kernels(pes, ref):
@@ -1847,18 +1880,24 @@ def mamba_config(layers=None):
                                num_layers=layers or MAMBA_LAYERS)
 
 
-def scan_inputs(b, s, di, ds, dtype, seed, falcon=False):
+def scan_inputs(b, s, di, ds, dtype, seed, falcon=False, steep=False,
+                col=256):
     """The scan's operands on the card: u ~ N(0,1); B and C column slices
-    of a (B, S, 256 + 2·d_state) projection, as the model hands them over;
-    D ~ N(0,1).  With ``falcon`` Δ and A as falcon-mamba's init gives
-    them (Δ log-uniform in [1e-3, 1e-1], A = −[1 .. d_state], so
-    exp(Δ·A) reaches 0.999 and the state sums ~1000 steps); else the
-    reference's kernel test's, Δ = softplus(N(0,1)), A = −exp(N(0,1)/2)."""
+    of a (B, S, col + 2·d_state) projection, at columns col and col +
+    d_state, as the model hands them over (col 256, its dt_rank; an odd
+    col puts their bases off 16 bytes); D ~ N(0,1).  With ``falcon`` Δ and
+    A as falcon-mamba's init gives them (Δ log-uniform in [1e-3, 1e-1],
+    A = −[1 .. d_state], so exp(Δ·A) reaches 0.999 and the state sums
+    ~1000 steps); with ``steep`` Δ log-uniform in [1e-2, 6.25] and the
+    same A, so |Δ·A| reaches 100 and decays below 2^-126 flush to 0; else
+    the reference's kernel test's, Δ = softplus(N(0,1)), A =
+    −exp(N(0,1)/2)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
     u = rn(b, s, di)
-    if falcon:
-        lo, hi = math.log(1e-3), math.log(1e-1)
+    if falcon or steep:
+        lo, hi = (math.log(1e-2), math.log(6.25)) if steep else \
+            (math.log(1e-3), math.log(1e-1))
         delta = torch.exp(lo + (hi - lo) * torch.rand(
             b, s, di, generator=g, device="cuda"))
         a = -torch.arange(1, ds + 1, dtype=torch.float32,
@@ -1866,9 +1905,9 @@ def scan_inputs(b, s, di, ds, dtype, seed, falcon=False):
     else:
         delta = torch.nn.functional.softplus(rn(b, s, di))
         a = -torch.exp(0.5 * rn(di, ds))
-    proj = rn(b, s, 256 + 2 * ds).to(dtype)
+    proj = rn(b, s, col + 2 * ds).to(dtype)
     return (u.to(dtype), delta.to(dtype), a.contiguous(),
-            proj[..., 256:256 + ds], proj[..., 256 + ds:], rn(di))
+            proj[..., col:col + ds], proj[..., col + ds:], rn(di))
 
 
 def scan_check(y, plain, dtype) -> tuple[bool, float]:
@@ -1891,26 +1930,37 @@ def scan_check(y, plain, dtype) -> tuple[bool, float]:
 def phase_scan_kernels(ss, ops, ref):
     """The selective-scan kernel against its plain version on the card."""
     f32, bf16 = torch.float32, torch.bfloat16
-    # (tag, B, S, d_inner, d_state, dtype, falcon init)
+    # (tag, B, S, d_inner, d_state, dtype, scan_inputs options)
+    falcon, steep = {"falcon": True}, {"steep": True}
     cases = [
-        ("falcon-mamba-7b scoring", SCAN_B, SCAN_S, 8192, 16, bf16, True),
-        ("falcon-mamba-7b trainer", MAMBA_SB, MAMBA_S, 8192, 16, bf16, True),
-        ("falcon-mamba-7b f32", 2, 512, 8192, 16, f32, True),
-        ("ragged S and d_inner", 2, 100, 300, 16, bf16, False),
-        ("ragged S and d_inner", 3, 37, 130, 16, f32, False),
-        ("falcon-mamba-7b-smoke", 4, 64, 512, 8, f32, False),
-        ("reference test shape", 2, 100, 30, 8, f32, False),
-        ("d_state 4", 2, 16, 32, 4, f32, False),
+        ("falcon-mamba-7b scoring", SCAN_B, SCAN_S, 8192, 16, bf16, falcon),
+        ("falcon-mamba-7b trainer", MAMBA_SB, MAMBA_S, 8192, 16, bf16,
+         falcon),
+        ("falcon-mamba-7b f32", 2, 512, 8192, 16, f32, falcon),
+        ("ragged S and d_inner", 2, 100, 300, 16, bf16, {}),
+        ("ragged S and d_inner", 3, 37, 130, 16, f32, {}),
+        ("falcon-mamba-7b-smoke", 4, 64, 512, 8, f32, {}),
+        ("reference test shape", 2, 100, 30, 8, f32, {}),
+        ("d_state 4", 2, 16, 32, 4, f32, {}),
+        ("falcon init f32, the longest memory", 2, SCAN_S, 4096, 16, f32,
+         falcon),
+        ("|delta·A| to 100, ftz decays", 2, 256, 1024, 16, f32, steep),
+        ("|delta·A| to 100, ftz decays", 2, 256, 1024, 16, bf16, steep),
+        ("d_state 8, ragged d_inner", 2, 100, 302, 8, bf16, {}),
+        ("d_state 4, odd d_inner", 2, 77, 301, 4, bf16, {}),
+        ("B and C at odd columns", 2, 300, 512, 16, bf16,
+         {"falcon": True, "col": 255}),
+        ("B and C at odd columns", 2, 100, 130, 16, f32, {"col": 257}),
     ]
     max_abs = 0.0
-    for ci, (tag, b, s, di, ds, dt, falcon) in enumerate(cases):
-        args = scan_inputs(b, s, di, ds, dt, seed=1900 + ci, falcon=falcon)
+    for ci, (tag, b, s, di, ds, dt, opts) in enumerate(cases):
+        args = scan_inputs(b, s, di, ds, dt, seed=1900 + ci, **opts)
         with torch.no_grad():
             y = ss.selective_scan(*args)
             y2 = ops.selective_scan(*args)
         torch.cuda.synchronize()
         name = (f"selective_scan {tag} {str(dt)[6:]} (B, S, d_inner, "
-                f"d_state)={(b, s, di, ds)}")
+                f"d_state)={(b, s, di, ds)}, L={ss.LANES[ds]}")
         if not torch.equal(y, y2):
             fail(f"{name}: two launches differ")
         plain = ref.selective_scan_kernel_ref(*[t.float() for t in args])
@@ -2148,36 +2198,47 @@ def scan_bound(b, s, di, ds, elem) -> dict:
 
 
 def phase_mamba_times(train_mod, ss, ref, rounds=5):
-    """The scan kernel at the full-depth pass's shape (u, Δ and y 268 MB
-    each in bf16: every call finds them outside the 50 MB L2) against its
-    plain version, CUDA events, in turns; a profiler window over steps of
-    phase 20a."""
-    b, s, di, ds = SCAN_B, SCAN_S, 8192, 16
-    args = [scan_inputs(b, s, di, ds, torch.bfloat16, seed=2200,
-                        falcon=True)]
-    kern = lambda *a: ss.selective_scan(*a)
-    plain = lambda *a: ref.selective_scan_kernel_ref(*a)
-    with torch.no_grad():
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1, k1 = time_events(plain, args, 1), time_events(kern, args, rounds)
-        k2, p2 = time_events(kern, args, rounds), time_events(plain, args, 1)
-    row = {"shape": [b, s, di, ds], "dtype": "bfloat16", "ms": min(k1, k2),
-           "plain_ms": min(p1, p2), "library_ms": None,
-           **scan_bound(b, s, di, ds, 2), "ms_runs": [k1, k2],
-           "plain_ms_runs": [p1, p2], "card_after": card_state()}
-    print(f"mamba times: selective_scan (B, S, d_inner, d_state)="
-          f"{(b, s, di, ds)} bf16, falcon-init Δ: kernel {k1:.3f}/{k2:.3f} "
-          f"ms, plain {p1:.3f}/{p2:.3f} ms; bound {row['bound_ms']:.4f} ms "
-          f"by {row['bound_by']} (bytes {row['bytes_ms']:.4f}, exps on the "
-          f"SFU {row['ops_ms']:.4f}, f32 arithmetic {row['flops_ms']:.4f}); "
-          f"clock, power, temperature after: {row['card_after']}",
-          flush=True)
-    del args
-    torch.cuda.empty_cache()
+    """The scan kernel at both main-path shapes, the full-depth pass's
+    (u, Δ and y 268 MB each in bf16: every call finds them outside the 50
+    MB L2) and the trainer's (67 MB each; two input sets rotated), against
+    its plain version, CUDA events, in turns; a profiler window over steps
+    of phase 20a.  Returns the full-depth pass's row with the trainer's
+    under "shapes"."""
+    rows = {}
+    for tag, (b, s, di, ds), sets in (
+            ("full-depth pass", (SCAN_B, SCAN_S, 8192, 16), 1),
+            ("trainer", (MAMBA_SB, MAMBA_S, 8192, 16), 2)):
+        args = [scan_inputs(b, s, di, ds, torch.bfloat16, seed=2200 + i,
+                            falcon=True) for i in range(sets)]
+        kern = lambda *a: ss.selective_scan(*a)
+        plain = lambda *a: ref.selective_scan_kernel_ref(*a)
+        with torch.no_grad():
+            # plain, kernel, kernel, plain: compare within one call, in turns
+            p1 = time_events(plain, args, 1)
+            k1 = time_events(kern, args, rounds)
+            k2 = time_events(kern, args, rounds)
+            p2 = time_events(plain, args, 1)
+        row = {"shape": [b, s, di, ds], "dtype": "bfloat16",
+               "lanes": ss.LANES[ds], "input_sets": sets, "ms": min(k1, k2),
+               "plain_ms": min(p1, p2), "library_ms": None,
+               **scan_bound(b, s, di, ds, 2), "ms_runs": [k1, k2],
+               "plain_ms_runs": [p1, p2], "card_after": card_state()}
+        print(f"mamba times: selective_scan {tag} (B, S, d_inner, d_state)="
+              f"{(b, s, di, ds)} bf16, falcon-init Δ, L={row['lanes']}: "
+              f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.3f}/{p2:.3f} ms; "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} (bytes "
+              f"{row['bytes_ms']:.4f}, exps on the SFU {row['ops_ms']:.4f}, "
+              f"f32 arithmetic {row['flops_ms']:.4f}); clock, power, "
+              f"temperature after: {row['card_after']}", flush=True)
+        rows[tag] = row
+        del args
+        torch.cuda.empty_cache()
     prof = phase_profile(train_mod, MAMBA_ARGV + ["--strategy",
                                                   "logit_grad"],
                          mamba_config(), steps=3, warm=1,
                          tag="mamba profile", ssm_mode="pallas")
+    row = dict(rows["full-depth pass"])
+    row["shapes"] = rows
     return row, prof
 
 
@@ -2217,6 +2278,8 @@ def main() -> int:
     if [n for n in range(1, 33) if ss._lib().ss_supports(n)] != \
             list(ss.STATE_SIZES):
         fail("the scan wrapper's d_state sizes differ from its build's")
+    if {n: ss._lib().ss_lanes(n) for n in ss.STATE_SIZES} != ss.LANES:
+        fail(f"the scan wrapper's lanes {ss.LANES} differ from its build's")
 
     max_err = phase_kernels(pes, ref)
     max_err["ghost_norm"] = phase_ghost_kernels(gn, ref)
@@ -2336,7 +2399,8 @@ def main() -> int:
                           "(B=8, S=2048, d_inner 8192, d_state 16, bf16); "
                           f"{MAMBA_LAYERS} a step of the falcon-mamba trainer "
                           f"({MAMBA_LAYERS} layers, ssm_mode='pallas'), 64 a "
-                          "full-depth scoring pass"}
+                          "full-depth scoring pass; 'shapes' gives the "
+                          "trainer's (B=16, S=256) call beside it"}
     kernels = []
     for name in SOURCES:
         kernels.append({
@@ -2367,6 +2431,11 @@ def main() -> int:
         })
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]
+        if "shapes" in timing[name]:
+            kernels[-1]["shapes"] = {
+                tag: {k: r[k] for k in ("shape", "lanes", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+                for tag, r in timing[name]["shapes"].items()}
     print(card, flush=True)   # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,9 +34,16 @@ splits summed as scalars).
 ``selective_scan_ref`` is the mamba oracle and the model's
 ``ssm_mode="ref"`` path; ``selective_scan_kernel_ref``, kept apart from
 it, is the plain version of the selective-scan *kernel* (the CPU path of
-``kernels/ops.py``).
+``kernels/ops.py``).  ``selective_scan_exp2_emulation`` repeats the CUDA
+scan's order of arithmetic (exp2 of Δ·(A·log₂e) with decays below 2⁻¹²⁶
+flushed to 0, y in two chains over the states, FMA where the kernel
+contracts), optionally with every decay off by a few ulp as ex2.approx
+may be: the tests hold it to a float64 oracle and to the JAX package's
+kernel.  No path calls it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -54,6 +61,10 @@ GN_TILE = 64
 GN_KTILE = 64
 # the attention kernels' mask value (src/repro/kernels/flash_attention.py)
 _NEG = -1e30
+# log2(e) as the selective-scan kernel rounds it to f32 (kLog2e)
+LOG2E = 1.4426950408889634
+# the least normal f32: ex2.approx.ftz flushes smaller results to 0
+FLT_MIN = 2.0 ** -126
 
 
 # ----------------------------------------------------- per-example sq-norms
@@ -528,3 +539,57 @@ def selective_scan_kernel_ref(u: torch.Tensor, delta: torch.Tensor,
     scan dtype.  A name of its own, so that the kernel's plain version can
     be told apart from the model's ref path."""
     return selective_scan_ref(u, delta, a, b, c, d)
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """f32 fused multiply-add: the product of two f32 values is exact in
+    f64, so one f64 add and the f32 cast round as an FMA does (the double
+    rounding differs only on ties that the f64 add leaves, which are rare)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def ex2_ftz(x: torch.Tensor, ulps: int = 0) -> torch.Tensor:
+    """The scan kernel's ``ex2.approx.ftz.f32`` of f32 ``x`` as the tests
+    bound it: torch.exp2 moved ``ulps`` units in the last place (up where
+    positive, down where negative; the instruction is documented within 2
+    ulp), then results below 2⁻¹²⁶ flushed to 0.  (Subnormal inputs, which
+    ftz also flushes, give 1 either way.)"""
+    y = torch.exp2(x)
+    towards = torch.full_like(y, math.inf if ulps > 0 else -math.inf)
+    for _ in range(abs(ulps)):
+        y = torch.nextafter(y, towards)
+    return torch.where(y < FLT_MIN, torch.zeros_like(y), y)
+
+
+def selective_scan_exp2_emulation(u: torch.Tensor, delta: torch.Tensor,
+                                  a: torch.Tensor, b: torch.Tensor,
+                                  c: torch.Tensor, d: torch.Tensor,
+                                  ulps: int = 0) -> torch.Tensor:
+    """The CUDA selective scan's arithmetic (``selective_scan.cu``) in f32
+    on the CPU: A′ = A·log₂e once, each decay ``ex2_ftz(Δ_t·A′, ulps)``,
+    h_k = FMA(h_k, decay, (Δ_t·u_t)·B_k); y's sum runs FMA(h_k, C_k, acc)
+    in two partials, the even-indexed and the odd-indexed states each in
+    order, added at the end; y_t = FMA(D, u_t, sum).  ``ulps`` = ±2 is the
+    worst case of the card's ex2.approx for every decay at once; 0 is
+    exact exp2 (the result is then the kernel's order, not its bits).
+    Returns y (B, S, d_inner) in u's dtype."""
+    bsz, s, di = u.shape
+    ds = a.shape[-1]
+    u32, dl32, b32, c32 = (t.float() for t in (u, delta, b, c))
+    a2 = a.float() * torch.tensor(LOG2E, dtype=torch.float32)
+    d32 = d.float()[None]
+    h = torch.zeros(bsz, di, ds)
+    ys = []
+    for t in range(s):
+        dl_t = dl32[:, t, :, None]
+        du = (dl32[:, t] * u32[:, t])[..., None]
+        h = _fma(h, ex2_ftz(dl_t * a2[None], ulps), du * b32[:, t, None, :])
+        ct = c32[:, t, None, :].expand(bsz, di, ds)
+        parts = []
+        for first in (0, 1):
+            part = h[..., first] * ct[..., first]
+            for k in range(first + 2, ds, 2):
+                part = _fma(h[..., k], ct[..., k], part)
+            parts.append(part)
+        ys.append(_fma(d32.expand(bsz, di), u32[:, t], parts[0] + parts[1]))
+    return torch.stack(ys, dim=1).to(u.dtype)

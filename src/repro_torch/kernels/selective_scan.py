@@ -21,6 +21,9 @@ from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 STATE_SIZES = (4, 8, 16)   # the d_state values the build instantiates
+# threads that share one (b, channel) in each d_state instance, as the
+# build exports them (ss_lanes): one thread owns all of a channel's states
+LANES = {4: 1, 8: 1, 16: 1}
 
 
 @functools.cache
@@ -33,6 +36,8 @@ def _lib() -> ctypes.CDLL:
     lib.ss_launch.restype = i
     lib.ss_supports.argtypes = [i]
     lib.ss_supports.restype = i
+    lib.ss_lanes.argtypes = [i]
+    lib.ss_lanes.restype = i
     lib.ss_error_string.argtypes = [i]
     lib.ss_error_string.restype = ctypes.c_char_p
     return lib
