@@ -54,17 +54,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 shapes in bf16, ragged S = 100, window 24, decode lengths 0,
                 1, the full ring and random ones, a 32k cache, f32 smoke
                 shapes, MHA and rep 6; the forward's bf16 (tensor-core)
-                kernel also at hd 32 and 64, MHA and rep 64; f32 within
+                kernel also at hd 32 and 64, MHA and rep 64; every decode
+                case also in bf16 on the tensor-core instance, held to its
+                arithmetic's emulation too
+                (ref.decode_attention_split_emulation); f32 within
                 2e-5 rel + 2e-6 abs, bf16 within one bf16 ulp; lse against a
                 plain logsumexp; two launches bitwise equal; length-0 rows
                 zero; refusals.
  11. serve    — glm4-9b at full width and full depth (40 layers, bf16)
                 through the serve entry point: batch 8, prompt 2048, 64
                 greedy steps, max_len 2112, default --kernel, every plain
-                version forbidden; flash_attention 40 launches, all of its
-                tensor-core kernel, decode 40 a step; prefill ms, median
-                decode step ms, tok/s, peak memory;
-                a profiler window over decode steps (idle share).
+                version forbidden; the decode steps replay one captured
+                CUDA graph (serving/engine.py::make_decode_runner), after
+                2 eager warm-up steps; flash_attention 40 launches, decode
+                40 a step (replays counted by the runner), all of their
+                tensor-core kernels; prefill ms, capture ms, median decode
+                step ms, tok/s, peak memory.  Then, from one cloned state,
+                a replayed step against an eager one (logits, lengths and
+                caches bitwise, or the logits within 1e-4, reported); and
+                the eager and the graphed step in turns: median ms (CUDA
+                events) and a profiler window each (idle share).
  12. batcher  — ContinuousBatcher on the same params, kernel route, 8 slots,
                 16 requests (prompts 17–600, 8–48 new tokens, seeded): all
                 finish; decode steps and prefill shapes.
@@ -72,8 +81,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 and 4 teacher-forced decode steps, card (kernels) vs CPU
                 (plain route), logits and caches; relative error ≤ 1e-4.
  14. serve times — each kernel vs its plain version and SDPA at the main
-                path's shapes and a 32k decode cache, CUDA events, L2 cold,
-                beside the bound; the forward's achieved TFLOP/s.
+                path's shapes and a 32k decode cache, L2 cold, beside the
+                bound (the forward: CUDA events, achieved TFLOP/s; decode:
+                device time from the profiler beside the eager loop's wall
+                time).
  15. flash bwd — the flash-attention backward kernel (without and with the
                 score) and the score sweep against their plain versions:
                 the glm4-9b trainer's shape (16, 512, 32/2 heads, 128) in
@@ -775,9 +786,10 @@ def kernel_wrappers() -> dict:
             "selective_scan": ss.selective_scan}
 
 
-# the kernels with a tensor-core instance (tc_launches): bf16 attention,
-# bf16-x ghost norm
-TC_KERNELS = ("flash_attention", "flash_attention_bwd", "ghost_norm")
+# the kernels with a tensor-core instance (tc_launches): bf16 attention
+# (prefill, training, decode), bf16-x ghost norm
+TC_KERNELS = ("flash_attention", "flash_attention_bwd", "ghost_norm",
+              "decode_attention")
 
 
 def reset_counts() -> None:
@@ -1111,21 +1123,42 @@ def phase_attn_kernels(fa, da, ref):
         ("rep 6 (internlm2-20b heads)", 2, 200, 48, 8, 128, [199, 64], f32),
         ("hd 64", 2, 64, 4, 1, 64, [64, 0], f32),
     ]
-    for ci, (tag, b, s, h, hkv, hd, lens, dt) in enumerate(decode_cases):
-        q, k, v = attn_inputs([(b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)],
-                              dt, seed=960 + ci)
+    def check_decode(tag, q, k, v, lens):
+        """Both launches, the plain version, the -inf oracle, length-0
+        rows; for bf16 the tensor-core instance and its emulation.  Returns
+        the largest difference from the plain version."""
+        b, h, hd = q.shape
+        s, hkv = k.shape[1], k.shape[2]
+        dt = q.dtype
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        tc_before = da.decode_attention.tc_launches
         o = da.decode_attention(q, k, v, lengths)
         o2 = da.decode_attention(q, k, v, lengths)
         torch.cuda.synchronize()
-        po = ref.decode_attention_kernel_ref(q, k, v, lengths)
         name = (f"decode_attention {tag} {str(dt)[6:]} "
                 f"(B, S, H, Hkv, hd)={(b, s, h, hkv, hd)}")
         if not torch.equal(o, o2):
             fail(f"{name}: two launches differ")
-        ok, err = attn_close(o, po, dt)
+        ok, err = attn_close(o, ref.decode_attention_kernel_ref(
+            q, k, v, lengths), dt)
         if not ok:
             fail(f"{name}: kernel vs plain max abs err {err:.3e}")
+        instance = "SIMT"
+        if dt == bf16:
+            # the tensor-core instance, also against its arithmetic's
+            # emulation at the split the wrapper chose
+            instance = "tensor-core"
+            if da.decode_attention.tc_launches != tc_before + 2:
+                fail(f"{name}: bf16 did not take the tensor-core kernel")
+            chunk, _ = da.split_plan(b, hkv, s, da._num_sms(0))
+            ok, err_e = attn_close(o, ref.decode_attention_split_emulation(
+                q, k, v, lengths, chunk), dt)
+            if not ok:
+                fail(f"{name}: kernel vs its emulation max abs err "
+                     f"{err_e:.3e}")
+            instance += f", vs emulation {err_e:.3e} (chunk {chunk})"
+        elif da.decode_attention.tc_launches != tc_before:
+            fail(f"{name}: f32 took the tensor-core kernel")
         zero = [i for i, n in enumerate(lens) if n == 0]
         if zero and o[zero].abs().max().item() != 0.0:
             fail(f"{name}: a length-0 row is not zeros")
@@ -1134,11 +1167,22 @@ def phase_attn_kernels(fa, da, ref):
             q[live], k[live], v[live], lengths[live]), dt)
         if not ok:
             fail(f"{name}: kernel vs the -inf oracle max abs err {err_o:.3e}")
+        print(f"attn: {name} lengths {lens} ok ({instance}): max abs err "
+              f"{err:.3e}, length-0 rows zero, two launches bitwise equal",
+              flush=True)
+        return err
+
+    for ci, (tag, b, s, h, hkv, hd, lens, dt) in enumerate(decode_cases):
+        q, k, v = attn_inputs([(b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)],
+                              dt, seed=960 + ci)
+        err = check_decode(tag, q, k, v, lens)
         if ci == 0:
             max_abs["decode_attention"] = err
-        print(f"attn: {name} lengths {lens} ok: max abs err {err:.3e}, "
-              f"length-0 rows zero, two launches bitwise equal", flush=True)
-        del q, k, v, o, o2, po
+        if dt == f32:
+            # every case also on the tensor-core instance
+            check_decode(tag, q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                         lens)
+        del q, k, v
     # the wrappers refuse what the kernels do not take, counting nothing
     q, k, v = attn_inputs([(1, 8, 4, 32), (1, 8, 2, 32), (1, 8, 2, 32)], f32,
                           seed=990)
@@ -1574,7 +1618,10 @@ def phase_flash_times(train_mod, fa, fab, ref, rounds=5):
 
 
 def phase_serve_main(serve_mod, ref):
-    """glm4-9b at full width and depth through the serve entry point."""
+    """glm4-9b at full width and depth through the serve entry point: the
+    decode steps are replays of one captured CUDA graph, whose launches the
+    runner adds to the counters at each replay."""
+    from repro_torch.serving.engine import DECODE_WARMUP
     torch.cuda.empty_cache()
     reset_counts()
     result = run_forbidding_plain(ref, lambda: serve_mod.main(SERVE_ARGV))
@@ -1583,9 +1630,11 @@ def phase_serve_main(serve_mod, ref):
     if launches["flash_attention"] != cfg.num_layers:
         fail(f"flash_attention launched {launches['flash_attention']} times "
              f"in the prefill; expected {cfg.num_layers}")
-    if launches["decode_attention"] != cfg.num_layers * SERVE_STEPS:
+    steps = SERVE_STEPS + DECODE_WARMUP
+    if launches["decode_attention"] != cfg.num_layers * steps:
         fail(f"decode_attention launched {launches['decode_attention']} "
-             f"times in {SERVE_STEPS} decode steps; expected "
+             f"times in {SERVE_STEPS} graphed decode steps and "
+             f"{DECODE_WARMUP} eager warm-up steps; expected "
              f"{cfg.num_layers} a step")
     check_tc(launches, "serve main")
     toks = result.tokens
@@ -1601,12 +1650,15 @@ def phase_serve_main(serve_mod, ref):
     step_ms = statistics.median(result.step_ms)
     out = {"prefill_ms": result.prefill_ms, "decode_step_ms_median": step_ms,
            "decode_step_ms": result.step_ms, "tok_per_s": result.tok_per_s,
-           "decode_s": result.decode_s,
+           "decode_s": result.decode_s, "capture_ms": result.capture_ms,
+           "decode_warmup_steps": DECODE_WARMUP,
            "peak_mem_gib": result.peak_bytes / 2**30, "launches": launches,
            "card_after": card_state()}
     print(f"serve main: glm4-9b × {cfg.num_layers} layers (full depth), "
           f"batch {SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_STEPS} greedy "
-          f"steps: launches {launches}; prefill {result.prefill_ms:.3f} ms, "
+          f"steps (a captured graph, after {DECODE_WARMUP} eager warm-up "
+          f"steps and its capture in {result.capture_ms:.1f} ms): launches "
+          f"{launches}; prefill {result.prefill_ms:.3f} ms, "
           f"median decode step {step_ms:.3f} ms (CUDA events), "
           f"{result.tok_per_s:.1f} tok/s, peak memory "
           f"{out['peak_mem_gib']:.2f} GiB; clock, power, temperature after: "
@@ -1650,22 +1702,113 @@ def profile_window(fn, steps, tag):
             "top": top}
 
 
-def phase_serve_profile(result, steps=4, warm=2):
-    """A profiler window over decode steps continuing the main path's
-    state (past max_len the ring wraps; slot order does not matter)."""
-    from repro_torch.serving.engine import decode_step
+def step_times(fn, steps):
+    """CUDA-event ms of each of ``steps`` calls of fn()."""
+    marks = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in marks]
+
+
+def clone_state(st):
+    from repro_torch.serving.engine import ServeState
+    return ServeState(caches={k: v.clone() for k, v in st.caches.items()},
+                      lengths=st.lengths.clone())
+
+
+def phase_serve_graph_equal(result):
+    """From one cloned state, one eager decode step and one replay of the
+    captured step: logits, lengths and caches bitwise equal (or, failing
+    that, the logits within CARD_VS_CPU_RTOL, reported)."""
+    from repro_torch.serving.engine import decode_step, make_decode_runner
+    cfg = serve_config()
+    tok = result.tokens[:, -1].contiguous()
+    with torch.no_grad():
+        logits_e, st_e = decode_step(result.params, cfg, tok,
+                                     clone_state(result.state), "pallas")
+        runner = make_decode_runner(result.params, cfg,
+                                    clone_state(result.state), "pallas")
+        logits_g, st_g = runner(tok)
+    torch.cuda.synchronize()
+    caches_equal = all(torch.equal(st_g.caches[k], v)
+                       for k, v in st_e.caches.items())
+    lengths_equal = torch.equal(st_g.lengths, st_e.lengths)
+    bitwise = torch.equal(logits_g, logits_e)
+    err = rel_err(logits_g.float(), logits_e.float())
+    print(f"serve graph: one replay of the captured decode step vs one "
+          f"eager step from one cloned state: logits "
+          f"{'bitwise equal' if bitwise else f'differ, rel err {err:.3e}'}"
+          f", lengths {'equal' if lengths_equal else 'DIFFER'}, caches "
+          f"{'bitwise equal' if caches_equal else 'DIFFER'}", flush=True)
+    if not (lengths_equal and caches_equal):
+        fail("the graphed decode step's state differs from the eager step's")
+    if err > CARD_VS_CPU_RTOL:
+        fail(f"graphed vs eager decode logits rel err {err:.3e} > "
+             f"{CARD_VS_CPU_RTOL}")
+    del runner, st_e, st_g
+    torch.cuda.empty_cache()
+    return {"logits_bitwise": bitwise, "logits_rel_err": err,
+            "caches_bitwise": caches_equal}
+
+
+def phase_serve_profile(result, steps=4, warm=2, timed=8):
+    """The decode step eager and as replays of its captured graph, in the
+    same call, continuing the main path's state (past max_len the ring
+    wraps; slot order does not matter): the median of ``timed`` steps
+    (CUDA events) and a profiler window (idle share) for each."""
+    from repro_torch.serving.engine import decode_step, make_decode_runner
     cfg = serve_config()
     carry = {"st": result.state, "tok": result.tokens[:, -1].contiguous()}
 
     @torch.no_grad()
-    def one():
+    def eager():
         logits, carry["st"] = decode_step(result.params, cfg, carry["tok"],
                                           carry["st"], "pallas")
         carry["tok"] = torch.argmax(logits, -1).to(torch.int32)
 
     for _ in range(warm):
-        one()
-    return profile_window(one, steps, "serve profile (decode steps)")
+        eager()
+    out = {"eager": {"step_ms": step_times(eager, timed)}}
+    out["eager"]["profile"] = profile_window(
+        eager, steps, "serve profile (eager decode steps)")
+    with torch.no_grad():
+        runner = make_decode_runner(result.params, cfg, carry["st"],
+                                    "pallas")
+
+    @torch.no_grad()
+    def graphed():
+        logits, carry["st"] = runner(carry["tok"])
+        carry["tok"] = torch.argmax(logits, -1).to(torch.int32)
+
+    for _ in range(warm):
+        graphed()
+    out["graphed"] = {"step_ms": step_times(graphed, timed)}
+    out["graphed"]["profile"] = profile_window(
+        graphed, steps, "serve profile (graphed decode steps)")
+    # the profiler's own host work stretches its window's wall clock; the
+    # device time a step over the unprofiled median step is the idle share
+    # the serving user sees
+    for mode in out.values():
+        mode["step_ms_median"] = statistics.median(mode["step_ms"])
+        prof = mode["profile"]
+        mode["idle_share_vs_median"] = (
+            None if prof is None else
+            1 - prof["device_ms"] / steps / mode["step_ms_median"])
+    show = lambda m: (f"{out[m]['step_ms_median']:.3f} ms (idle share "
+                      f"{out[m]['idle_share_vs_median']:.3f})"
+                      if out[m]["profile"] else
+                      f"{out[m]['step_ms_median']:.3f} ms")
+    print(f"serve profile: median decode step eager {show('eager')}, "
+          f"graphed {show('graphed')} (CUDA events, {timed} steps each, "
+          f"one call; idle share: 1 - profiled device ms a step / median "
+          f"step)", flush=True)
+    return out
 
 
 def phase_batcher(params, ref):
@@ -1846,22 +1989,28 @@ def phase_serve_times(fa, da, ref, rounds=3):
         plain = lambda *a: ref.decode_attention_kernel_ref(*a)
         lib = lambda q_, k_, v_, m_: sdpa(q_, k_, v_, attn_mask=m_,
                                          enable_gqa=True)
-        p1 = time_events(plain, inputs, rounds)
-        k1 = time_events(kern, inputs, 10 * rounds)
-        k2 = time_events(kern, inputs, 10 * rounds)
-        p2 = time_events(plain, inputs, rounds)
-        l1 = time_events(lib, lib_in, 10 * rounds)
+        # a call of the kernel is ~13 us of device work behind ~30 us of
+        # the host's: device time from the profiler (ms) beside the eager
+        # loop's wall time (wall_ms)
+        (p1, pw1) = time_cold(plain, inputs, rounds)
+        (k1, kw1) = time_cold(kern, inputs, 10 * rounds)
+        (k2, kw2) = time_cold(kern, inputs, 10 * rounds)
+        (p2, pw2) = time_cold(plain, inputs, rounds)
+        (l1, lw1) = time_cold(lib, lib_in, 10 * rounds)
         r = rows[f"decode_attention {tag}"] = {
             "shape": [b, s, h, hkv, hd], "lengths": s, "dtype": "bfloat16",
             "input_sets": sets, "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "library_ms": l1, **decode_bound([s] * b, h, hkv, hd, 2),
-            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "wall_ms_runs": [kw1, kw2],
+            "plain_wall_ms_runs": [pw1, pw2], "library_wall_ms": lw1}
+        us = lambda a, b: f"{a * 1e3:.2f}/{b * 1e3:.2f} us"
         print(f"serve times: decode_attention {tag} (B, S, H, Hkv, hd)="
               f"{(b, s, h, hkv, hd)} bf16, all {s} slots, {sets} input "
-              f"sets: kernel {k1 * 1e3:.2f}/{k2 * 1e3:.2f} us, plain "
-              f"{p1 * 1e3:.1f}/{p2 * 1e3:.1f} us, SDPA {l1 * 1e3:.2f} us; "
-              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
-              f"(bytes {r['bytes_ms'] * 1e3:.2f}, ops "
+              f"sets: device kernel {us(k1, k2)}, plain {us(p1, p2)}, SDPA "
+              f"{l1 * 1e3:.2f} us; wall kernel {us(kw1, kw2)}, plain "
+              f"{us(pw1, pw2)}, SDPA {lw1 * 1e3:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us by "
+              f"{r['bound_by']} (bytes {r['bytes_ms'] * 1e3:.2f}, ops "
               f"{r['ops_ms'] * 1e3:.2f})", flush=True)
         del inputs, lib_in
         torch.cuda.empty_cache()
@@ -2297,6 +2446,7 @@ def main() -> int:
     lm_prof = phase_profile(train_mod, LM_ARGV, lm_config(), steps=3,
                             warm=2, tag="lm profile")
     serve_result, serve = phase_serve_main(serve_mod, ref)
+    serve["graph_vs_eager"] = phase_serve_graph_equal(serve_result)
     serve_prof = phase_serve_profile(serve_result)
     serve_params = serve_result.params
     del serve_result
@@ -2387,7 +2537,9 @@ def main() -> int:
         "flash_attention": "one prefill call (B=8, S=2048, 32/2 heads, hd "
                            "128, bf16); 40 a prefill",
         "decode_attention": "one decode call at the last step's cache (B=8, "
-                            "2112 slots, 32/2 heads, hd 128, bf16); 40 a "
+                            "2112 slots, 32/2 heads, hd 128, bf16), device "
+                            "time (profiler; 'serve times' gives the eager "
+                            "loop's wall time and the 32k cache); 40 a "
                             "token step",
         "flash_attention_bwd": "one call without scores (B=16, S=512, 32/2 "
                                "heads, hd 128, bf16); 8 a step of the LM "

@@ -5,10 +5,17 @@ The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
 takes CUDA tensors only: it checks devices, dtypes, shapes, contiguity and
 alignment, picks the split of the cache axis, allocates the output and the
 f32 scratch of per-split partials, launches on the current stream without
-synchronising, and raises if a launch is refused.
-``decode_attention.launches`` counts calls; each call is two kernel
-launches (the splits, then their fixed-order merge).  CPU tensors go to
-the plain version through ``kernels/ops.py``.
+synchronising, and raises if a launch is refused.  The dtype alone picks
+the kernel: bf16 runs the tensor-core instance (``mma.sync`` with the rep
+query heads of a KV group as M, bf16 tiles in a ``cp.async`` ring), f32
+the SIMT one.  ``decode_attention.launches`` counts calls, each two kernel
+launches (the splits, then their fixed-order merge), and
+``decode_attention.tc_launches`` those of the tensor-core instance.  CPU
+tensors go to the plain version through ``kernels/ops.py``.
+
+Every allocation is a ``torch.empty`` on the current stream, so the call
+can be captured in a CUDA graph (the scratch then comes from the graph's
+pool).
 """
 from __future__ import annotations
 
@@ -21,8 +28,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_attention_operands
 
-BLOCKS_PER_SM = 4     # the split aims at this many blocks on every SM
-SLOTS = 32            # cache slots per tile of the kernel (da_slots)
+BLOCKS_PER_SM = 1     # split blocks an SM the split aims at
+SLOTS = 32            # a block's slot range is a multiple of this (da_slots)
 MAX_REP = 16          # query heads per KV head (da_max_rep)
 
 
@@ -50,12 +57,13 @@ def _num_sms(index: int) -> int:
 def split_plan(bsz: int, hkv: int, s: int,
                num_sms: int) -> tuple[int, int]:
     """(chunk, n_split): the cache axis of S slots cut into n_split ranges
-    of ``chunk`` slots (a multiple of the kernel's SLOTS tile), so the
-    grid (n_split, Hkv, B) holds about BLOCKS_PER_SM blocks per SM."""
-    tiles = math.ceil(s / SLOTS)
-    want = math.ceil(BLOCKS_PER_SM * num_sms / (bsz * hkv))
-    n_split = max(1, min(tiles, want))
-    chunk = math.ceil(tiles / n_split) * SLOTS
+    of ``chunk`` slots (a multiple of SLOTS), as many as S allows up to
+    BLOCKS_PER_SM blocks an SM over the grid (n_split, Hkv, B): one wave of
+    resident blocks, no tail."""
+    units = math.ceil(s / SLOTS)
+    want = max(1, BLOCKS_PER_SM * num_sms // (bsz * hkv))
+    n_split = max(1, min(units, want))
+    chunk = math.ceil(units / n_split) * SLOTS
     return chunk, math.ceil(s / chunk)
 
 
@@ -76,6 +84,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q)
     chunk, n_split = split_plan(bsz, hkv, s, _num_sms(dev.index))
     rep = h // hkv
+    bf16 = q.dtype == torch.bfloat16
     part_o = torch.empty(bsz, hkv, n_split, rep, hd, dtype=torch.float32,
                          device=dev)
     part_ml = torch.empty(bsz, hkv, n_split, rep, 2, dtype=torch.float32,
@@ -84,14 +93,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     code = lib.da_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        int(q.dtype == torch.bfloat16), bsz, s, h, hkv, hd, chunk, n_split,
-        1.0 / (hd ** 0.5), dev.index, part_o.data_ptr(), part_ml.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        int(bf16), bsz, s, h, hkv, hd, chunk, n_split, 1.0 / (hd ** 0.5),
+        dev.index, part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise RuntimeError(f"decode_attention launch failed: "
                            f"{lib.da_error_string(code).decode()}")
     decode_attention.launches += 1
+    decode_attention.tc_launches += int(bf16)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.tc_launches = 0       # of those, the bf16 tensor-core kernel

@@ -18,6 +18,29 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as _ss
 
 
+# the CUDA wrappers and their launch counters (``launches``, and
+# ``tc_launches`` / ``scored`` where a wrapper keeps them)
+_COUNTED = (_pes.per_example_sqnorm, _pes.per_example_sqnorm_multi,
+            _gn.ghost_norm, _fa.flash_attention, _da.decode_attention,
+            _fab.flash_attention_bwd, _fab.attn_score_sweep,
+            _ss.selective_scan)
+_COUNTERS = ("launches", "tc_launches", "scored")
+
+
+def launch_counts() -> dict:
+    """(wrapper, counter name) → value, for every launch counter of the
+    CUDA wrappers."""
+    return {(fn, name): getattr(fn, name) for fn in _COUNTED
+            for name in _COUNTERS if hasattr(fn, name)}
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` ((wrapper, counter name) → n) to the counters: a CUDA
+    graph replays its launches without running the wrappers."""
+    for (fn, name), n in delta.items():
+        setattr(fn, name, getattr(fn, name) + n)
+
+
 def _on_cuda(tensors) -> bool:
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:

@@ -29,7 +29,9 @@ for the backward's dV, dS into two): the tests hold them to the plain
 versions at the card's tolerances.  No path calls them.
 ``ghost_norm_split_emulation`` does the same for the ghost-norm kernel's
 tensor-core instance (bf16 x, f32 d split into two bf16 parts, feature
-splits summed as scalars).
+splits summed as scalars), and ``decode_attention_split_emulation`` for
+the bf16 flash-decode kernel (its slot partition over warps and splits,
+base-2 softmax, P in two bf16 parts, the fixed-order merges).
 
 ``selective_scan_ref`` is the mamba oracle and the model's
 ``ssm_mode="ref"`` path; ``selective_scan_kernel_ref``, kept apart from
@@ -65,6 +67,11 @@ _NEG = -1e30
 LOG2E = 1.4426950408889634
 # the least normal f32: ex2.approx.ftz flushes smaller results to 0
 FLT_MIN = 2.0 ** -126
+# the bf16 flash-decode kernel's slots a warp takes a step (tc::kTile) and
+# warps a block (tc::kWarps): tile j of a block's range goes to warp j % 4
+DECODE_TILE = 16
+DECODE_WARPS = 4
+LN2 = 0.6931471805599453
 
 
 # ----------------------------------------------------- per-example sq-norms
@@ -495,6 +502,83 @@ def decode_attention_kernel_ref(q: torch.Tensor, k: torch.Tensor,
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
     o = torch.einsum("bgrs,bsgd->bgrd", p, v.float()) / denom
     return o.reshape(bsz, h, hd).to(q.dtype)
+
+
+def decode_attention_split_emulation(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, lengths: torch.Tensor,
+                                     chunk: int) -> torch.Tensor:
+    """The bf16 flash-decode kernel's arithmetic (``decode_attention.cu``,
+    namespace ``tc``).  Block ``split`` of (b, g) takes slots [split·chunk,
+    min((split + 1)·chunk, len_b)) in 16-slot tiles, tile j to warp j % 4.
+    A warp: S = q·kᵀ of the bf16 operands in f32, times scale·log₂e after
+    the product; an online softmax in base 2 with ``_NEG`` past the length;
+    O = O·α + P_hi·V + P_lo·V (P split in two bf16 parts); l sums the f32
+    P.  The block merges its warps in order (M = max m_w, c_w = 2^(m_w −
+    M)) and keeps m = M·ln 2; the live splits merge in split order with
+    e^(m_s − M) as the SIMT merge does; out = O / max(L, 1e-20) in q's
+    dtype, zeros for a row of length 0."""
+    bsz, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    dev = q.device
+    n_split = -(-s // chunk)
+    steps = -(-chunk // (DECODE_TILE * DECODE_WARPS))
+    tiles = steps * DECODE_WARPS
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    scale_log2 = f32(1.0 / (hd ** 0.5)) * f32(LOG2E)
+    lens = torch.clamp(lengths.to(dev).long(), 0, s)
+    # slot of (split, tile, i) and whether the kernel reads it
+    off = torch.arange(tiles * DECODE_TILE, device=dev)
+    pos = (torch.arange(n_split, device=dev)[:, None] * chunk
+           + off).reshape(n_split, tiles, DECODE_TILE)
+    valid = ((off < chunk).reshape(tiles, DECODE_TILE)
+             & (pos[None] < lens[:, None, None, None]))  # (B, n, T, 16)
+    idx = torch.clamp(pos, max=s - 1)
+    kz = torch.where(valid[..., None, None], k.float()[:, idx], 0.0)
+    vz = torch.where(valid[..., None, None], v.float()[:, idx], 0.0)
+    # (B, n, steps, warps, 16, Hkv, hd): step i of warp w is tile 4i + w
+    shape = (bsz, n_split, steps, DECODE_WARPS, DECODE_TILE, hkv, hd)
+    kz, vz = kz.reshape(shape), vz.reshape(shape)
+    valid = valid.reshape(bsz, n_split, 1, steps, DECODE_WARPS, 1,
+                          DECODE_TILE)
+    qf = q.float().reshape(bsz, hkv, rep, hd)
+    m = torch.full((bsz, n_split, hkv, DECODE_WARPS, rep), _NEG, device=dev)
+    l = torch.zeros_like(m)
+    o = torch.zeros(*m.shape, hd, device=dev)
+    for i in range(steps):
+        sc = torch.einsum("bgrd,bnwtgd->bngwrt", qf, kz[:, :, i])
+        ok = valid[:, :, :, i]
+        sc = torch.where(ok, sc * scale_log2, _NEG)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + _split_einsum(
+            "bngwrt,bnwtgd->bngwrd", p, vz[:, :, i], 2)
+        m = m_new
+    # the block: its warps in order
+    mb = m.amax(dim=3)
+    c = torch.exp2(m - mb[:, :, :, None])
+    lb = torch.zeros_like(mb)
+    ob = torch.zeros_like(o[:, :, :, 0])
+    for w in range(DECODE_WARPS):
+        lb = lb + l[:, :, :, w] * c[:, :, :, w]
+        ob = ob + o[:, :, :, w] * c[:, :, :, w, :, None]
+    mb = mb * f32(LN2)
+    # the splits: the live ones, in order
+    live = torch.minimum(torch.full_like(lens, n_split),
+                         (lens + chunk - 1) // chunk)
+    alive = (torch.arange(n_split, device=dev)[None] < live[:, None])[
+        :, :, None, None]                                  # (B, n, 1, 1)
+    mx = torch.where(alive, mb, _NEG).amax(dim=1)
+    lsum = torch.zeros_like(mx)
+    osum = torch.zeros_like(ob[:, 0])
+    for sp in range(n_split):
+        wgt = torch.where(alive[:, sp], torch.exp(mb[:, sp] - mx), 0.0)
+        lsum = lsum + lb[:, sp] * wgt
+        osum = osum + ob[:, sp] * wgt[..., None]
+    out = osum / torch.clamp(lsum, min=1e-20)[..., None]
+    return out.reshape(bsz, h, hd).to(q.dtype)
 
 
 # --------------------------------------------------------- selective scan

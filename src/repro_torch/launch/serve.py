@@ -9,7 +9,10 @@ default, with random parameters drawn from ``--seed``:
       --smoke --device cpu
 
 It prints the prefill time, the decode rate and a sample, as the
-reference launcher (``src/repro/launch/serve.py``) does.  ``--kernel
+reference launcher (``src/repro/launch/serve.py``) does.  On the card the
+decode loop replays one decode step captured in a CUDA graph
+(``serving/engine.py::make_decode_runner``), as the reference jits it; the
+warm-up and capture are timed apart from the decode rate.  ``--kernel
 pallas`` (the default here) runs the port's hand-written kernels through
 ``kernels/ops.py``: the flash-attention forward in the prefill and the
 flash-decode kernel in every decode step.  ``--kernel ref`` takes the
@@ -28,7 +31,7 @@ from repro_torch import configs
 from repro_torch.launch.train import use_full_f32
 from repro_torch.models.transformer import init_transformer
 from repro_torch.serving.engine import (ServeState, check_servable,
-                                       decode_step, prefill)
+                                       make_decode_runner, prefill)
 
 
 class ServeResult(NamedTuple):
@@ -36,6 +39,7 @@ class ServeResult(NamedTuple):
     state: ServeState
     tokens: torch.Tensor     # (B, steps + 1): the prefill's token, then decode
     prefill_ms: float        # host clock, device synchronised at both ends
+    capture_ms: float        # the decode runner's warm-up and graph capture
     decode_s: float          # host clock over all decode steps, synchronised
     step_ms: list            # each decode step (CUDA events on the card)
     tok_per_s: float
@@ -104,8 +108,11 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
           f"{prefill_ms / 1e3:.2f}s", flush=True)
 
     tok = torch.argmax(logits, -1).to(torch.int32)
-    outs, marks = [tok], []
+    t0 = time.perf_counter()
+    decode = make_decode_runner(params, cfg, st, decode_kernel=args.kernel)
     _sync(device)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    outs, marks = [tok], []
     t0 = time.perf_counter()
     for _ in range(args.steps):
         if on_cuda:
@@ -114,8 +121,7 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
             start.record()
         else:
             start = time.perf_counter()
-        logits, st = decode_step(params, cfg, tok, st,
-                                 decode_kernel=args.kernel)
+        logits, st = decode(tok)
         tok = torch.argmax(logits, -1).to(torch.int32)
         if on_cuda:
             end.record()
@@ -130,11 +136,13 @@ def run(args: argparse.Namespace, cfg=None) -> ServeResult:
     tok_s = args.steps * args.batch / dt if dt > 0 else float("inf")
     tokens = torch.stack(outs, 1)
     peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
+    captured = (f"; warm-up and graph capture {capture_ms / 1e3:.2f}s "
+                f"before" if on_cuda else "")
     print(f"decode: {args.steps} steps × {args.batch} seqs in {dt:.2f}s "
-          f"({tok_s:.1f} tok/s)", flush=True)
+          f"({tok_s:.1f} tok/s{captured})", flush=True)
     print("sample:", tokens[0][:16].tolist(), flush=True)
-    return ServeResult(params, st, tokens, prefill_ms, dt, step_ms, tok_s,
-                       peak)
+    return ServeResult(params, st, tokens, prefill_ms, capture_ms, dt,
+                       step_ms, tok_s, peak)
 
 
 def main(argv=None, cfg=None) -> ServeResult:

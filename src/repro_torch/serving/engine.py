@@ -18,6 +18,9 @@ before that happens.
 card, its plain version on the CPU); "ref" takes the reference's oracle
 ``kernels/ref.py::decode_attention_ref``.
 
+``make_decode_runner`` steps ``decode_step`` as one CUDA graph on the
+card (the reference jits the step), eagerly on the CPU.
+
 Where the reference returns new arrays (``.at[].set``), the port writes
 the preallocated caches IN PLACE: ``decode_step`` updates the cache
 tensors of the state it is given and returns a state that shares them.
@@ -152,6 +155,75 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                else torch.where(active, state.lengths + 1, state.lengths))
     return logits, ServeState(caches=state.caches,
                               lengths=lengths.to(torch.int32))
+
+
+DECODE_WARMUP = 2     # eager steps before a decode step is captured
+
+
+def make_decode_runner(params, cfg: ModelConfig, state: ServeState,
+                       decode_kernel: str = "pallas"):
+    """A callable ``tokens (B,) int32 → (logits (B, V), state)`` that
+    computes ``decode_step(params, cfg, tokens, state, decode_kernel)``
+    step after step, starting from ``state``.
+
+    On the CPU it runs ``decode_step`` eagerly.  On the card it is the
+    port's counterpart of the reference's ``jax.jit`` of the step: one
+    ``decode_step`` captured in a CUDA graph, replayed at each call.
+      * DECODE_WARMUP eager steps on a side stream first build the
+        kernels' libraries and cuBLAS's workspace.  They write the cache
+        slots at the current lengths, which the first replayed step writes
+        again before it reads them, and they leave the lengths where they
+        were.  Their launches are real and counted.
+      * The graph runs over static buffers: the tokens (copied in at each
+        call), a copy of ``state.lengths`` that the graph advances in
+        place, and ``state``'s caches, written in place as ``decode_step``
+        does.  The scratch and outputs the kernels' wrappers allocate come
+        from the graph's private memory pool.
+      * A replay runs no Python, so the wrappers' launch counters
+        (``kernels/ops.py::launch_counts``) do not move by themselves: what
+        the capture added is taken back, and each replay adds it.
+    The logits returned are the graph's static output, overwritten by the
+    next call (clone them to keep them); the state returned holds the
+    static lengths and the caches.  A capture or replay that fails
+    raises: nothing falls back to the eager step."""
+    if decode_kernel not in ("ref", "pallas"):
+        raise ValueError(f"decode_kernel must be 'ref' or 'pallas', got "
+                         f"{decode_kernel!r}")
+    check_servable(cfg)
+    dev = state.lengths.device
+    if dev.type != "cuda":
+        carry = [state]
+
+        def eager(tokens: torch.Tensor):
+            logits, carry[0] = decode_step(params, cfg, tokens, carry[0],
+                                           decode_kernel)
+            return logits, carry[0]
+        return eager
+
+    static = ServeState(caches=state.caches, lengths=state.lengths.clone())
+    tokens_in = torch.zeros_like(static.lengths)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(DECODE_WARMUP):
+            decode_step(params, cfg, tokens_in, static, decode_kernel)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    with torch.cuda.graph(graph):
+        logits, new = decode_step(params, cfg, tokens_in, static,
+                                  decode_kernel)
+        static.lengths.copy_(new.lengths)
+    after = ops.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    ops.add_launch_counts({k: -n for k, n in delta.items()})
+
+    def replay(tokens: torch.Tensor):
+        tokens_in.copy_(tokens)
+        graph.replay()
+        ops.add_launch_counts(delta)
+        return logits, static
+    return replay
 
 
 # ----------------------------------------------------------------- prefill

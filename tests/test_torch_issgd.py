@@ -272,7 +272,7 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 # ------------------------------------------------------ no JAX in the port
 def _port_files():
     return sorted((REPO / "src/repro_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py", REPO / "tools/torch_mamba_depth_probe.py"]
+        [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("torch_*.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),

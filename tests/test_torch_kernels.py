@@ -445,14 +445,17 @@ def test_attention_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("b,hkv,s", [(8, 2, 2112), (8, 2, 32768),
                                      (1, 1, 5), (64, 8, 4096)])
 def test_decode_split_plan_covers_the_cache(b, hkv, s):
-    """The split covers every slot once, in whole 32-slot tiles, and fills
-    about BLOCKS_PER_SM blocks per SM of a 132-SM card where S allows it."""
+    """The split covers every slot once, in whole 32-slot units, and fills
+    one wave of BLOCKS_PER_SM resident blocks an SM of a 132-SM card to at
+    least 80% where S allows it, never more than that wave unless B·Hkv
+    alone exceeds it."""
     chunk, n_split = da.split_plan(b, hkv, s, 132)
     assert chunk % da.SLOTS == 0 and chunk * n_split >= s
     assert chunk * (n_split - 1) < s
-    tiles = -(-s // da.SLOTS)
-    assert b * hkv * n_split >= \
-        min(da.BLOCKS_PER_SM * 132, b * hkv * tiles) * 0.9
+    units = -(-s // da.SLOTS)
+    wave = da.BLOCKS_PER_SM * 132
+    assert b * hkv * n_split <= max(wave, b * hkv)
+    assert b * hkv * n_split >= min(wave, b * hkv * units) * 0.8
 
 
 def _cuda_attn(shapes, dtype, seed):
