@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   2. kernels  — the per-example squared-norm kernels against their plain
                 PyTorch versions on the card (f32 rtol 1e-5, atol 0: sums
                 of up to 3072 squares taken in another order), against
-                their exact-order emulator (bitwise), and multi-tap against
-                chained single-tap launches (bitwise).
+                their exact-order emulator (bitwise), multi-tap against
+                chained single-tap launches and against itself (bitwise):
+                the main shapes, ragged and odd widths, bf16 and mixed
+                taps, 33 taps (two launches), bases off 16 bytes.
   3. main     — the paper's trainer through the port's entry point at full
                 width (mlp_svhn 3072→2048×4→10, relaxed, ghost, 65,536
                 resident examples); every logged loss and √TrΣ finite, the
@@ -24,8 +26,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 same params, data and injected sample indices; relative
                 error ≤ 1e-4.
   5. times    — median step time (CUDA events), kernel vs plain time at the
-                main-path shapes with the L2 cache cold, the byte bound, and
-                a profiler breakdown of a few steps.
+                main-path shapes with the L2 cache cold (device time from
+                the profiler, split by kernel), the byte bound, and a
+                profiler breakdown of a few steps.
   6. ghost    — the ghost-norm Gram kernel against its plain version on the
                 card: the tap shapes of the seq-64 LM step, the S = 512
                 flash-trainer step and the falcon-mamba ghost step, S = 2048
@@ -93,10 +96,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 kernels also at hd 32 and 64, MHA and rep 64; f32 gradients
                 within rtol 1e-4 /
                 atol 1e-5, bf16 within that plus half a bf16 ulp; scores
-                within rtol 1e-4; fused == sweep bitwise (f32); the sweep
-                == its exact-order plain version bitwise; two launches
-                bitwise equal; the autograd Functions against autograd
-                through the plain oracle; refusals.
+                within rtol 1e-4; fused == sweep bitwise (f32); the f32
+                sweep == its exact-order plain version bitwise, the bf16
+                sweep == its emulator (ref.attn_score_sweep_bf16_blocked)
+                bitwise, within rtol 1e-5 of the oracle and the plain
+                version, and bitwise the same from copies off 16 bytes;
+                two launches bitwise equal; the autograd Functions against
+                autograd through the plain oracle; refusals.
  16. lm flash main — glm4-9b at full width, 4 layers, seq 512, batch and
                 score batch 16, bf16, relaxed, ghost, through
                 launch/train.py's run with attn_impl="flash" (master) and
@@ -112,9 +118,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 master step, card vs CPU, relative error ≤ 1e-4; fused ==
                 separate bitwise on both.
  18. lm flash times — the backward (with and without scores) and the
-                sweep at the main shape, L2 cold, CUDA events, beside the
-                bound, the plain version and (backward) autograd through
-                SDPA, with the backward's achieved TFLOP/s; the fused,
+                sweep at the main shape, L2 cold, CUDA events (the sweep
+                also device time from the profiler, split by kernel),
+                beside the bound, the plain version and (backward) autograd
+                through SDPA, with the backward's achieved TFLOP/s; the fused,
                 separate and exact scorers; a profiler window over steps of
                 the fused path (idle share).
  19. scan     — the selective-scan kernel against its plain version on the
@@ -277,6 +284,9 @@ SCORE_RTOL = 1e-4
 # bf16: the sweep squares the cast gradients, each within 2^-8 of the f32
 # value the fused epilogue squares, so the sums differ by < 2^-7 of the sum
 SWEEP_BF16_RTOL = 2 ** -7
+# the bf16 sweep against the oracle and the plain version on the same bf16
+# gradients: sums of the same squares in other orders
+SWEEP_RTOL = 1e-5
 
 # --- the mamba path: falcon-mamba-7b at full width (d_model 4096, d_inner
 # 8192, d_state 16, dt_rank 256, vocab 65024, bf16), depth cut to
@@ -347,6 +357,13 @@ def make_taps(b, widths, dtypes, seed, device="cuda"):
     return xs, ds
 
 
+def off_16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose base is one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a−b| over the largest |b| (per tensor)."""
     scale = b.abs().max().item()
@@ -401,16 +418,21 @@ def phase_kernels(pes, ref):
     f32, bf16 = torch.float32, torch.bfloat16
     n_main = len(MAIN_TAPS)
     ragged = ((3072, 2048), (2048, 10), (10, 3072))
+    odd = ((1, 3), (777, 1023), (2049, 5))
     cases = [
         ("main", MAIN_B, MAIN_TAPS, ((f32, f32),) * n_main),
         ("ragged_f32", 257, ragged, ((f32, f32),) * 3),
         ("ragged_bf16", 257, ragged, ((bf16, bf16),) * 3),
         ("ragged_mixed", 257, ragged, ((bf16, f32), (f32, bf16), (bf16, f32))),
         ("33_taps", 17, ((40, 24),) * 33, ((f32, f32),) * 33),
+        ("odd_widths", 33, odd, ((f32, bf16), (bf16, f32), (f32, f32))),
+        ("unaligned", 65, odd, ((f32, bf16), (bf16, f32), (f32, f32))),
     ]
     max_err = {"per_example_sqnorm": 0.0, "per_example_sqnorm_multi": 0.0}
     for ci, (name, b, widths, dtypes) in enumerate(cases):
         xs, ds = make_taps(b, widths, dtypes, seed=100 + ci)
+        if name == "unaligned":         # bases 2 or 4 bytes off 16
+            xs, ds = [off_16(x) for x in xs], [off_16(d) for d in ds]
         for with_bias in (True, False):
             tag = f"{name} with_bias={with_bias}"
             singles = []
@@ -431,6 +453,7 @@ def phase_kernels(pes, ref):
                         (k - p).abs().max().item())
                 singles.append(k)
             km = pes.per_example_sqnorm_multi(xs, ds, with_bias=with_bias)
+            km2 = pes.per_example_sqnorm_multi(xs, ds, with_bias=with_bias)
             pm = ref.per_example_sqnorm_multi_ref(xs, ds, with_bias=with_bias)
             em = ref.per_example_sqnorm_multi_blocked(xs, ds,
                                                       with_bias=with_bias)
@@ -447,12 +470,15 @@ def phase_kernels(pes, ref):
             if not torch.equal(km, em):
                 fail(f"per_example_sqnorm_multi {tag}: kernel != "
                      f"exact-order emulator")
+            if not torch.equal(km, km2):
+                fail(f"per_example_sqnorm_multi {tag}: two launches differ")
             if name == "main":
                 max_err["per_example_sqnorm_multi"] = max(
                     max_err["per_example_sqnorm_multi"],
                     (km - pm).abs().max().item())
         print(f"kernels: {name} (B={b}, {len(widths)} taps) ok: plain "
-              f"rtol {KERNEL_RTOL}, emulator and chained bitwise", flush=True)
+              f"rtol {KERNEL_RTOL}, emulator, chained and launch == launch "
+              f"bitwise", flush=True)
     # the wrappers refuse what the kernel does not take
     x, d = make_taps(4, ((8, 8),), ((torch.float32, torch.float32),), 1)
     bad = {"float64": (x[0].double(), d[0]),
@@ -569,11 +595,12 @@ def time_events(fn, inputs, rounds):
     return start.elapsed_time(end) / (rounds * len(inputs))
 
 
-def time_cold(fn, inputs, rounds=20):
+def time_cold(fn, inputs, rounds=20, split=False):
     """(device ms, wall ms) per call of fn(*inputs[i]), rotating over input
     sets larger than the L2 cache so every call finds its operands in
     device memory.  Device ms sums the durations of the CUDA kernels the
-    profiler traced; wall ms is ``time_events`` of the unprofiled loop."""
+    profiler traced; wall ms is ``time_events`` of the unprofiled loop.
+    With ``split`` also {kernel name: device ms per call}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     calls = rounds * len(inputs)
@@ -586,7 +613,13 @@ def time_cold(fn, inputs, rounds=20):
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
     if device_us <= 0:
         fail("the profiler traced no CUDA kernel time")
-    return device_us / 1e3 / calls, wall_ms
+    if not split:
+        return device_us / 1e3 / calls, wall_ms
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / calls
+    return device_us / 1e3 / calls, wall_ms, by_name
 
 
 def bound_ms(b, widths, elem_bytes=4):
@@ -615,20 +648,28 @@ def phase_times(pes, ref):
             kern = lambda xs, ds: pes.per_example_sqnorm(xs[0], ds[0])
             plain = lambda xs, ds: ref.per_example_sqnorm_ref(xs[0], ds[0])
         # plain, kernel, kernel, plain: compare within one call, in turns
-        (p1, pw1), (k1, kw1) = time_cold(plain, inputs), time_cold(kern, inputs)
-        (k2, kw2), (p2, pw2) = time_cold(kern, inputs), time_cold(plain, inputs)
+        (p1, pw1) = time_cold(plain, inputs)
+        (k1, kw1, split1) = time_cold(kern, inputs, split=True)
+        (k2, kw2, split2) = time_cold(kern, inputs, split=True)
+        (p2, pw2) = time_cold(plain, inputs)
         bms, by = bound_ms(MAIN_B, widths)
+        split = split1 if k1 <= k2 else split2
         rows[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                       "bound_ms": bms, "bound_by": by,
                       "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
                       "wall_ms_runs": [kw1, kw2],
-                      "plain_wall_ms_runs": [pw1, pw2]}
+                      "plain_wall_ms_runs": [pw1, pw2],
+                      "device_ms_by_kernel": split}
         us = lambda a, b: f"{a * 1e3:.2f}/{b * 1e3:.2f} us"
         print(f"times: {name} at B={MAIN_B} taps {list(widths)}, "
               f"{len(inputs)} input sets rotated (L2 cold): device "
               f"kernel {us(k1, k2)}, plain {us(p1, p2)}; wall kernel "
               f"{us(kw1, kw2)}, plain {us(pw1, pw2)}; bound "
               f"{bms * 1e3:.2f} us ({by})", flush=True)
+        print(f"times: {name} device time a call by kernel (the faster "
+              f"run): " + "; ".join(f"{k} {v * 1e3:.2f} us"
+                                    for k, v in split.items())
+              + f"; {min(k1, k2) / bms:.2f}x the bound", flush=True)
     return rows
 
 
@@ -1261,6 +1302,23 @@ def check_trainable(ops, ref, q, k, v, do, window, name, scores):
              f"score")
 
 
+def check_sweep16(fab, ref, grads, sw, psw, name) -> None:
+    """The bf16 sweep's score sw of grads: bitwise its exact-order
+    emulator, within SWEEP_RTOL of the oracle and of the plain version
+    psw (the fused epilogue's tile order), and bitwise the same from
+    copies whose bases lie off 16 bytes (its scalar loads)."""
+    if not torch.equal(sw, ref.attn_score_sweep_bf16_blocked(*grads)):
+        fail(f"{name}: bf16 sweep != its exact-order emulator")
+    for what, want in (("oracle", ref.attn_grad_sqnorm_ref(*grads)),
+                       ("plain version", psw)):
+        err = ((sw - want).abs() / want).max().item()
+        if err > SWEEP_RTOL:
+            fail(f"{name}: bf16 sweep vs {what} rel err {err:.3e}")
+    moved = [off_16(g) for g in grads]
+    if not torch.equal(fab.attn_score_sweep(*moved), sw):
+        fail(f"{name}: bf16 sweep of copies off 16 bytes differs")
+
+
 def phase_flash_bwd_kernels(fa, fab, ops, ref):
     """Kernel 5 (with and without scores) and kernel 6 against their plain
     versions on the card, fused == sweep, launch == launch, the autograd
@@ -1319,8 +1377,14 @@ def phase_flash_bwd_kernels(fa, fab, ops, ref):
         sc_err = ((sc - psc).abs() / psc).max().item()
         if sc_err > SCORE_RTOL:
             fail(f"{name}: fused score vs plain rel err {sc_err:.3e}")
-        if not torch.equal(sw, psw):
+        sweep_note = "sweep == plain sweep bitwise"
+        if dt == f32 and not torch.equal(sw, psw):
             fail(f"{name}: sweep != its exact-order plain version")
+        if dt == bf16:
+            check_sweep16(fab, ref, grads, sw, psw, name)
+            sweep_note = (f"sweep == its emulator bitwise and within rtol "
+                          f"{SWEEP_RTOL} of the plain versions, a base off "
+                          f"16 bytes bitwise the same")
         if dt == f32 and not torch.equal(sc, sw):
             fail(f"{name}: fused score != sweep (f32, must be bitwise)")
         sw_err = ((sw - sc).abs() / sc).max().item()
@@ -1333,8 +1397,8 @@ def phase_flash_bwd_kernels(fa, fab, ops, ref):
             max_abs["attn_score_sweep"] = (sw - psw).abs().max().item()
         print(f"flash bwd: {name} ok: grads max abs err "
               f"{max(errs):.3e}, score rel err {sc_err:.3e}, sweep vs fused "
-              f"{'bitwise' if dt == f32 else f'{sw_err:.2e}'}, sweep == "
-              f"plain sweep bitwise, two launches bitwise equal"
+              f"{'bitwise' if dt == f32 else f'{sw_err:.2e}'}, "
+              f"{sweep_note}, two launches bitwise equal"
               f"{', autograd Functions ok' if dt == f32 else ''}",
               flush=True)
         del q, k, v, o, lse, do, grads, grads_s, plain
@@ -1573,18 +1637,29 @@ def phase_flash_times(train_mod, fa, fab, ref, rounds=5):
     del sets
     kern = lambda *a: fab.attn_score_sweep(*a)
     plain = lambda *a: ref.attn_score_sweep_kernel_ref(*a)
-    p1, k1 = time_events(plain, grads, 1), time_events(kern, grads, rounds)
-    k2, p2 = time_events(kern, grads, rounds), time_events(plain, grads, 1)
+    # device time from the profiler (a ~30 us call: CUDA events around the
+    # eager loop would mostly time the wrapper's host work), beside the
+    # events' time
+    p1 = time_events(plain, grads, 1)
+    k1, kw1, split1 = time_cold(kern, grads, 10 * rounds, split=True)
+    k2, kw2, split2 = time_cold(kern, grads, 10 * rounds, split=True)
+    p2 = time_events(plain, grads, 1)
     rows["attn_score_sweep"] = {
         "shape": [b, s, h, hkv, hd], "dtype": "bfloat16", "ms": min(k1, k2),
-        "plain_ms": min(p1, p2), "library_ms": None,
-        **sweep_bound(b, s, h, hkv, hd, 2), "ms_runs": [k1, k2],
-        "plain_ms_runs": [p1, p2]}
+        "events_ms": min(kw1, kw2), "plain_ms": min(p1, p2),
+        "library_ms": None, **sweep_bound(b, s, h, hkv, hd, 2),
+        "ms_runs": [k1, k2], "events_ms_runs": [kw1, kw2],
+        "plain_ms_runs": [p1, p2],
+        "device_ms_by_kernel": split1 if k1 <= k2 else split2}
     r = rows["attn_score_sweep"]
     print(f"lm flash times: attn_score_sweep dq {(b, s, h, hd)}, dk/dv "
-          f"{(b, s, hkv, hd)} bf16, 2 input sets: kernel {k1 * 1e3:.1f}/"
-          f"{k2 * 1e3:.1f} us, plain {p1:.3f}/{p2:.3f} ms; bound "
-          f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}", flush=True)
+          f"{(b, s, hkv, hd)} bf16, 2 input sets: device {k1 * 1e3:.2f}/"
+          f"{k2 * 1e3:.2f} us (" + "; ".join(
+              f"{k} {v * 1e3:.2f}"
+              for k, v in r["device_ms_by_kernel"].items())
+          + f"), CUDA events {kw1 * 1e3:.2f}/{kw2 * 1e3:.2f} us, plain "
+          f"{p1:.3f}/{p2:.3f} ms; bound {r['bound_ms'] * 1e3:.2f} us by "
+          f"{r['bound_by']}", flush=True)
     del grads
     torch.cuda.empty_cache()
     # the three scorers at the main shape (the reference's
@@ -2422,7 +2497,8 @@ def main() -> int:
     if fa._lib().fa_max_rep() != fa.MAX_REP or \
             da._lib().da_slots() != da.SLOTS or \
             da._lib().da_max_rep() != da.MAX_REP or \
-            fab._lib().fab_max_rep() != fab.MAX_REP:
+            fab._lib().fab_max_rep() != fab.MAX_REP or \
+            fab._lib().fab_sweep16_chunk() != ref.SWEEP16_CHUNK:
         fail("the attention wrappers' constants differ from their builds'")
     if [n for n in range(1, 33) if ss._lib().ss_supports(n)] != \
             list(ss.STATE_SIZES):
@@ -2544,9 +2620,11 @@ def main() -> int:
         "flash_attention_bwd": "one call without scores (B=16, S=512, 32/2 "
                                "heads, hd 128, bf16); 8 a step of the LM "
                                "flash trainer, 4 of them with scores",
-        "attn_score_sweep": "one call at the same shape; 4 a step of the LM "
-                            "flash trainer with attn_scores='separate', 0 "
-                            "with 'fused'",
+        "attn_score_sweep": "one call at the same shape, device time "
+                            "(profiler; 'lm flash times' gives the CUDA "
+                            "events' time); 4 a step of the LM flash "
+                            "trainer with attn_scores='separate', 0 with "
+                            "'fused'",
         "selective_scan": "one call at the full-depth scoring pass's shape "
                           "(B=8, S=2048, d_inner 8192, d_state 16, bf16); "
                           f"{MAMBA_LAYERS} a step of the falcon-mamba trainer "

@@ -19,6 +19,21 @@
 // and computes their functions: masked entries give p = 0, the score taken
 // from the f32 gradients before they are cast to the operands' type.
 //
+// The score sweep is bound by bytes: it reads dQ, dK and dV once, 75.5 MB
+// at the trainer's shape below in bf16, 22.5 us at 3.35 TB/s.  Its f32
+// instance repeats the fused epilogues' tiles (below), for fused == sweep
+// bitwise.  Its bf16 instance (sweep16) has no such contract, and reads
+// each example's dq, dk and dv as three flat spans cut into chunks of
+// 16,384 elements: each thread loads its 8 pieces of 16 bytes of a chunk
+// at once (neighbouring threads on neighbouring pieces) and the next
+// chunk's before it adds this one's; a grid of as many blocks as stay
+// resident walks the chunks; each chunk's squares go through fixed trees
+// into its own partial, and a second launch adds an example's partials in
+// one fixed order.  The partials do not depend on the grid, so two
+// launches are bitwise equal, and ref.attn_score_sweep_bf16_blocked
+// repeats the order.  A span's ragged last chunk, or a base off 16 bytes,
+// takes the same order in scalar loads.  No element pays a division.
+//
 // What bounds the function on an H100: operations.  At the glm4-9b trainer's
 // shape (B = 16, S = 512, H = 32, Hkv = 2, hd = 128, bf16) the backward needs
 // five causal-half products, 10 B H hd S(S+1)/2 = 86 GFLOP, 0.087 ms on the
@@ -104,9 +119,9 @@
 //   floats (conflict-free column reads); P and dS tiles have rows of 68
 //   floats (float4 reads).  Each score partial is reduced with tile_sumsq()
 //   (round-to-nearest intrinsics, a fixed shuffle tree: no FMA contraction
-//   can differ between kernels).  The sweep reads the materialized dQ, dK,
-//   dV with the same tiles, the same tile_sumsq() and the same reducer, so
-//   for f32 gradients fused == sweep bitwise.  The ragged tail of S is
+//   can differ between kernels).  The f32 sweep reads the materialized dQ,
+//   dK, dV with the same tiles, the same tile_sumsq() and the same reducer,
+//   so for f32 gradients fused == sweep bitwise.  The ragged tail of S is
 //   masked in the loads (keys and queries past S read as 0).
 //
 // Each entry point returns cudaGetLastError(); the wrapper raises if it is
@@ -126,15 +141,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPLd = kKeys + 4;           // row of a P / dS tile (floats)
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // Sum of squares of a tile's n elements (row-major order, n a multiple of
 // kThreads), valid in thread 0: thread t sums elements t, t + kThreads, ...
 // in order, then a shuffle-down tree in each warp and one over the warps.
-// The fused epilogues and the sweep call it with the same tiles, so their
+// The fused epilogues and the f32 sweep call it with the same tiles, so their
 // partials are bitwise equal; ref._blocked_sumsq repeats it in PyTorch.
 template <typename Get>
 __device__ float tile_sumsq(Get get, int n, float* red) {
@@ -511,11 +521,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // grid (n_parts, b): block (t, b) writes partial[b][t] from the
-// materialized gradients, with the tiles and order of the fused epilogues.
-template <typename T, int HD>
+// materialized f32 gradients, with the tiles and order of the fused
+// epilogues.
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    sweep_kernel(const T* __restrict__ dq, const T* __restrict__ dk,
-                 const T* __restrict__ dv, float* __restrict__ partial,
+    sweep_kernel(const float* __restrict__ dq, const float* __restrict__ dk,
+                 const float* __restrict__ dv, float* __restrict__ partial,
                  int s, int h, int hkv, int n_ktiles, int n_qtiles) {
   __shared__ float red[kWarps];
   const int t = blockIdx.x;
@@ -525,11 +536,11 @@ __global__ void __launch_bounds__(kThreads)
   if (t < n_kv) {
     const int g = t / n_ktiles;
     const int k0 = (t % n_ktiles) * kKeys;
-    auto key_tile = [&](const T* src) {
+    auto key_tile = [&](const float* src) {
       return [=](int e) {
         const int kp = k0 + e / HD;
-        return kp < s ? to_f32(src[((static_cast<size_t>(b) * s + kp) * hkv +
-                                    g) * HD + e % HD])
+        return kp < s ? src[((static_cast<size_t>(b) * s + kp) * hkv + g) *
+                                HD + e % HD]
                       : 0.0f;
       };
     };
@@ -547,8 +558,8 @@ __global__ void __launch_bounds__(kThreads)
           const int row = e / HD;
           const int pos = q0 + row / rep;
           return rt.live(row, pos, s)
-                     ? to_f32(dq[((static_cast<size_t>(b) * s + pos) * h +
-                                  g * rep + row % rep) * HD + e % HD])
+                     ? dq[((static_cast<size_t>(b) * s + pos) * h +
+                           g * rep + row % rep) * HD + e % HD]
                      : 0.0f;
         },
         kRows * HD, red);
@@ -627,14 +638,15 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return reduce(partial, b, p, scores, stream);
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_sweep(const void* dq, const void* dk, const void* dv,
                          float* partial, float* scores, int b, int s, int h,
                          int hkv, cudaStream_t stream) {
   const Plan p = plan(s, h, hkv);
-  sweep_kernel<T, HD><<<dim3(p.n_parts, b), kThreads, 0, stream>>>(
-      static_cast<const T*>(dq), static_cast<const T*>(dk),
-      static_cast<const T*>(dv), partial, s, h, hkv, p.n_ktiles, p.n_qtiles);
+  sweep_kernel<HD><<<dim3(p.n_parts, b), kThreads, 0, stream>>>(
+      static_cast<const float*>(dq), static_cast<const float*>(dk),
+      static_cast<const float*>(dv), partial, s, h, hkv, p.n_ktiles,
+      p.n_qtiles);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce(partial, b, p, scores, stream);
@@ -1172,6 +1184,194 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
+// -------------------------------------------- bf16 score sweep: flat spans
+// The score of example b is the sum of squares of three contiguous spans,
+// dq[b] (S H hd elements), dk[b] and dv[b] (S Hkv hd each); the bf16
+// instance reads them as flat spans, with no tile geometry (fused == sweep
+// is a contract of f32 gradients only).
+namespace sweep16 {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPiece = 8;                 // bf16 a piece: one 16-byte load
+constexpr int kPieces = 8;                // pieces a thread a chunk
+constexpr int kChunk = kThreads * kPieces * kPiece;   // elements a chunk
+
+struct Spans {
+  const __nv_bfloat16* p[3];              // dq, dk, dv
+  long long len[3];                       // elements of one example's span
+  int chunks[3];                          // chunks of one example's span
+  int vec[3];                             // base 16-byte aligned, len % 8 == 0
+};
+
+// Chunk idx = b * n_parts + c: its first element, its length, and whether
+// it is whole and aligned (16-byte loads) or not (scalar loads).
+struct Chunk {
+  const __nv_bfloat16* src;
+  int m;
+  bool vec;
+};
+
+__device__ __forceinline__ Chunk locate(const Spans& sp, int idx, int np) {
+  const int b = idx / np;
+  int c = idx - b * np;
+  int which = 0;
+  while (c >= sp.chunks[which]) c -= sp.chunks[which++];
+  const long long lo = static_cast<long long>(c) * kChunk;
+  const long long left = sp.len[which] - lo;
+  Chunk ck;
+  ck.m = left < kChunk ? static_cast<int>(left) : kChunk;
+  ck.src = sp.p[which] + b * sp.len[which] + lo;
+  ck.vec = sp.vec[which] && ck.m == kChunk;
+  return ck;
+}
+
+// Square of the bf16 in the low (hi = false) or high half of a word, in f32.
+__device__ __forceinline__ float sq_half(unsigned w, bool hi) {
+  const float v = __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16));
+  return __fmul_rn(v, v);
+}
+
+// This thread's pieces t, t + 256, ... of a whole aligned chunk.
+__device__ __forceinline__ void load_pieces(const Chunk& ck,
+                                            uint4 (&w)[kPieces]) {
+  const uint4* v = reinterpret_cast<const uint4*>(ck.src) + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kPieces; ++k) w[k] = __ldcs(v + k * kThreads);
+}
+
+// The squares of this thread's pieces, each piece's in element order.
+__device__ __forceinline__ float sum_pieces(const uint4 (&w)[kPieces]) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPieces; ++k) {
+    const unsigned u[4] = {w[k].x, w[k].y, w[k].z, w[k].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc = __fadd_rn(acc, sq_half(u[i], false));
+      acc = __fadd_rn(acc, sq_half(u[i], true));
+    }
+  }
+  return acc;
+}
+
+// The same sum in scalar loads, for the ragged last chunk of a span or a
+// base off 16 bytes; elements past the span are skipped (+0 in the order).
+__device__ __forceinline__ float sum_scalar(const Chunk& ck) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(ck.src);
+  float acc = 0.0f;
+  for (int k = 0; k < kPieces; ++k) {
+    const int e0 = (k * kThreads + threadIdx.x) * kPiece;
+    for (int j = 0; j < kPiece && e0 + j < ck.m; ++j)
+      acc = __fadd_rn(acc, sq_half(u[e0 + j], false));
+  }
+  return acc;
+}
+
+// Fixed trees: a shuffle-down in each warp, then one over the warps; the
+// result is valid in thread 0.  red: kWarps floats, rewritten only after
+// the next barrier.
+__device__ __forceinline__ float block_sum(float acc, float* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    acc = __fadd_rn(acc, __shfl_down_sync(kFull, acc, off));
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  float res = 0.0f;
+  if (warp == 0) {
+    res = lane < kWarps ? red[lane] : 0.0f;
+    for (int off = kWarps / 2; off > 0; off >>= 1)
+      res = __fadd_rn(res, __shfl_down_sync(kFull, res, off));
+  }
+  return res;
+}
+
+// Block i reduces chunks i, i + gridDim.x, ... of the total = b * n_parts
+// chunks into partial[idx] (= partial[b][c]), loading the next chunk's
+// pieces before it adds this one's.  The partials do not depend on the
+// grid.  red alternates between two buffers: a block_sum's writes reach a
+// buffer only after the barrier that follows its last reads.
+__global__ void __launch_bounds__(kThreads)
+    sweep_kernel(Spans sp, int np, int total, float* __restrict__ partial) {
+  __shared__ float red[2][kWarps];
+  uint4 cur[kPieces], nxt[kPieces];
+  int idx = blockIdx.x;
+  Chunk ck = locate(sp, idx, np);
+  if (ck.vec) load_pieces(ck, cur);
+  for (int it = 0; idx < total; ++it) {
+    const int nidx = idx + gridDim.x;
+    Chunk nk = ck;
+    if (nidx < total) {
+      nk = locate(sp, nidx, np);
+      if (nk.vec) load_pieces(nk, nxt);
+    }
+    const float res =
+        block_sum(ck.vec ? sum_pieces(cur) : sum_scalar(ck), red[it & 1]);
+    if (threadIdx.x == 0) partial[idx] = res;
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k) cur[k] = nxt[k];
+    ck = nk;
+    idx = nidx;
+  }
+}
+
+// One block an example: thread t adds partials t, t + 256, ... in order,
+// then block_sum's trees.
+__global__ void __launch_bounds__(kThreads)
+    reduce_kernel(const float* __restrict__ partial, int np,
+                  float* __restrict__ scores) {
+  __shared__ float red[kWarps];
+  const float* p = partial + static_cast<size_t>(blockIdx.x) * np;
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < np; i += kThreads) acc = __fadd_rn(acc, p[i]);
+  const float res = block_sum(acc, red);
+  if (threadIdx.x == 0) scores[blockIdx.x] = res;
+}
+
+Spans spans(const void* dq, const void* dk, const void* dv, int s, int h,
+            int hkv, int hd) {
+  Spans sp;
+  const void* ptr[3] = {dq, dk, dv};
+  for (int i = 0; i < 3; ++i) {
+    sp.p[i] = static_cast<const __nv_bfloat16*>(ptr[i]);
+    sp.len[i] = static_cast<long long>(s) * (i == 0 ? h : hkv) * hd;
+    sp.chunks[i] = static_cast<int>((sp.len[i] + kChunk - 1) / kChunk);
+    sp.vec[i] = reinterpret_cast<size_t>(ptr[i]) % 16 == 0 &&
+                sp.len[i] % kPiece == 0;
+  }
+  return sp;
+}
+
+int count_parts(int s, int h, int hkv, int hd) {
+  const Spans sp = spans(nullptr, nullptr, nullptr, s, h, hkv, hd);
+  return sp.chunks[0] + sp.chunks[1] + sp.chunks[2];
+}
+
+// As many blocks as stay resident on the card (at most one a chunk).
+cudaError_t launch(const void* dq, const void* dk, const void* dv,
+                   float* partial, float* scores, int b, int s, int h,
+                   int hkv, int hd, int device, cudaStream_t stream) {
+  const Spans sp = spans(dq, dk, dv, s, h, hkv, hd);
+  const int np = sp.chunks[0] + sp.chunks[1] + sp.chunks[2];
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int total = np * b;
+  const int grid = total < sms * per_sm ? total : sms * per_sm;
+  sweep_kernel<<<grid, kThreads, 0, stream>>>(sp, np, total, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_kernel<<<b, kThreads, 0, stream>>>(partial, np, scores);
+  return cudaGetLastError();
+}
+
+}  // namespace sweep16
+
 bool shape_ok(int b, int s, int h, int hkv) {
   return b >= 1 && s >= 1 && hkv >= 1 && h % hkv == 0 && h / hkv <= kRows &&
          b <= 65535 && hkv <= 65535;
@@ -1217,27 +1417,38 @@ int fab_launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(err);
 }
 
+// Slots of a row's partial scratch for the score sweep: the f32 instance
+// uses the fused epilogue's tiles (fab_parts), the bf16 one its chunks.
+int fab_sweep_parts(int bf16, int s, int h, int hkv, int hd) {
+  if (!shape_ok(1, s, h, hkv)) return -1;
+  return bf16 ? sweep16::count_parts(s, h, hkv, hd) : plan(s, h, hkv).n_parts;
+}
+
+// Elements of one chunk of the bf16 sweep (ref.py mirrors it).
+int fab_sweep16_chunk() { return sweep16::kChunk; }
+
 // dq: (b, s, h, hd); dk, dv: (b, s, hkv, hd), contiguous, all f32 or all
-// bf16.  partial: f32[b, fab_parts]; scores: f32[b].
+// bf16 (any base for bf16, 4-byte aligned for f32).  partial:
+// f32[b, fab_sweep_parts]; scores: f32[b].
 int fab_sweep_launch(const void* dq, const void* dk, const void* dv,
                      float* partial, float* scores, int bf16, int b, int s,
                      int h, int hkv, int hd, int device, void* stream) {
-  if (!shape_ok(b, s, h, hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(b, s, h, hkv) || (hd != 32 && hd != 64 && hd != 128) ||
+      (bf16 && static_cast<long long>(b) * sweep16::count_parts(s, h, hkv, hd) >
+                   0x7fffffffLL))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FAB_CASE(T, HD) \
-  err = launch_sweep<T, HD>(dq, dk, dv, partial, scores, b, s, h, hkv, st)
-  switch (hd * 2 + (bf16 ? 1 : 0)) {
-    case 64: FAB_CASE(float, 32); break;
-    case 65: FAB_CASE(__nv_bfloat16, 32); break;
-    case 128: FAB_CASE(float, 64); break;
-    case 129: FAB_CASE(__nv_bfloat16, 64); break;
-    case 256: FAB_CASE(float, 128); break;
-    case 257: FAB_CASE(__nv_bfloat16, 128); break;
-    default: err = cudaErrorInvalidValue;
-  }
-#undef FAB_CASE
+  if (bf16)
+    err = sweep16::launch(dq, dk, dv, partial, scores, b, s, h, hkv, hd,
+                          device, st);
+  else if (hd == 32)
+    err = launch_sweep<32>(dq, dk, dv, partial, scores, b, s, h, hkv, st);
+  else if (hd == 64)
+    err = launch_sweep<64>(dq, dk, dv, partial, scores, b, s, h, hkv, st);
+  else
+    err = launch_sweep<128>(dq, dk, dv, partial, scores, b, s, h, hkv, st);
   return static_cast<int>(err);
 }
 

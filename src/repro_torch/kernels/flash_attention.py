@@ -42,11 +42,11 @@ def _lib() -> ctypes.CDLL:
 
 def check_attention_operands(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, q_dims: int,
-                             max_rep: int) -> None:
-    """Raise unless q, k, v are contiguous, 16-byte aligned f32 or bf16
-    CUDA tensors of one dtype and device, k and v (B, S, Hkv, hd), q
-    ``q_dims``-D with its heads a multiple of Hkv, at most ``max_rep``
-    query heads a KV head, and hd one of ``HEAD_DIMS``."""
+                             max_rep: int, aligned: bool = True) -> None:
+    """Raise unless q, k, v are contiguous (and, with ``aligned``, 16-byte
+    aligned) f32 or bf16 CUDA tensors of one dtype and device, k and v
+    (B, S, Hkv, hd), q ``q_dims``-D with its heads a multiple of Hkv, at
+    most ``max_rep`` query heads a KV head, and hd one of ``HEAD_DIMS``."""
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.device.type != "cuda" or a.device != q.device:
             raise ValueError(f"{name} is on {a.device}; the CUDA kernel needs "
@@ -56,7 +56,7 @@ def check_attention_operands(q: torch.Tensor, k: torch.Tensor,
                             f"q, k, v all float32 or all bfloat16")
         if not a.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-        if a.data_ptr() % 16:
+        if aligned and a.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     if k.ndim != 4 or k.shape != v.shape or q.ndim != q_dims:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "

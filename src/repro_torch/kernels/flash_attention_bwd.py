@@ -5,12 +5,14 @@ kernels ``src/repro/kernels/flash_attention_bwd.py::flash_attention_bwd``
 and ``::attn_score_sweep``.  The wrappers take CUDA tensors only: they
 check devices, dtypes, shapes and contiguity, compute D = rowsum(dO ∘ O)
 with PyTorch (the reference computes it outside its Pallas calls too),
-allocate the outputs and the (B, parts) scratch of per-tile score
-partials, launch on the current stream without synchronising, and raise
-if a launch is refused.
+allocate the outputs and the (B, parts) scratch of score partials,
+launch on the current stream without synchronising, and raise if a
+launch is refused.
 
 The dtype alone picks the kernels: bf16 runs the tensor-core instances
-(wgmma on TMA-fed tiles), f32 the SIMT ones.
+(wgmma on TMA-fed tiles) of the backward and the flat-span instance of
+the sweep, f32 the SIMT ones, whose sweep repeats the fused epilogue's
+tiles.
 ``flash_attention_bwd.launches`` counts calls (the dK/dV and dQ kernels,
 and with scores the row reducer: two or three kernel launches a call),
 ``flash_attention_bwd.scored`` those with scores,
@@ -43,6 +45,9 @@ def _lib() -> ctypes.CDLL:
     lib.fab_sweep_launch.restype = i
     lib.fab_parts.argtypes = [i, i, i]
     lib.fab_parts.restype = i
+    lib.fab_sweep_parts.argtypes = [i] * 5
+    lib.fab_sweep_parts.restype = i
+    lib.fab_sweep16_chunk.restype = i
     lib.fab_max_rep.restype = i
     lib.fab_error_string.argtypes = [i]
     lib.fab_error_string.restype = ctypes.c_char_p
@@ -113,9 +118,12 @@ flash_attention_bwd.tc_launches = 0    # of those, the bf16 tensor-core kernels
 def attn_score_sweep(dq: torch.Tensor, dk: torch.Tensor,
                      dv: torch.Tensor) -> torch.Tensor:
     """(B,) f32 ||dQ_b||² + ||dK_b||² + ||dV_b||² from materialized
-    gradients, with the fused epilogue's tiles and order: for f32
-    gradients bitwise equal to ``flash_attention_bwd(with_scores=True)``."""
-    check_attention_operands(dq, dk, dv, 4, MAX_REP)
+    gradients.  f32 gradients take the fused epilogue's tiles and order,
+    so the score is bitwise equal to ``flash_attention_bwd(with_scores=
+    True)``; bf16 gradients are read as three flat spans an example in
+    16-byte pieces, in the order of ``ref.attn_score_sweep_bf16_blocked``
+    (a base off 16 bytes takes the same order in scalar loads)."""
+    check_attention_operands(dq, dk, dv, 4, MAX_REP, aligned=False)
     if dq.shape[1] != dk.shape[1]:
         raise ValueError(f"dq has S={dq.shape[1]}, dk has S={dk.shape[1]}")
     bsz, s, h, hd = dq.shape
@@ -125,12 +133,13 @@ def attn_score_sweep(dq: torch.Tensor, dk: torch.Tensor,
     if bsz == 0 or s == 0:
         return scores.zero_()
     lib = _lib()
-    partial = torch.empty(bsz, lib.fab_parts(s, h, hkv), dtype=torch.float32,
-                          device=dev)
+    bf16 = int(dq.dtype == torch.bfloat16)
+    partial = torch.empty(bsz, lib.fab_sweep_parts(bf16, s, h, hkv, hd),
+                          dtype=torch.float32, device=dev)
     code = lib.fab_sweep_launch(
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
-        scores.data_ptr(), int(dq.dtype == torch.bfloat16), bsz, s, h, hkv,
-        hd, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        scores.data_ptr(), bf16, bsz, s, h, hkv, hd, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(code, "attn_score_sweep")
     attn_score_sweep.launches += 1
     return scores

@@ -36,7 +36,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pes_launch.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
     lib.pes_launch.restype = i
-    lib.pes_multi_launch.argtypes = [ctypes.POINTER(_Tap), i, i, i, i, p, p]
+    lib.pes_multi_launch.argtypes = [ctypes.POINTER(_Tap), i, i, i, i, i, p,
+                                     p]
     lib.pes_multi_launch.restype = i
     lib.pes_threads.restype = i
     lib.pes_max_taps.restype = i
@@ -106,15 +107,16 @@ def per_example_sqnorm_multi(xs, ds, *, with_bias: bool = True
                              ) -> torch.Tensor:
     """Σ_t ||xs[t][n]||²·||ds[t][n]||² (+||ds[t][n]||²) → f32[B].
 
-    One launch computes every tap's row into a (T, B) buffer with the
-    single-tap kernel's row code; the adds are chained here in tap order,
-    so the result equals chained ``per_example_sqnorm`` launches bitwise.
-    More than the kernel's table size of taps take one launch per table."""
+    One launch computes every tap's row with the single-tap kernel's row
+    code and chains the rows in tap order, so the result equals chained
+    ``per_example_sqnorm`` launches bitwise.  More than the kernel's table
+    size of taps take one launch per table, each adding its rows onto the
+    running sum in order."""
     xs, ds = list(xs), list(ds)
     b, dev = _check(xs, ds)
-    rows = torch.empty(len(xs), b, dtype=torch.float32, device=dev)
+    out = torch.empty(b, dtype=torch.float32, device=dev)
     if b == 0:
-        return rows.sum(0)
+        return out
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     cap = lib.pes_max_taps()
@@ -122,13 +124,11 @@ def per_example_sqnorm_multi(xs, ds, *, with_bias: bool = True
         chunk = [_tap(x, d) for x, d in zip(xs[lo:lo + cap], ds[lo:lo + cap])]
         table = (_Tap * len(chunk))(*chunk)
         code = lib.pes_multi_launch(table, len(chunk), b, int(with_bias),
-                                    dev.index, rows[lo].data_ptr(), stream)
+                                    int(lo > 0), dev.index, out.data_ptr(),
+                                    stream)
         _raise_on(lib, code, "per_example_sqnorm_multi")
         per_example_sqnorm_multi.launches += 1
-    res = rows[0]
-    for t in range(1, len(xs)):
-        res = res + rows[t]
-    return res
+    return out
 
 
 per_example_sqnorm_multi.launches = 0

@@ -17,9 +17,11 @@ plain versions of the two attention *kernels* (the CPU path of
 decode row of length 0 gives zeros where the oracle gives NaN.
 ``flash_attention_bwd_kernel_ref`` and ``attn_score_sweep_kernel_ref`` are
 the plain versions of the backward and score-sweep kernels; both reduce
-the score through ``_attn_score_blocked``, the CUDA kernels' tiles and
-order, so the plain fused and separate scores are bitwise equal, and on
-the card the sweep kernel equals its plain version bitwise.
+the score through ``_attn_score_blocked``, the f32 CUDA kernels' tiles
+and order, so the plain fused and separate scores are bitwise equal, and
+on the card the f32 sweep kernel equals its plain version bitwise.  The
+bf16 sweep kernel reads flat spans in another order, which
+``attn_score_sweep_bf16_blocked`` repeats.
 
 ``flash_attention_split_emulation`` and
 ``flash_attention_bwd_split_emulation`` repeat the arithmetic of the bf16
@@ -57,6 +59,12 @@ SQNORM_THREADS = 256
 # group (64 // rep positions times its rep heads)
 ATTN_KEYS = 64
 ATTN_ROWS = 64
+# the bf16 score sweep (flash_attention_bwd.cu sweep16): 8-element pieces
+# (kPiece, one 16-byte load), SWEEP16_PIECES of them a thread a chunk
+# (kPieces), so a chunk is 256 * 8 * 8 = 16,384 elements of one span
+SWEEP16_PIECE = 8
+SWEEP16_PIECES = 8
+SWEEP16_CHUNK = SQNORM_THREADS * SWEEP16_PIECES * SWEEP16_PIECE
 # positions a tile of the ghost-norm kernel (ghost_norm.cu kTile) and
 # features a k-tile of its tensor-core instance (tc::kKT)
 GN_TILE = 64
@@ -121,6 +129,21 @@ def per_example_sqnorm_multi_ref(xs, ds, with_bias: bool = True
     return out
 
 
+def _thread_tree(acc: torch.Tensor) -> torch.Tensor:
+    """(R, 256) per-thread sums → (R,) as the CUDA kernels reduce a block:
+    a shuffle-down tree inside each warp (lane offsets 16, 8, 4, 2, 1),
+    then one over the 8 warps (4, 2, 1)."""
+    v = acc.reshape(acc.shape[0], SQNORM_THREADS // 32, 32)
+    while v.shape[-1] > 1:               # lanes: off = 16, 8, 4, 2, 1
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    v = v[..., 0]                        # (R, warps)
+    while v.shape[-1] > 1:               # warps: off = 4, 2, 1
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
 def _blocked_sumsq(a: torch.Tensor) -> torch.Tensor:
     """(B, n) → (B,) Σa² in the CUDA kernels' order (``per_example_sqnorm.cu``
     and ``tile_sumsq`` of ``flash_attention_bwd.cu``, both 256 threads):
@@ -133,15 +156,7 @@ def _blocked_sumsq(a: torch.Tensor) -> torch.Tensor:
     for j in range(a.shape[1]):
         v = a[:, j]
         acc = acc + v * v
-    v = acc.reshape(b, SQNORM_THREADS // 32, 32)
-    while v.shape[-1] > 1:               # lanes: off = 16, 8, 4, 2, 1
-        h = v.shape[-1] // 2
-        v = v[..., :h] + v[..., h:]
-    v = v[..., 0]                        # (B, warps)
-    while v.shape[-1] > 1:               # warps: off = 4, 2, 1
-        h = v.shape[-1] // 2
-        v = v[..., :h] + v[..., h:]
-    return v[..., 0]
+    return _thread_tree(acc)
 
 
 def per_example_sqnorm_blocked(x: torch.Tensor, d: torch.Tensor,
@@ -156,8 +171,10 @@ def per_example_sqnorm_blocked(x: torch.Tensor, d: torch.Tensor,
 
 def per_example_sqnorm_multi_blocked(xs, ds, with_bias: bool = True
                                      ) -> torch.Tensor:
-    """The multi-tap kernel plus its wrapper's chained adds, emulated:
-    res = row_0, then res = res + row_t in tap order."""
+    """The multi-tap kernel emulated: each tap's row in the single-tap
+    kernel's order, then res = row_0 and res = res + row_t in tap order,
+    the chain the kernel runs in its launch (and across its launches
+    past 32 taps)."""
     res = per_example_sqnorm_blocked(xs[0], ds[0], with_bias)
     for x, d in zip(xs[1:], ds[1:]):
         res = res + per_example_sqnorm_blocked(x, d, with_bias)
@@ -327,6 +344,46 @@ def attn_score_sweep_kernel_ref(dq: torch.Tensor, dk: torch.Tensor,
     ||dQ||² + ||dK||² + ||dV||² of materialized gradients, reduced as the
     fused score is, so for f32 gradients the two are bitwise equal."""
     return _attn_score_blocked(dq, dk, dv)
+
+
+def _sweep16_partials(a: torch.Tensor) -> torch.Tensor:
+    """(B, n) spans → (B, chunks) partials of the bf16 sweep kernel: chunk
+    c holds elements [c·C, (c+1)·C), C = ``SWEEP16_CHUNK``; thread t takes
+    the 8-element pieces t, t+256, ... of its chunk and adds each piece's
+    squares in element order (zero padding past n adds exact +0), then
+    ``_thread_tree``."""
+    b, n = a.shape
+    nc = -(-n // SWEEP16_CHUNK)
+    a = torch.nn.functional.pad(a.float(), (0, nc * SWEEP16_CHUNK - n))
+    a = a.reshape(b * nc, SWEEP16_PIECES, SQNORM_THREADS, SWEEP16_PIECE)
+    acc = torch.zeros(b * nc, SQNORM_THREADS, dtype=torch.float32,
+                      device=a.device)
+    for k in range(SWEEP16_PIECES):
+        for j in range(SWEEP16_PIECE):
+            v = a[:, k, :, j]
+            acc = acc + v * v
+    return _thread_tree(acc).reshape(b, nc)
+
+
+def attn_score_sweep_bf16_blocked(dq: torch.Tensor, dk: torch.Tensor,
+                                  dv: torch.Tensor) -> torch.Tensor:
+    """The bf16 score-sweep kernel's (B,) ||dQ||² + ||dK||² + ||dV||² in its
+    exact order: each example's dq, dk and dv as flat spans cut into
+    chunks (``_sweep16_partials``), the partials concatenated (dq's, dk's,
+    dv's), then thread t of one block sums partials t, t+256, ... in order
+    and ``_thread_tree`` adds the threads.  No path calls it: on the card
+    the bf16 sweep kernel equals it bitwise."""
+    b = dq.shape[0]
+    parts = torch.cat([_sweep16_partials(a.reshape(b, -1))
+                       for a in (dq, dk, dv)], dim=1)
+    n = parts.shape[1]
+    parts = torch.nn.functional.pad(parts, (0, (-n) % SQNORM_THREADS))
+    parts = parts.reshape(b, -1, SQNORM_THREADS)
+    acc = torch.zeros(b, SQNORM_THREADS, dtype=torch.float32,
+                      device=dq.device)
+    for i in range(parts.shape[1]):
+        acc = acc + parts[:, i]
+    return _thread_tree(acc)
 
 
 # ---------------------------------- the bf16 tensor-core kernels' arithmetic
