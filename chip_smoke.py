@@ -154,6 +154,35 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 events, beside its plain version and its bound (exponentials
                 over the SFU rate vs bytes); a profiler window over steps of
                 20a.
+ 23. fused    — mlp_svhn at full width (65,536 examples) through the train
+                entry point with --mode fused --probe-every 8, 40 steps,
+                every plain version forbidden: losses and √TrΣ finite, the
+                multi-tap kernel launched once a probe and never in a fused
+                step; step by step, the rows sampled at step i stamped i;
+                one fused step and one probe, card vs CPU (≤ 1e-4); a
+                write_scores_global of 64 writes over 8 rows last-write-wins,
+                bitwise as the CPU and run to run; the median fused-step,
+                probe and relaxed-step ms (CUDA events).
+ 24. ghost_rev — glm4-9b at full width on the flash path (seq 512, score
+                batch 16): (a) at 4 layers, ghost_rev against ghost with
+                attn_scores "fused" then "separate" (relative error ≤ 1e-4),
+                each scorer's pass ms and peak memory, ghost_rev's launches
+                (4 ghost_norm a period + the unembed, 2 flash forward and 1
+                backward a layer, the sweeps with "separate"); (b) one
+                ghost_rev pass at full depth, 40 layers: scores finite and
+                positive, 161 ghost_norm, 80 flash forward and 40 scored
+                backward launches, all tensor-core, pass ms and peak
+                memory; (c) --strategy ghost_rev through the train entry
+                point at phase 7's cut, 29 ghost_norm launches a step.
+ 25. checkpoint — mlp_svhn relaxed at full width: 10 steps against 5,
+                save, restore into a template of another seed, 5 more:
+                params, stale params, store, step and the draws bitwise;
+                a glm4-9b period's bf16 params round trip bitwise on the
+                card; save and restore seconds, file sizes.
+ 26. asgd     — the ASGD baseline's §6 issgd mode at full width, delay 4,
+                20 steps: finite losses; drawn rows written last-write-wins;
+                one step card vs CPU from the state reached, the same
+                draws (≤ 1e-4).
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -321,6 +350,19 @@ SCAN_RTOL = 1e-5
 # H100 SXM: 16 SFU results a clock on each of 132 SMs at the 1.98 GHz boost
 # clock (exp is one MUFU op)
 SFU_PER_S = 16 * 132 * 1.98e9
+
+# --- slice 11: fused mode with its probe, ghost_rev, checkpoints, ASGD
+FUSED_STEPS, FUSED_PROBE = 40, 8
+# ghost_rev: glm4-9b at full width, seq 512, score batch 16, flash path;
+# held to ghost at the LM_LAYERS cut (the same sums in another order and
+# grouping, bf16 operands: within the card-vs-CPU bound), then one pass at
+# full depth
+REV_B, REV_S = 16, 512
+REV_FULL_LAYERS = 40
+REV_RTOL = 1e-4
+REV_TRAIN_STEPS = 3
+CKPT_K = 5
+ASGD_DELAY, ASGD_STEPS = 4, 20
 
 
 def fail(msg: str) -> None:
@@ -550,8 +592,8 @@ def phase_parity():
         master = make_master_pass(
             lambda pp, b: per_example_loss(pp, b, cfg), opt, tcfg, n)
         store, fresh, stale = scoring(p, init_store(n, dev), 0, data)
-        new_p, _, _, m = master(p, (), p, store, 0, None, data, fresh, stale,
-                                sample_indices=idx)
+        new_p, _, _, _, m = master(p, (), p, store, 0, None, data, fresh,
+                                   stale, sample_indices=idx)
         # the step's update new − old: compared alone, so that the shared
         # old params cannot hide a difference in the gradient
         deltas = tree_map(lambda a, b: a - b, new_p, p)
@@ -679,7 +721,7 @@ def phase_profile(train_mod, argv, cfg=None, steps=8, warm=3, tag="profile",
     (with the config override ``cfg`` and the attention path ``attn``)
     builds."""
     args = train_mod.parse_args(argv)
-    state, step, data = train_mod.build(args, cfg, **attn)
+    state, step, data, _ = train_mod.build(args, cfg, **attn)
     carry = {"state": state}
     del state
 
@@ -694,10 +736,10 @@ def phase_profile(train_mod, argv, cfg=None, steps=8, warm=3, tag="profile",
 
 
 # ------------------------------------------------------------ the LM path
-def lm_config():
-    """glm4-9b at its published widths, depth cut to LM_LAYERS."""
+def lm_config(layers=LM_LAYERS):
+    """glm4-9b at its published widths, depth cut to ``layers``."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("glm4-9b"), num_layers=LM_LAYERS)
+    return dataclasses.replace(get_config("glm4-9b"), num_layers=layers)
 
 
 def gram_inputs(rows, s, din, dout, x_dtype, d_dtype, seed,
@@ -942,8 +984,8 @@ def phase_lm_parity():
             lambda pp, bb: per_example_loss(pp, cfg, bb)[0], opt, tcfg, n)
         t0 = time.perf_counter()
         store, fresh, stale = scoring(p, init_store(n, dev), 0, data)
-        new_p, _, _, m = master(p, (), p, store, 0, None, data, fresh, stale,
-                                sample_indices=idx)
+        new_p, _, _, _, m = master(p, (), p, store, 0, None, data, fresh,
+                                   stale, sample_indices=idx)
         deltas = tree_map(lambda a, c: (a - c).cpu(), new_p, p)
         out[dev] = {"scores": fresh.cpu(), "loss": m.loss.cpu(),
                     "grad_norm": m.grad_norm.cpu(),
@@ -1532,8 +1574,8 @@ def phase_flash_parity():
             lambda pp, bb: per_example_loss(pp, cfg, bb,
                                             attn_impl="flash")[0],
             opt, tcfg, n)
-        new_p, _, _, m = master(p, (), p, store, 0, None, data, fresh, stale,
-                                sample_indices=idx)
+        new_p, _, _, _, m = master(p, (), p, store, 0, None, data, fresh,
+                                   stale, sample_indices=idx)
         deltas = tree_map(lambda a, c: (a - c).cpu(), new_p, p)
         res.update({"loss": m.loss.cpu(), "grad_norm": m.grad_norm.cpu(),
                     **{f"update {i}": t for i, t in
@@ -2375,8 +2417,8 @@ def phase_mamba_parity():
             res[f"scores {strategy}/{mode}"] = fresh.cpu()
         master = make_master_pass(
             lambda pp, bb: per_example_loss(pp, cfg, bb)[0], opt, tcfg, n)
-        new_p, _, _, m = master(p, (), p, store, 0, None, data, fresh, stale,
-                                sample_indices=idx)
+        new_p, _, _, _, m = master(p, (), p, store, 0, None, data, fresh,
+                                   stale, sample_indices=idx)
         deltas = tree_map(lambda a, c: (a - c).cpu(), new_p, p)
         res.update({"loss": m.loss.cpu(), "grad_norm": m.grad_norm.cpu(),
                     **{f"update {i}": t for i, t in
@@ -2466,6 +2508,451 @@ def phase_mamba_times(train_mod, ss, ref, rounds=5):
     return row, prof
 
 
+# ------------------------------------------- slice 11: fused, ghost_rev,
+# checkpoints, ASGD
+def mlp_argv(*extra) -> list:
+    """The mlp_svhn trainer of phase 3 (full width, 65,536 examples)."""
+    return ["--arch", "mlp_svhn", "--batch", "64", "--score-batch", "256",
+            "--examples", "65536", "--lr", "0.01", "--refresh-every", "8",
+            "--device", "cuda", *extra]
+
+
+def lww(n, idx, vals, fill):
+    """The store column a last-write-wins write of vals at idx gives."""
+    out = torch.full((n,), fill, dtype=vals.dtype)
+    for i, v in zip(idx.tolist(), vals.cpu()):
+        out[i] = v
+    return out
+
+
+def phase_fused(train_mod, ref):
+    """Fused mode through the launcher at full width, then its per-step
+    store contract, card vs CPU for a fused step and a probe, the
+    duplicate-heavy last-write-wins write, and the step times."""
+    from repro_torch.core import weight_store as ws
+    from repro_torch.core.issgd import (ISSGDConfig, TrainState,
+                                        make_master_pass, make_score_step)
+    from repro_torch.core.scorer import make_mlp_scorer
+    from repro_torch.configs.mlp_svhn import CONFIG as cfg
+    from repro_torch.data import make_svhn_like
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.optim import sgd, tree_leaves, tree_map
+    keys = ("loss", "grad_norm", "trace_ideal", "trace_stale", "trace_unif")
+    argv = mlp_argv("--mode", "fused", "--probe-every", str(FUSED_PROBE))
+    probes = len(range(0, FUSED_STEPS, FUSED_PROBE))
+    reset_counts()
+    result = run_forbidding_plain(ref, lambda: train_mod.main(
+        argv + ["--steps", str(FUSED_STEPS), "--log-every", "1"]))
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want["per_example_sqnorm_multi"] = probes
+    if launches != want:
+        fail(f"fused: launches {launches} in {FUSED_STEPS} steps with "
+             f"{probes} probes; expected {want}")
+    for rec in result.history:
+        if not all(math.isfinite(rec[k]) for k in keys):
+            fail(f"fused: non-finite metrics at step {rec['step']}: {rec}")
+    fused_ms = statistics.median(result.step_ms[WARMUP_STEPS:])
+    del result
+
+    # the store after each step, and where the kernel launches: step by
+    # step through the launcher's `build`
+    built = train_mod.build(train_mod.parse_args(argv))
+    state, per_step, per_probe = built.state, [], []
+    for i in range(2 * FUSED_PROBE + 1):
+        before = read_counts()["per_example_sqnorm_multi"]
+        state, m = run_forbidding_plain(
+            ref, lambda: built.step(state, built.data))
+        idx = m.sample_indices
+        if not bool((state.store.scored_at[idx] == i).all()):
+            fail(f"fused: rows sampled at step {i} are not stamped {i}")
+        per_step.append(read_counts()["per_example_sqnorm_multi"] - before)
+        if i % FUSED_PROBE == 0:
+            before = read_counts()["per_example_sqnorm_multi"]
+            state = run_forbidding_plain(
+                ref, lambda: built.probe(state, built.data))
+            per_probe.append(read_counts()["per_example_sqnorm_multi"]
+                             - before)
+    if set(per_step) != {0} or set(per_probe) != {1}:
+        fail(f"fused: multi-tap launches a step {per_step}, a probe "
+             f"{per_probe}; expected 0 and 1")
+    probe_ms = statistics.median(step_times(
+        lambda: built.probe(state, built.data), 20)[3:])
+    del built, state
+    relaxed = train_mod.build(train_mod.parse_args(mlp_argv()))
+    carry = {"s": relaxed.state}
+
+    def relaxed_step():
+        carry["s"], _ = relaxed.step(carry["s"], relaxed.data)
+    relaxed_ms = statistics.median(step_times(relaxed_step, 20)[3:])
+    del relaxed, carry
+
+    # one fused step and one probe, card vs CPU, same params and indices
+    n = 4096
+    train, _ = make_svhn_like(torch.Generator("cuda").manual_seed(21), n=n,
+                              dim=cfg.input_dim)
+    params = mlp_mod.init_mlp_classifier(torch.Generator().manual_seed(22),
+                                         cfg, "cpu")
+    idx = torch.randint(0, 512, (64,),
+                        generator=torch.Generator().manual_seed(23))
+    tcfg = ISSGDConfig(batch_size=64, score_batch_size=256, mode="fused")
+    master = make_master_pass(
+        None, sgd(0.01), tcfg, n,
+        fused_score=lambda p, b: mlp_mod.per_example_loss_and_score(p, b,
+                                                                    cfg))
+    probe = make_score_step(make_mlp_scorer(cfg, "ghost"), tcfg, n)
+    out, stamps = {}, {}
+    for dev in ("cuda", "cpu"):
+        data = {k: v.to(dev) for k, v in train.arrays.items()}
+        p = tree_map(lambda t: t.to(dev), params)
+        new_p, _, _, store, m = master(p, (), p, ws.init_store(n, dev), 0,
+                                       None, data, sample_indices=idx)
+        st = probe(TrainState(new_p, (), p, store, 1, None), data)
+        deltas = tree_map(lambda a, b: a - b, new_p, p)
+        out[dev] = {"loss": m.loss, "grad_norm": m.grad_norm,
+                    "trace_stale": m.trace_stale,
+                    "fused scores": store.weights[idx],
+                    "probe scores": st.store.weights[256:512],
+                    **{f"update {i}": t for i, t in
+                       enumerate(tree_leaves(deltas))}}
+        stamps[dev] = st.store.scored_at.cpu()
+    if not torch.equal(stamps["cuda"], stamps["cpu"]):
+        fail("fused: card and CPU stamps differ")
+    errs = {k: rel_err(out["cuda"][k].cpu(), v)
+            for k, v in out["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > CARD_VS_CPU_RTOL:
+        fail(f"fused card vs CPU: {worst} relative error {errs[worst]:.3e}")
+
+    # duplicate-heavy last-write-wins: B = 64 writes over 8 rows
+    g = torch.Generator().manual_seed(24)
+    didx = torch.randint(0, 8, (64,), generator=g)
+    dvals = torch.randperm(64, generator=g).float() + 0.25
+    stamps = torch.arange(64, dtype=torch.int32) + 100
+    dup = {}
+    for dev in ("cuda", "cpu"):
+        base = ws.init_store(32, dev)
+        dup[dev] = [ws.write_scores_global(base, didx.to(dev), dvals.to(dev),
+                                           stamps.to(dev)) for _ in range(2)]
+    a, b = dup["cuda"]
+    c = dup["cpu"][0]
+    if not (torch.equal(a.weights, b.weights)
+            and torch.equal(a.scored_at, b.scored_at)
+            and torch.equal(a.weights.cpu(), c.weights)
+            and torch.equal(a.scored_at.cpu(), c.scored_at)
+            and torch.equal(c.weights, lww(32, didx, dvals, 0.0))):
+        fail("fused: the duplicate-heavy write_scores_global is not "
+             "last-write-wins bitwise on the card")
+    res = {"steps": FUSED_STEPS, "probe_every": FUSED_PROBE,
+           "launches": launches, "probe_launches": per_probe,
+           "fused_step_ms_median": fused_ms, "probe_ms_median": probe_ms,
+           "relaxed_step_ms_median": relaxed_ms, "card_vs_cpu_rel_err": errs}
+    print(f"fused: mlp_svhn full width, {FUSED_STEPS} steps, probe every "
+          f"{FUSED_PROBE}: launches {launches}; a fused step 0 multi-tap "
+          f"launches, a probe 1; median fused step {fused_ms:.3f} ms, probe "
+          f"{probe_ms:.3f} ms, relaxed step {relaxed_ms:.3f} ms (CUDA "
+          f"events); card vs CPU largest relative error {errs[worst]:.3e} "
+          f"({worst}); 64 writes over 8 rows last-write-wins, bitwise as "
+          f"the CPU and run to run", flush=True)
+    return res
+
+
+def score_pass(ref, scorer, params, batch, rounds, what):
+    """(scores, median ms of ``rounds`` timed passes after the counted
+    one, peak GiB, launches of one pass); every plain version forbidden
+    in the counted pass, and its attention and ghost-norm launches all of
+    the tensor-core instances."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sc = run_forbidding_plain(ref, lambda: scorer(params, batch))
+    launches = read_counts()
+    check_tc(launches, what)
+    launches["flash_attention_bwd scored"] = \
+        kernel_wrappers()["flash_attention_bwd"].scored
+    ms = statistics.median(step_times(lambda: scorer(params, batch),
+                                      rounds))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return sc, ms, peak, launches
+
+
+def phase_ghost_rev(train_mod, ref):
+    """glm4-9b at full width on the flash path: (a) ghost_rev against
+    ghost at the 4-layer cut, fused then separate, (b) one ghost_rev pass
+    at full depth, (c) a --strategy ghost_rev trainer at phase 7's cut."""
+    from repro_torch.core.scorer import make_lm_scorer
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+    out = {"cut": {}}
+    cfg = lm_config()
+    params = transformer.init_transformer(
+        torch.Generator("cuda").manual_seed(31), cfg, "cuda")
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (REV_B, REV_S + 1),
+        generator=torch.Generator("cuda").manual_seed(32), device="cuda")}
+    for variant in ("fused", "separate"):
+        row = {}
+        for strategy in ("ghost", "ghost_rev"):
+            sc, ms, peak, launches = score_pass(ref, make_lm_scorer(
+                cfg, strategy, attn_impl="flash", attn_scores=variant),
+                params, batch, 3, f"{strategy} {variant}")
+            row[strategy] = {"scores": sc, "pass_ms": ms, "peak_gib": peak,
+                             "launches": launches}
+        err = ((row["ghost_rev"]["scores"] - row["ghost"]["scores"]).abs()
+               / row["ghost"]["scores"]).max().item()
+        if not err <= REV_RTOL:
+            fail(f"ghost_rev {variant}: relative error {err:.3e} against "
+                 f"ghost at {LM_LAYERS} layers")
+        got = row["ghost_rev"]["launches"]
+        want_rev = {"ghost_norm": 4 * LM_LAYERS + 1,
+                    "flash_attention": 2 * LM_LAYERS,
+                    "flash_attention_bwd": LM_LAYERS,
+                    "attn_score_sweep": LM_LAYERS if variant == "separate"
+                    else 0}
+        if any(got[k] != v for k, v in want_rev.items()):
+            fail(f"ghost_rev {variant}: launches {got}, expected {want_rev}")
+        for r in row.values():
+            del r["scores"]
+        out["cut"][variant] = {"rel_err_vs_ghost": err, **row}
+        print(f"ghost_rev ({variant}): glm4-9b × {LM_LAYERS} layers, seq "
+              f"{REV_S}, score batch {REV_B}: relative error vs ghost "
+              f"{err:.3e}; ghost {row['ghost']['pass_ms']:.2f} ms, peak "
+              f"{row['ghost']['peak_gib']:.2f} GiB; ghost_rev "
+              f"{row['ghost_rev']['pass_ms']:.2f} ms, peak "
+              f"{row['ghost_rev']['peak_gib']:.2f} GiB; launches {got}",
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = lm_config(REV_FULL_LAYERS)
+    params = transformer.init_transformer(
+        torch.Generator("cuda").manual_seed(33), cfg, "cuda")
+    sc, ms, peak, launches = score_pass(ref, make_lm_scorer(
+        cfg, "ghost_rev", attn_impl="flash", attn_scores="fused"), params,
+        batch, 2, "ghost_rev full depth")
+    want = {"ghost_norm": 4 * REV_FULL_LAYERS + 1,
+            "flash_attention": 2 * REV_FULL_LAYERS,
+            "flash_attention_bwd": REV_FULL_LAYERS,
+            "flash_attention_bwd scored": REV_FULL_LAYERS,
+            "attn_score_sweep": 0, "per_example_sqnorm_multi": 0,
+            "per_example_sqnorm": 0, "decode_attention": 0,
+            "selective_scan": 0}
+    if launches != want:
+        fail(f"ghost_rev full depth: launches {launches}, expected {want}")
+    if not bool(torch.isfinite(sc).all() and (sc > 0).all()):
+        fail(f"ghost_rev full depth: scores {sc}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    out["full_depth"] = {"layers": REV_FULL_LAYERS, "params": n_params,
+                         "pass_ms": ms, "peak_gib": peak,
+                         "launches": launches,
+                         "scores": [round(v, 4) for v in sc.tolist()]}
+    print(f"ghost_rev full depth: glm4-9b × {REV_FULL_LAYERS} layers "
+          f"({n_params / 1e9:.2f} B params, bf16), seq {REV_S}, score batch "
+          f"{REV_B}, attn_scores='fused': one pass {ms:.1f} ms (CUDA events, "
+          f"median of 2 after a warm-up), peak {peak:.2f} GiB, launches "
+          f"{launches}, scores {sc.min().item():.4f}..{sc.max().item():.4f}",
+          flush=True)
+
+    # (c) the trainer: phase 7's cut with --strategy ghost_rev
+    reset_counts()
+    argv = [a if a != "ghost" else "ghost_rev" for a in LM_ARGV]
+    result = run_forbidding_plain(ref, lambda: train_mod.main(
+        argv + ["--steps", str(REV_TRAIN_STEPS), "--log-every", "1"],
+        lm_config()))
+    launches = read_counts()
+    if launches["ghost_norm"] != (7 * LM_LAYERS + 1) * REV_TRAIN_STEPS:
+        fail(f"ghost_rev trainer: ghost_norm {launches['ghost_norm']} in "
+             f"{REV_TRAIN_STEPS} steps; expected {7 * LM_LAYERS + 1} a step")
+    check_tc(launches, "ghost_rev trainer")
+    losses = [r["loss"] for r in result.history]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"ghost_rev trainer: losses {losses}")
+    out["trainer"] = {"steps": REV_TRAIN_STEPS, "launches": launches,
+                      "losses": losses, "step_ms": result.step_ms}
+    del result
+    torch.cuda.empty_cache()
+    print(f"ghost_rev trainer: glm4-9b × {LM_LAYERS} layers, seq {LM_S}, "
+          f"{REV_TRAIN_STEPS} steps, losses {losses}, launches {launches}",
+          flush=True)
+    return out
+
+
+def same_tree(a, b) -> bool:
+    from repro_torch.optim import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase_checkpoint(train_mod):
+    """2K relaxed steps of mlp_svhn at full width against K steps, save,
+    restore into a template built from another seed, K more: bitwise; a
+    glm4-9b period's bf16 params round trip on the card."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves, tree_map
+    k = CKPT_K
+    args = train_mod.parse_args(mlp_argv())
+    full = train_mod.build(args)
+    state, drawn = full.state, []
+    for _ in range(2 * k):
+        state, m = full.step(state, full.data)
+        drawn.append(m.sample_indices)
+    half = train_mod.build(args)
+    hstate = half.state
+    for _ in range(k):
+        hstate, _ = half.step(hstate, half.data)
+    ck_dir = ROOT / "build" / "chip_smoke"
+    path = ck_dir / "mlp_svhn.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, hstate, step=hstate.step)
+    save_s = time.perf_counter() - t0
+    size_mb = path.stat().st_size / 1e6
+    template = train_mod.build(train_mod.parse_args(
+        mlp_argv("--seed", "7"))).state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed, ck_step = restore_checkpoint(path, template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del template, hstate
+    for i in range(k):
+        resumed, m = half.step(resumed, half.data)
+        if not torch.equal(m.sample_indices, drawn[k + i]):
+            fail(f"checkpoint: step {k + i + 1}'s draws differ after the "
+                 f"restore")
+    if not (ck_step == k and resumed.step == state.step
+            and same_tree(resumed.params, state.params)
+            and same_tree(resumed.stale_params, state.stale_params)
+            and torch.equal(resumed.store.weights, state.store.weights)
+            and torch.equal(resumed.store.scored_at,
+                            state.store.scored_at)):
+        fail("checkpoint: the resumed run differs from the uninterrupted "
+             "one")
+    del full, half, state, resumed
+    # a glm4-9b period's params at full width, bf16, on the card
+    period = transformer.init_transformer(
+        torch.Generator("cuda").manual_seed(41), lm_config(1),
+        "cuda")["layers"]
+    ppath = ck_dir / "glm4_period.npz"
+    save_checkpoint(ppath, period, step=0)
+    tmpl = tree_map(torch.zeros_like, period)
+    back, _ = restore_checkpoint(ppath, tmpl)
+    pairs = list(zip(tree_leaves(back), tree_leaves(period)))
+    if not all(a.dtype == b.dtype == torch.bfloat16 and a.device == b.device
+               and torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in pairs):
+        fail("checkpoint: a glm4-9b period's bf16 params did not round trip "
+             "bitwise on the card")
+    psize = ppath.stat().st_size / 1e6
+    path.unlink()
+    ppath.unlink()
+    res = {"k": k, "save_s": save_s, "restore_s": restore_s,
+           "file_mb": size_mb, "period_file_mb": psize}
+    print(f"checkpoint: mlp_svhn relaxed, {2 * k} steps == {k} + save + "
+          f"restore (template of seed 7) + {k}, bitwise incl. the draws; "
+          f"save {save_s:.3f} s, restore {restore_s:.3f} s, file "
+          f"{size_mb:.1f} MB; a glm4-9b period ({psize:.1f} MB bf16) "
+          f"round trips bitwise", flush=True)
+    return res
+
+
+def phase_asgd(ref):
+    """The ASGD baseline's §6 issgd mode at full width, delay 4: steps
+    with finite losses, the store's last-write-wins rows, and one step
+    card vs CPU from the state the card reached, with injected draws."""
+    from repro_torch.configs.mlp_svhn import CONFIG as cfg
+    from repro_torch.core import asgd
+    from repro_torch.core.sampler import sample_indices
+    from repro_torch.core.weight_store import read_proposal
+    from repro_torch.data import gather_batch, make_svhn_like
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.optim import sgd, tree_leaves, tree_map
+    fused = lambda p, b: mlp_mod.per_example_loss_and_score(p, b, cfg)
+    pel = lambda p, b: mlp_mod.per_example_loss(p, b, cfg)
+    acfg = asgd.ASGDConfig(batch_size=64, delay=ASGD_DELAY, mode="issgd")
+    n = 65536
+    train, _ = make_svhn_like(torch.Generator("cuda").manual_seed(51), n=n,
+                              dim=cfg.input_dim)
+    params = mlp_mod.init_mlp_classifier(
+        torch.Generator("cuda").manual_seed(52), cfg, "cuda")
+    opt = sgd(0.01)
+    step = asgd.make_asgd_step(pel, opt, acfg, n, fused_score=fused)
+    state = asgd.init_asgd_state(params, opt, acfg, n, "cuda", seed=53)
+    reset_counts()
+    losses, ms = [], []
+    for i in range(ASGD_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = run_forbidding_plain(
+            ref, lambda: step(state, train.arrays))
+        end.record()
+        ms.append((start, end))
+        losses.append(m.loss)
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in ms]
+    losses = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"asgd: losses {losses}")
+    launches = read_counts()
+    if any(launches.values()):
+        fail(f"asgd: kernel launches {launches}; the §6 step runs none")
+    # last-write-wins at drawn indices that repeat: the rows hold the
+    # last position's score, recomputed on the same card
+    proposal = read_proposal(state.store, state.step, acfg.is_cfg)
+    idx = sample_indices(proposal, 64,
+                         generator=torch.Generator("cuda").manual_seed(54))
+    idx[32:] = idx[:32].flip(0)          # every row drawn twice
+    _, scores = fused(state.fifo[0], gather_batch(train.arrays, idx))
+    after, _ = step(state, train.arrays, sample_indices=idx)
+    rows = torch.unique(idx)
+    want_w = lww(n, idx.cpu(), scores.detach().cpu(), 0.0)[rows.cpu()]
+    if not (torch.equal(after.store.weights[rows].cpu(), want_w)
+            and bool((after.store.scored_at[rows] == state.step).all())):
+        fail("asgd: the store rows at the drawn indices are not the last "
+             "write's")
+    del after
+    # card vs CPU: one step from the state the card reached (its store,
+    # FIFO and step copied), with the same injected draws
+    draws = torch.randint(0, n, (64,),
+                          generator=torch.Generator().manual_seed(55))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        move = lambda tree: tree_map(lambda t: t.to(dev), tree)
+        st = asgd.ASGDState(
+            move(state.params), (), tuple(move(f) for f in state.fifo),
+            type(state.store)(*(t.to(dev) for t in state.store)),
+            state.step, torch.Generator(dev))
+        data = {k: v.to(dev) for k, v in train.arrays.items()}
+        stp = asgd.make_asgd_step(pel, opt, acfg, n, fused_score=fused)
+        new, m = stp(st, data, sample_indices=draws)
+        out[dev] = {"loss": m.loss, "grad_norm": m.grad_norm,
+                    "delay_gap": m.delay_gap,
+                    "written scores": new.store.weights[draws.to(dev)],
+                    **{f"update {i}": a - b for i, (a, b) in
+                       enumerate(zip(tree_leaves(new.params),
+                                     tree_leaves(st.params)))}}
+        del st, new, data
+    errs = {k: rel_err(out["cuda"][k].cpu(), v)
+            for k, v in out["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > CARD_VS_CPU_RTOL:
+        fail(f"asgd card vs CPU: {worst} relative error {errs[worst]:.3e}")
+    step_ms = statistics.median(ms[ASGD_DELAY + 1:])
+    print(f"asgd: mlp_svhn full width, issgd mode, delay {ASGD_DELAY}, "
+          f"{ASGD_STEPS} steps, loss {losses[0]:.4f} → {losses[-1]:.4f}, "
+          f"median step {step_ms:.3f} ms (CUDA events); 64 draws (each row "
+          f"twice) written last-write-wins; one step card vs CPU from the "
+          f"state after step {ASGD_STEPS}, largest relative error "
+          f"{errs[worst]:.3e} ({worst})", flush=True)
+    return {"steps": ASGD_STEPS, "delay": ASGD_DELAY, "losses": losses,
+            "step_ms_median": step_ms, "card_vs_cpu_rel_err": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2539,6 +3026,10 @@ def main() -> int:
     mamba = phase_mamba_main(train_mod, ref)
     mamba_errs = phase_mamba_parity()
     scan_row, mamba_prof = phase_mamba_times(train_mod, ss, ref)
+    fused = phase_fused(train_mod, ref)
+    rev = phase_ghost_rev(train_mod, ref)
+    ckpt = phase_checkpoint(train_mod)
+    asgd_res = phase_asgd(ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -2580,7 +3071,11 @@ def main() -> int:
         "kernel_ms": {"selective_scan": scan_row},
         "card_vs_cpu_rel_err": mamba_errs, "profile": mamba_prof,
         "library_note": "no single PyTorch call computes the selective scan",
-        "wall_s": time.perf_counter() - t_start}), flush=True)
+        }), flush=True)
+    print("slice 11 times " + json.dumps({
+        "card": card, "fused": fused, "ghost_rev": rev, "checkpoint": ckpt,
+        "asgd": asgd_res, "wall_s": time.perf_counter() - t_start}),
+        flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
                    "ghost_norm": lm_launches,
@@ -2657,7 +3152,17 @@ def main() -> int:
                        "main_mamba": mamba["logit_grad"]["launches"][name],
                        "mamba_ghost": mamba["ghost"]["launches"][name],
                        "mamba_full_depth":
-                           mamba["full_depth"]["launches"][name]},
+                           mamba["full_depth"]["launches"][name],
+                       "fused_mlp": fused["launches"][name],
+                       "ghost_rev_cut_fused":
+                           rev["cut"]["fused"]["ghost_rev"]["launches"][name],
+                       "ghost_rev_cut_separate":
+                           rev["cut"]["separate"]["ghost_rev"]["launches"][
+                               name],
+                       "ghost_rev_full_depth":
+                           rev["full_depth"]["launches"][name],
+                       "ghost_rev_trainer":
+                           rev["trainer"]["launches"][name]},
         })
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]

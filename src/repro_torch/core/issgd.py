@@ -11,9 +11,13 @@ One train step runs the paper's three actors in order:
               gradient step.
 
 Modes: ``relaxed`` (the paper's practical algorithm), ``exact`` (rescore
-the whole dataset with fresh params every step, the §4.1 oracle) and
-``uniform`` (plain SGD; scoring still runs for the monitors).  The step
-stays on the device: no host synchronisation happens inside it.
+the whole dataset with fresh params every step, the §4.1 oracle),
+``uniform`` (plain SGD; scoring still runs for the monitors) and
+``fused`` (the paper's §6 suggestion: no scoring pass; the master's own
+forward yields the closed-form logit-grad score of each example it
+trains on, written back last-write-wins; ``make_score_step`` is the
+probe that keeps the unsampled examples covered).  The step stays on the
+device: no host synchronisation happens inside it.
 """
 from __future__ import annotations
 
@@ -28,12 +32,13 @@ from repro_torch.core.importance import (ISConfig, effective_sample_size,
                                          is_loss_scale)
 from repro_torch.core.sampler import two_stage_sample
 from repro_torch.core.weight_store import (EMPTY, WeightStore, init_store,
-                                           read_proposal, write_scores)
+                                           read_proposal, write_scores,
+                                           write_scores_global)
 from repro_torch.data.pipeline import gather_batch
 from repro_torch.optim import (Optimizer, clip_by_global_norm, global_norm,
                                tree_leaves, tree_map)
 
-MODES = ("relaxed", "exact", "uniform")
+MODES = ("relaxed", "exact", "uniform", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +48,7 @@ class ISSGDConfig:
     batch_size: int = 64
     score_batch_size: int = 256        # examples rescored per step ("workers")
     refresh_every: int = 8             # θ_stale refresh period (param pushes)
-    mode: str = "relaxed"              # relaxed | exact | uniform
+    mode: str = "relaxed"              # relaxed | exact | uniform | fused
     is_cfg: ISConfig = ISConfig()
     grad_clip: float = 0.0
     score_shards: int = 1              # W: logical scoring shards
@@ -122,6 +127,8 @@ def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
     sb = n if cfg.mode == "exact" else cfg.score_batch_size
     w = max(cfg.score_shards, 1)
     n_w, sb_w = _resolve_shards(cfg, n, sb)
+    # a slice longer than its shard wraps around it: its indices repeat
+    write = write_scores_global if sb_w > n_w else write_scores
 
     def scoring_pass(score_params, store: WeightStore, step: int, data):
         score_idx = _score_slice(step, w, n_w, sb_w, store.weights.device)
@@ -132,21 +139,30 @@ def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
         fresh = torch.where(live, fresh, torch.zeros_like(fresh))
         stamp = torch.where(live, torch.full_like(score_idx, step),
                             torch.full_like(score_idx, EMPTY))
-        return write_scores(store, score_idx, fresh, stamp), fresh, stale_slice
+        return write(store, score_idx, fresh, stamp), fresh, stale_slice
 
     return scoring_pass
 
 
 def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
-                     cfg: ISSGDConfig, num_examples: int) -> Callable:
+                     cfg: ISSGDConfig, num_examples: int,
+                     fused_score: Optional[Callable] = None) -> Callable:
     """The master's half: ``master_pass(params, opt_state, stale_params,
     store, step, generator, data, fresh_scores=None, stale_slice=None,
-    sample_indices=None) -> (params, opt_state, stale_params, metrics)``.
+    sample_indices=None) -> (params, opt_state, stale_params, store,
+    metrics)``.
 
     Proposal read → two-stage draw (or the injected ``sample_indices``)
     → IS-scaled unbiased update (§4.1) → parameter push.  Without
-    `fresh_scores` the fig-4 traces come back NaN."""
+    `fresh_scores` the fig-4 traces come back NaN.  In fused mode
+    ``fused_score(params, batch) -> (losses, scores)`` replaces
+    ``per_example_loss``: the detached scores are written at the sampled
+    indices (last-write-wins) before the update, and the traces are taken
+    over the sampled minibatch; the returned store holds those writes
+    (otherwise it is ``store`` itself)."""
     _check_mode(cfg)
+    if cfg.mode == "fused" and fused_score is None:
+        raise ValueError("mode='fused' requires fused_score")
     is_cfg = cfg.is_cfg
     n = num_examples
     sb = n if cfg.mode == "exact" else cfg.score_batch_size
@@ -180,11 +196,23 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
 
         # ---- unbiased IS-scaled update (§4.1) -------------------------------
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = torch.mean(per_example_loss(live, batch) * scales)
+        if cfg.mode == "fused":
+            losses, batch_scores = fused_score(live, batch)
+            batch_scores = batch_scores.detach()
+        else:
+            losses = per_example_loss(live, batch)
+        loss = torch.mean(losses * scales)
         leaves = tree_leaves(live)
         flat = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(flat), live)
         loss = loss.detach()
+        if cfg.mode == "fused":
+            # the examples just trained on get their scores for free; the
+            # monitors then read an importance-sampled slice (biased
+            # upward), and the probe step's uniform slices stay the
+            # faithful ones
+            fresh_scores, stale_slice = batch_scores, proposal[idx]
+            store = write_scores_global(store, idx, batch_scores, step)
         gnorm = global_norm(grads)
         if cfg.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, cfg.grad_clip, norm=gnorm)
@@ -197,7 +225,9 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
 
         # ---- paper fig. 4 monitors over the scored slice ------------------
         with torch.no_grad():
-            if fresh_scores is None:
+            if cfg.mode == "fused":
+                traces = variance.trace_sigma_all(fresh_scores, stale_slice)
+            elif fresh_scores is None:
                 nan = torch.full((), math.nan, device=device)
                 traces = variance.TraceSigma(ideal=nan, stale=nan, unif=nan)
             else:
@@ -212,31 +242,54 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                 trace_stale=torch.sqrt(torch.clamp(traces.stale, min=0.0)),
                 trace_unif=torch.sqrt(torch.clamp(traces.unif, min=0.0)),
                 ess_frac=ess, mean_weight=mean_weight, sample_indices=idx)
-        return new_params, opt_state, stale_params, metrics
+        return new_params, opt_state, stale_params, store, metrics
 
     return master_pass
 
 
 def make_train_step(per_example_loss: Callable, scorer: Callable,
                     optimizer: Optimizer, cfg: ISSGDConfig,
-                    num_examples: int) -> Callable:
+                    num_examples: int,
+                    fused_score: Optional[Callable] = None) -> Callable:
     """The synchronous step ``master_pass ∘ scoring_pass`` over one store:
     ``train_step(state, data, sample_indices=None) -> (state, metrics)``.
     Step t's master samples from a proposal that already holds step t's
-    scoring writes (lag 0)."""
-    scoring = make_scoring_pass(scorer, cfg, num_examples)
-    master = make_master_pass(per_example_loss, optimizer, cfg, num_examples)
+    scoring writes (lag 0).  Fused mode has no scoring pass: the scores
+    arrive from the master's forward (``fused_score``)."""
+    scoring = (None if cfg.mode == "fused"
+               else make_scoring_pass(scorer, cfg, num_examples))
+    master = make_master_pass(per_example_loss, optimizer, cfg, num_examples,
+                              fused_score=fused_score)
 
     def train_step(state: TrainState, data: dict,
                    sample_indices: Optional[torch.Tensor] = None):
-        score_params = (state.params if cfg.mode == "exact"
-                        else state.stale_params)
-        store, fresh, stale_slice = scoring(score_params, state.store,
-                                            state.step, data)
-        params, opt_state, stale_params, metrics = master(
+        if scoring is None:
+            store, fresh, stale_slice = state.store, None, None
+        else:
+            score_params = (state.params if cfg.mode == "exact"
+                            else state.stale_params)
+            store, fresh, stale_slice = scoring(score_params, state.store,
+                                                state.step, data)
+        params, opt_state, stale_params, store, metrics = master(
             state.params, state.opt_state, state.stale_params, store,
             state.step, state.rng, data, fresh, stale_slice, sample_indices)
         return TrainState(params, opt_state, stale_params, store,
                           state.step + 1, state.rng), metrics
 
     return train_step
+
+
+def make_score_step(scorer: Callable, cfg: ISSGDConfig,
+                    num_examples: int) -> Callable:
+    """The probe: ``score_step(state, data) -> state`` rescores this
+    step's round-robin slice with the workers' stale params and writes it
+    to the store.  Fused mode runs it every K steps to keep the examples
+    it never samples covered."""
+    scoring = make_scoring_pass(scorer, cfg, num_examples)
+
+    def score_step(state: TrainState, data: dict) -> TrainState:
+        store, _, _ = scoring(state.stale_params, state.store, state.step,
+                              data)
+        return state._replace(store=store)
+
+    return score_step

@@ -57,3 +57,14 @@ def two_stage_sample(weights: torch.Tensor, num_samples: int,
     pos = pos_all.gather(0, owner[None])[0]
     pos = torch.clamp(pos, 0, n_w - 1)
     return owner * n_w + pos
+
+
+def sample_indices(weights: torch.Tensor, num_samples: int,
+                   num_shards: int = 1,
+                   generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The host-path multinomial (``src/repro/core/sampler.py::
+    sample_indices``): the two-stage draw over ``num_shards`` logical
+    blocks, which must match the run it is compared against."""
+    return two_stage_sample(weights, num_samples, num_shards=num_shards,
+                            generator=generator, uniforms=uniforms)

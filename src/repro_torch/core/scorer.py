@@ -8,6 +8,9 @@ Strategies, for the MLP classifier and for the transformer LMs:
               and the ghost-norm Gram kernel for linears shared across
               the sequence): one forward, one backward to the taps, and
               the kernels; no per-example gradient is ever formed.
+  ghost_rev   the same quantity for the LMs, by a reverse walk over the
+              layer periods: memory for the period boundaries and ONE
+              period's records and cotangents, not every layer's.
   full        per-example gradients through ``torch.func`` — the test
               oracle, O(B·|θ|) memory.
 
@@ -25,7 +28,7 @@ from repro_torch.models.mlp import (MLPConfig, mlp_dims, mlp_forward,
                                     per_example_loss)
 from repro_torch.optim import tree_leaves
 
-STRATEGIES = ("loss", "logit_grad", "ghost", "full")
+STRATEGIES = ("loss", "logit_grad", "ghost", "ghost_rev", "full")
 
 
 def _contribution(x: torch.Tensor, dt: torch.Tensor, with_bias: bool,
@@ -168,8 +171,9 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
             return torch.sqrt(sq)
         return score
 
-    raise ValueError(f"unknown strategy {strategy!r}; this port has "
-                     f"{', '.join(STRATEGIES)}")
+    raise ValueError(f"unknown strategy {strategy!r} for the MLP; it has "
+                     f"loss, logit_grad, ghost, full (ghost_rev walks an "
+                     f"LM's layer periods)")
 
 
 # ----------------------------------------------------------- LM strategies
@@ -177,15 +181,15 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
                    attn_impl: str = "ref",
                    attn_scores: Optional[str] = None) -> Callable:
     """Scorer for transformer LMs (one device): fn(params, batch) → ω̃ (B,).
-    ``ghost_rev`` comes with a later slice.
 
     ``ssm_mode`` is the mamba layers' scan in every strategy: "ref" (the
     plain oracle) or "pallas" (the selective-scan kernel, forward-only, so
     only with the forward-only strategies ``loss`` and ``logit_grad``).
 
-    ``attn_impl`` selects the attention path of the ghost strategy ("ref"
-    chunked plain, "flash" the trainable flash kernels).  ``attn_scores``
-    ("fused"/"separate", ghost with attn_impl="flash" only) swaps each
+    ``attn_impl`` selects the attention path of the ghost strategies
+    ("ref" chunked plain, "flash" the trainable flash kernels).
+    ``attn_scores`` ("fused"/"separate", ghost or ghost_rev with
+    attn_impl="flash" only) swaps each
     attention layer's wq/wk/wv Gram terms for the flash-backward score
     ||dQ||²+||dK||²+||dV||² at the attention interface: "fused" from the
     backward kernel's epilogue, "separate" from the score sweep (its
@@ -196,7 +200,7 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
                                                 per_example_loss,
                                                 tap_structure)
     check_ssm_mode(ssm_mode)
-    if ssm_mode == "pallas" and strategy in ("ghost", "full"):
+    if ssm_mode == "pallas" and strategy in ("ghost", "ghost_rev", "full"):
         raise ValueError(
             f"strategy {strategy!r} differentiates the model, and the "
             f"selective-scan kernel (ssm_mode='pallas') has no backward; "
@@ -206,10 +210,11 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
         if attn_scores not in ("fused", "separate"):
             raise ValueError(f"attn_scores must be 'fused', 'separate' or "
                              f"None, got {attn_scores!r}")
-        if strategy != "ghost":
+        if strategy not in ("ghost", "ghost_rev"):
             raise ValueError(
                 f"attn_scores={attn_scores!r} modifies the ghost-tap walk; "
-                f"it has no effect on strategy {strategy!r}; use 'ghost'")
+                f"it has no effect on strategy {strategy!r}; use 'ghost' "
+                f"or 'ghost_rev'")
         if attn_impl != "flash":
             raise ValueError(
                 f"attn_scores={attn_scores!r} needs the trainable flash "
@@ -255,6 +260,9 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             return torch.sqrt(sq)
         return score
 
+    if strategy == "ghost_rev":
+        return _make_ghost_rev_scorer(cfg, ssm_mode, attn_impl, attn_scores)
+
     if strategy == "full":
         from torch.func import grad, vmap
 
@@ -274,3 +282,100 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
 
     raise ValueError(f"unknown strategy {strategy!r}; this port has "
                      f"{', '.join(STRATEGIES)}")
+
+
+# ----------------------------------------------- memory-scalable ghost_rev
+def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
+                           attn_scores: Optional[str]) -> Callable:
+    """Exact ghost scoring by a reverse walk over the layer periods
+    (``src/repro/core/scorer.py::_make_ghost_rev_scorer``, one device).
+
+    Phase A runs the periods forward under ``no_grad`` and keeps each
+    period's input.  The head gives dL/dh of the summed per-example mean
+    NLL (autograd through log_softmax, as the reference's vjp) and the
+    unembed term ``ghost_norm(hn, dlogits)`` with the closed-form f32
+    ``dlogits = (softmax − onehot) / S`` of the reference.  Phase B walks the
+    periods in reverse: it recomputes one period with zero taps and
+    records, takes ONE ``torch.autograd.grad`` to (its input, its taps)
+    with the incoming dL/dh, adds the period's contributions and frees
+    its graph before the next.  Memory: the P boundaries and one period's
+    records and cotangents, instead of ``ghost``'s for every layer."""
+    from repro_torch.models.layers import embed, rmsnorm, unembed
+    from repro_torch.models.transformer import (_apply_layer, _period,
+                                                check_supported,
+                                                tap_structure)
+    check_supported(cfg)
+    specs = cfg.layer_specs()
+
+    def period_fwd(h, pp, positions, tape):
+        for i, spec in enumerate(specs):
+            h = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions, tape,
+                             f"l{i}", attn_impl=attn_impl,
+                             attn_scores=attn_scores, ssm_mode=ssm_mode)
+        return h
+
+    def score(params, batch):
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
+        b, s = inputs.shape
+        device = tokens.device
+
+        # ---- phase A: forward, keeping only the period boundaries
+        with torch.no_grad():
+            h = embed(params["embed"], inputs, cfg)
+            positions = torch.arange(s, device=device)[None].expand(b, s)
+            boundaries = []
+            for p in range(cfg.num_periods):
+                boundaries.append(h)
+                h = period_fwd(h, _period(params["layers"], p), positions,
+                               None)
+
+        # ---- head: dL/dh_final of the summed per-example mean NLL (the
+        # reference's vjp through log_softmax) and the unembed term
+        h = h.detach().requires_grad_(True)
+        hn = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        lp = torch.log_softmax(unembed(params["embed"], hn, cfg).float(),
+                               dim=-1)
+        nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+        dh, = torch.autograd.grad(torch.sum(torch.mean(nll, dim=-1)), h)
+        with torch.no_grad():
+            # dlogits = (p − onehot) / S, built in lp's place: the head
+            # holds one f32 (B, S, V) tensor after the vjp
+            dlogits = lp.detach().exp_()
+            del lp, nll
+            dlogits.scatter_add_(-1, targets[..., None],
+                                 torch.full_like(dlogits[..., :1], -1.0))
+            dlogits.div_(s)
+        sq = ops.ghost_norm(hn.detach(), dlogits)
+        del hn, dlogits
+
+        # ---- phase B: reverse walk, one period of cotangents at a time
+        shapes = {k: v[1:] for k, v in tap_structure(
+            cfg, b, s, attn_impl=attn_impl,
+            attn_scores=attn_scores).items() if k != "unembed"}
+        for p in reversed(range(cfg.num_periods)):
+            h_in = boundaries.pop().requires_grad_(True)
+            taps = {k: torch.zeros(v, dtype=torch.float32, device=device,
+                                   requires_grad=True)
+                    for k, v in shapes.items()}
+            tape = Tape(taps=taps, records={})
+            h_out = period_fwd(h_in, _period(params["layers"], p),
+                               positions, tape)
+            names = [k for k in tape.records if k in taps]
+            dh, *dts = torch.autograd.grad(
+                h_out, [h_in] + [taps[k] for k in names], grad_outputs=dh)
+            dtaps = dict(zip(names, dts))
+            del h_in, h_out, taps, dts
+            for name in names:
+                x = tape.records.pop(name).detach()
+                dt = dtaps.pop(name)
+                if name.endswith(".qkv_scores"):   # the cotangent IS the score
+                    sq = sq + dt.float()
+                    continue
+                if x.ndim == 2 and x.shape[0] != b:    # token-flat (T, d)
+                    x = x.reshape(b, -1, x.shape[-1])
+                    dt = dt.reshape(b, -1, dt.shape[-1])
+                sq = sq + _contribution(x, dt, False, scanned=False)
+        return torch.sqrt(sq)
+
+    return score

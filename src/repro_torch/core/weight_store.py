@@ -6,9 +6,16 @@
 
 The training step reads whatever the store holds (however stale) and the
 scoring pass writes the slice it rescored, as with the paper's Redis
-table.  Writes are functional (a new store per write).  Relaxed-mode
-scoring indices are unique, so ``index_put`` is exact; duplicate-index
-writes (fused mode) are not part of this port yet.
+table.  Writes are functional (a new store per write).  Indices can
+repeat within one write: fused mode and the ASGD baseline write at
+minibatch indices drawn with replacement, and a relaxed scoring slice
+wraps around its logical shard when ``score_batch_size / W > N / W``.
+Those writes go through ``write_scores_global``, last-write-wins (the
+reference's ``core/collectives.py::scatter_rows`` rule): of the
+positions that name one row only the last is written, so the result
+never depends on which of colliding writes the device applies last.
+``write_scores`` keeps the plain write for indices known to be unique
+(an exact-mode sweep of all N rows), where it is the same thing.
 """
 from __future__ import annotations
 
@@ -36,6 +43,37 @@ def init_store(num_examples: int, device: torch.device | str,
                            device=device),
         scored_at=torch.full((num_examples,), -1, dtype=torch.int32,
                              device=device))
+
+
+def _scatter_last(array: torch.Tensor, idx: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """``array`` with ``values`` written at ``idx``, last write wins.
+
+    Position i survives only if no j > i names the same row (a (B, B)
+    upper-triangular equality mask); the others are sent to one scratch
+    row past the end and dropped with it, so the surviving indices are
+    unique and the write is defined on every device, without a host
+    synchronisation."""
+    n = array.shape[0]
+    dup_later = torch.triu(idx[:, None] == idx[None, :], diagonal=1)
+    safe = torch.where(dup_later.any(dim=1), n, idx)
+    out = torch.cat([array, array.new_zeros(1)])
+    out.index_put_((safe,), values.to(array.dtype))
+    return out[:n]
+
+
+def write_scores_global(store: WeightStore, global_indices: torch.Tensor,
+                        scores: torch.Tensor, step: int | torch.Tensor
+                        ) -> WeightStore:
+    """Push fresh ω̃ and their step stamps (a scalar or one per index) at
+    indices that may repeat: last-write-wins.  On one device global
+    indices are the store's own rows."""
+    idx = global_indices.long()
+    stamp = torch.as_tensor(step, dtype=torch.int32,
+                            device=store.scored_at.device).expand(idx.shape)
+    return WeightStore(
+        weights=_scatter_last(store.weights, idx, scores.float()),
+        scored_at=_scatter_last(store.scored_at, idx, stamp))
 
 
 def write_scores(store: WeightStore, indices: torch.Tensor,

@@ -9,10 +9,17 @@ falcon-mamba-7b on the card by default:
       --examples 1024 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
       --smoke --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
+      --examples 1024 --device cpu --mode fused --probe-every 8 \
+      --save-checkpoint /tmp/ck.npz
 
 It prints the reference launcher's per-step log line
 (``src/repro/launch/train.py``) and a closing line with the median step
-time.  Flags of the reference launcher that this port does not carry yet
+time.  ``--mode fused`` trains on the closed-form scores of its own
+forward and runs the probe step (``make_score_step``) after step i when
+i % ``--probe-every`` == 0; ``--restore-checkpoint`` loads a TrainState
+(the port's or the reference's npz) before the loop and
+``--save-checkpoint`` writes it after.  Flags of the reference launcher that this port does not carry yet
 are refused by name.  As in the reference, the attention path of an LM
 (``attn_impl``, ``attn_scores``) and the scorer's mamba scan
 (``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
@@ -25,15 +32,17 @@ from __future__ import annotations
 import argparse
 import statistics
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch import configs
 from repro_torch.configs import mlp_svhn
 from repro_torch.core.importance import ISConfig
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.core.issgd import (ISSGDConfig, TrainState,
-                                    init_train_state, make_train_step)
+                                    init_train_state, make_score_step,
+                                    make_train_step)
 from repro_torch.core.scorer import make_lm_scorer, make_mlp_scorer
 from repro_torch.data import make_svhn_like, make_token_dataset
 from repro_torch.models import mlp as mlp_mod
@@ -45,17 +54,23 @@ SLICE = ("slice 2 of the PyTorch port (single-device mlp_svhn, dense GQA "
 
 # flags of src/repro/launch/train.py this slice does not carry yet
 LATER_FLAGS = (
-    "--probe-every", "--proposal-strategy", "--adaptive-is",
+    "--proposal-strategy", "--adaptive-is",
     "--adapt-every", "--index", "--table-dtype", "--score-ttl",
     "--index-chunk-size", "--mesh", "--model-parallel",
-    "--sequence-parallel", "--no-sequence-parallel", "--save-checkpoint",
-    "--restore-checkpoint", "--score-shards", "--async-scoring",
+    "--sequence-parallel", "--no-sequence-parallel", "--async-scoring",
     "--swap-every", "--no-trace-monitors", "--stream", "--chunk-size",
     "--window-chunks", "--prefetch-every", "--serve-loop", "--serve-slots",
     "--serve-prompt-len", "--serve-max-new", "--serve-rate", "--serve-every",
     "--serve-publish-every", "--serve-decode-steps", "--serve-reserve-chunks",
     "--metrics-out", "--metrics-jsonl", "--metrics-every", "--monitors",
     "--profile-dir", "--profile-steps", "--telemetry-blocking")
+
+
+class Built(NamedTuple):
+    state: TrainState
+    step: Callable       # train_step(state, data) -> (state, metrics)
+    data: dict
+    probe: Optional[Callable]  # fused mode: score_step(state, data) -> state
 
 
 class TrainResult(NamedTuple):
@@ -88,11 +103,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--strategy", default="ghost",
                     choices=["loss", "logit_grad", "ghost", "ghost_rev",
                              "full"])
+    ap.add_argument("--probe-every", type=int, default=8,
+                    help="fused mode: run a coverage probe every K steps")
     ap.add_argument("--refresh-every", type=int, default=8)
     ap.add_argument("--staleness-threshold", type=int, default=0)
     ap.add_argument("--smoothing", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--save-checkpoint", default="",
+                    help="save the final TrainState here (npz)")
+    ap.add_argument("--restore-checkpoint", default="",
+                    help="restore a TrainState (the port's or the JAX "
+                    "launcher's npz) before training")
+    ap.add_argument("--score-shards", type=int, default=0,
+                    help="logical scoring shards W (0 = 1 on one device)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for "
                     "(--device cpu)")
@@ -104,8 +128,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                      f"does not carry yet")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    if args.mode == "fused" or args.strategy == "ghost_rev":
-        ap.error(f"--mode fused and --strategy ghost_rev are not in {SLICE}")
     if args.arch != "mlp_svhn":
         try:
             configs.resolve(args.arch)
@@ -122,6 +144,17 @@ def _generator(device: torch.device):
     return lambda seed: torch.Generator(device=device).manual_seed(seed)
 
 
+def resolve_config(args: argparse.Namespace, cfg=None):
+    """``cfg``, or the config ``args`` names (its smoke size with
+    ``--smoke``)."""
+    if cfg is not None:
+        return cfg
+    if args.arch == "mlp_svhn":
+        return mlp_svhn.smoke() if args.smoke else mlp_svhn.CONFIG
+    return (configs.get_smoke_config(args.arch) if args.smoke
+            else configs.get_config(args.arch))
+
+
 def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
               attn_scores=None, ssm_mode: str = "ref"):
     """(params, train data, per-example loss, scorer) of the MLP, which
@@ -134,7 +167,7 @@ def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
                          f"the LM archs")
     device = torch.device(args.device)
     gen = _generator(device)
-    cfg = cfg or (mlp_svhn.smoke() if args.smoke else mlp_svhn.CONFIG)
+    cfg = resolve_config(args, cfg)
     train, _ = make_svhn_like(gen(args.seed), n=args.examples,
                               dim=cfg.input_dim)
     params = mlp_mod.init_mlp_classifier(gen(args.seed + 1), cfg, device)
@@ -152,8 +185,7 @@ def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     mamba layers scan with "ref", as in the reference."""
     device = torch.device(args.device)
     gen = _generator(device)
-    cfg = cfg or (configs.get_smoke_config(args.arch) if args.smoke
-                  else configs.get_config(args.arch))
+    cfg = resolve_config(args, cfg)
     train = make_token_dataset(gen(args.seed), n=args.examples,
                                seq=args.seq + 1, vocab=cfg.vocab_size)
     params = transformer.init_transformer(gen(args.seed + 1), cfg, device)
@@ -164,9 +196,19 @@ def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         attn_scores=attn_scores)
 
 
+def fused_objective(args: argparse.Namespace, cfg=None) -> Callable:
+    """Fused mode's ``(params, batch) -> (losses, scores)``: one forward
+    and the closed-form logit-grad norm of its head."""
+    cfg = resolve_config(args, cfg)
+    if args.arch == "mlp_svhn":
+        return lambda p, b: mlp_mod.per_example_loss_and_score(p, b, cfg)
+    return lambda p, b: transformer.per_example_loss_and_score(p, cfg, b)
+
+
 def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-          attn_scores=None, ssm_mode: str = "ref"):
-    """(state, train_step, data) for ``args``: model, data and step.
+          attn_scores=None, ssm_mode: str = "ref") -> Built:
+    """(state, train_step, data, probe) for ``args``: model, data, step
+    and, in fused mode, the probe step (None otherwise).
     ``cfg`` overrides the arch's config (e.g. a cut depth); ``attn_impl``
     ("ref" or "flash") and ``attn_scores`` (None, "fused" or "separate")
     pick an LM's attention path, ``ssm_mode`` ("ref" or "pallas") its
@@ -182,19 +224,30 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         batch_size=args.batch, score_batch_size=args.score_batch,
         refresh_every=args.refresh_every, mode=args.mode,
         is_cfg=ISConfig(smoothing=args.smoothing,
-                        staleness_threshold=args.staleness_threshold))
-    step = make_train_step(pel, scorer, opt, tcfg, train.size)
+                        staleness_threshold=args.staleness_threshold),
+        score_shards=max(args.score_shards, 1))
+    fused = fused_objective(args, cfg) if args.mode == "fused" else None
+    step = make_train_step(pel, scorer, opt, tcfg, train.size,
+                           fused_score=fused)
+    probe = (make_score_step(scorer, tcfg, train.size)
+             if args.mode == "fused" else None)
     state = init_train_state(params, opt, train.size, device, seed=args.seed)
-    return state, step, train.arrays
+    return Built(state, step, train.arrays, probe)
 
 
 def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         attn_scores=None, ssm_mode: str = "ref") -> TrainResult:
     """Build from ``args`` (and ``cfg``, ``attn_impl``, ``attn_scores``,
     ``ssm_mode``, see ``build``) and train, logging every ``--log-every``
-    steps."""
-    state, step, data = build(args, cfg, attn_impl=attn_impl,
-                              attn_scores=attn_scores, ssm_mode=ssm_mode)
+    steps; restore before the loop and save after it when asked.  A
+    step's time covers the train step, not the probe."""
+    state, step, data, probe = build(args, cfg, attn_impl=attn_impl,
+                                     attn_scores=attn_scores,
+                                     ssm_mode=ssm_mode)
+    if args.restore_checkpoint:
+        state, ck_step = restore_checkpoint(args.restore_checkpoint, state)
+        print(f"restored {args.restore_checkpoint} (step {ck_step})",
+              flush=True)
     on_cuda = torch.device(args.device).type == "cuda"
     marks = []           # (start, end) CUDA events or host clock pairs
     history = []
@@ -211,6 +264,8 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
             state, m = step(state, data)
             end = time.perf_counter()
         marks.append((start, end))
+        if probe is not None and i % args.probe_every == 0:
+            state = probe(state, data)
         if i % args.log_every == 0 or i == args.steps - 1:
             # ONE host transfer for everything this step logs
             vals = torch.stack([m.loss, m.grad_norm, m.trace_ideal,
@@ -229,6 +284,9 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         step_ms = [s.elapsed_time(e) for s, e in marks]
     else:
         step_ms = [(e - s) * 1e3 for s, e in marks]
+    if args.save_checkpoint:
+        save_checkpoint(args.save_checkpoint, state, step=state.step)
+        print(f"saved checkpoint to {args.save_checkpoint}", flush=True)
     return TrainResult(state, history, step_ms)
 
 

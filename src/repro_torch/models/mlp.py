@@ -68,6 +68,20 @@ def per_example_loss(params: Params, batch: dict, cfg: MLPConfig,
     return -torch.gather(lp, 1, batch["y"].long()[:, None])[:, 0]
 
 
+def per_example_loss_and_score(params: Params, batch: dict, cfg: MLPConfig
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused-mode objective: (CE losses, logit-grad norms) from one
+    forward; the score ||p − onehot||₂ is closed-form from the logits."""
+    logits = mlp_forward(params, batch["x"], cfg)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    y = batch["y"].long()[:, None]
+    nll = -torch.gather(lp, 1, y)[:, 0]
+    p = torch.exp(lp)
+    p_y = torch.gather(p, 1, y)[:, 0]
+    score = torch.sqrt(torch.sum(torch.square(p), -1) - 2.0 * p_y + 1.0)
+    return nll, score
+
+
 def accuracy(params: Params, batch: dict, cfg: MLPConfig) -> torch.Tensor:
     logits = mlp_forward(params, batch["x"], cfg)
     return (torch.argmax(logits, -1) == batch["y"]).float().mean()

@@ -287,3 +287,18 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
     else:
         loss = torch.mean(nll, dim=-1)
     return loss, aux
+
+
+def per_example_loss_and_score(params: Params, cfg: ModelConfig,
+                               batch: dict, ssm_mode: str = "ref"
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused-mode objective: (mean NLL (B,), logit-grad scores (B,)) from
+    ONE forward: the score the workers' pass would compute falls out of
+    the chunked head (``lm_head_metrics``).  The attention is the ref
+    path, as in the reference."""
+    tokens = batch["tokens"]
+    h, _ = forward(params, cfg, tokens[:, :-1], ssm_mode=ssm_mode,
+                   return_hidden=True)
+    mask = batch.get("mask")
+    return lm_head_metrics(params, cfg, h, tokens[:, 1:].long(),
+                           None if mask is None else mask[:, 1:].float())

@@ -1,7 +1,10 @@
 """Functional optimizers of the port."""
-from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
-                                          global_norm, sgd, tree_leaves,
-                                          tree_map)
+from repro_torch.optim.optimizers import (Optimizer, adam, apply_updates,
+                                          clip_by_global_norm,
+                                          cosine_schedule, global_norm, sgd,
+                                          tree_leaves, tree_map,
+                                          warmup_cosine)
 
-__all__ = ["Optimizer", "clip_by_global_norm", "global_norm", "sgd",
-           "tree_leaves", "tree_map"]
+__all__ = ["Optimizer", "adam", "apply_updates", "clip_by_global_norm",
+           "cosine_schedule", "global_norm", "sgd", "tree_leaves",
+           "tree_map", "warmup_cosine"]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -71,3 +72,69 @@ def sgd(lr: float | Callable, momentum: float = 0.0) -> Optimizer:
         return new_params, new_m
 
     return Optimizer(init, update)
+
+
+def adam(lr: float | Callable, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """AdamW with f32 moments.  The step is a host int; the bias
+    corrections take f32 ``t = step + 1`` as the reference's traced step
+    does, so ``1 − b ** t`` is rounded as there."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = lr_fn(step)
+        t = np.float32(step) + np.float32(1.0)
+        c1 = float(np.float32(1.0) - np.float32(b1) ** t)
+        c2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        new_m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+                         state["m"], grads)
+        new_v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(
+            g.float()), state["v"], grads)
+
+        def upd(p, m, v):
+            step_ = (m / c1) / (torch.sqrt(v / c2) + eps)
+            if weight_decay:
+                step_ = step_ + weight_decay * p.float()
+            return (p.float() - lr_t * step_).to(p.dtype)
+
+        return (tree_map(upd, params, new_m, new_v),
+                {"m": new_m, "v": new_v})
+
+    return Optimizer(init, update)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def cosine_schedule(base_lr: float, total_steps: int,
+                    final_frac: float = 0.1) -> Callable[[int], float]:
+    """Cosine decay from ``base_lr`` to ``final_frac · base_lr`` over
+    ``total_steps``, in f32 like the reference's traced schedule."""
+    f32 = np.float32
+
+    def fn(step):
+        frac = np.clip(f32(step) / f32(max(total_steps, 1)), f32(0), f32(1))
+        cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * frac))
+        return float(f32(base_lr) * (f32(final_frac)
+                                     + f32(1 - final_frac) * cos))
+    return fn
+
+
+def warmup_cosine(base_lr: float, warmup: int, total_steps: int,
+                  final_frac: float = 0.1) -> Callable[[int], float]:
+    """Linear warm-up over ``warmup`` steps, then ``cosine_schedule``."""
+    cos = cosine_schedule(base_lr, total_steps - warmup, final_frac)
+    f32 = np.float32
+
+    def fn(step):
+        if step < warmup:
+            w = np.clip(f32(step) / f32(max(warmup, 1)), f32(0), f32(1))
+            return float(f32(base_lr) * w)
+        return cos(step - warmup)
+    return fn

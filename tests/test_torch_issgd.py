@@ -187,6 +187,10 @@ def test_master_draws_without_injection(slice_setup):
 def test_unported_mode_is_refused():
     with pytest.raises(ValueError, match="not ported"):
         issgd.make_train_step(None, None, sgd(0.1),
+                              issgd.ISSGDConfig(mode="bogus"), 512)
+    # fused mode is ported, and like the reference's needs its objective
+    with pytest.raises(ValueError, match="requires fused_score"):
+        issgd.make_train_step(None, None, sgd(0.1),
                               issgd.ISSGDConfig(mode="fused"), 512)
 
 
@@ -236,7 +240,7 @@ def test_launcher_flags_have_reference_defaults():
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2", "--device", "cpu"], "slice 2"),
     (["--stream", "--device", "cpu"], "slice 2"),
-    (["--mode", "fused", "--device", "cpu"], "not in slice 2"),
+    (["--async-scoring", "--device", "cpu"], "slice 2"),
     (["--bogus", "--device", "cpu"], "unrecognized"),
 ])
 def test_launcher_refuses_what_the_slice_lacks(argv, match, capsys):
