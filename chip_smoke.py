@@ -183,6 +183,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 20 steps: finite losses; drawn rows written last-write-wins;
                 one step card vs CPU from the state reached, the same
                 draws (≤ 1e-4).
+ 27. telemetry — mlp_svhn at full width, relaxed, ghost, 40 steps through
+                the train entry point: telemetry off, then --monitors all
+                with --metrics-jsonl every 10 steps, median step ms of each;
+                params and store bitwise equal; the five monitors of the
+                store reached, card vs CPU (≤ 1e-5 relative); the JSONL
+                read back by tools/metrics_report.py (its trajectory the
+                run's metrics records); a --profile-dir window over steps
+                2-3 whose trace names the multi-tap kernel, with its
+                profile start/stop records.
+ 28. strategies — --adaptive-is --adapt-every 10 for 60 steps with a JSONL:
+                replay_decisions over the file equals the live decisions;
+                the gate closed against --mode uniform and open against
+                relaxed, 10 steps each, draws and state bitwise; ghost,
+                upper_bound, bandit_mixed and null: median step ms and a
+                scoring pass's launches (1, 0, 0, 0 multi-tap); glm4-9b at
+                phase 7's cut with --proposal-strategy upper_bound
+                --monitors all (no kernel launch), its step ms beside
+                phase 7's ghost step.
+ 29. large tables — the draws' CDF scan (sampler.cumsum) bitwise the same
+                over 200 repeats of a one-row scan of 65,536 and 2^20 rows,
+                beside how many of torch.cumsum's differ; the mlp_svhn
+                trainer with --table-dtype int8
+                --index-chunk-size 1024 --score-ttl 20, 40 steps, --index
+                tree against dense bitwise; then N = 2^30 rows (chunk
+                1024): the f32, bf16 and int8 table bytes, read_proposal,
+                build_index, a refresh of 8 written chunks against a
+                rebuild (bitwise; and how many of those chunks torch.sum
+                would have summed differently), 256 indexed draws against
+                the dense two-stage draw over read_proposal, one int8
+                write of 256 rows (a whole-table requantize), the measured
+                TV of bf16 and int8 against quantization_tv_bound, and the
+                peak memory (< 70 GiB).
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -363,6 +395,18 @@ REV_RTOL = 1e-4
 REV_TRAIN_STEPS = 3
 CKPT_K = 5
 ASGD_DELAY, ASGD_STEPS = 4, 20
+# slice 12: telemetry (mlp_svhn full width), the controller and the zoo,
+# the billion-row structures
+TEL_STEPS = 40
+MON_RTOL = 1e-5          # f32 reductions over 65,536 rows, card vs CPU
+ADAPT_STEPS, ADAPT_EVERY = 60, 10
+GATE_STEPS = 10
+ZOO_STEPS = 15
+LM_UB_STEPS = 6
+BIG_STEPS = 40
+BIG_N, BIG_CHUNK, BIG_DRAWS = 2**30, 1024, 256
+BIG_PEAK_GIB = 70
+SCAN_REPEATS = 200
 
 
 def fail(msg: str) -> None:
@@ -2925,7 +2969,8 @@ def phase_asgd(ref):
         move = lambda tree: tree_map(lambda t: t.to(dev), tree)
         st = asgd.ASGDState(
             move(state.params), (), tuple(move(f) for f in state.fifo),
-            type(state.store)(*(t.to(dev) for t in state.store)),
+            type(state.store)(*(None if t is None else t.to(dev)
+                                for t in state.store)),
             state.step, torch.Generator(dev))
         data = {k: v.to(dev) for k, v in train.arrays.items()}
         stp = asgd.make_asgd_step(pel, opt, acfg, n, fused_score=fused)
@@ -2951,6 +2996,424 @@ def phase_asgd(ref):
           f"{errs[worst]:.3e} ({worst})", flush=True)
     return {"steps": ASGD_STEPS, "delay": ASGD_DELAY, "losses": losses,
             "step_ms_median": step_ms, "card_vs_cpu_rel_err": errs}
+
+
+# ------------------------------------ slice 12: telemetry, strategies and
+# the controller, the billion-row sampling structures
+def same_store(a, b) -> bool:
+    """Every field of two weight stores bitwise equal."""
+    return all((x is None and y is None)
+               or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in zip(a, b))
+
+
+def scratch_dir(name: str) -> Path:
+    """An empty directory under the git-ignored build/ of the checkout."""
+    d = ROOT / "build" / name
+    d.mkdir(parents=True, exist_ok=True)
+    for p in d.iterdir():
+        if p.is_file():
+            p.unlink()
+    return d
+
+
+def counted_run(train_mod, ref, argv, cfg=None):
+    """(TrainResult, launches) of one launcher run with every plain
+    version forbidden, the counts set to 0 just before it."""
+    reset_counts()
+    result = run_forbidding_plain(ref, lambda: train_mod.run(
+        train_mod.parse_args(argv), cfg))
+    return result, read_counts()
+
+
+def expect_launches(launches: dict, want: dict, what: str) -> None:
+    """Fail unless each kernel named in ``want`` launched that often and
+    every other kernel never."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        fail(f"{what}: launches {launches}; expected {full}")
+
+
+def phase_telemetry(train_mod, ref):
+    """mlp_svhn at full width, relaxed, ghost, TEL_STEPS steps: telemetry
+    off, then --monitors all with a JSONL every 10 steps; params and
+    store bitwise the same; the monitors on the card against the CPU on
+    the same store; the JSONL read back by tools/metrics_report.py; a
+    --profile-dir window whose trace names the multi-tap kernel."""
+    from repro_torch.core.importance import ISConfig
+    from repro_torch.core.weight_store import read_proposal
+    from repro_torch.telemetry import MONITOR_NAMES, MonitorSet
+    from repro_torch.telemetry.events import read_events
+    from repro_torch.telemetry.monitors import proposal_monitors
+    d = scratch_dir("chip_smoke_telemetry")
+    jsonl = d / "run.jsonl"
+    steps = ["--steps", str(TEL_STEPS), "--seed", "7"]
+    off, off_l = counted_run(train_mod, ref, mlp_argv(*steps))
+    on, on_l = counted_run(train_mod, ref, mlp_argv(
+        *steps, "--monitors", "all", "--metrics-jsonl", str(jsonl),
+        "--metrics-every", "10"))
+    for what, launches in (("telemetry off", off_l), ("telemetry on", on_l)):
+        expect_launches(launches, {"per_example_sqnorm_multi": TEL_STEPS},
+                        what)
+    if not (same_tree(off.state.params, on.state.params)
+            and same_store(off.state.store, on.state.store)):
+        fail("telemetry: params or store with monitors on differ from off")
+    off_ms = statistics.median(off.step_ms[WARMUP_STEPS:])
+    on_ms = statistics.median(on.step_ms[WARMUP_STEPS:])
+
+    # the monitors of the store the run reached, card vs CPU
+    store, step = on.state.store, on.state.step
+    mons = {}
+    for dev in ("cuda", "cpu"):
+        st = type(store)(*(None if t is None else t.to(dev) for t in store))
+        q = read_proposal(st, step, ISConfig())
+        mons[dev] = proposal_monitors(st, q, step, q.shape[0],
+                                      MonitorSet.all())
+    mon_err = {}
+    for k in MONITOR_NAMES:
+        a, b = mons["cuda"][k].cpu(), mons["cpu"][k]
+        mon_err[k] = (0.0 if torch.equal(a, b) else
+                      abs(a.double().item() - b.double().item())
+                      / abs(b.double().item()))
+    if max(mon_err.values()) > MON_RTOL:
+        fail(f"telemetry: monitors card vs CPU {mon_err} > {MON_RTOL}")
+
+    # the JSONL through the unmodified report
+    recs = read_events(str(jsonl))
+    mets = [r for r in recs if r["kind"] == "metrics"]
+    mon_recs = [r for r in recs if r["kind"] == "monitors"]
+    summary_path = d / "summary.json"
+    rep = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "metrics_report.py"),
+                          str(jsonl), "--json", str(summary_path)],
+                         capture_output=True, text=True, timeout=120)
+    if rep.returncode != 0:
+        fail(f"metrics_report.py exited {rep.returncode}: "
+             f"{rep.stderr[-1500:]}")
+    summary = json.loads(summary_path.read_text())
+    traj = summary["trajectory"]
+    want_steps = sorted(set(range(0, TEL_STEPS, 10)) | {TEL_STEPS - 1})
+    if [r["step"] for r in traj] != want_steps or \
+            [r["step"] for r in mon_recs] != want_steps or \
+            any(row[k] != m[k] for row, m in zip(traj, mets)
+                for k in ("trace_ideal", "trace_stale", "trace_unif",
+                          "loss")) or \
+            summary["spans"]["train.step"]["count"] != TEL_STEPS:
+        fail(f"telemetry: metrics_report's summary does not reproduce the "
+             f"run's records: {json.dumps(summary)[:1500]}")
+
+    # a profiler window over steps 2..3 of a short run
+    prof_dir = scratch_dir("chip_smoke_profile")
+    pj = d / "profile.jsonl"
+    _, prof_l = counted_run(train_mod, ref, mlp_argv(
+        "--steps", "5", "--profile-dir", str(prof_dir), "--profile-steps",
+        "2:2", "--metrics-jsonl", str(pj)))
+    expect_launches(prof_l, {"per_example_sqnorm_multi": 5}, "profile run")
+    trace = json.loads((prof_dir / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace.get("traceEvents", [])}
+    multi = sorted(n for n in names if "sqnorm_multi_kernel" in n)
+    marks = [(r["step"], r["action"]) for r in read_events(str(pj))
+             if r["kind"] == "profile"]
+    if not multi or marks != [(2, "start"), (3, "stop")]:
+        fail(f"telemetry: the profile window's trace names "
+             f"{multi or 'no multi-tap kernel'}; profile records {marks}")
+    mon_last = {k: mon_recs[-1][k] for k in MONITOR_NAMES}
+    print(f"telemetry: mlp_svhn full width, {TEL_STEPS} steps: median step "
+          f"{off_ms:.3f} ms off, {on_ms:.3f} ms with --monitors all and a "
+          f"JSONL every 10 steps (CUDA events, same call); params and store "
+          f"bitwise equal; monitors at the end {mon_last}, card vs CPU "
+          f"largest relative error {max(mon_err.values()):.3e}; "
+          f"metrics_report.py reproduced {len(traj)} metrics records; the "
+          f"profile window's trace names {multi[0][:60]}", flush=True)
+    return {"steps": TEL_STEPS, "step_ms_median_off": off_ms,
+            "step_ms_median_on": on_ms, "launches": on_l,
+            "profile_launches": prof_l, "monitors_last": mon_last,
+            "monitors_card_vs_cpu_rel_err": mon_err,
+            "report_records": len(traj)}
+
+
+def phase_strategies(train_mod, ref, lm_ghost_ms):
+    """The adaptive controller at mlp_svhn full width with its decisions
+    replayed from the JSONL; the gate against the uniform and relaxed
+    steps bitwise; the zoo's scorers' step ms and launches; glm4-9b at
+    phase 7's cut with upper_bound and every monitor."""
+    from repro_torch.core.controller import replay_decisions
+    from repro_torch.telemetry.events import read_events
+    d = scratch_dir("chip_smoke_controller")
+    jsonl = d / "adaptive.jsonl"
+    res, ad_l = counted_run(train_mod, ref, mlp_argv(
+        "--steps", str(ADAPT_STEPS), "--adaptive-is", "--adapt-every",
+        str(ADAPT_EVERY), "--metrics-jsonl", str(jsonl)))
+    expect_launches(ad_l, {"per_example_sqnorm_multi": ADAPT_STEPS},
+                    "adaptive")
+    live = [tuple(x) for x in res.decisions]
+    replay = [tuple(x) for x in replay_decisions(read_events(str(jsonl)))]
+    if len(live) != ADAPT_STEPS // ADAPT_EVERY or replay != live:
+        fail(f"controller: live decisions {live} != replayed {replay}")
+    adapt_ms = statistics.median(res.step_ms[WARMUP_STEPS:])
+    del res
+
+    # the gate, 10 steps a side, against the mode it selects
+    gated = train_mod.build(train_mod.parse_args(mlp_argv("--adaptive-is")))
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    for use_is, mode in ((False, "uniform"), (True, "relaxed")):
+        other = train_mod.build(train_mod.parse_args(mlp_argv(
+            "--mode", mode)))
+        a = gated.state._replace(rng=gen())
+        b = gated.state._replace(rng=gen())
+        for t in range(GATE_STEPS):
+            a, ma = gated.step(a, gated.data, use_is)
+            b, mb = other.step(b, gated.data)
+            if not torch.equal(ma.sample_indices, mb.sample_indices):
+                fail(f"gate {use_is}: step {t} draws differ from {mode}")
+        if not (same_tree(a.params, b.params) and same_store(a.store,
+                                                             b.store)):
+            fail(f"gate {use_is}: state after {GATE_STEPS} steps differs "
+                 f"from the {mode} step's")
+        del other, a, b
+    del gated
+
+    # the zoo at mlp_svhn full width: step ms and a scoring pass's launches
+    zoo = {}
+    for name in ("ghost", "upper_bound", "bandit_mixed", "null"):
+        built = train_mod.build(train_mod.parse_args(mlp_argv(
+            "--proposal-strategy", name)))
+        carry = {"s": built.state}
+
+        def one():
+            carry["s"], _ = built.step(carry["s"], built.data)
+        reset_counts()
+        run_forbidding_plain(ref, one)
+        launches = read_counts()
+        ms = statistics.median(step_times(one, ZOO_STEPS)[3:])
+        zoo[name] = {"step_ms_median": ms, "launches_a_pass": launches}
+        del built, carry
+    want = {"ghost": 1, "upper_bound": 0, "bandit_mixed": 0, "null": 0}
+    for name, n_multi in want.items():
+        expect_launches(zoo[name]["launches_a_pass"],
+                        {"per_example_sqnorm_multi": n_multi},
+                        f"{name} scoring pass")
+
+    # glm4-9b at phase 7's cut, upper_bound with every monitor
+    torch.cuda.empty_cache()
+    lj = d / "lm_upper_bound.jsonl"
+    lm, lm_l = counted_run(train_mod, ref, LM_ARGV + [
+        "--proposal-strategy", "upper_bound", "--monitors", "all",
+        "--steps", str(LM_UB_STEPS), "--log-every", "1", "--metrics-jsonl",
+        str(lj)], lm_config())
+    expect_launches(lm_l, {}, "glm4-9b upper_bound (forward-only scorer, "
+                              "ref attention)")
+    mon = [r for r in read_events(str(lj)) if r["kind"] == "monitors"]
+    if len(mon) != LM_UB_STEPS or not all(
+            math.isfinite(r[k]) for r in mon for k in ("ess", "entropy")):
+        fail(f"glm4-9b upper_bound: monitors {mon[-1:]}")
+    if not all(math.isfinite(r["loss"]) for r in lm.history):
+        fail(f"glm4-9b upper_bound: losses {lm.history}")
+    lm_ms = statistics.median(lm.step_ms[LM_WARMUP:])
+    del lm
+    torch.cuda.empty_cache()
+    print(f"strategies: adaptive mlp_svhn {ADAPT_STEPS} steps, decisions "
+          f"{[(x[0], x[1], x[3], x[6]) for x in live]} (step, use_is, "
+          f"var_ratio, reason) replayed exactly, median "
+          f"step {adapt_ms:.3f} ms; gate closed == uniform and open == "
+          f"relaxed bitwise over {GATE_STEPS} steps each; median step ms "
+          + ", ".join(f"{k} {v['step_ms_median']:.3f}" for k, v in
+                      zoo.items())
+          + f"; glm4-9b × {LM_LAYERS} layers upper_bound + monitors "
+          f"{lm_ms:.3f} ms a step, launches {lm_l} (ghost {lm_ghost_ms:.3f} "
+          f"ms, phase 7, same call)", flush=True)
+    return {"adaptive": {"steps": ADAPT_STEPS, "adapt_every": ADAPT_EVERY,
+                         "decisions": live, "step_ms_median": adapt_ms,
+                         "launches": ad_l},
+            "gate_steps": GATE_STEPS, "zoo": zoo,
+            "lm_upper_bound": {"step_ms_median": lm_ms, "launches": lm_l,
+                               "ghost_step_ms_median_phase7": lm_ghost_ms,
+                               "monitors_last": mon[-1]}}
+
+
+def timed_ms(fn, rounds):
+    """Median CUDA-event ms of ``rounds`` calls of fn() after one."""
+    fn()
+    return statistics.median(step_times(fn, rounds))
+
+
+def tv_distance(p: torch.Tensor, q: torch.Tensor, parts: int = 16) -> float:
+    """TV(p/Σp, q/Σq), summed in f64 over slices (bounded temporaries)."""
+    sp = torch.sum(p, dtype=torch.float64)
+    sq = torch.sum(q, dtype=torch.float64)
+    tv = torch.zeros((), dtype=torch.float64, device=p.device)
+    for a, b in zip(p.chunk(parts), q.chunk(parts)):
+        tv += torch.sum(torch.abs(a.double() / sp - b.double() / sq))
+    return 0.5 * tv.item()
+
+
+def phase_large_tables(train_mod, ref):
+    """(a) the mlp_svhn trainer with --index tree --table-dtype int8
+    --index-chunk-size 1024 --score-ttl 20 against --index dense, bitwise;
+    (b) the sampling structures at N = 2^30 rows, chunk 1024."""
+    from repro_torch.core import mass_index as mi
+    from repro_torch.core import weight_store as ws
+    from repro_torch.core.importance import ISConfig
+    from repro_torch.core.sampler import cumsum, two_stage_sample
+    # the draws' CDF scan, run to run: over one row, torch.cumsum takes
+    # CUB's look-back scan on the card, whose sums vary; sampler.cumsum
+    # (the draws' scan) must not
+    gs = torch.Generator(device="cuda").manual_seed(60)
+    noise = torch.empty(2**24, device="cuda")
+    scan_diff = {}
+    for rows in (65536, 2**20):
+        x = torch.rand(1, rows, generator=gs, device="cuda") * 4 + 1
+        for name, fn in (("torch.cumsum", torch.cumsum),
+                         ("sampler.cumsum", cumsum)):
+            first, diff = fn(x, 1), 0
+            for i in range(SCAN_REPEATS):
+                if i % 3 == 0:
+                    noise.normal_(generator=gs)   # other work in between
+                diff += int(not torch.equal(fn(x, 1), first))
+            scan_diff[f"{name} of {rows} rows"] = diff
+    del noise, x
+    if any(v for k, v in scan_diff.items() if k.startswith("sampler")):
+        fail(f"large tables: the draws' CDF scan varies run to run: "
+             f"{scan_diff} of {SCAN_REPEATS} repeats")
+    big = ("--steps", str(BIG_STEPS), "--table-dtype", "int8",
+           "--index-chunk-size", str(BIG_CHUNK), "--score-ttl", "20")
+    runs = {}
+    for index in ("tree", "dense"):
+        runs[index] = counted_run(train_mod, ref,
+                                  mlp_argv(*big, "--index", index))
+        expect_launches(runs[index][1],
+                        {"per_example_sqnorm_multi": BIG_STEPS},
+                        f"int8 trainer, index {index}")
+    (tr, tr_l), (dn, _) = runs["tree"], runs["dense"]
+    if tr.state.store.weights.dtype != torch.int8 or not (
+            same_tree(tr.state.params, dn.state.params)
+            and same_store(tr.state.store, dn.state.store)):
+        fail("large tables: the tree-index int8 trainer differs from the "
+             "dense one")
+    tr_ms = statistics.median(tr.step_ms[WARMUP_STEPS:])
+    dn_ms = statistics.median(dn.step_ms[WARMUP_STEPS:])
+    del runs, tr, dn
+
+    # ---- N = 2^30 rows: the tables, the index, the draws, the bound
+    n, cs = BIG_N, BIG_CHUNK
+    c = n // cs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(61)
+    w = torch.rand(n, generator=g, device="cuda").mul_(4.0)
+    scored = torch.randint(-1, 100, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    step, cfg = 100, ISConfig()
+    f32 = ws.WeightStore(w, scored)
+    gib = lambda b: b / 2**30
+    table_bytes = {"f32": w.numel() * 4, "bf16": n * 2,
+                   "int8": n + c * 4, "scored_at": scored.numel() * 4}
+    read_ms = timed_ms(lambda: ws.read_proposal(f32, step, cfg), 3)
+    q = ws.read_proposal(f32, step, cfg)
+    build_ms = timed_ms(lambda: mi.build_index(q, cs), 3)
+    index0 = mi.build_index(q, cs)
+    # a write into 8 chunks, refreshed against rebuilt
+    ids = torch.randint(0, c, (8,), generator=g, device="cuda")
+    rows = (ids[:, None] * cs + torch.randint(0, cs, (8, 4), generator=g,
+                                              device="cuda")).reshape(-1)
+    q_old = q[rows].clone()
+    q[rows] = torch.rand(rows.shape[0], generator=g, device="cuda") * 9
+    chunk_ids = rows // cs
+    refresh_ms = timed_ms(lambda: mi.refresh_chunks(index0, q, cs,
+                                                    chunk_ids), 5)
+    rebuild_ms = timed_ms(lambda: mi.build_index(q, cs), 3)
+    fresh = mi.refresh_chunks(index0, q, cs, chunk_ids)
+    again = mi.build_index(q, cs)
+    if not (torch.equal(fresh.mass, again.mass)
+            and torch.equal(fresh.tree, again.tree)):
+        fail("large tables: refresh_chunks != build_index at 2^30 rows")
+    # the library reduction's bits depend on its row count: the reason
+    # the leaves use the fixed pairwise halving
+    rows_view, touched = q.view(c, cs), torch.unique(chunk_ids)
+    n_touched = touched.shape[0]
+    torch_sum_differ = int((torch.sum(rows_view[touched], 1)
+                            != torch.sum(rows_view, 1)[touched]).sum())
+    # 256 draws through the index vs the dense two-stage draw over
+    # read_proposal (the proposal re-read, as a step does)
+    dg = lambda: torch.Generator(device="cuda").manual_seed(62)
+    draw_ms = timed_ms(lambda: mi.indexed_sample(q, fresh, cs, BIG_DRAWS,
+                                                 generator=dg()), 5)
+    dense_ms = timed_ms(lambda: two_stage_sample(
+        ws.read_proposal(f32, step, cfg), BIG_DRAWS, generator=dg()), 3)
+    idx = mi.indexed_sample(q, fresh, cs, BIG_DRAWS, generator=dg())
+    if not (bool((idx >= 0).all()) and bool((idx < n).all())
+            and bool((q[idx] > 0).all())):
+        fail("large tables: indexed draws out of the support")
+    q[rows] = q_old
+    del fresh, again, index0, rows_view, touched, q_old
+
+    # the quantized tables: TV against the bound, one int8 write
+    tv, bound = {}, {}
+    for dtype in ("bf16", "int8"):
+        if dtype == "bf16":
+            store = ws.WeightStore(w.to(torch.bfloat16), scored)
+        else:
+            codes, qscale = ws.quantize_weights(w, cs)
+            store = ws.WeightStore(codes, scored, qscale)
+            del codes, qscale
+        pq = ws.read_proposal(store, step, cfg)
+        tv[dtype] = tv_distance(q, pq)
+        del pq
+        bound[dtype] = ws.quantization_tv_bound(f32, step, cfg, cs,
+                                                dtype).item()
+        if dtype == "int8":
+            wi = torch.unique(torch.randint(0, n, (BIG_DRAWS,), generator=g,
+                                            device="cuda"))
+            wv = torch.rand(wi.shape[0], generator=g, device="cuda") * 5
+            write_ms = timed_ms(lambda: ws.write_scores(store, wi, wv, step),
+                                2)
+            after = ws.write_scores(store, wi, wv, step)
+            got = ws.dequantize_weights(after)[wi]
+            scale = after.qscale[wi // cs]
+            if not bool((torch.abs(got - wv) <= scale / 254 * 1.001).all()):
+                fail("large tables: the int8 write did not land within "
+                     "half a step")
+            del after, got
+        del store
+        torch.cuda.empty_cache()
+        if not tv[dtype] <= bound[dtype]:
+            fail(f"large tables: {dtype} TV {tv[dtype]:.3e} > bound "
+                 f"{bound[dtype]:.3e}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak >= BIG_PEAK_GIB:
+        fail(f"large tables: peak {peak:.2f} GiB at 2^30 rows")
+    del w, scored, f32, q
+    torch.cuda.empty_cache()
+    res = {"scan_repeats_differing": scan_diff,
+           "scan_repeats": SCAN_REPEATS,
+           "trainer": {"steps": BIG_STEPS, "chunk": BIG_CHUNK,
+                       "step_ms_median_tree": tr_ms,
+                       "step_ms_median_dense": dn_ms, "launches": tr_l},
+           "n": n, "chunk": cs, "chunks": c,
+           "table_gib": {k: gib(v) for k, v in table_bytes.items()},
+           "read_proposal_ms": read_ms, "build_index_ms": build_ms,
+           "refresh_8_chunks_ms": refresh_ms, "rebuild_ms": rebuild_ms,
+           "torch_sum_gather_vs_full_differing_chunks": torch_sum_differ,
+           "touched_chunks": n_touched,
+           "indexed_sample_ms": draw_ms, "dense_draw_ms": dense_ms,
+           "draws": BIG_DRAWS, "int8_write_ms": write_ms, "tv": tv,
+           "tv_bound": bound, "peak_gib": peak}
+    print(f"large tables: repeated one-row scans differing from the first "
+          f"(of {SCAN_REPEATS}): {scan_diff}; int8 trainer (chunk "
+          f"{BIG_CHUNK}, ttl 20) tree == "
+          f"dense bitwise over {BIG_STEPS} steps, median step "
+          f"{tr_ms:.3f}/{dn_ms:.3f} ms; N = 2^{n.bit_length() - 1}: tables "
+          + ", ".join(f"{k} {gib(v):.4f} GiB" for k, v in table_bytes.items())
+          + f"; read_proposal {read_ms:.3f} ms, build_index {build_ms:.3f} "
+          f"ms, refresh of 8 chunks {refresh_ms:.3f} ms vs rebuild "
+          f"{rebuild_ms:.3f} ms (bitwise equal; torch.sum of the 8-chunk "
+          f"gather differs from the full table's in {torch_sum_differ} of "
+          f"{n_touched} chunks); {BIG_DRAWS} draws indexed "
+          f"{draw_ms:.3f} ms vs dense over read_proposal {dense_ms:.3f} ms; "
+          f"int8 write of {BIG_DRAWS} rows {write_ms:.3f} ms; TV bf16 "
+          f"{tv['bf16']:.3e} ≤ {bound['bf16']:.3e}, int8 {tv['int8']:.3e} ≤ "
+          f"{bound['int8']:.3e}; peak {peak:.2f} GiB", flush=True)
+    return res
 
 
 def main() -> int:
@@ -3030,6 +3493,9 @@ def main() -> int:
     rev = phase_ghost_rev(train_mod, ref)
     ckpt = phase_checkpoint(train_mod)
     asgd_res = phase_asgd(ref)
+    tel = phase_telemetry(train_mod, ref)
+    strat = phase_strategies(train_mod, ref, lm_step_ms)
+    big = phase_large_tables(train_mod, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -3075,6 +3541,10 @@ def main() -> int:
     print("slice 11 times " + json.dumps({
         "card": card, "fused": fused, "ghost_rev": rev, "checkpoint": ckpt,
         "asgd": asgd_res, "wall_s": time.perf_counter() - t_start}),
+        flush=True)
+    print("slice 12 times " + json.dumps({
+        "card": card, "telemetry": tel, "strategies": strat,
+        "large_tables": big, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
@@ -3162,7 +3632,16 @@ def main() -> int:
                        "ghost_rev_full_depth":
                            rev["full_depth"]["launches"][name],
                        "ghost_rev_trainer":
-                           rev["trainer"]["launches"][name]},
+                           rev["trainer"]["launches"][name],
+                       "telemetry_mlp": tel["launches"][name],
+                       "adaptive_mlp":
+                           strat["adaptive"]["launches"][name],
+                       **{f"zoo_{k}_pass": v["launches_a_pass"][name]
+                          for k, v in strat["zoo"].items()},
+                       "lm_upper_bound":
+                           strat["lm_upper_bound"]["launches"][name],
+                       "int8_tree_trainer":
+                           big["trainer"]["launches"][name]},
         })
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]

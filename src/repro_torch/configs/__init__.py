@@ -60,8 +60,8 @@ def resolve(name: str) -> str:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ALIASES)}")
     if key not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} needs {NEEDS[key]}, which slice 2 of the "
-            f"PyTorch port does not carry yet; ported: "
+            f"arch {name!r} needs {NEEDS[key]}, which the PyTorch port "
+            f"does not carry yet; ported: "
             f"{', '.join(PORTED)}")
     return key
 

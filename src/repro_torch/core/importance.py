@@ -48,6 +48,14 @@ def apply_staleness_filter(weights: torch.Tensor, scored_at: torch.Tensor,
     return torch.where(mask, torch.zeros_like(weights), weights)
 
 
+def normalize(weights: torch.Tensor,
+              total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ω_n = ω̃_n / Σω̃; ``total`` lets a caller pass a sum it holds."""
+    if total is None:
+        total = torch.sum(weights)
+    return weights / total
+
+
 def is_loss_scale(sampled_weights: torch.Tensor,
                   mean_weight: torch.Tensor) -> torch.Tensor:
     """Per-sample loss scale of section 4.1: mean(ω̃)/ω̃_{i_m}, exactly 1
@@ -62,3 +70,20 @@ def effective_sample_size(weights: torch.Tensor,
     s1 = torch.sum(weights) if s1 is None else s1
     s2 = torch.sum(torch.square(weights)) if s2 is None else s2
     return torch.square(s1) / torch.clamp(s2, min=1e-30)
+
+
+def proposal_entropy(weights: torch.Tensor,
+                     sum_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Entropy (nats) of ω = w/Σw, which B.3 suggests monitoring:
+
+        H(ω) = log Σw − (Σ w·log w)/Σw,
+
+    zero-mass rows contributing their limit 0.  ``sum_w`` lets the master
+    pass share the total it already holds."""
+    if sum_w is None:
+        sum_w = torch.sum(weights)
+    sum_w = torch.clamp(sum_w, min=1e-30)
+    wlogw = torch.where(weights > 0,
+                        weights * torch.log(torch.clamp(weights, min=1e-30)),
+                        torch.zeros_like(weights))
+    return torch.log(sum_w) - torch.sum(wlogw) / sum_w

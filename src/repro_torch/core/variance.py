@@ -71,3 +71,10 @@ def trace_sigma_all_dist(grad_norms: torch.Tensor,
         ideal=torch.square(sum_g / n) - g_true_sq,
         stale=(sum_w / n) * (sum_ratio / n) - g_true_sq,
         unif=sum_g2 / n - g_true_sq)
+
+
+def g_true_sq_upper_bound(minibatch_mean_grad_norms: torch.Tensor
+                          ) -> torch.Tensor:
+    """B.2: the squared mean of per-minibatch mean-gradient norms, which
+    by Jensen bounds ||g_TRUE||² from above."""
+    return torch.square(torch.mean(minibatch_mean_grad_norms))

@@ -358,8 +358,8 @@ def test_sample_indices_replays_reference():
 
 # -------------------------------------------------------------- launcher
 @pytest.mark.parametrize("flag", ["--mesh", "--async-scoring", "--stream",
-                                  "--index", "--table-dtype",
-                                  "--metrics-out", "--serve-loop"])
+                                  "--swap-every", "--no-trace-monitors",
+                                  "--chunk-size", "--serve-loop"])
 def test_flags_still_later_are_refused_by_name(flag, capsys):
     assert flag in ttrain.LATER_FLAGS
     with pytest.raises(SystemExit) as e:

@@ -238,9 +238,9 @@ def test_launcher_flags_have_reference_defaults():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2", "--device", "cpu"], "slice 2"),
-    (["--stream", "--device", "cpu"], "slice 2"),
-    (["--async-scoring", "--device", "cpu"], "slice 2"),
+    (["--mesh", "2", "--device", "cpu"], "PyTorch port"),
+    (["--stream", "--device", "cpu"], "PyTorch port"),
+    (["--async-scoring", "--device", "cpu"], "PyTorch port"),
     (["--bogus", "--device", "cpu"], "unrecognized"),
 ])
 def test_launcher_refuses_what_the_slice_lacks(argv, match, capsys):
