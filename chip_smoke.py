@@ -215,6 +215,35 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 write of 256 rows (a whole-table requantize), the measured
                 TV of bf16 and int8 against quantization_tv_bound, and the
                 peak memory (< 70 GiB).
+ 30. minicpm3 — minicpm3-4b (MLA) at full width and full depth (62
+                layers, bf16) through the train entry point with
+                --strategy ghost_rev, seq 64, batch 32, score batch 128:
+                losses finite, 8 ghost_norm launches a layer and 1 for the
+                unembed a step, how many of them tensor-core and which
+                instance each tap width took; step ms, peak memory.  At 4
+                layers ghost_rev against ghost (relative error ≤ 1e-4);
+                one MLA layer, the loss and the ghost scores of a 1-layer
+                f32 model, card vs CPU (≤ 1e-4).
+ 31. dbrx, jamba — dbrx-132b at full width, 2 layers, the flash path with
+                the fused score, relaxed, ghost, seq 128: launches a step
+                (4 flash forward, 4 backward of which 2 scored, 2
+                ghost_norm; the MoE router's tap takes the direct path, the
+                only plain path allowed), all tensor-core; step ms, peak
+                memory, the dropped share of replicas; its attention shapes
+                (48/8 heads of 128, a GQA group of 6) against the plain
+                versions; two steps from one state and one draw bitwise
+                equal; a profiler window and the expert bmms' sizes; one
+                MoE layer in f32, card vs CPU (≤ 1e-4), expert ids and kept
+                mask equal.  Then jamba-v0.1-52b at full width in its smoke
+                layout (l0 mamba+MLP, l1 attention+MoE): a logit_grad
+                trainer with ssm_mode="pallas" (1 scan launch a step) and a
+                ghost trainer on the ref scan and flash attention.
+ 32. musicgen — musicgen-medium at full width and full depth (48 layers),
+                64 seeded conditioning embeds before 64 tokens, score
+                batch 16: logit_grad, ghost and ghost_rev (flash) passes
+                with their launches, ghost_rev against ghost (≤ 1e-4), the
+                fused objective's score equal to logit_grad's; then the
+                trainer on tokens alone.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -407,6 +436,43 @@ BIG_STEPS = 40
 BIG_N, BIG_CHUNK, BIG_DRAWS = 2**30, 1024, 256
 BIG_PEAK_GIB = 70
 SCAN_REPEATS = 200
+# slice 13: the rest of the LM zoo at full width.  minicpm3-4b (MLA) at
+# full depth through the ghost_rev trainer; its score batch of 128 fits
+# (ghost would hold every layer's f32 tap cotangents, ~0.9 GB a layer)
+MINI_ARGV = ["--arch", "minicpm3-4b", "--mode", "relaxed", "--strategy",
+             "ghost_rev", "--seq", "64", "--batch", "32", "--score-batch",
+             "128", "--examples", "4096", "--lr", "0.01", "--refresh-every",
+             "8", "--device", "cuda"]
+MINI_STEPS, MINI_WARMUP = 3, 1
+MINI_CUT, MINI_CUT_B, MINI_CUT_S = 4, 32, 64
+# its taps a layer (wq_a, wq_b, wkv_a, wkv_b, wo, w_in, w_gate, w_out)
+MLA_TAPS = 8
+# dbrx-132b at full width, cut to 2 layers (~6.5 GB of bf16 a layer: the
+# params, gradients and new params take ~47 GB at 2 layers, and the f32
+# global norm of a 2.1 B-element expert leaf 17 GB more), the flash path
+# with the fused score; the params are pushed to the workers every step,
+# so the stale params alias them (a stale copy would be 15.5 GB more);
+# then jamba-v0.1-52b at full width in its smoke layout
+DBRX_LAYERS = 2
+DBRX_B, DBRX_S, DBRX_SB, DBRX_N = 16, 128, 32, 2048
+DBRX_ARGV = ["--arch", "dbrx-132b", "--mode", "relaxed", "--strategy",
+             "ghost", "--seq", str(DBRX_S), "--batch", str(DBRX_B),
+             "--score-batch", str(DBRX_SB), "--examples", str(DBRX_N), "--lr",
+             "0.01", "--refresh-every", "1", "--device", "cuda"]
+DBRX_STEPS, DBRX_WARMUP = 4, 1
+JAMBA_ARGV = ["--arch", "jamba-v0.1-52b", "--mode", "relaxed", "--seq",
+              "128", "--batch", "8", "--score-batch", "16", "--examples",
+              "1024", "--lr", "0.01", "--refresh-every", "8", "--device",
+              "cuda"]
+JAMBA_STEPS = 2
+# musicgen-medium at full width and full depth: 64 conditioning embeds
+# before 64 tokens (S = 128), score batch 16
+MUSIC_SB, MUSIC_S, MUSIC_FRONT = 16, 64, 64
+MUSIC_ARGV = ["--arch", "musicgen-medium", "--mode", "relaxed",
+              "--strategy", "ghost", "--seq", "64", "--batch", "16",
+              "--score-batch", "32", "--examples", "2048", "--lr", "0.01",
+              "--refresh-every", "8", "--device", "cuda"]
+MUSIC_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -953,12 +1019,16 @@ PLAIN_NAMES = ("per_example_sqnorm_ref", "per_example_sqnorm_multi_ref",
                "selective_scan_kernel_ref")
 
 
-def run_forbidding_plain(ref, fn):
-    """fn() with every plain version replaced by one that raises."""
+def run_forbidding_plain(ref, fn, allow=()):
+    """fn() with every plain version replaced by one that raises, but for
+    those named in ``allow``: ``ghost_norm_direct_ref`` is no kernel's
+    stand-in but the direct path itself, which ``ops.ghost_norm`` takes
+    by the reference's cost rule (the MoE router's tap)."""
     def forbidden(*_a, **_k):
         raise AssertionError("a plain version ran on the CUDA path")
-    saved = {n: getattr(ref, n) for n in PLAIN_NAMES}
-    for n in PLAIN_NAMES:
+    names = [n for n in PLAIN_NAMES if n not in allow]
+    saved = {n: getattr(ref, n) for n in names}
+    for n in names:
         setattr(ref, n, forbidden)
     try:
         return fn()
@@ -3017,12 +3087,13 @@ def scratch_dir(name: str) -> Path:
     return d
 
 
-def counted_run(train_mod, ref, argv, cfg=None):
+def counted_run(train_mod, ref, argv, cfg=None, allow=(), **run_kw):
     """(TrainResult, launches) of one launcher run with every plain
-    version forbidden, the counts set to 0 just before it."""
+    version forbidden (but ``allow``), the counts set to 0 just before
+    it; ``run_kw`` go to ``run`` (attn_impl, attn_scores, ssm_mode)."""
     reset_counts()
     result = run_forbidding_plain(ref, lambda: train_mod.run(
-        train_mod.parse_args(argv), cfg))
+        train_mod.parse_args(argv), cfg, **run_kw), allow=allow)
     return result, read_counts()
 
 
@@ -3416,6 +3487,483 @@ def phase_large_tables(train_mod, ref):
     return res
 
 
+# ------------------------------------------------------- slice 13: the zoo
+def zoo_config(arch, **kw):
+    """``arch`` at its published widths (and depth), fields in ``kw``
+    replaced."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **kw)
+
+
+def median_after(ms, warm):
+    return statistics.median(ms[warm:] if len(ms) > warm else ms)
+
+
+def finite_history(result, what):
+    keys = ("loss", "grad_norm", "trace_ideal", "trace_stale", "trace_unif")
+    for rec in result.history:
+        if not all(math.isfinite(rec[k]) for k in keys):
+            fail(f"{what}: non-finite metrics at step {rec['step']}: {rec}")
+    return [r["loss"] for r in result.history]
+
+
+def tc_spy(ops, gn):
+    """Patch ``ops.ghost_norm`` (the scorers' entry) with a pass-through
+    that notes, for each call, ((din, dout), the path it takes: "tc" or
+    "simt" for the kernel's instances by ``gn.uses_tensor_cores``, the
+    wrapper's own rule, or "direct"); returns (notes, restore).  The
+    kernel wrapper and its counts are untouched."""
+    orig = ops.ghost_norm
+    notes = []
+
+    def spy(x, d, **kw):
+        s, din, dout = x.shape[1], x.shape[-1], d.shape[-1]
+        if ops.ghost_cost(s, din, dout) > ops.direct_cost(s, din, dout):
+            path = "direct"
+        else:
+            path = "tc" if gn.uses_tensor_cores(x, d) else "simt"
+        notes.append(((din, dout), path))
+        return orig(x, d, **kw)
+
+    ops.ghost_norm = spy
+
+    def restore():
+        ops.ghost_norm = orig
+    return notes, restore
+
+
+def instances(notes) -> dict:
+    """'din->dout' → the paths its calls took, over ``notes``."""
+    out = {}
+    for (din, dout), path in notes:
+        out.setdefault(f"{din}->{dout}", set()).add(path)
+    return {k: "/".join(sorted(v)) for k, v in out.items()}
+
+
+def phase_minicpm3(train_mod, ops, gn, ref):
+    """minicpm3-4b (MLA) at full width: (a) the ghost_rev trainer at full
+    depth, (b) ghost_rev against ghost at MINI_CUT layers, (c) one MLA
+    layer and a one-layer ghost pass, f32, card vs CPU."""
+    from repro_torch.core.scorer import make_lm_scorer
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves, tree_map
+    out = {}
+    cfg = zoo_config("minicpm3-4b")
+    # (a) full width, full depth, through the entry point
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    notes, restore = tc_spy(ops, gn)
+    try:
+        result, launches = counted_run(
+            train_mod, ref, MINI_ARGV + ["--steps", str(MINI_STEPS),
+                                         "--log-every", "1"])
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(t.numel() for t in tree_leaves(result.state.params))
+    want = {"ghost_norm": (MLA_TAPS * cfg.num_layers + 1) * MINI_STEPS}
+    expect_launches(launches, want, "minicpm3 trainer")
+    tc = sum(path == "tc" for _, path in notes)
+    losses = finite_history(result, "minicpm3 trainer")
+    step_ms = median_after(result.step_ms, MINI_WARMUP)
+    out["trainer"] = {
+        "layers": cfg.num_layers, "params": n_params, "argv": MINI_ARGV,
+        "steps": MINI_STEPS, "step_ms": result.step_ms,
+        "step_ms_median": step_ms, "peak_gib": peak, "launches": launches,
+        "ghost_norm_per_step": want["ghost_norm"] // MINI_STEPS,
+        "ghost_norm_tc_per_step": tc / MINI_STEPS,
+        "instances": instances(notes), "losses": losses}
+    del result
+    torch.cuda.empty_cache()
+    print(f"minicpm3 trainer: minicpm3-4b × {cfg.num_layers} layers "
+          f"({n_params / 1e9:.2f} B params, bf16), ghost_rev, seq 64, batch "
+          f"32, score batch 128, {MINI_STEPS} steps: losses {losses}, "
+          f"median step {step_ms:.1f} ms (CUDA events, {MINI_WARMUP} "
+          f"warm-up), peak {peak:.2f} GiB; ghost_norm "
+          f"{want['ghost_norm'] // MINI_STEPS} a step, {tc / MINI_STEPS:g} "
+          f"of them tensor-core; instances (din->dout) "
+          f"{out['trainer']['instances']}", flush=True)
+
+    # (b) ghost_rev against ghost at the cut
+    cut = zoo_config("minicpm3-4b", num_layers=MINI_CUT)
+    params = transformer.init_transformer(
+        torch.Generator("cuda").manual_seed(51), cut, "cuda")
+    batch = {"tokens": torch.randint(
+        0, cut.vocab_size, (MINI_CUT_B, MINI_CUT_S + 1),
+        generator=torch.Generator("cuda").manual_seed(52), device="cuda")}
+    row = {}
+    for strategy in ("ghost", "ghost_rev"):
+        reset_counts()
+        sc, ms, pk, ln = score_pass(ref, make_lm_scorer(cut, strategy),
+                                    params, batch, 3,
+                                    f"minicpm3 {strategy}")
+        row[strategy] = {"scores": sc, "pass_ms": ms, "peak_gib": pk,
+                         "launches": ln}
+    err = ((row["ghost_rev"]["scores"] - row["ghost"]["scores"]).abs()
+           / row["ghost"]["scores"]).max().item()
+    if not err <= REV_RTOL:
+        fail(f"minicpm3 ghost_rev vs ghost at {MINI_CUT} layers: relative "
+             f"error {err:.3e}")
+    for strategy, n in (("ghost", MLA_TAPS + 1),
+                        ("ghost_rev", MLA_TAPS * MINI_CUT + 1)):
+        if row[strategy]["launches"]["ghost_norm"] != n:
+            fail(f"minicpm3 {strategy}: launches "
+                 f"{row[strategy]['launches']}; expected {n} ghost_norm")
+    for r in row.values():
+        del r["scores"]
+    out["cut"] = {"layers": MINI_CUT, "rel_err_vs_ghost": err, **row}
+    del params
+    torch.cuda.empty_cache()
+    print(f"minicpm3 ghost_rev vs ghost: × {MINI_CUT} layers, batch "
+          f"{MINI_CUT_B}, seq {MINI_CUT_S}: relative error {err:.3e}; ghost "
+          f"{row['ghost']['pass_ms']:.2f} ms, peak "
+          f"{row['ghost']['peak_gib']:.2f} GiB; ghost_rev "
+          f"{row['ghost_rev']['pass_ms']:.2f} ms, peak "
+          f"{row['ghost_rev']['peak_gib']:.2f} GiB", flush=True)
+
+    # (c) card vs CPU, f32, one layer
+    one = zoo_config("minicpm3-4b", num_layers=1, dtype="float32")
+    cpu_p = transformer.init_transformer(torch.Generator().manual_seed(53),
+                                         one, "cpu")
+    g = torch.Generator().manual_seed(54)
+    x = torch.randn(2, 64, one.d_model, generator=g)
+    toks = torch.randint(0, one.vocab_size, (4, 65), generator=g)
+    errs = {}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), cpu_p)
+        lp = transformer._period(p["layers"], 0)["l0"]["mixer"]
+        pos = torch.arange(64, device=dev)[None].expand(2, 64)
+        with torch.no_grad():
+            y = attn_mod.mla(lp, x.to(dev), one, pos)
+            loss, _ = transformer.per_example_loss(p, one,
+                                                   {"tokens": toks.to(dev)})
+        sc = make_lm_scorer(one, "ghost")(p, {"tokens": toks.to(dev)})
+        res[dev] = {"mla": y.cpu(), "loss": loss.cpu(), "ghost": sc.cpu()}
+    for k in res["cpu"]:
+        errs[k] = rel_err(res["cuda"][k], res["cpu"][k])
+    worst = max(errs.values())
+    if worst > CARD_VS_CPU_RTOL:
+        fail(f"minicpm3 card vs CPU: relative errors {errs}")
+    out["card_vs_cpu_rel_err"] = errs
+    print(f"minicpm3 card vs CPU (1 layer, f32, full width): relative "
+          f"errors {errs}", flush=True)
+    return out
+
+
+def check_flash_shape(fa, fab, ref, b, s, h, hkv, hd, seed, name):
+    """The bf16 flash forward and backward (with the fused score) at one
+    main-path shape against their plain versions."""
+    dt = torch.bfloat16
+    q, k, v, o, lse, do = bwd_inputs(b, s, h, hkv, hd, 0, dt, seed, fa)
+    po, plse = ref.flash_attention_kernel_ref(q, k, v, window=0,
+                                              return_lse=True)
+    ok, err = attn_close(o, po, dt)
+    if not ok or not torch.allclose(lse, plse, **ATTN_F32):
+        fail(f"{name}: forward vs plain max abs err {err:.3e}")
+    *grads, sc = fab.flash_attention_bwd(q, k, v, o, lse, do, window=0,
+                                         with_scores=True)
+    *plain, psc = ref.flash_attention_bwd_kernel_ref(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        window=0, with_scores=True)
+    errs = [err]
+    for t, got, want in zip("qkv", grads, plain):
+        ok, e = grads_close(got, want, dt)
+        if not ok:
+            fail(f"{name}: d{t} vs plain max abs err {e:.3e}")
+        errs.append(e)
+    sc_err = ((sc - psc).abs() / psc).max().item()
+    if sc_err > SCORE_RTOL:
+        fail(f"{name}: fused score vs plain rel err {sc_err:.3e}")
+    print(f"{name}: (B, S, H, Hkv, hd)={(b, s, h, hkv, hd)} bf16, forward "
+          f"and backward vs plain ok: max abs err {max(errs):.3e}, score "
+          f"rel err {sc_err:.3e}", flush=True)
+    return max(errs)
+
+
+def moe_spy():
+    """Patch ``models.moe.moe`` with a pass-through that keeps each call's
+    dropped share (a device scalar); returns (shares, restore)."""
+    from repro_torch.models import moe as moe_mod
+    orig = moe_mod.moe
+    shares = []
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        shares.append(out.dropped_frac.detach())
+        return out
+
+    moe_mod.moe = spy
+
+    def restore():
+        moe_mod.moe = orig
+    return shares, restore
+
+
+def phase_dbrx(train_mod, fa, fab, ref):
+    """dbrx-132b at full width, DBRX_LAYERS layers, the flash path with the
+    fused score: (a) the trainer, (b) its flash shape against the plain
+    versions, (c) two steps from one state and draws, bitwise, (d) one
+    MoE layer, f32, card vs CPU with identical routing."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import tree_leaves, tree_map
+    out = {}
+    cfg = zoo_config("dbrx-132b", num_layers=DBRX_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shares, restore = moe_spy()
+    try:
+        result, launches = counted_run(
+            train_mod, ref, DBRX_ARGV + ["--steps", str(DBRX_STEPS),
+                                         "--log-every", "1"], cfg,
+            allow=("ghost_norm_direct_ref",), attn_impl="flash",
+            attn_scores="fused")
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = {"flash_attention": 2 * DBRX_LAYERS,
+                "flash_attention_bwd": 2 * DBRX_LAYERS, "ghost_norm": 2}
+    expect_launches(launches, {k: n * DBRX_STEPS for k, n in
+                               per_step.items()}, "dbrx trainer")
+    check_tc(launches, "dbrx trainer")
+    scored = kernel_wrappers()["flash_attention_bwd"].scored
+    if scored != DBRX_LAYERS * DBRX_STEPS:
+        fail(f"dbrx trainer: {scored} scored backward launches; expected "
+             f"{DBRX_LAYERS} a step")
+    dropped = torch.stack(shares).float().cpu()
+    n_params = sum(t.numel() for t in tree_leaves(result.state.params))
+    losses = finite_history(result, "dbrx trainer")
+    step_ms = median_after(result.step_ms, DBRX_WARMUP)
+    out["trainer"] = {
+        "layers": DBRX_LAYERS, "params": n_params, "argv": DBRX_ARGV,
+        "attn_impl": "flash", "attn_scores": "fused", "steps": DBRX_STEPS,
+        "step_ms": result.step_ms, "step_ms_median": step_ms,
+        "peak_gib": peak, "launches": launches,
+        "dropped_share": {"calls": len(shares),
+                          "mean": dropped.mean().item(),
+                          "max": dropped.max().item()},
+        "losses": losses}
+    del result, shares
+    torch.cuda.empty_cache()
+    print(f"dbrx trainer: dbrx-132b × {DBRX_LAYERS} layers "
+          f"({n_params / 1e9:.2f} B params, bf16), flash + fused score, seq "
+          f"{DBRX_S}, batch "
+          f"{DBRX_B}, score batch {DBRX_SB}, {DBRX_STEPS} steps: losses "
+          f"{losses}, median step {step_ms:.1f} ms (CUDA events, "
+          f"{DBRX_WARMUP} warm-up), peak {peak:.2f} GiB, launches "
+          f"{launches}; dropped share of replicas over "
+          f"{dropped.numel()} MoE calls mean {dropped.mean().item():.4f}, "
+          f"max {dropped.max().item():.4f}", flush=True)
+
+    # (b) the GQA group of 6 at the trainer's attention shapes
+    out["flash_max_abs_err"] = max(
+        check_flash_shape(fa, fab, ref, b, DBRX_S, 48, 8, 128, 1700 + i,
+                          f"dbrx flash ({tag})")
+        for i, (tag, b) in enumerate((("master", DBRX_B),
+                                      ("scorer", DBRX_SB))))
+
+    # (c) two steps from one state and one draw: bitwise
+    args = train_mod.parse_args(DBRX_ARGV + ["--steps", "1"])
+    built = train_mod.build(args, cfg, attn_impl="flash",
+                            attn_scores="fused")
+    idx = torch.randint(0, DBRX_N, (DBRX_B,), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(61))
+    runs = []
+    for _ in range(2):
+        st, m = run_forbidding_plain(ref, lambda: built.step(
+            built.state, built.data, sample_indices=idx),
+            allow=("ghost_norm_direct_ref",))
+        # the first run's results wait on the host (15.5 GB of params)
+        runs.append([t.cpu() for t in (*tree_leaves(st.params),
+                                        st.store.weights, m.loss)])
+        del st, m
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("dbrx: two steps from one state and one draw differ")
+    del runs, built
+    torch.cuda.empty_cache()
+    out["bitwise_run_to_run"] = True
+    print("dbrx: two steps from one state and one draw: params, scores and "
+          "loss bitwise equal", flush=True)
+    # where a step's time goes, and the expert bmms' sizes
+    out["profile"] = phase_profile(
+        train_mod, DBRX_ARGV, cfg, steps=2, warm=1, tag="dbrx profile",
+        attn_impl="flash", attn_scores="fused")
+    out["expert_bmms"] = {}
+    for what, t in (("master", DBRX_B * DBRX_S), ("scorer", DBRX_SB * DBRX_S)):
+        c = moe_mod.capacity(cfg, t)
+        out["expert_bmms"][what] = {
+            "tokens": t, "capacity": c, "buffer_rows": cfg.num_experts * c,
+            "forward_gflop_a_layer": 3 * 2 * cfg.num_experts * c
+            * cfg.d_model * cfg.d_ff / 1e9}
+    print(f"dbrx expert bmms (E, C, {cfg.d_model}) x (E, {cfg.d_model}, "
+          f"{cfg.d_ff}), E = {cfg.num_experts}: {out['expert_bmms']}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) one MoE layer at full width, f32, card vs CPU
+    one = zoo_config("dbrx-132b", num_layers=1, dtype="float32")
+    p_card = moe_mod.init_moe(torch.Generator("cuda").manual_seed(62), one,
+                              "cuda")
+    x = torch.randn(2, 64, one.d_model,
+                    generator=torch.Generator().manual_seed(63))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = p_card if dev == "cuda" else tree_map(lambda t: t.cpu(), p_card)
+        xd = x.to(dev)
+        with torch.no_grad():
+            o = moe_mod.moe(p, xd, one)
+            r = moe_mod.route((xd.reshape(-1, one.d_model)
+                               @ p["router"]).float(), one)
+        res[dev] = (o.y.cpu(), o.aux_loss.cpu(), o.dropped_frac.cpu(),
+                    r.eidx.cpu(), r.keep.cpu())
+        del p
+    del p_card
+    torch.cuda.empty_cache()
+    (yc, ac, dc, ec, kc), (yh, ah, dh, eh, kh) = res["cuda"], res["cpu"]
+    if not (torch.equal(ec, eh) and torch.equal(kc, kh)):
+        fail("dbrx MoE layer: routing (expert ids or kept mask) differs "
+             "card vs CPU")
+    errs = {"y": rel_err(yc, yh), "aux_loss": rel_err(ac, ah),
+            "dropped": abs(dc.item() - dh.item())}
+    if max(errs.values()) > CARD_VS_CPU_RTOL:
+        fail(f"dbrx MoE layer card vs CPU: {errs}")
+    out["card_vs_cpu_rel_err"] = errs
+    print(f"dbrx MoE layer card vs CPU (f32, full width, 16 experts of "
+          f"10752, top-4, 128 tokens): routing identical, relative errors "
+          f"{errs}", flush=True)
+    return out
+
+
+def phase_jamba(train_mod, ref):
+    """jamba-v0.1-52b at full width in its smoke layout (l0 mamba + MLP,
+    l1 attention + MoE): a logit_grad trainer on the scan kernel, then a
+    ghost trainer (ref scan, flash attention)."""
+    from repro_torch.optim import tree_leaves
+    cfg = zoo_config("jamba-v0.1-52b", num_layers=2, attn_every=2,
+                     attn_offset=1, moe_every=2, moe_offset=1)
+    out = {}
+    for leg, mode, impl, per_step in (
+            ("logit_grad", "pallas", "ref", {"selective_scan": 1}),
+            ("ghost", "ref", "flash",
+             {"flash_attention": 2, "flash_attention_bwd": 2,
+              "ghost_norm": 11})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        result, launches = counted_run(
+            train_mod, ref, JAMBA_ARGV + ["--strategy", leg, "--steps",
+                                          str(JAMBA_STEPS), "--log-every",
+                                          "1"], cfg,
+            allow=("ghost_norm_direct_ref",), attn_impl=impl, ssm_mode=mode)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect_launches(launches, {k: n * JAMBA_STEPS
+                                   for k, n in per_step.items()},
+                        f"jamba {leg}")
+        check_tc(launches, f"jamba {leg}")
+        losses = finite_history(result, f"jamba {leg}")
+        n_params = sum(t.numel() for t in tree_leaves(result.state.params))
+        out[leg] = {"ssm_mode": mode, "attn_impl": impl,
+                    "steps": JAMBA_STEPS, "step_ms": result.step_ms,
+                    "peak_gib": peak, "launches": launches,
+                    "losses": losses, "params": n_params}
+        del result
+        torch.cuda.empty_cache()
+        print(f"jamba {leg}: jamba-v0.1-52b at full width, l0 mamba+MLP, "
+              f"l1 attention+MoE ({n_params / 1e9:.2f} B params, bf16), "
+              f"ssm_mode={mode!r}, attn_impl={impl!r}, {JAMBA_STEPS} steps: "
+              f"losses {losses}, step ms {result_ms(out[leg])}, peak "
+              f"{peak:.2f} GiB, launches {launches}", flush=True)
+    return out
+
+
+def result_ms(row):
+    return ", ".join(f"{v:.1f}" for v in row["step_ms"])
+
+
+def phase_musicgen(train_mod, ref):
+    """musicgen-medium at full width and full depth: scoring with 64
+    conditioning embeds before 64 tokens (logit_grad, ghost, ghost_rev on
+    the flash path, the fused objective), then the trainer on tokens."""
+    from repro_torch.core.scorer import make_lm_scorer
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+    cfg = zoo_config("musicgen-medium")
+    out = {}
+    params = transformer.init_transformer(
+        torch.Generator("cuda").manual_seed(71), cfg, "cuda")
+    g = torch.Generator("cuda").manual_seed(72)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (MUSIC_SB, MUSIC_S + 1), generator=g,
+                                     device="cuda"),
+             "embeds": (torch.randn(MUSIC_SB, MUSIC_FRONT, cfg.d_model,
+                                    generator=g, device="cuda")
+                        * 0.02).to(torch.bfloat16)}
+    layers = cfg.num_layers
+    want = {"logit_grad": {},
+            "ghost": {"ghost_norm": 8, "flash_attention": layers,
+                      "flash_attention_bwd": layers},
+            "ghost_rev": {"ghost_norm": 7 * layers + 1,
+                          "flash_attention": 2 * layers,
+                          "flash_attention_bwd": layers}}
+    scores = {}
+    for strategy, w in want.items():
+        impl = "ref" if strategy == "logit_grad" else "flash"
+        sc, ms, pk, ln = score_pass(ref, make_lm_scorer(
+            cfg, strategy, attn_impl=impl), params, batch, 2,
+            f"musicgen {strategy}")
+        ln.pop("flash_attention_bwd scored")
+        expect_launches(ln, w, f"musicgen {strategy}")
+        if not bool(torch.isfinite(sc).all() and (sc > 0).all()):
+            fail(f"musicgen {strategy}: scores {sc}")
+        scores[strategy] = sc
+        out[strategy] = {"attn_impl": impl, "pass_ms": ms, "peak_gib": pk,
+                         "launches": ln}
+    err = ((scores["ghost_rev"] - scores["ghost"]).abs()
+           / scores["ghost"]).max().item()
+    if not err <= REV_RTOL:
+        fail(f"musicgen ghost_rev vs ghost: relative error {err:.3e}")
+    with torch.no_grad():
+        losses, fused = transformer.per_example_loss_and_score(params, cfg,
+                                                               batch)
+    if not torch.allclose(fused, scores["logit_grad"], rtol=1e-5,
+                          atol=0) or not bool(torch.isfinite(losses).all()):
+        fail("musicgen: the fused objective's score != the logit_grad "
+             "scorer's")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params, batch
+    torch.cuda.empty_cache()
+    out["ghost_rev_rel_err_vs_ghost"] = err
+    out["params"] = n_params
+    print(f"musicgen scoring: musicgen-medium × {layers} layers "
+          f"({n_params / 1e9:.2f} B params, bf16), {MUSIC_FRONT} embeds + "
+          f"{MUSIC_S} tokens, score batch {MUSIC_SB}: ghost_rev vs ghost "
+          f"{err:.3e}; pass ms " + ", ".join(
+              f"{k} {out[k]['pass_ms']:.1f} (peak {out[k]['peak_gib']:.2f} "
+              f"GiB)" for k in want) + "; the fused objective's score == "
+          "logit_grad's", flush=True)
+
+    # the trainer on tokens alone, as the launcher runs it
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result, launches = counted_run(train_mod, ref, MUSIC_ARGV + [
+        "--steps", str(MUSIC_STEPS), "--log-every", "1"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect_launches(launches, {"ghost_norm": 8 * MUSIC_STEPS},
+                    "musicgen trainer")
+    check_tc(launches, "musicgen trainer")
+    losses = finite_history(result, "musicgen trainer")
+    out["trainer"] = {"steps": MUSIC_STEPS, "step_ms": result.step_ms,
+                      "peak_gib": peak, "launches": launches,
+                      "losses": losses}
+    del result
+    torch.cuda.empty_cache()
+    print(f"musicgen trainer: × {layers} layers, tokens alone, seq 64, "
+          f"ghost, {MUSIC_STEPS} steps: losses {losses}, step ms "
+          f"{result_ms(out['trainer'])}, peak {peak:.2f} GiB, launches "
+          f"{launches}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3496,6 +4044,10 @@ def main() -> int:
     tel = phase_telemetry(train_mod, ref)
     strat = phase_strategies(train_mod, ref, lm_step_ms)
     big = phase_large_tables(train_mod, ref)
+    mini = phase_minicpm3(train_mod, ops, gn, ref)
+    dbrx = phase_dbrx(train_mod, fa, fab, ref)
+    jamba = phase_jamba(train_mod, ref)
+    music = phase_musicgen(train_mod, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -3545,6 +4097,10 @@ def main() -> int:
     print("slice 12 times " + json.dumps({
         "card": card, "telemetry": tel, "strategies": strat,
         "large_tables": big, "wall_s": time.perf_counter() - t_start}),
+        flush=True)
+    print("slice 13 times " + json.dumps({
+        "card": card, "minicpm3": mini, "dbrx": dbrx, "jamba": jamba,
+        "musicgen": music, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
@@ -3641,7 +4197,22 @@ def main() -> int:
                        "lm_upper_bound":
                            strat["lm_upper_bound"]["launches"][name],
                        "int8_tree_trainer":
-                           big["trainer"]["launches"][name]},
+                           big["trainer"]["launches"][name],
+                       "minicpm3_trainer":
+                           mini["trainer"]["launches"][name],
+                       "minicpm3_cut_ghost":
+                           mini["cut"]["ghost"]["launches"][name],
+                       "minicpm3_cut_ghost_rev":
+                           mini["cut"]["ghost_rev"]["launches"][name],
+                       "dbrx_trainer": dbrx["trainer"]["launches"][name],
+                       "jamba_logit_grad":
+                           jamba["logit_grad"]["launches"][name],
+                       "jamba_ghost": jamba["ghost"]["launches"][name],
+                       **{f"musicgen_{k}_pass":
+                          music[k]["launches"].get(name, 0)
+                          for k in ("logit_grad", "ghost", "ghost_rev")},
+                       "musicgen_trainer":
+                           music["trainer"]["launches"][name]},
         })
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]

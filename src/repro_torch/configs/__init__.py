@@ -1,9 +1,11 @@
 """Model configurations of the port (own copies of the reference's).
 
 ``get_config(name)`` / ``get_smoke_config(name)`` / ``ARCH_NAMES`` follow
-``src/repro/configs/__init__.py``, aliases included.  The dense GQA/MHA
-SwiGLU archs and the attention-free mamba stack (falcon-mamba-7b) are
-ported; the others name the model code they still need.
+``src/repro/configs/__init__.py``, aliases included.  Every arch of the
+reference is ported: the dense GQA/MHA archs, MLA (minicpm3-4b), the MoE
+archs (dbrx-132b, grok-1-314b, jamba-v0.1-52b), the mamba stack
+(falcon-mamba-7b) and the frontend-embeds stubs (llava-next-34b,
+musicgen-medium).
 """
 from __future__ import annotations
 
@@ -22,20 +24,6 @@ ARCH_NAMES = (
     "falcon_mamba_7b",
 )
 
-# archs whose model code this port runs: dense attention + SwiGLU MLP, and
-# mamba-only stacks
-PORTED = ("deepseek_7b", "glm4_9b", "internlm2_20b", "falcon_mamba_7b")
-
-# what each other arch needs before it can run in the port
-NEEDS = {
-    "grok_1_314b": "MoE",
-    "minicpm3_4b": "MLA attention",
-    "musicgen_medium": "the audio frontend",
-    "jamba_v0_1_52b": "MoE",
-    "dbrx_132b": "MoE",
-    "llava_next_34b": "the vision frontend",
-}
-
 _ALIASES = {n.replace("_", "-"): n for n in ARCH_NAMES}
 _ALIASES.update({
     "grok-1-314b": "grok_1_314b",
@@ -53,16 +41,10 @@ _ALIASES.update({
 
 def resolve(name: str) -> str:
     """The module name of ``name`` (an arch name or alias); raises
-    KeyError for an unknown arch and NotImplementedError for one whose
-    model code is not ported yet."""
+    KeyError for an unknown arch."""
     key = _ALIASES.get(name, name)
     if key not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ALIASES)}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} needs {NEEDS[key]}, which the PyTorch port "
-            f"does not carry yet; ported: "
-            f"{', '.join(PORTED)}")
     return key
 
 

@@ -194,6 +194,7 @@ def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
 
 def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                      cfg: ISSGDConfig, num_examples: int,
+                     aux_loss: Optional[Callable] = None,
                      fused_score: Optional[Callable] = None,
                      monitors=None, gated: bool = False) -> Callable:
     """The master's half: ``master_pass(params, opt_state, stale_params,
@@ -202,7 +203,9 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     stale_params, store, metrics)``.
 
     Proposal read → two-stage draw (or the injected ``sample_indices``)
-    → IS-scaled unbiased update (§4.1) → parameter push.  Without
+    → IS-scaled unbiased update (§4.1) → parameter push.  The loss is
+    ``mean(losses · scales)``, plus ``aux_loss(params, batch)`` (a 0-d
+    tensor, e.g. an MoE load-balance loss) when given.  Without
     `fresh_scores` the fig-4 traces come back NaN.  In fused mode
     ``fused_score(params, batch) -> (losses, scores)`` replaces
     ``per_example_loss``: the detached scores are written at the sampled
@@ -270,6 +273,8 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
         else:
             losses = per_example_loss(live, batch)
         loss = torch.mean(losses * scales)
+        if aux_loss is not None:
+            loss = loss + aux_loss(live, batch)
         leaves = tree_leaves(live)
         flat = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(flat), live)
@@ -326,13 +331,15 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
 def make_train_step(per_example_loss: Callable, scorer: Callable,
                     optimizer: Optimizer, cfg: ISSGDConfig,
                     num_examples: int,
+                    aux_loss: Optional[Callable] = None,
                     fused_score: Optional[Callable] = None,
                     monitors=None, gated: bool = False) -> Callable:
     """The synchronous step ``master_pass ∘ scoring_pass`` over one store:
     ``train_step(state, data, sample_indices=None) -> (state, metrics)``.
     Step t's master samples from a proposal that already holds step t's
     scoring writes (lag 0).  Fused mode has no scoring pass: the scores
-    arrive from the master's forward (``fused_score``).
+    arrive from the master's forward (``fused_score``).  ``aux_loss``
+    goes to the master pass (``make_master_pass``).
 
     With a non-empty ``monitors`` the step returns ``(state, metrics,
     monitors)``; with ``gated`` it is ``train_step(state, data, use_is,
@@ -342,7 +349,8 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
     scoring = (None if cfg.mode == "fused"
                else make_scoring_pass(scorer, cfg, num_examples))
     master = make_master_pass(per_example_loss, optimizer, cfg, num_examples,
-                              fused_score=fused_score, monitors=monitors,
+                              aux_loss=aux_loss, fused_score=fused_score,
+                              monitors=monitors,
                               gated=gated)
 
     def _train_step(state: TrainState, data: dict, use_is,

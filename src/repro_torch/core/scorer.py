@@ -31,21 +31,27 @@ from repro_torch.optim import tree_leaves
 STRATEGIES = ("loss", "logit_grad", "ghost", "ghost_rev", "full")
 
 
-def _contribution(x: torch.Tensor, dt: torch.Tensor, with_bias: bool,
-                  scanned: bool) -> torch.Tensor:
+def _contribution(x: torch.Tensor, dt: torch.Tensor, batch: int,
+                  with_bias: bool, scanned: bool) -> torch.Tensor:
     """Squared per-example grad-norm contribution of one tapped linear.
 
     ``scanned`` declares whether the arrays carry a leading period axis
-    (the stacked layer records); never guessed from shapes.
+    (the stacked layer records); never guessed from shapes: a (P, B·S, d)
+    token-flattened record is shape-ambiguous with (B, S, d) when P == B.
 
     Shapes handled:
       not scanned: (B, d) rank-1 (paper Prop. 1) | (B, S, d) ghost norm
-      scanned:     (P, B, S, d)
+      scanned:     (P, B, S, d) | (P, B·S, d) token-flattened (MoE router)
     """
     if not scanned:
         if x.ndim == 2:
             return ops.per_example_sqnorm(x, dt, with_bias=with_bias)
         return ops.ghost_norm(x, dt)
+    if x.ndim == 3:      # (P, B·S, d) token-flattened
+        p = x.shape[0]
+        s = x.shape[1] // batch
+        x = x.reshape(p, batch, s, x.shape[-1])
+        dt = dt.reshape(p, batch, s, dt.shape[-1])
     # every (period, example) row is an independent layer copy, so one
     # call covers all P·B rows
     p, b = x.shape[:2]
@@ -114,7 +120,7 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
             group_d.append(dt)
             continue
         sq = flush(sq)
-        sq = sq + _contribution(x, dt, with_bias, scanned)
+        sq = sq + _contribution(x, dt, batch, with_bias, scanned)
     sq = flush(sq)
     return sq, losses.detach()
 
@@ -235,17 +241,24 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
         @torch.no_grad()
         def score(params, batch):
             tokens = batch["tokens"]
-            h, _ = forward(params, cfg, tokens[:, :-1], ssm_mode=ssm_mode,
-                           return_hidden=True)
+            embeds = batch.get("embeds")
+            n_front = embeds.shape[1] if embeds is not None else 0
+            h, _ = forward(params, cfg, tokens[:, :-1], embeds=embeds,
+                           ssm_mode=ssm_mode, return_hidden=True)
             # chunked head: never materializes (B,S,V) logits at once
-            _, grad_norm = lm_head_metrics(params, cfg, h, tokens[:, 1:])
+            _, grad_norm = lm_head_metrics(params, cfg, h[:, n_front:],
+                                           tokens[:, 1:])
             return grad_norm
         return score
 
     if strategy == "ghost":
         def score(params, batch):
             b, s = batch["tokens"].shape
-            tap_shapes = tap_structure(cfg, b, s - 1, attn_impl=attn_impl,
+            embeds = batch.get("embeds")
+            n_front = embeds.shape[1] if embeds is not None else 0
+            # the taps cover the frontend's positions too
+            tap_shapes = tap_structure(cfg, b, n_front + s - 1,
+                                       attn_impl=attn_impl,
                                        attn_scores=attn_scores)
 
             def loss_with_taps(taps):
@@ -266,14 +279,17 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
     if strategy == "full":
         from torch.func import grad, vmap
 
-        def loss_one(p, tokens):
-            losses, _ = per_example_loss(p, cfg, {"tokens": tokens[None]},
-                                         ssm_mode=ssm_mode)
+        def loss_one(p, example):
+            one = {k: v[None] for k, v in example.items()}
+            losses, _ = per_example_loss(p, cfg, one, ssm_mode=ssm_mode)
             return losses[0]
 
         def score(params, batch):
-            grads = vmap(grad(loss_one), in_dims=(None, 0))(
-                params, batch["tokens"])
+            # an MoE layer routes each example alone (capacity of T = S
+            # tokens), as the reference's vmap does
+            example = {k: batch[k] for k in ("tokens", "embeds")
+                       if k in batch}
+            grads = vmap(grad(loss_one), in_dims=(None, 0))(params, example)
             leaves = tree_leaves(grads)
             sq = sum(torch.sum(torch.square(g.float()),
                                dim=tuple(range(1, g.ndim))) for g in leaves)
@@ -294,7 +310,9 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
     period's input.  The head gives dL/dh of the summed per-example mean
     NLL (autograd through log_softmax, as the reference's vjp) and the
     unembed term ``ghost_norm(hn, dlogits)`` with the closed-form f32
-    ``dlogits = (softmax − onehot) / S`` of the reference.  Phase B walks the
+    ``dlogits = (softmax − onehot) / S`` of the reference, over the token
+    positions (the frontend's embeds, if any, are prepended to the
+    walk's input and have no logits).  Phase B walks the
     periods in reverse: it recomputes one period with zero taps and
     records, takes ONE ``torch.autograd.grad`` to (its input, its taps)
     with the incoming dL/dh, adds the period's contributions and frees
@@ -309,20 +327,25 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
 
     def period_fwd(h, pp, positions, tape):
         for i, spec in enumerate(specs):
-            h = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions, tape,
-                             f"l{i}", attn_impl=attn_impl,
-                             attn_scores=attn_scores, ssm_mode=ssm_mode)
+            h, _ = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions, tape,
+                                f"l{i}", attn_impl=attn_impl,
+                                attn_scores=attn_scores, ssm_mode=ssm_mode)
         return h
 
     def score(params, batch):
         tokens = batch["tokens"]
+        embeds = batch.get("embeds")
+        n_front = embeds.shape[1] if embeds is not None else 0
         inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
-        b, s = inputs.shape
+        b, s_text = inputs.shape
+        s = n_front + s_text
         device = tokens.device
 
         # ---- phase A: forward, keeping only the period boundaries
         with torch.no_grad():
             h = embed(params["embed"], inputs, cfg)
+            if embeds is not None:
+                h = torch.cat([embeds.to(h.dtype), h], dim=1)
             positions = torch.arange(s, device=device)[None].expand(b, s)
             boundaries = []
             for p in range(cfg.num_periods):
@@ -333,19 +356,19 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
         # ---- head: dL/dh_final of the summed per-example mean NLL (the
         # reference's vjp through log_softmax) and the unembed term
         h = h.detach().requires_grad_(True)
-        hn = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        hn = rmsnorm(params["final_norm"], h[:, n_front:], cfg.norm_eps)
         lp = torch.log_softmax(unembed(params["embed"], hn, cfg).float(),
                                dim=-1)
         nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
         dh, = torch.autograd.grad(torch.sum(torch.mean(nll, dim=-1)), h)
         with torch.no_grad():
-            # dlogits = (p − onehot) / S, built in lp's place: the head
-            # holds one f32 (B, S, V) tensor after the vjp
+            # dlogits = (p − onehot) / S_text, built in lp's place: the
+            # head holds one f32 (B, S_text, V) tensor after the vjp
             dlogits = lp.detach().exp_()
             del lp, nll
             dlogits.scatter_add_(-1, targets[..., None],
                                  torch.full_like(dlogits[..., :1], -1.0))
-            dlogits.div_(s)
+            dlogits.div_(s_text)
         sq = ops.ghost_norm(hn.detach(), dlogits)
         del hn, dlogits
 
@@ -375,7 +398,7 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
                 if x.ndim == 2 and x.shape[0] != b:    # token-flat (T, d)
                     x = x.reshape(b, -1, x.shape[-1])
                     dt = dt.reshape(b, -1, dt.shape[-1])
-                sq = sq + _contribution(x, dt, False, scanned=False)
+                sq = sq + _contribution(x, dt, b, False, scanned=False)
         return torch.sqrt(sq)
 
     return score

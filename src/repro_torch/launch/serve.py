@@ -46,12 +46,20 @@ class ServeResult(NamedTuple):
     peak_bytes: int          # device memory peak of prefill + decode (card)
 
 
+def _servable(cfg) -> bool:
+    try:
+        check_servable(cfg)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="glm4-9b",
-                    help="a ported dense LM arch by name or alias: "
-                    + ", ".join(n for n in configs.PORTED
-                                if configs.get_config(n).ssm_state == 0))
+                    help="a dense GQA LM arch by name or alias: "
+                    + ", ".join(n for n in configs.ARCH_NAMES
+                                if _servable(configs.get_config(n))))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

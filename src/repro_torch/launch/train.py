@@ -113,8 +113,8 @@ def use_full_f32() -> None:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mlp_svhn",
-                    help="mlp_svhn, or a ported LM arch by name or alias: "
-                    + ", ".join(configs.PORTED))
+                    help="mlp_svhn, or an LM arch by name or alias: "
+                    + ", ".join(configs.ARCH_NAMES))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=64)
@@ -205,7 +205,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.arch != "mlp_svhn":
         try:
             configs.resolve(args.arch)
-        except (KeyError, NotImplementedError) as e:
+        except KeyError as e:
             ap.error(f"--arch {args.arch}: {e.args[0]}")
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():

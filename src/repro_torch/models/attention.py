@@ -9,7 +9,13 @@ values.  ``impl="pallas"`` is the forward-only flash-attention kernel of
 ``kernels/ops.py`` (the serving-prefill path; the name is the reference's);
 ``impl="flash"`` is the same kernel made trainable through the
 FlashAttention-2 backward kernel, with the optional score tap
-(``attn_scores``).  MLA comes with a later slice of the port.
+(``attn_scores``).
+
+MLA (multi-head latent attention, minicpm3-4b) mirrors the reference's
+train and prefill path (``init_mla``, ``_mla_qkv``, ``mla``): low-rank
+query and key-value projections, a rope key shared by every head, and
+materialised f32 logits chunked over queries.  Its decode and its model
+sharding come with the serving and multi-device parts of the port.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
-                                       rope, tapped_linear)
+                                       init_rmsnorm, rmsnorm, rope,
+                                       tapped_linear)
 
 _NEG = -1e30
 
@@ -149,4 +156,112 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         out = _chunked_attention(qg, k, v, positions, positions,
                                  cfg.sliding_window, q_chunk)
     out = out.reshape(bsz, s, h * hd)
+    return tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
+
+
+# ===================================================================== MLA
+def init_mla(generator: torch.Generator, cfg: ModelConfig,
+             device) -> Params:
+    dtype = dtype_of(cfg)
+    h = cfg.num_heads
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    qr = cfg.q_lora_rank or cfg.d_model
+    p = {
+        "wkv_a": _dense_init(generator, cfg.d_model,
+                             cfg.kv_lora_rank + cfg.qk_rope_dim, dtype,
+                             device),
+        "kv_norm": init_rmsnorm(cfg.kv_lora_rank, dtype, device),
+        "wkv_b": _dense_init(generator, cfg.kv_lora_rank,
+                             h * (cfg.qk_nope_dim + cfg.v_head_dim), dtype,
+                             device),
+        "wo": _dense_init(generator, h * cfg.v_head_dim, cfg.d_model, dtype,
+                          device),
+    }
+    if cfg.q_lora_rank:
+        p["wq_a"] = _dense_init(generator, cfg.d_model, qr, dtype, device)
+        p["q_norm"] = init_rmsnorm(qr, dtype, device)
+        p["wq_b"] = _dense_init(generator, qr, h * qk_dim, dtype, device)
+    else:
+        p["wq"] = _dense_init(generator, cfg.d_model, h * qk_dim, dtype,
+                              device)
+    return p
+
+
+def _mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor, tape: Optional[Tape], prefix: str):
+    """The shared projections: (q_nope, q_rope, k_nope, k_rope, v,
+    latent), the rope key of shape (B, S, 1, r), shared by every head."""
+    bsz, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        qa = tapped_linear(x, params["wq_a"], f"{prefix}.wq_a", tape)
+        qa = rmsnorm(params["q_norm"], qa, cfg.norm_eps)
+        q = tapped_linear(qa, params["wq_b"], f"{prefix}.wq_b", tape)
+    else:
+        q = tapped_linear(x, params["wq"], f"{prefix}.wq", tape)
+    q = q.reshape(bsz, s, h, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = tapped_linear(x, params["wkv_a"], f"{prefix}.wkv_a", tape)
+    latent = kv_a[..., :cfg.kv_lora_rank]
+    k_rope = kv_a[..., cfg.kv_lora_rank:]
+    latent = rmsnorm(params["kv_norm"], latent, cfg.norm_eps)
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)
+    kv = tapped_linear(latent, params["wkv_b"], f"{prefix}.wkv_b", tape)
+    kv = kv.reshape(bsz, s, h, nope + cfg.v_head_dim)
+    return q_nope, q_rope, kv[..., :nope], k_rope, kv[..., nope:], latent
+
+
+# query chunks of MLA's materialised logits are recomputed in the backward
+# (as the reference's jax.checkpoint) once the sequence is longer than this;
+# at or below it autograd keeps them: (B, H, S, S) f32 a chunk
+MLA_KEEP_LOGITS_S = 64
+
+
+def _mla_chunk(qn, qr, qp, k_nope, k_rope, v, positions, scale: float,
+               window: int, dtype: torch.dtype) -> torch.Tensor:
+    lg = torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope.float())
+    lg = lg + torch.einsum("bqhd,bkxd->bhqk", qr.float(), k_rope.float())
+    lg = lg * scale
+    mask = _causal_window_mask(qp, positions, window)
+    lg = torch.where(mask[:, None], lg, _NEG)
+    p = torch.softmax(lg, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(dtype)
+
+
+def mla(params: Params, x: torch.Tensor, cfg: ModelConfig,
+        positions: torch.Tensor, tape: Optional[Tape] = None,
+        prefix: str = "attn", q_chunk: int = 512,
+        collector: Optional[dict] = None) -> torch.Tensor:
+    """Materialised MLA for training, scoring and prefill. x: (B,S,D).
+
+    With a ``collector`` the compressed cache is recorded: the normed
+    latent (B, S, kv_lora_rank) under ``{prefix}.latent`` and the roped
+    shared key (B, S, r) under ``{prefix}.rope``.  Each query row is
+    independent of the others, so a short last chunk equals the
+    reference's zero-padded one."""
+    bsz, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope, k_nope, k_rope, v, latent = _mla_qkv(
+        params, x, cfg, positions, tape, prefix)
+    if collector is not None:
+        collector[f"{prefix}.latent"] = latent
+        collector[f"{prefix}.rope"] = k_rope[:, :, 0, :]
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    recompute = torch.is_grad_enabled() and s > MLA_KEEP_LOGITS_S
+    q_chunk = min(q_chunk, s)
+    outs = []
+    for lo in range(0, s, q_chunk):
+        args = (q_nope[:, lo:lo + q_chunk], q_rope[:, lo:lo + q_chunk],
+                positions[:, lo:lo + q_chunk], k_nope, k_rope, v, positions,
+                scale, cfg.sliding_window, x.dtype)
+        if recompute:
+            from torch.utils.checkpoint import checkpoint
+            outs.append(checkpoint(_mla_chunk, *args, use_reentrant=False))
+        else:
+            outs.append(_mla_chunk(*args))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    out = out.reshape(bsz, s, h * cfg.v_head_dim)
     return tapped_linear(out, params["wo"], f"{prefix}.wo", tape)

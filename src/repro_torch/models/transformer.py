@@ -1,23 +1,27 @@
 """Decoder stack of the port: a loop over layer periods with ghost taps.
 
-Mirrors ``src/repro/models/transformer.py`` for stacks of GQA attention
-or mamba mixers, each followed by a SwiGLU MLP unless ``d_ff`` is 0 (the
-pure-SSM stacks, falcon-mamba).  The depth is ``num_periods``
-repetitions of one layer *period* (``ModelConfig.layer_specs``); layer
-parameters are stacked on a leading period axis, as in the reference.
-Where the reference runs a ``lax.scan`` over periods, the port runs a
-Python loop: each layer tap is ONE (P, B, S, dout) leaf, sliced per
-period, so its gradient comes back already stacked, and the records
-leave stacked to (P, B, S, din).  The unembed tap lives outside the loop.
+Mirrors ``src/repro/models/transformer.py`` on one device for every
+stack the reference builds: GQA or MLA attention, or mamba mixers, each
+followed by a SwiGLU MLP or a mixture of experts (``ModelConfig.
+layer_specs``), or by nothing when ``d_ff`` is 0 (the pure-SSM stacks,
+falcon-mamba); and the modality-frontend stub, whose (B, N_front, D)
+embeds are prepended to the token embeddings.  The depth is
+``num_periods`` repetitions of one layer *period*; layer parameters are
+stacked on a leading period axis, as in the reference.  Where the
+reference runs a ``lax.scan`` over periods, the port runs a Python loop:
+each layer tap is ONE (P, B, S, dout) leaf (the MoE router's (P, B·S,
+E)), sliced per period, so its gradient comes back already stacked, and
+the records leave stacked to (P, B, S, din) ((P, B·S, d) for the
+router).  The unembed tap lives outside the loop.  ``Aux.aux_loss`` sums
+the MoE layers' load-balance losses (0 for a dense stack).
 
 With ``collect_cache`` the forward also returns the decode caches of the
 serving engine: the roped K and V of every attention layer, stacked over
-periods to (P, B, S, Hkv, hd).
+periods to (P, B, S, Hkv, hd) (MLA: its latent and rope rows).
 
 ``ssm_mode`` picks the mamba scan: "ref" (the plain oracle, which autograd
 differentiates) or "pallas" (the forward-only selective-scan kernel).
-MoE, MLA and the modality frontends raise; ``remat`` has no numeric
-effect and is not ported.
+``remat`` has no numeric effect and is not ported.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
@@ -34,37 +39,41 @@ from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
 
 
 class Aux(NamedTuple):
+    aux_loss: torch.Tensor              # MoE load-balance loss (0 if dense)
     records: Optional[dict] = None      # name -> stacked records (P, ...)
-    cache: Optional[dict] = None        # name -> stacked K/V (P, B, S, ...)
+    cache: Optional[dict] = None        # name -> stacked caches (P, B, ...)
+
+
+ATTENTIONS = ("gqa", "mla", "none")
+FRONTENDS = ("none", "vision", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a stack of GQA/MHA attention or mamba
-    mixers with MLPs (or none, ``d_ff`` 0) and no frontend: the model code
-    the port carries."""
-    missing = []
-    if cfg.num_experts > 0:
-        missing.append("MoE")
-    if cfg.attention not in ("gqa", "none"):
-        missing.append(f"attention={cfg.attention!r}")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} needs {', '.join(missing)}; the PyTorch port runs "
-            f"dense GQA attention and mamba stacks only")
+    """Raise unless ``cfg`` names an attention kind and a frontend the
+    model code knows (those of the reference)."""
+    if cfg.attention not in ATTENTIONS:
+        raise ValueError(f"{cfg.name}: attention must be one of "
+                         f"{ATTENTIONS}, got {cfg.attention!r}")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: frontend must be one of "
+                         f"{FRONTENDS}, got {cfg.frontend!r}")
 
 
 # ------------------------------------------------------------------- init
 def _init_layer(generator: torch.Generator, cfg: ModelConfig,
                 spec: LayerSpec, device) -> Params:
+    if spec.mixer == "attn":
+        mixer = (attn_mod.init_mla(generator, cfg, device)
+                 if cfg.attention == "mla"
+                 else attn_mod.init_attn(generator, cfg, device))
+    else:
+        mixer = ssm_mod.init_mamba(generator, cfg, device)
     p = {"ln1": init_rmsnorm(cfg.d_model, dtype_of(cfg), device),
-         "mixer": (attn_mod.init_attn(generator, cfg, device)
-                   if spec.mixer == "attn"
-                   else ssm_mod.init_mamba(generator, cfg, device))}
+         "mixer": mixer}
     if cfg.d_ff > 0:  # pure-SSM stacks (falcon-mamba) have no FF sub-layer
         p["ln2"] = init_rmsnorm(cfg.d_model, dtype_of(cfg), device)
-        p["ff"] = init_mlp(generator, cfg, device)
+        p["ff"] = (moe_mod.init_moe(generator, cfg, device)
+                   if spec.ff == "moe" else init_mlp(generator, cfg, device))
     return p
 
 
@@ -97,9 +106,20 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                  tape: Optional[Tape], prefix: str,
                  collector: Optional[dict] = None, attn_impl: str = "ref",
                  attn_scores: Optional[str] = None,
-                 ssm_mode: str = "ref") -> torch.Tensor:
+                 ssm_mode: str = "ref") -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (h, its MoE load-balance loss, a 0-d f32 tensor)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-    if spec.mixer == "attn":
+    if spec.mixer == "attn" and cfg.attention == "mla":
+        if attn_impl != "ref" or attn_scores is not None:
+            raise ValueError(
+                f"attention='mla' runs its materialised attention only: "
+                f"the flash kernels and their score tap are GQA features "
+                f"(attn_impl={attn_impl!r}, attn_scores={attn_scores!r}); "
+                f"use the default ghost taps")
+        h = h + attn_mod.mla(lp["mixer"], hn, cfg, positions, tape,
+                             prefix=f"{prefix}.attn", collector=collector)
+    elif spec.mixer == "attn":
         h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
                               prefix=f"{prefix}.attn",
                               q_chunk=cfg.attn_chunk, collector=collector,
@@ -109,9 +129,12 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                               prefix=f"{prefix}.mamba", mode=ssm_mode,
                               collector=collector)
     if cfg.d_ff == 0:
-        return h
+        return h, aux
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-    return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp")
+    if spec.ff == "moe":
+        out = moe_mod.moe(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.moe")
+        return h + out.y, out.aux_loss
+    return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp"), aux
 
 
 def _period(tree: Params, p: int) -> Params:
@@ -121,32 +144,41 @@ def _period(tree: Params, p: int) -> Params:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             taps: Optional[dict] = None, collect: bool = False,
             collect_cache: bool = False, attn_impl: str = "ref",
             attn_scores: Optional[str] = None, ssm_mode: str = "ref",
             return_hidden: bool = False) -> tuple[torch.Tensor, Aux]:
-    """tokens (B, S) → logits (B, S, vocab) (or the final hidden states
-    with ``return_hidden``) and Aux.
+    """tokens (B, S_text) → logits (B, S, vocab) (or the final hidden
+    states with ``return_hidden``) and Aux, S = N_front + S_text.
 
-    ``taps``: name → (P, B, S, dout) tensor for every layer tap (period p
-    adds ``taps[name][p]``) and name "unembed" → (B, S, vocab).  With
-    ``collect`` the records come back in Aux, stacked to (P, B, S, din),
-    and the unembed record as (B, S, d_model).  With ``collect_cache``
-    Aux.cache holds the roped K and V of every attention layer, stacked to
-    (P, B, S, Hkv, hd): the prefill of the serving engine.  ``attn_impl``
-    is "ref", "pallas" (the flash-attention forward kernel) or "flash"
-    (the trainable flash kernels); ``attn_scores`` ("fused"/"separate",
-    with "flash") puts a (P, B) score tap ``l{i}.attn.qkv_scores`` in
-    place of the wq/wk/wv taps (``models/attention.attn``).  ``ssm_mode``
-    ("ref" or "pallas") is the mamba layers' scan (``models/ssm.mamba``)."""
+    ``embeds`` (B, N_front, D), the frontend stub's output, is prepended
+    to the token embeddings (cast to their dtype).  ``taps``: name →
+    (P, B, S, dout) tensor for every layer tap (period p adds
+    ``taps[name][p]``; the MoE router's is (P, B·S, E)) and name
+    "unembed" → (B, S, vocab).  With ``collect`` the records come back in
+    Aux, stacked to (P, B, S, din) ((P, B·S, d) for a router), and the
+    unembed record as (B, S, d_model).  With ``collect_cache`` Aux.cache
+    holds the roped K and V of every attention layer, stacked to (P, B,
+    S, Hkv, hd): the prefill of the serving engine.  ``attn_impl`` is
+    "ref", "pallas" (the flash-attention forward kernel) or "flash" (the
+    trainable flash kernels); ``attn_scores`` ("fused"/"separate", with
+    "flash") puts a (P, B) score tap ``l{i}.attn.qkv_scores`` in place of
+    the wq/wk/wv taps (``models/attention.attn``); MLA takes neither.
+    ``ssm_mode`` ("ref" or "pallas") is the mamba layers' scan
+    (``models/ssm.mamba``).  ``Aux.aux_loss`` is the sum of the MoE
+    layers' load-balance losses."""
     check_supported(cfg)
     specs = cfg.layer_specs()
     h = embed(params["embed"], tokens, cfg)
+    if embeds is not None:
+        h = torch.cat([embeds.to(h.dtype), h], dim=1)
     bsz, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None].expand(bsz, s)
 
     layer_taps = dict(taps) if taps is not None else {}
     head_tap = layer_taps.pop("unembed", None)
+    aux_loss = torch.zeros((), dtype=torch.float32, device=h.device)
     per_period, per_cache = [], []
     for p in range(cfg.num_periods):
         pp = _period(params["layers"], p)
@@ -154,9 +186,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                     records={} if collect else None)
         cache = {} if collect_cache else None
         for i, spec in enumerate(specs):
-            h = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions, tape,
-                             f"l{i}", collector=cache, attn_impl=attn_impl,
-                             attn_scores=attn_scores, ssm_mode=ssm_mode)
+            h, aux = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions,
+                                  tape, f"l{i}", collector=cache,
+                                  attn_impl=attn_impl,
+                                  attn_scores=attn_scores, ssm_mode=ssm_mode)
+            aux_loss = aux_loss + aux
         per_period.append(tape.records)
         per_cache.append(cache)
 
@@ -164,13 +198,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     caches = _stack_periods(per_cache) if collect_cache else None
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if return_hidden:
-        return h, Aux(records=records, cache=caches)
+        return h, Aux(aux_loss, records, caches)
     head_tape = Tape(taps={"unembed": head_tap} if head_tap is not None
                      else None, records={} if collect else None)
     logits = unembed(params["embed"], h, cfg, tape=head_tape)
     if collect:
         records.update(head_tape.records)
-    return logits, Aux(records=records, cache=caches)
+    return logits, Aux(aux_loss, records, caches)
 
 
 def _stack_periods(per_period: list) -> dict:
@@ -184,16 +218,20 @@ def tap_structure(cfg: ModelConfig, batch: int, seq: int,
                   attn_scores: Optional[str] = None) -> dict:
     """name → shape of every tap, in the forward's record order: layer
     taps with the leading period axis, then the (B, S, vocab) unembed.
-    Computed from the config's arithmetic (the taps are f32).
-    ``attn_impl``/``attn_scores`` must match the forward the taps feed:
-    an active score tap replaces the wq/wk/wv taps of each attention layer
-    with one (P, B) ``qkv_scores`` tap.  A mamba layer taps in_proj
-    (2·d_inner), x_proj (dt_rank + 2·d_state) and out_proj (d_model),
-    whichever scan its forward runs."""
+    ``seq`` is the whole sequence the forward runs, the frontend's
+    positions included (N_front + S_text).  Computed from the config's
+    arithmetic (the taps are f32).  ``attn_impl``/``attn_scores`` must
+    match the forward the taps feed: an active score tap replaces the
+    wq/wk/wv taps of each GQA layer with one (P, B) ``qkv_scores`` tap.
+    A mamba layer taps in_proj (2·d_inner), x_proj (dt_rank + 2·d_state)
+    and out_proj (d_model), whichever scan its forward runs; an MLA layer
+    wq_a and wq_b (or wq), wkv_a, wkv_b and wo; an MoE layer only its
+    router, on the token-flattened (P, B·S, E) logits."""
     check_supported(cfg)
     attn_mod.check_attn_scores(attn_impl, attn_scores)
     hd = cfg.resolved_head_dim
     di = cfg.resolved_d_inner
+    h = cfg.num_heads
     lead = (cfg.num_periods, batch, seq)
     out = {}
     for i, spec in enumerate(cfg.layer_specs()):
@@ -204,17 +242,33 @@ def tap_structure(cfg: ModelConfig, batch: int, seq: int,
                                               + 2 * cfg.ssm_state,),
                 f"l{i}.mamba.out_proj": lead + (cfg.d_model,),
             })
+        elif cfg.attention == "mla":
+            qk = h * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+            if cfg.q_lora_rank:
+                out[f"l{i}.attn.wq_a"] = lead + (cfg.q_lora_rank,)
+                out[f"l{i}.attn.wq_b"] = lead + (qk,)
+            else:
+                out[f"l{i}.attn.wq"] = lead + (qk,)
+            out.update({
+                f"l{i}.attn.wkv_a": lead + (cfg.kv_lora_rank
+                                            + cfg.qk_rope_dim,),
+                f"l{i}.attn.wkv_b": lead + (
+                    h * (cfg.qk_nope_dim + cfg.v_head_dim),),
+            })
         elif attn_scores is not None:
             out[f"l{i}.attn.qkv_scores"] = (cfg.num_periods, batch)
         else:
             out.update({
-                f"l{i}.attn.wq": lead + (cfg.num_heads * hd,),
+                f"l{i}.attn.wq": lead + (h * hd,),
                 f"l{i}.attn.wk": lead + (cfg.num_kv_heads * hd,),
                 f"l{i}.attn.wv": lead + (cfg.num_kv_heads * hd,),
             })
         if spec.mixer == "attn":
             out[f"l{i}.attn.wo"] = lead + (cfg.d_model,)
-        if cfg.d_ff > 0:
+        if cfg.d_ff > 0 and spec.ff == "moe":
+            out[f"l{i}.moe.router"] = (cfg.num_periods, batch * seq,
+                                       cfg.num_experts)
+        elif cfg.d_ff > 0:
             out.update({
                 f"l{i}.mlp.w_in": lead + (cfg.d_ff,),
                 f"l{i}.mlp.w_gate": lead + (cfg.d_ff,),
@@ -262,23 +316,28 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
                      attn_impl: str = "ref",
                      attn_scores: Optional[str] = None,
                      ssm_mode: str = "ref") -> tuple[torch.Tensor, Aux]:
-    """Mean next-token CE per example. batch: {tokens (B, S+1), [mask]}.
-    ``attn_impl``/``attn_scores``/``ssm_mode`` go to ``forward``."""
+    """Mean next-token CE per example. batch: {tokens (B, S+1), [embeds
+    (B, N_front, D)], [mask]}.  The embeds are prepended and the loss
+    covers the token positions only.  ``attn_impl``/``attn_scores``/
+    ``ssm_mode`` go to ``forward``."""
     tokens = batch["tokens"]
+    embeds = batch.get("embeds")
+    n_front = embeds.shape[1] if embeds is not None else 0
     targets = tokens[:, 1:].long()
     mask = batch.get("mask")
     if cfg.loss_chunk > 0 and taps is None:
-        h, aux = forward(params, cfg, tokens[:, :-1], collect=collect,
-                         attn_impl=attn_impl, attn_scores=attn_scores,
-                         ssm_mode=ssm_mode, return_hidden=True)
+        h, aux = forward(params, cfg, tokens[:, :-1], embeds=embeds,
+                         collect=collect, attn_impl=attn_impl,
+                         attn_scores=attn_scores, ssm_mode=ssm_mode,
+                         return_hidden=True)
         mean_nll, _ = lm_head_metrics(
-            params, cfg, h, targets,
+            params, cfg, h[:, n_front:], targets,
             None if mask is None else mask[:, 1:].float())
         return mean_nll, aux
-    logits, aux = forward(params, cfg, tokens[:, :-1], taps=taps,
-                          collect=collect, attn_impl=attn_impl,
+    logits, aux = forward(params, cfg, tokens[:, :-1], embeds=embeds,
+                          taps=taps, collect=collect, attn_impl=attn_impl,
                           attn_scores=attn_scores, ssm_mode=ssm_mode)
-    lp = torch.log_softmax(logits.float(), dim=-1)
+    lp = torch.log_softmax(logits[:, n_front:].float(), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     if mask is not None:
         m = mask[:, 1:].float()
@@ -294,11 +353,13 @@ def per_example_loss_and_score(params: Params, cfg: ModelConfig,
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused-mode objective: (mean NLL (B,), logit-grad scores (B,)) from
     ONE forward: the score the workers' pass would compute falls out of
-    the chunked head (``lm_head_metrics``).  The attention is the ref
-    path, as in the reference."""
+    the chunked head (``lm_head_metrics``), over the token positions.  The
+    attention is the ref path, as in the reference."""
     tokens = batch["tokens"]
-    h, _ = forward(params, cfg, tokens[:, :-1], ssm_mode=ssm_mode,
-                   return_hidden=True)
+    embeds = batch.get("embeds")
+    n_front = embeds.shape[1] if embeds is not None else 0
+    h, _ = forward(params, cfg, tokens[:, :-1], embeds=embeds,
+                   ssm_mode=ssm_mode, return_hidden=True)
     mask = batch.get("mask")
-    return lm_head_metrics(params, cfg, h, tokens[:, 1:].long(),
+    return lm_head_metrics(params, cfg, h[:, n_front:], tokens[:, 1:].long(),
                            None if mask is None else mask[:, 1:].float())

@@ -48,6 +48,26 @@ def clip_by_global_norm(tree, max_norm: float, norm=None):
     return tree_map(lambda x: x * scale.to(x.dtype), tree), n
 
 
+# leaves above this many elements are updated a slice at a time, so that
+# the f32 temporaries of the unfused update stay small (an MoE expert leaf
+# of 2.1 B elements would otherwise hold ~25 GB of them); the update is
+# elementwise, so the slices give the whole leaf's bits
+_SLICE = 1 << 26
+
+
+def _by_slices(fn: Callable, p: torch.Tensor, *rest) -> torch.Tensor:
+    """fn(p, *rest) (elementwise, in p's shape and dtype), computed over
+    slices of at most ``_SLICE`` elements when p is larger."""
+    if p.numel() <= _SLICE:
+        return fn(p, *rest)
+    out = torch.empty_like(p)
+    flat = [t.reshape(-1) for t in (p, *rest)]
+    o = out.view(-1)
+    for lo in range(0, p.numel(), _SLICE):
+        o[lo:lo + _SLICE] = fn(*(f[lo:lo + _SLICE] for f in flat))
+    return out
+
+
 def sgd(lr: float | Callable, momentum: float = 0.0) -> Optimizer:
     """Plain SGD (the paper's optimizer), optional heavy-ball momentum."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
@@ -62,9 +82,9 @@ def sgd(lr: float | Callable, momentum: float = 0.0) -> Optimizer:
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
         if momentum == 0.0:
-            new_params = tree_map(
-                lambda p, g: (p.float() - lr_t * g.float()).to(p.dtype),
-                params, grads)
+            new_params = tree_map(lambda p, g: _by_slices(
+                lambda pp, gg: (pp.float() - lr_t * gg.float()).to(p.dtype),
+                p, g), params, grads)
             return new_params, state
         new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
         new_params = tree_map(

@@ -41,15 +41,27 @@ from repro_torch.models.transformer import _period, check_supported, forward
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Raise unless the engine serves ``cfg``: a model the port runs
-    (``transformer.check_supported``) without mamba layers, whose decode
-    state comes with the mamba serving slice."""
+    """Raise unless the engine serves ``cfg``: a stack of dense GQA/MHA
+    attention layers with MLPs and no frontend.  Mamba layers, MLA, MoE
+    and the frontends' embeds need serving code (decode states, the
+    absorbed MLA decode, dropless expert dispatch at decode, embeds in
+    prefill) that the PyTorch port does not carry yet; each is refused by
+    name."""
     check_supported(cfg)
+    needs = []
     if cfg.ssm_state > 0:
+        needs.append("SSM (mamba) serving (MambaState, mamba_decode)")
+    if cfg.attention == "mla":
+        needs.append("MLA serving (mla_decode over the latent cache)")
+    if cfg.num_experts > 0:
+        needs.append("MoE serving (dropless dispatch at decode)")
+    if cfg.frontend != "none":
+        needs.append(f"frontend serving (the {cfg.frontend} embeds in "
+                     f"prefill)")
+    if needs:
         raise NotImplementedError(
-            f"{cfg.name} needs SSM (mamba) serving (MambaState, "
-            f"mamba_decode), which the PyTorch port does not carry yet; it "
-            f"serves dense GQA stacks")
+            f"{cfg.name} needs {' and '.join(needs)}, which the PyTorch "
+            f"port does not carry yet; it serves dense GQA stacks")
 
 
 class ServeState(NamedTuple):

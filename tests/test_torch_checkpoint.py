@@ -204,6 +204,57 @@ def test_bf16_leaves_cross_bitwise(tmp_path):
         assert z["w"].dtype == np.uint16
 
 
+def _bits(tree) -> dict:
+    """{flat key: (dtype name, shape, raw bytes)} of a JAX or port tree."""
+    out = {}
+    for k, v in tck._flatten(tree).items():
+        if isinstance(v, torch.Tensor):
+            name = str(v.dtype).removeprefix("torch.")
+            v = (v.view(torch.int16) if v.dtype == torch.bfloat16 else v)
+            a = v.detach().cpu().numpy()
+        else:
+            a = np.asarray(v)
+            name = a.dtype.name
+        out[k] = (name, a.shape, a.tobytes())
+    return out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "minicpm3-4b"])
+def test_zoo_param_trees_cross_bitwise(arch, tmp_path):
+    """The MoE tree (f32 router, 3-D bf16 expert weights) and the MLA
+    tree (wq_a/q_norm/wq_b, wkv_a/kv_norm/wkv_b, wo) of the smoke configs
+    in bf16: a reference file restores into a port template and a port
+    file into a reference template, bitwise, with the same npz keys."""
+    import dataclasses
+
+    from repro import configs as jconfigs
+    from repro.models import transformer as jtf
+    from repro_torch import configs
+    from repro_torch.models import transformer as ttf
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
+                               dtype="bfloat16")
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="bfloat16")
+    jparams = jtf.init_transformer(jax.random.key(0), jcfg)
+    tparams = ttf.init_transformer(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
+    j_save(tmp_path / "ref.npz", jparams, step=3)
+    got, step = restore_checkpoint(
+        tmp_path / "ref.npz",
+        ttf.init_transformer(torch.Generator().manual_seed(1), cfg, "cpu"))
+    assert step == 3
+    assert _bits(got) == _bits(jparams)
+    save_checkpoint(tmp_path / "port.npz", tparams, step=4)
+    back, _ = j_restore(tmp_path / "port.npz",
+                        jtf.init_transformer(jax.random.key(1), jcfg))
+    assert _bits(back) == _bits(tparams)
+    with np.load(tmp_path / "ref.npz") as a, \
+            np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+
+
 def test_missing_keys_keep_the_template(tmp_path):
     save_checkpoint(tmp_path / "a.npz", {"a": torch.ones(3)}, step=4)
     template = {"a": torch.zeros(3, dtype=torch.float64),

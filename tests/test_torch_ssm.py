@@ -394,9 +394,15 @@ def test_forward_only_kernel_refusals(falcon):
 
 
 def test_model_code_admits_mamba_but_not_moe_or_mla():
-    _, cfg = _mamba_cfg(num_experts=4, num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="needs MoE"):
-        ttf.init_transformer(torch.Generator().manual_seed(0), cfg, "cpu")
+    """A mamba stack with MoE feed-forwards builds (jamba's layout); the
+    serving engine refuses it by name."""
+    from repro_torch.serving.engine import check_servable
+    _, cfg = _mamba_cfg(num_experts=4, num_experts_per_tok=2, d_ff=40)
+    p = ttf.init_transformer(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert set(p["layers"]["l0"]["ff"]) == {"router", "w_in", "w_gate",
+                                            "w_out"}
+    with pytest.raises(NotImplementedError, match="MoE serving"):
+        check_servable(cfg)
     # a hybrid of mamba and GQA attention layers with MLPs: both mixers
     _, cfg = _mamba_cfg(num_layers=2, attn_every=2, attention="gqa",
                         num_heads=4, num_kv_heads=2, d_ff=40)

@@ -36,7 +36,9 @@ from repro_torch.models.layers import params_from_jax  # noqa: E402
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
-PORTED_ALIASES = ("glm4-9b", "deepseek-7b", "internlm2-20b")
+ARCH_ALIASES = ("glm4-9b", "deepseek-7b", "internlm2-20b", "falcon-mamba-7b",
+                "minicpm3-4b", "dbrx-132b", "grok-1-314b", "jamba-v0.1-52b",
+                "llava-next-34b", "musicgen-medium")
 
 
 def _np(t):
@@ -63,13 +65,13 @@ def _small_cfg(**kw):
 
 
 # ----------------------------------------------------------------- configs
-@pytest.mark.parametrize("name", PORTED_ALIASES)
+@pytest.mark.parametrize("name", ARCH_ALIASES)
 def test_configs_equal_reference_field_by_field(name):
     for getter in ("get_config", "get_smoke_config"):
         want = dataclasses.asdict(getattr(jconfigs, getter)(name))
         got = dataclasses.asdict(getattr(configs, getter)(name))
         assert got == want, getter
-        mod = name.replace("-", "_")
+        mod = configs.resolve(name)
         assert dataclasses.asdict(getattr(configs, getter)(mod)) == want
     cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
     assert [dataclasses.asdict(s) for s in cfg.layer_specs()] == \
@@ -80,21 +82,31 @@ def test_configs_equal_reference_field_by_field(name):
 
 
 def test_arch_registry_matches_reference_and_names_what_is_missing():
+    """Every arch of the reference resolves in the port; an unknown name
+    is refused by name."""
     assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
     assert configs._ALIASES == jconfigs._ALIASES
-    for name in set(configs.ARCH_NAMES) - set(configs.PORTED):
-        with pytest.raises(NotImplementedError,
-                           match="PyTorch port does not carry"):
-            configs.get_config(name)
+    assert sorted(configs.resolve(a) for a in ARCH_ALIASES) == sorted(
+        configs.ARCH_NAMES)
+    for name in configs.ARCH_NAMES:
+        assert configs.resolve(name) == name
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
 
 
 def test_unported_model_code_raises():
+    """MoE, MLA and the frontend stub build; an attention kind or a
+    frontend the reference does not know is refused by name."""
     for kw in (dict(num_experts=4, num_experts_per_tok=2),
-               dict(attention="mla"), dict(frontend="vision")):
+               dict(attention="mla", q_lora_rank=8, kv_lora_rank=8,
+                    qk_nope_dim=4, qk_rope_dim=4, v_head_dim=4),
+               dict(frontend="vision")):
         _, cfg = _small_cfg(**kw)
-        with pytest.raises(NotImplementedError, match="dense GQA"):
+        ttf.init_transformer(torch.Generator().manual_seed(0), cfg, "cpu")
+    for kw, what in ((dict(attention="linear"), "attention must be"),
+                     (dict(frontend="video"), "frontend must be")):
+        _, cfg = _small_cfg(**kw)
+        with pytest.raises(ValueError, match=what):
             ttf.init_transformer(torch.Generator().manual_seed(0), cfg,
                                  "cpu")
     # a mamba stack without MLPs is ported: it builds
@@ -237,7 +249,7 @@ def test_lm_head_metrics_and_masked_loss(glm_smoke):
             np.testing.assert_allclose(_np(g), np.asarray(w), **F32)
 
 
-@pytest.mark.parametrize("name", PORTED_ALIASES)
+@pytest.mark.parametrize("name", ARCH_ALIASES)
 def test_tap_structure_matches_reference(name):
     jcfg = jconfigs.get_smoke_config(name)
     want = jtf.tap_structure(jcfg, 4, 9)
