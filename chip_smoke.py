@@ -244,6 +244,39 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 with their launches, ghost_rev against ghost (≤ 1e-4), the
                 fused objective's score equal to logit_grad's; then the
                 trainer on tokens alone.
+ 33. serve falcon-mamba — falcon-mamba-7b at full width and full depth (64
+                layers, bf16) through the serve entry point, every plain
+                version forbidden: batch 8, prompt 1024, 64 graphed steps
+                (no kernel on this path: the prefill scans with the
+                oracle, as the reference's collector does, and decode
+                steps the state); graphed == eager bitwise (logits,
+                lengths, caches) from one cloned state after the runner's
+                warm-up; eager and graphed step ms and idle shares.  Then
+                the batcher: 16 requests through 8 slots, bucketed
+                pad-masked prefills; at prompts of 115 and 282 tokens the
+                bucketed state against the unpadded one's, measured
+                (bitwise or not, by layer).
+ 34. serve jamba — jamba-v0.1-52b at full width, one published period (8
+                layers: mamba at 0–3 and 5–7, GQA at 4, MoE at 1, 3, 5,
+                7), prompt 2048: flash_attention 1 a prefill and
+                decode_attention 1 a token step, all tensor-core (rep 4);
+                graphed == eager bitwise; the step's device time split
+                into the dropless expert bmms, the other GEMMs and the rest.
+ 35. serve minicpm3 — minicpm3-4b (MLA) at full depth (62 layers), prompt
+                2048: the materialised MLA prefill, the absorbed decode
+                over the compressed cache; graphed == eager bitwise.
+ 36. serve musicgen — musicgen-medium at full depth (48 layers), 64
+                embeds before a 1024-token prompt: flash_attention 48 a
+                prefill, decode_attention 48 a token step (MHA, hd 64),
+                all tensor-core; graphed == eager bitwise.  Phase 10 holds
+                both kernels at jamba's and musicgen's served shapes first.
+ 37. serve parity — full width, 1 layer, f32: a falcon-mamba layer (also
+                its bucketed prefill's state against the unpadded one's on
+                the card), a minicpm3 MLA layer and a jamba mamba+MoE layer
+                (experts cut to 4), a (2, 64) prefill and 4 decode steps,
+                card vs CPU ≤ 1e-4 with identical expert ids; minicpm3 × 2
+                with sliding window 8 decoding past the ring's wrap, card
+                vs CPU and each against its windowed forward.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -473,6 +506,26 @@ MUSIC_ARGV = ["--arch", "musicgen-medium", "--mode", "relaxed",
               "--score-batch", "32", "--examples", "2048", "--lr", "0.01",
               "--refresh-every", "8", "--device", "cuda"]
 MUSIC_STEPS = 3
+# slice 14: the rest of the serving engine at full width, bf16, batch 8,
+# 64 graphed greedy steps each, through launch/serve.py
+ZOO_SERVE_B, ZOO_SERVE_STEPS = 8, 64
+FALCON_SERVE_PROMPT = 1024               # falcon-mamba-7b, 64 layers
+JAMBA_SERVE_LAYERS, JAMBA_SERVE_PROMPT = 8, 2048   # one published period
+JAMBA_SERVE_MAX = JAMBA_SERVE_PROMPT + ZOO_SERVE_STEPS
+MINI_SERVE_PROMPT = 2048                 # minicpm3-4b, 62 layers
+MUSIC_SERVE_FRONT, MUSIC_SERVE_PROMPT = 64, 1024   # musicgen, 48 layers
+MUSIC_SERVE_MAX = MUSIC_SERVE_FRONT + MUSIC_SERVE_PROMPT + ZOO_SERVE_STEPS
+# the falcon batcher: 16 requests through 8 slots; its bucketed prefills
+# scan with the oracle, S_bucket steps a layer (buckets 32 to 128; prompts
+# to 300 took 44 s, the oracle's host loop)
+FALCON_BATCHER_PROMPT, FALCON_BATCHER_MAX_LEN = (17, 128), 1024
+# the bucketed prefill's state against the unpadded one's at these prompt
+# lengths (buckets 128 and 512): on the card the in_proj GEMM may differ
+# with the row count
+BUCKET_PROBES = (115, 282)
+# card vs CPU: a prefill of 64 tokens and 4 decode steps at 1 layer, f32
+ZOO_PARITY_B, ZOO_PARITY_S, ZOO_PARITY_STEPS = 2, 64, 4
+ZOO_PARITY_EXPERTS = 4
 
 
 def fail(msg: str) -> None:
@@ -1278,6 +1331,12 @@ def phase_attn_kernels(fa, da, ref):
         ("hd 64", 2, 90, 4, 1, 64, 0, bf16),
         ("MHA (deepseek-7b heads)", 1, 100, 32, 32, 128, 0, bf16),
         ("rep 64", 1, 50, 64, 1, 64, 0, bf16),
+        # the served paths of slice 14: jamba's GQA layer (a group of 4),
+        # musicgen's MHA at hd 64 over 64 embeds + a 1024-token prompt
+        ("jamba-v0.1-52b prefill", ZOO_SERVE_B, JAMBA_SERVE_PROMPT, 32, 8,
+         128, 0, bf16),
+        ("musicgen-medium prefill", ZOO_SERVE_B,
+         MUSIC_SERVE_FRONT + MUSIC_SERVE_PROMPT, 24, 24, 64, 0, bf16),
     ]
     for ci, (tag, b, s, h, hkv, hd, win, dt) in enumerate(flash_cases):
         q, k, v = attn_inputs([(b, s, h, hd), (b, s, hkv, hd),
@@ -1319,6 +1378,10 @@ def phase_attn_kernels(fa, da, ref):
         ("MHA (deepseek-7b heads)", 2, 200, 32, 32, 128, [200, 5], bf16),
         ("rep 6 (internlm2-20b heads)", 2, 200, 48, 8, 128, [199, 64], f32),
         ("hd 64", 2, 64, 4, 1, 64, [64, 0], f32),
+        ("jamba-v0.1-52b decode", ZOO_SERVE_B, JAMBA_SERVE_MAX, 32, 8, 128,
+         [JAMBA_SERVE_MAX, 1] + rand(6, JAMBA_SERVE_MAX), bf16),
+        ("musicgen-medium decode", ZOO_SERVE_B, MUSIC_SERVE_MAX, 24, 24, 64,
+         [MUSIC_SERVE_MAX, 0] + rand(6, MUSIC_SERVE_MAX), bf16),
     ]
     def check_decode(tag, q, k, v, lens):
         """Both launches, the plain version, the -inf oracle, length-0
@@ -1953,12 +2016,15 @@ def clone_state(st):
                       lengths=st.lengths.clone())
 
 
-def phase_serve_graph_equal(result):
+def phase_serve_graph_equal(result, cfg=None, bitwise=False,
+                            tag="serve graph"):
     """From one cloned state, one eager decode step and one replay of the
-    captured step: logits, lengths and caches bitwise equal (or, failing
-    that, the logits within CARD_VS_CPU_RTOL, reported)."""
+    captured step: lengths and caches bitwise equal, the logits too with
+    ``bitwise`` (else within CARD_VS_CPU_RTOL, reported).  The runner's
+    warm-up steps run on its copy of the state first, so a recurrent
+    state they left advanced would show here."""
     from repro_torch.serving.engine import decode_step, make_decode_runner
-    cfg = serve_config()
+    cfg = cfg or serve_config()
     tok = result.tokens[:, -1].contiguous()
     with torch.no_grad():
         logits_e, st_e = decode_step(result.params, cfg, tok,
@@ -1970,31 +2036,32 @@ def phase_serve_graph_equal(result):
     caches_equal = all(torch.equal(st_g.caches[k], v)
                        for k, v in st_e.caches.items())
     lengths_equal = torch.equal(st_g.lengths, st_e.lengths)
-    bitwise = torch.equal(logits_g, logits_e)
+    logits_equal = torch.equal(logits_g, logits_e)
     err = rel_err(logits_g.float(), logits_e.float())
-    print(f"serve graph: one replay of the captured decode step vs one "
+    print(f"{tag}: one replay of the captured decode step vs one "
           f"eager step from one cloned state: logits "
-          f"{'bitwise equal' if bitwise else f'differ, rel err {err:.3e}'}"
+          f"{'bitwise equal' if logits_equal else f'differ, rel err {err:.3e}'}"
           f", lengths {'equal' if lengths_equal else 'DIFFER'}, caches "
           f"{'bitwise equal' if caches_equal else 'DIFFER'}", flush=True)
     if not (lengths_equal and caches_equal):
-        fail("the graphed decode step's state differs from the eager step's")
-    if err > CARD_VS_CPU_RTOL:
-        fail(f"graphed vs eager decode logits rel err {err:.3e} > "
-             f"{CARD_VS_CPU_RTOL}")
+        fail(f"{tag}: the graphed decode step's state differs from the "
+             f"eager step's")
+    if err > CARD_VS_CPU_RTOL or (bitwise and not logits_equal):
+        fail(f"{tag}: graphed vs eager decode logits rel err {err:.3e}")
     del runner, st_e, st_g
     torch.cuda.empty_cache()
-    return {"logits_bitwise": bitwise, "logits_rel_err": err,
+    return {"logits_bitwise": logits_equal, "logits_rel_err": err,
             "caches_bitwise": caches_equal}
 
 
-def phase_serve_profile(result, steps=4, warm=2, timed=8):
+def phase_serve_profile(result, steps=4, warm=2, timed=8, cfg=None,
+                        tag="serve profile"):
     """The decode step eager and as replays of its captured graph, in the
     same call, continuing the main path's state (past max_len the ring
     wraps; slot order does not matter): the median of ``timed`` steps
     (CUDA events) and a profiler window (idle share) for each."""
     from repro_torch.serving.engine import decode_step, make_decode_runner
-    cfg = serve_config()
+    cfg = cfg or serve_config()
     carry = {"st": result.state, "tok": result.tokens[:, -1].contiguous()}
 
     @torch.no_grad()
@@ -2007,7 +2074,7 @@ def phase_serve_profile(result, steps=4, warm=2, timed=8):
         eager()
     out = {"eager": {"step_ms": step_times(eager, timed)}}
     out["eager"]["profile"] = profile_window(
-        eager, steps, "serve profile (eager decode steps)")
+        eager, steps, f"{tag} (eager decode steps)")
     with torch.no_grad():
         runner = make_decode_runner(result.params, cfg, carry["st"],
                                     "pallas")
@@ -2021,7 +2088,7 @@ def phase_serve_profile(result, steps=4, warm=2, timed=8):
         graphed()
     out["graphed"] = {"step_ms": step_times(graphed, timed)}
     out["graphed"]["profile"] = profile_window(
-        graphed, steps, "serve profile (graphed decode steps)")
+        graphed, steps, f"{tag} (graphed decode steps)")
     # the profiler's own host work stretches its window's wall clock; the
     # device time a step over the unprofiled median step is the idle share
     # the serving user sees
@@ -2035,7 +2102,7 @@ def phase_serve_profile(result, steps=4, warm=2, timed=8):
                       f"{out[m]['idle_share_vs_median']:.3f})"
                       if out[m]["profile"] else
                       f"{out[m]['step_ms_median']:.3f} ms")
-    print(f"serve profile: median decode step eager {show('eager')}, "
+    print(f"{tag}: median decode step eager {show('eager')}, "
           f"graphed {show('graphed')} (CUDA events, {timed} steps each, "
           f"one call; idle share: 1 - profiled device ms a step / median "
           f"step)", flush=True)
@@ -3964,6 +4031,416 @@ def phase_musicgen(train_mod, ref):
     return out
 
 
+# ------------------------------------------- slice 14: the rest of serving
+def zoo_serve_argv(arch, prompt, *extra):
+    return ["--arch", arch, "--batch", str(ZOO_SERVE_B), "--prompt-len",
+            str(prompt), "--steps", str(ZOO_SERVE_STEPS), "--device", "cuda",
+            *extra]
+
+
+def phase_zoo_serve(serve_mod, ref, tag, argv, cfg, per_prefill, per_step,
+                    n_front=0):
+    """One arch served at full width through the serve entry point, every
+    plain version forbidden: the launches of the prefill and of each
+    token step (the runner's warm-up steps included), all tensor-core;
+    tokens, lengths and caches; then graphed == eager bitwise (logits,
+    lengths, caches) from one cloned state, and the eager and graphed
+    steps' times and idle shares."""
+    from repro_torch.serving.engine import DECODE_WARMUP
+    torch.cuda.empty_cache()
+    reset_counts()
+    result = run_forbidding_plain(ref, lambda: serve_mod.main(argv, cfg))
+    launches = read_counts()
+    steps = ZOO_SERVE_STEPS + DECODE_WARMUP
+    expect_launches(launches, {k: per_prefill.get(k, 0)
+                               + per_step.get(k, 0) * steps
+                               for k in launches}, tag)
+    check_tc(launches, tag)
+    prompt = int(argv[argv.index("--prompt-len") + 1])
+    toks = result.tokens
+    if tuple(toks.shape) != (ZOO_SERVE_B, ZOO_SERVE_STEPS + 1) or \
+            toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{tag}: tokens {tuple(toks.shape)} outside [0, "
+             f"{cfg.vocab_size})")
+    total = n_front + prompt + ZOO_SERVE_STEPS
+    if result.state.lengths.tolist() != [total] * ZOO_SERVE_B:
+        fail(f"{tag}: lengths {result.state.lengths.tolist()}")
+    for name, buf in result.state.caches.items():
+        if not torch.isfinite(buf).all():
+            fail(f"{tag}: cache {name} holds a non-finite value")
+    step_ms = statistics.median(result.step_ms)
+    out = {"layers": cfg.num_layers, "batch": ZOO_SERVE_B, "prompt": prompt,
+           "frontend_tokens": n_front, "steps": ZOO_SERVE_STEPS,
+           "prefill_route": result.prefill_route,
+           "prefill_ms": result.prefill_ms, "decode_step_ms_median": step_ms,
+           "decode_step_ms": result.step_ms, "tok_per_s": result.tok_per_s,
+           "decode_s": result.decode_s, "capture_ms": result.capture_ms,
+           "peak_mem_gib": result.peak_bytes / 2**30, "launches": launches,
+           "card_after": card_state()}
+    print(f"{tag}: {cfg.name} × {cfg.num_layers} layers, batch "
+          f"{ZOO_SERVE_B}, {n_front} embeds + prompt {prompt}, "
+          f"{ZOO_SERVE_STEPS} graphed steps (after {DECODE_WARMUP} eager "
+          f"warm-up steps and the capture, {result.capture_ms:.1f} ms), "
+          f"prefill route {result.prefill_route}: launches {launches}; "
+          f"prefill {result.prefill_ms:.3f} ms, median decode step "
+          f"{step_ms:.3f} ms (CUDA events), {result.tok_per_s:.1f} tok/s, "
+          f"peak memory {out['peak_mem_gib']:.2f} GiB; clock, power, "
+          f"temperature after: {out['card_after']}", flush=True)
+    out["graph_vs_eager"] = phase_serve_graph_equal(
+        result, cfg, bitwise=True, tag=f"{tag} graph")
+    out["profile"] = phase_serve_profile(result, cfg=cfg,
+                                         tag=f"{tag} profile")
+    return result, out
+
+
+def op_split(fn, steps, tag):
+    """Device time a call of fn() (eager), split by the aten op that
+    launched it: the expert bmms (aten::bmm), the other GEMMs (mm, addmm)
+    and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    dev = lambda r: (getattr(r, "self_device_time_total", None)
+                     or getattr(r, "self_cuda_time_total", 0))
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CPU]
+    total = sum(dev(r) for r in rows) / steps / 1e3
+    if total <= 0:
+        print(f"{tag}: device time not measured (no CUDA events traced)",
+              flush=True)
+        return None
+    bmm = sum(dev(r) for r in rows if r.key == "aten::bmm") / steps / 1e3
+    gemm = sum(dev(r) for r in rows
+               if r.key in ("aten::mm", "aten::addmm")) / steps / 1e3
+    out = {"device_ms": total, "expert_bmm_ms": bmm, "gemm_ms": gemm,
+           "rest_ms": total - bmm - gemm}
+    print(f"{tag}: device ms an eager step {total:.3f}: expert bmms "
+          f"{bmm:.3f}, other GEMMs {gemm:.3f}, the rest "
+          f"{out['rest_ms']:.3f}", flush=True)
+    return out
+
+
+def phase_serve_falcon(serve_mod, ref):
+    """falcon-mamba-7b at full width and depth, served; then the batcher
+    on its params (bucketed, pad-masked prefills) and the bucketed
+    prefill's state against the unpadded one's."""
+    cfg = zoo_config("falcon-mamba-7b")
+    result, out = phase_zoo_serve(
+        serve_mod, ref, "serve falcon-mamba",
+        zoo_serve_argv("falcon-mamba-7b", FALCON_SERVE_PROMPT), cfg, {}, {})
+    params = result.params
+    del result
+    torch.cuda.empty_cache()
+    out["batcher"] = phase_zoo_batcher(params, ref, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_batcher(params, ref, cfg):
+    """ContinuousBatcher over ``cfg``'s params, kernel route, 8 slots, 16
+    seeded requests (prompts FALCON_BATCHER_PROMPT, 8–48 new tokens): all
+    finish; then prompts of BUCKET_PROBES tokens prefilled unpadded and
+    bucketed, their conv windows and states compared."""
+    from repro_torch.serving import ContinuousBatcher, Request
+    g = torch.Generator().manual_seed(33)
+    lens = torch.randint(FALCON_BATCHER_PROMPT[0], FALCON_BATCHER_PROMPT[1]
+                         + 1, (BATCHER_REQUESTS,), generator=g).tolist()
+    news = torch.randint(BATCHER_NEW[0], BATCHER_NEW[1] + 1,
+                         (BATCHER_REQUESTS,), generator=g).tolist()
+    gd = torch.Generator(device="cuda").manual_seed(34)
+    reqs = [Request(uid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (n,), generator=gd, device="cuda"),
+                max_new_tokens=m) for i, (n, m) in enumerate(zip(lens, news))]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batcher = ContinuousBatcher(
+            params, cfg, num_slots=BATCHER_SLOTS,
+            max_len=FALCON_BATCHER_MAX_LEN, decode_kernel="pallas",
+            attn_impl="pallas")
+        finished = run_forbidding_plain(ref, lambda: batcher.run(reqs))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    if sorted(finished) != list(range(BATCHER_REQUESTS)):
+        fail(f"falcon batcher finished {sorted(finished)}")
+    for r in reqs:
+        if len(finished[r.uid]) != r.max_new_tokens:
+            fail(f"falcon batcher: request {r.uid} got "
+                 f"{len(finished[r.uid])} tokens, asked for "
+                 f"{r.max_new_tokens}")
+    expect_launches(launches, {}, "falcon batcher")
+    traces = batcher.prefill_traces
+    del batcher
+    torch.cuda.empty_cache()
+    out = {"requests": BATCHER_REQUESTS, "slots": BATCHER_SLOTS,
+           "max_len": FALCON_BATCHER_MAX_LEN, "prompt_lens": lens,
+           "max_new_tokens": news, "prefill_traces": traces,
+           "wall_s": wall_s, "launches": launches}
+    print(f"falcon batcher: × {cfg.num_layers} layers, {BATCHER_SLOTS} "
+          f"slots, {BATCHER_REQUESTS} requests (prompts {min(lens)}–"
+          f"{max(lens)}, {min(news)}–{max(news)} new tokens) all finished "
+          f"in {wall_s:.2f} s, {traces} prefill shapes, launches "
+          f"{launches}", flush=True)
+    out["bucketed_vs_unpadded"] = [
+        bucketed_state_diff(params, cfg, n, seed=35 + i)
+        for i, n in enumerate(BUCKET_PROBES)]
+    return out
+
+
+def bucketed_state_diff(params, cfg, n, seed):
+    """A seeded prompt of ``n`` tokens prefilled unpadded and right-padded
+    to its bucket (``true_len``): each state buffer bitwise equal or not,
+    its largest relative difference, and that difference layer by layer."""
+    from repro_torch.serving.batcher import _bucket
+    from repro_torch.serving.engine import prefill
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(seed))
+    b = _bucket(n, 8)
+    padded = torch.nn.functional.pad(prompt, (0, b - n))
+    with torch.no_grad():
+        _, plain = prefill(params, cfg, prompt, FALCON_BATCHER_MAX_LEN)
+        _, bucketed = prefill(params, cfg, padded, FALCON_BATCHER_MAX_LEN,
+                              true_len=n)
+    diff = {}
+    for k, v in plain.caches.items():
+        w = bucketed.caches[k]
+        diff[k] = {"bitwise": torch.equal(w, v),
+                   "rel": rel_err(w.float(), v.float()),
+                   "max_abs": (w.float() - v.float()).abs().max().item(),
+                   "differing": int((w != v).sum().item()),
+                   "rel_by_layer": [rel_err(w[p].float(), v[p].float())
+                                    for p in range(w.shape[0])]}
+    worst = max(diff, key=lambda k: diff[k]["rel"])
+    by_layer = "; ".join(
+        f"{k} " + ", ".join(f"{v['rel_by_layer'][i]:.2e}"
+                           for i in (0, 1, len(v["rel_by_layer"]) // 2, -1))
+        for k, v in diff.items())
+    print(f"falcon bucketed prefill: {n} tokens bucketed to {b} vs "
+          f"unpadded: {sum(v['bitwise'] for v in diff.values())} of "
+          f"{len(diff)} state buffers bitwise equal, largest relative "
+          f"difference {diff[worst]['rel']:.3e} ({worst}, max abs "
+          f"{diff[worst]['max_abs']:.3e}), "
+          f"{sum(v['differing'] for v in diff.values())} elements differ; "
+          f"relative difference by layer (0, 1, middle, last): {by_layer}",
+          flush=True)
+    return {"prompt": n, "bucket": b, "buffers": diff}
+
+
+def phase_serve_jamba(serve_mod, ref):
+    """jamba-v0.1-52b at full width, one published period (8 layers):
+    mamba at offsets 0–3 and 5–7, GQA attention at 4, MoE at 1, 3, 5, 7;
+    the decode step's device time split (expert bmms, GEMMs, the rest)."""
+    from repro_torch.serving.engine import decode_step
+    cfg = zoo_config("jamba-v0.1-52b", num_layers=JAMBA_SERVE_LAYERS)
+    specs = [(s.mixer, s.ff) for s in cfg.layer_specs()]
+    if [m for m, _ in specs].count("attn") != 1 or \
+            [f for _, f in specs].count("moe") != 4:
+        fail(f"jamba period layout {specs}")
+    result, out = phase_zoo_serve(
+        serve_mod, ref, "serve jamba",
+        zoo_serve_argv("jamba-v0.1-52b", JAMBA_SERVE_PROMPT), cfg,
+        {"flash_attention": 1}, {"decode_attention": 1})
+    carry = {"st": result.state, "tok": result.tokens[:, -1].contiguous()}
+
+    @torch.no_grad()
+    def eager():
+        logits, carry["st"] = decode_step(result.params, cfg, carry["tok"],
+                                          carry["st"], "pallas")
+        carry["tok"] = torch.argmax(logits, -1).to(torch.int32)
+    eager()
+    out["step_split"] = op_split(eager, 4, "serve jamba split")
+    out["params"] = sum(t.numel() for t in _leaves(result.params))
+    del result, carry
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.optim import tree_leaves
+    return tree_leaves(tree)
+
+
+def phase_serve_minicpm3(serve_mod, ref):
+    cfg = zoo_config("minicpm3-4b")
+    result, out = phase_zoo_serve(
+        serve_mod, ref, "serve minicpm3",
+        zoo_serve_argv("minicpm3-4b", MINI_SERVE_PROMPT), cfg, {}, {})
+    if result.prefill_route != "ref":
+        fail(f"minicpm3 prefill took route {result.prefill_route}")
+    del result
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_musicgen(serve_mod, ref):
+    cfg = zoo_config("musicgen-medium")
+    layers = cfg.num_layers
+    result, out = phase_zoo_serve(
+        serve_mod, ref, "serve musicgen",
+        zoo_serve_argv("musicgen-medium", MUSIC_SERVE_PROMPT,
+                       "--frontend-tokens", str(MUSIC_SERVE_FRONT)), cfg,
+        {"flash_attention": layers}, {"decode_attention": layers},
+        n_front=MUSIC_SERVE_FRONT)
+    del result
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_run(cfg, params, toks, n_prefill, steps, dev, max_len,
+              embeds=None):
+    """A prefill of ``toks[:, :n_prefill]`` and ``steps`` teacher-forced
+    decode steps on ``dev`` (kernels on the card, the plain route on the
+    CPU): every logits and cache buffer, on the CPU, and the expert ids of
+    every MoE routing."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import tree_map
+    from repro_torch.serving.engine import (decode_step, prefill,
+                                            prefill_attn_impl)
+    route = "pallas" if dev == "cuda" else "ref"
+    p = tree_map(lambda t: t.to(dev), params)
+    t = toks.to(dev)
+    orig, ids = moe_mod.route, []
+
+    def spy(logits, cfg_, dropless=False):
+        r = orig(logits, cfg_, dropless)
+        ids.append(r.eidx.cpu())
+        return r
+    moe_mod.route = spy
+    try:
+        with torch.no_grad():
+            last, st = prefill(p, cfg, t[:, :n_prefill], max_len,
+                               attn_impl=prefill_attn_impl(cfg, route))
+            res = {"prefill logits": last.cpu()}
+            for i in range(steps):
+                last, st = decode_step(p, cfg, t[:, n_prefill + i], st,
+                                       route)
+                res[f"decode {i} logits"] = last.cpu()
+    finally:
+        moe_mod.route = orig
+    res.update({f"cache {k}": v.cpu() for k, v in st.caches.items()})
+    del p, st, last
+    return res, ids
+
+
+def bucketed_state_err(cfg, params, toks) -> dict:
+    """On the card, the relative difference of each state buffer between
+    an unpadded prefill of ``toks[:, :ZOO_PARITY_S]`` and the same prompt
+    right-padded to twice its length (``true_len``)."""
+    from repro_torch.optim import tree_map
+    from repro_torch.serving.engine import prefill
+    p = tree_map(lambda t: t.to("cuda"), params)
+    t = toks[:, :ZOO_PARITY_S].to("cuda")
+    padded = torch.nn.functional.pad(t, (0, ZOO_PARITY_S))
+    with torch.no_grad():
+        _, plain = prefill(p, cfg, t, 4 * ZOO_PARITY_S)
+        _, bucketed = prefill(p, cfg, padded, 4 * ZOO_PARITY_S,
+                              true_len=ZOO_PARITY_S)
+    out = {f"bucketed {k}": rel_err(bucketed.caches[k].float().cpu(),
+                                    v.float().cpu())
+           for k, v in plain.caches.items()}
+    del p, plain, bucketed
+    return out
+
+
+def phase_serve_zoo_parity():
+    """Full width, 1 layer, f32: a falcon-mamba layer, a minicpm3 MLA
+    layer and a jamba mamba+MoE layer (experts cut to ZOO_PARITY_EXPERTS),
+    a prefill and ZOO_PARITY_STEPS teacher-forced decode steps, card vs
+    CPU (relative error ≤ CARD_VS_CPU_RTOL, expert ids equal), and for
+    the falcon layer a bucketed prefill's state against the unpadded
+    one's on the card (within the same bound); then
+    minicpm3 at 2 layers with sliding_window 8 decoding past the ring's
+    wrap on both, each against its windowed forward."""
+    from repro_torch.models.transformer import forward, init_transformer
+    from repro_torch.optim import tree_map
+    cases = {
+        "falcon-mamba layer": zoo_config("falcon-mamba-7b", num_layers=1,
+                                         dtype="float32"),
+        "minicpm3 MLA layer": zoo_config("minicpm3-4b", num_layers=1,
+                                         dtype="float32"),
+        "jamba mamba+MoE layer": zoo_config(
+            "jamba-v0.1-52b", num_layers=1, attn_every=0, moe_every=1,
+            moe_offset=0, num_experts=ZOO_PARITY_EXPERTS, dtype="float32"),
+    }
+    out = {}
+    for ci, (tag, cfg) in enumerate(cases.items()):
+        params = init_transformer(torch.Generator().manual_seed(81 + ci),
+                                  cfg, "cpu")
+        toks = torch.randint(0, cfg.vocab_size, (ZOO_PARITY_B, ZOO_PARITY_S
+                                                 + ZOO_PARITY_STEPS),
+                             generator=torch.Generator().manual_seed(91 + ci))
+        t0 = time.perf_counter()
+        card, ids_card = serve_run(cfg, params, toks, ZOO_PARITY_S,
+                                   ZOO_PARITY_STEPS, "cuda", 96)
+        t1 = time.perf_counter()
+        cpu, ids_cpu = serve_run(cfg, params, toks, ZOO_PARITY_S,
+                                 ZOO_PARITY_STEPS, "cpu", 96)
+        t2 = time.perf_counter()
+        errs = {k: rel_err(card[k], v) for k, v in cpu.items()}
+        if cfg.attention == "none":
+            # the pad mask on the card: the prompt right-padded to twice
+            # its length, its state against the unpadded one's
+            errs.update(bucketed_state_err(cfg, params, toks))
+        worst = max(errs, key=errs.get)
+        same_routing = len(ids_card) == len(ids_cpu) and all(
+            torch.equal(a, b) for a, b in zip(ids_card, ids_cpu))
+        print(f"serve parity: {tag} (full width, f32), card {t1 - t0:.1f} "
+              f"s vs CPU {t2 - t1:.1f} s: largest relative error "
+              f"{errs[worst]:.3e} ({worst}); MoE routings {len(ids_card)}, "
+              f"{'identical' if same_routing else 'DIFFER'}", flush=True)
+        if errs[worst] > CARD_VS_CPU_RTOL:
+            fail(f"serve parity {tag}: {worst} relative error "
+                 f"{errs[worst]:.3e} > {CARD_VS_CPU_RTOL}")
+        if not same_routing:
+            fail(f"serve parity {tag}: the expert ids differ")
+        out[tag] = {"rel_err": errs, "worst": worst,
+                    "moe_routings": len(ids_card),
+                    "routing_identical": same_routing}
+        del params, card, cpu
+        torch.cuda.empty_cache()
+    # the MLA ring past its wrap: window 8, 4 prompt tokens, 10 steps
+    cfg = zoo_config("minicpm3-4b", num_layers=2, sliding_window=8,
+                     dtype="float32")
+    params = init_transformer(torch.Generator().manual_seed(85), cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (ZOO_PARITY_B, 14),
+                         generator=torch.Generator().manual_seed(95))
+    ring, vs_fwd = {}, {}
+    for dev in ("cuda", "cpu"):
+        res, _ = serve_run(cfg, params, toks, 4, 10, dev, 16)
+        if tuple(res["cache l0.attn.latent"].shape)[2] != 8:
+            fail("minicpm3 ring: the latent cache is not window-sized")
+        with torch.no_grad():
+            full, _ = forward(tree_map(lambda t: t.to(dev), params), cfg,
+                              toks.to(dev))
+        full = full.cpu()
+        ring[dev] = res
+        vs_fwd[dev] = max(rel_err(res[f"decode {i} logits"], full[:, 4 + i])
+                          for i in range(10))
+    errs = {k: rel_err(ring["cuda"][k], v) for k, v in ring["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    print(f"serve parity: minicpm3 × 2 layers, sliding window 8, 4 prompt "
+          f"tokens and 10 decode steps past the ring's wrap: card vs CPU "
+          f"largest relative error {errs[worst]:.3e} ({worst}); decode vs "
+          f"the windowed forward: card {vs_fwd['cuda']:.3e}, CPU "
+          f"{vs_fwd['cpu']:.3e}", flush=True)
+    if max(errs[worst], *vs_fwd.values()) > CARD_VS_CPU_RTOL:
+        fail("serve parity: the MLA ring past its wrap")
+    out["minicpm3 ring"] = {"card_vs_cpu": errs[worst],
+                            "card_vs_forward": vs_fwd["cuda"],
+                            "cpu_vs_forward": vs_fwd["cpu"]}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4048,6 +4525,11 @@ def main() -> int:
     dbrx = phase_dbrx(train_mod, fa, fab, ref)
     jamba = phase_jamba(train_mod, ref)
     music = phase_musicgen(train_mod, ref)
+    serve_falcon = phase_serve_falcon(serve_mod, ref)
+    serve_jamba = phase_serve_jamba(serve_mod, ref)
+    serve_mini = phase_serve_minicpm3(serve_mod, ref)
+    serve_music = phase_serve_musicgen(serve_mod, ref)
+    serve_zoo_errs = phase_serve_zoo_parity()
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -4102,6 +4584,11 @@ def main() -> int:
         "card": card, "minicpm3": mini, "dbrx": dbrx, "jamba": jamba,
         "musicgen": music, "wall_s": time.perf_counter() - t_start}),
         flush=True)
+    print("slice 14 times " + json.dumps({
+        "card": card, "falcon_mamba": serve_falcon, "jamba": serve_jamba,
+        "minicpm3": serve_mini, "musicgen": serve_music,
+        "card_vs_cpu": serve_zoo_errs,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
                    "ghost_norm": lm_launches,
@@ -4212,7 +4699,14 @@ def main() -> int:
                           music[k]["launches"].get(name, 0)
                           for k in ("logit_grad", "ghost", "ghost_rev")},
                        "musicgen_trainer":
-                           music["trainer"]["launches"][name]},
+                           music["trainer"]["launches"][name],
+                       "serve_falcon_mamba":
+                           serve_falcon["launches"][name],
+                       "batcher_falcon_mamba":
+                           serve_falcon["batcher"]["launches"][name],
+                       "serve_jamba": serve_jamba["launches"][name],
+                       "serve_minicpm3": serve_mini["launches"][name],
+                       "serve_musicgen": serve_music["launches"][name]},
         })
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]

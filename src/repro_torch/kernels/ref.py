@@ -38,7 +38,9 @@ base-2 softmax, P in two bf16 parts, the fixed-order merges).
 ``selective_scan_ref`` is the mamba oracle and the model's
 ``ssm_mode="ref"`` path; ``selective_scan_kernel_ref``, kept apart from
 it, is the plain version of the selective-scan *kernel* (the CPU path of
-``kernels/ops.py``).  ``selective_scan_exp2_emulation`` repeats the CUDA
+``kernels/ops.py``); ``selective_scan_step_ref`` is its one-token step,
+the serving engine's mamba decode.  ``selective_scan_exp2_emulation``
+repeats the CUDA
 scan's order of arithmetic (exp2 of Δ·(A·log₂e) with decays below 2⁻¹²⁶
 flushed to 0, y in two chains over the states, FMA where the kernel
 contracts), optionally with every decay off by a few ulp as ex2.approx
@@ -670,6 +672,22 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
     if return_state:
         return y, h
     return y
+
+
+def selective_scan_step_ref(h: torch.Tensor, u_t: torch.Tensor,
+                            delta_t: torch.Tensor, a: torch.Tensor,
+                            b_t: torch.Tensor, c_t: torch.Tensor,
+                            d: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the same recurrence. h: (B, d_inner, d_state)
+    f32; u_t, delta_t: (B, d_inner); b_t, c_t: (B, d_state).  Returns the
+    new f32 state and y_t (B, d_inner) in u_t's dtype."""
+    dl = delta_t.float()
+    da = torch.exp(dl[..., None] * a.float()[None])
+    h = h * da + (dl * u_t.float())[..., None] * b_t.float()[:, None, :]
+    y = torch.sum(h * c_t.float()[:, None, :], dim=-1)
+    y = y + u_t.float() * d.float()[None]
+    return h, y.to(u_t.dtype)
 
 
 def selective_scan_kernel_ref(u: torch.Tensor, delta: torch.Tensor,

@@ -14,8 +14,9 @@ FlashAttention-2 backward kernel, with the optional score tap
 MLA (multi-head latent attention, minicpm3-4b) mirrors the reference's
 train and prefill path (``init_mla``, ``_mla_qkv``, ``mla``): low-rank
 query and key-value projections, a rope key shared by every head, and
-materialised f32 logits chunked over queries.  Its decode and its model
-sharding come with the serving and multi-device parts of the port.
+materialised f32 logits chunked over queries; and its absorbed one-token
+decode over the compressed cache (``mla_decode``).  Its model sharding
+comes with the multi-device part of the port.
 """
 from __future__ import annotations
 
@@ -265,3 +266,60 @@ def mla(params: Params, x: torch.Tensor, cfg: ModelConfig,
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     out = out.reshape(bsz, s, h * cfg.v_head_dim)
     return tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
+
+
+def mla_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
+               latent_cache: torch.Tensor, rope_cache: torch.Tensor,
+               position: torch.Tensor, lengths: torch.Tensor,
+               slot: Optional[torch.Tensor] = None,
+               active: Optional[torch.Tensor] = None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed one-token MLA decode over the *compressed* cache.
+
+    latent_cache: (B, W, kv_lora), rope_cache: (B, W, qk_rope_dim);
+    position: (B,) absolute position of the new token; lengths: (B,)
+    valid slots including the new one; ``slot`` (B,) where the new token
+    goes (default ``lengths - 1``; the engine passes the ring slot
+    ``position mod W``).  W_kv_b's key half is absorbed into the query,
+    and the logits, softmax and context are f32 over the cache slots.
+
+    Where the reference attends over a copy holding the new row and
+    leaves the write to its caller, the port writes the caches IN PLACE
+    first (each row cast to its buffer's dtype) and then attends: rows
+    where ``active`` (B,) bool is False keep their old slot, so only
+    their discarded outputs can differ from the reference's.
+    Returns (out (B, D), latent_new (B, kv_lora), rope_new (B, r))."""
+    bsz = x.shape[0]
+    h = cfg.num_heads
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = (nope + rdim) ** -0.5
+    q_nope, q_rope, _, k_rope_new, _, latent_new = _mla_qkv(
+        params, x[:, None], cfg, position[:, None], None, "decode")
+    wkv_b = params["wkv_b"].reshape(cfg.kv_lora_rank, h, nope + vdim)
+    w_k = wkv_b[..., :nope].float()                  # (r, h, nope)
+    w_v = wkv_b[..., nope:].float()                  # (r, h, vdim)
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_k)
+
+    slot = (lengths - 1 if slot is None else slot).long()
+    rows = torch.arange(bsz, device=x.device)
+    lat_w = latent_new[:, 0].to(latent_cache.dtype)
+    rp_w = k_rope_new[:, 0, 0].to(rope_cache.dtype)
+    if active is not None:
+        lat_w = torch.where(active[:, None], lat_w, latent_cache[rows, slot])
+        rp_w = torch.where(active[:, None], rp_w, rope_cache[rows, slot])
+    latent_cache[rows, slot] = lat_w
+    rope_cache[rows, slot] = rp_w
+
+    lc = latent_cache.float()
+    lg = torch.einsum("bhr,bkr->bhk", q_c, lc)
+    lg = lg + torch.einsum("bhd,bkd->bhk", q_rope[:, 0].float(),
+                           rope_cache.float())
+    lg = lg * scale
+    mask = (torch.arange(lc.shape[1], device=x.device)[None]
+            < lengths[:, None])
+    lg = torch.where(mask[:, None], lg, _NEG)
+    p = torch.softmax(lg, dim=-1)
+    ctx = torch.einsum("bhk,bkr->bhr", p, lc)                    # (B, h, r)
+    out_h = torch.einsum("bhr,rhd->bhd", ctx, w_v)               # (B, h, v)
+    out = out_h.reshape(bsz, h * vdim).to(x.dtype) @ params["wo"]
+    return out, latent_new[:, 0], k_rope_new[:, 0, 0]

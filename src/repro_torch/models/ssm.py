@@ -1,18 +1,23 @@
-"""Mamba-1 block of the port (the falcon-mamba mixer), one device.
+"""Mamba-1 block of the port (the falcon-mamba and jamba mixer), one
+device.
 
-Mirrors ``src/repro/models/ssm.py``'s ``init_mamba``, ``_causal_conv`` and
-``mamba``.  The sequence recurrence runs through the plain oracle
+Mirrors ``src/repro/models/ssm.py``: ``init_mamba``, ``_causal_conv``,
+``mamba``, ``MambaState``, ``init_mamba_state`` and ``mamba_decode``.  The
+sequence recurrence runs through the plain oracle
 ``kernels/ref.selective_scan_ref`` (``mode="ref"``, differentiable) or
 the hand-written selective-scan kernel through ``kernels/ops.py``
 (``mode="pallas"``, the reference's name; forward-only).  The serving
-paths (the prefill ``collector``, ``pad_mask``, ``MambaState``,
-``mamba_decode``) and the channel-parallel ones (``mamba_shard_info``,
-``model_axes``) come with later slices of the port.
+prefill (a ``collector``) always scans with the oracle, which returns the
+final state, as the reference's does; ``pad_mask`` makes a right-padded
+prefill leave the state of the unpadded one.  ``mamba_decode`` is the
+one-token step over the conv window and the f32 state.  The
+channel-parallel paths (``mamba_shard_info``, ``model_axes``) come with
+the multi-device part of the port.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +28,12 @@ from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
                                        tapped_linear)
 
 SSM_MODES = ("ref", "pallas")
+
+
+class MambaState(NamedTuple):
+    """Decode-time recurrent state (the SSM's 'KV cache')."""
+    conv: torch.Tensor   # (B, conv_width-1, d_inner) trailing inputs
+    h: torch.Tensor      # (B, d_inner, d_state) f32
 
 
 def check_ssm_mode(mode: str) -> None:
@@ -79,22 +90,43 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _conv_tail(x_in: torch.Tensor, w: int,
+               pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The last w-1 inputs of each row (B, w-1, di), the real ones under
+    ``pad_mask``; rows shorter than the window are left-padded with zeros,
+    as ``_causal_conv`` pads them."""
+    bsz, s, di = x_in.shape
+    if pad_mask is None:
+        tail = x_in[:, -(w - 1):]
+        return F.pad(tail, (0, 0, w - 1 - tail.shape[1], 0))
+    tl = torch.sum(pad_mask.to(torch.int64), dim=1)             # (B,)
+    idx = tl[:, None] - (w - 1) + torch.arange(w - 1,
+                                               device=x_in.device)[None]
+    got = torch.gather(x_in, 1, torch.clamp(idx, 0, s - 1)[..., None]
+                       .expand(bsz, w - 1, di))
+    return torch.where((idx >= 0)[..., None], got, torch.zeros_like(got))
+
+
 def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
           tape: Optional[Tape] = None, prefix: str = "mamba",
-          mode: str = "ref", collector: Optional[dict] = None
-          ) -> torch.Tensor:
+          mode: str = "ref", collector: Optional[dict] = None,
+          pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence mamba mixer. x: (B, S, D) → (B, S, D).
 
     ``mode="ref"`` scans with ``ref.selective_scan_ref`` at the config's
     ``ssm_scan_dtype``; ``mode="pallas"`` runs ``ops.selective_scan`` (the
     CUDA kernel on the card) on Δ cast to the activations' dtype, as the
     reference does, so a bf16 model hands the kernel a bf16 Δ.  The
-    taps are ``{prefix}.in_proj``, ``.x_proj`` and ``.out_proj``."""
+    taps are ``{prefix}.in_proj``, ``.x_proj`` and ``.out_proj``.
+
+    With a ``collector`` (the serving prefill) the scan is the oracle at
+    f32 whatever ``mode`` says, and the decode state is recorded: the last
+    w-1 conv inputs under ``{prefix}.conv`` and the final f32 state under
+    ``{prefix}.h``.  ``pad_mask`` (B, S) bool marks the real positions of
+    a right-padded batch: Δ is zeroed at pad positions, which makes each
+    pad step the identity on the state (h = exp(0·A)·h + 0·B·x), and the
+    conv window is gathered from each row's real tail."""
     check_ssm_mode(mode)
-    if collector is not None:
-        raise NotImplementedError(
-            "the mamba prefill collector (decode state for serving) comes "
-            "with the mamba serving slice of the PyTorch port")
     di, ds, dtr = cfg.resolved_d_inner, cfg.ssm_state, cfg.resolved_dt_rank
 
     xz = tapped_linear(x, params["in_proj"], f"{prefix}.in_proj", tape)
@@ -107,9 +139,18 @@ def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
     c_mat = proj[..., dtr + ds:]
     delta = _softplus(torch.matmul(dt_r.float(), params["dt_proj"])
                       + params["dt_bias"])
+    if pad_mask is not None:
+        delta = delta * pad_mask[..., None].to(delta.dtype)
     a = -torch.exp(params["a_log"])
 
-    if mode == "pallas":
+    if collector is not None:
+        y, h_final = ref.selective_scan_ref(x_c, delta, a, b_mat, c_mat,
+                                            params["d_skip"],
+                                            return_state=True)
+        collector[f"{prefix}.conv"] = _conv_tail(
+            x_in, params["conv_w"].shape[0], pad_mask)
+        collector[f"{prefix}.h"] = h_final
+    elif mode == "pallas":
         y = ops.selective_scan(x_c, delta.to(x_c.dtype), a, b_mat, c_mat,
                                params["d_skip"])
     else:
@@ -120,3 +161,37 @@ def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     y = y * F.silu(z)
     return tapped_linear(y, params["out_proj"], f"{prefix}.out_proj", tape)
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device) -> MambaState:
+    """Zeroed decode state: the conv window in ``dtype``, h in f32."""
+    di = cfg.resolved_d_inner
+    return MambaState(
+        conv=torch.zeros(batch, cfg.conv_width - 1, di, dtype=dtype,
+                         device=device),
+        h=torch.zeros(batch, di, cfg.ssm_state, dtype=torch.float32,
+                      device=device))
+
+
+def mamba_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                 state: MambaState) -> tuple[torch.Tensor, MambaState]:
+    """One-token decode. x: (B, D) → ((B, D), the new state).  The state
+    given is only read: the caller persists the new one."""
+    di, ds, dtr = cfg.resolved_d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+    xz = x @ params["in_proj"]
+    x_in, z = xz[..., :di], xz[..., di:]                     # (B, di)
+    window = torch.cat([state.conv, x_in[:, None]], dim=1)   # (B, W, di)
+    x_c = torch.sum(window * params["conv_w"][None], dim=1) + params["conv_b"]
+    x_c = F.silu(x_c)
+
+    proj = x_c @ params["x_proj"]
+    dt_r, b_t, c_t = (proj[..., :dtr], proj[..., dtr:dtr + ds],
+                      proj[..., dtr + ds:])
+    delta = _softplus(torch.matmul(dt_r.float(), params["dt_proj"])
+                      + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    h, y = ref.selective_scan_step_ref(state.h, x_c, delta, a, b_t, c_t,
+                                       params["d_skip"])
+    y = y * F.silu(z)
+    return y @ params["out_proj"], MambaState(conv=window[:, 1:], h=h)

@@ -16,8 +16,9 @@ router).  The unembed tap lives outside the loop.  ``Aux.aux_loss`` sums
 the MoE layers' load-balance losses (0 for a dense stack).
 
 With ``collect_cache`` the forward also returns the decode caches of the
-serving engine: the roped K and V of every attention layer, stacked over
-periods to (P, B, S, Hkv, hd) (MLA: its latent and rope rows).
+serving engine, stacked over periods: the roped K and V of every GQA
+layer (P, B, S, Hkv, hd), MLA's latent and rope rows (P, B, S, ·), and
+each mamba layer's decode state (its conv window and f32 h).
 
 ``ssm_mode`` picks the mamba scan: "ref" (the plain oracle, which autograd
 differentiates) or "pallas" (the forward-only selective-scan kernel).
@@ -106,8 +107,12 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                  tape: Optional[Tape], prefix: str,
                  collector: Optional[dict] = None, attn_impl: str = "ref",
                  attn_scores: Optional[str] = None,
-                 ssm_mode: str = "ref") -> tuple[torch.Tensor, torch.Tensor]:
-    """One layer: (h, its MoE load-balance loss, a 0-d f32 tensor)."""
+                 ssm_mode: str = "ref",
+                 pad_mask: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (h, its MoE load-balance loss, a 0-d f32 tensor).
+    ``pad_mask`` reaches the mamba mixers only: causal attention is exact
+    for the real rows of a right-padded batch by construction."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
     if spec.mixer == "attn" and cfg.attention == "mla":
@@ -127,7 +132,7 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
     else:
         h = h + ssm_mod.mamba(lp["mixer"], hn, cfg, tape,
                               prefix=f"{prefix}.mamba", mode=ssm_mode,
-                              collector=collector)
+                              collector=collector, pad_mask=pad_mask)
     if cfg.d_ff == 0:
         return h, aux
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
@@ -148,7 +153,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             taps: Optional[dict] = None, collect: bool = False,
             collect_cache: bool = False, attn_impl: str = "ref",
             attn_scores: Optional[str] = None, ssm_mode: str = "ref",
-            return_hidden: bool = False) -> tuple[torch.Tensor, Aux]:
+            return_hidden: bool = False,
+            pad_mask: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, Aux]:
     """tokens (B, S_text) → logits (B, S, vocab) (or the final hidden
     states with ``return_hidden``) and Aux, S = N_front + S_text.
 
@@ -159,14 +166,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     "unembed" → (B, S, vocab).  With ``collect`` the records come back in
     Aux, stacked to (P, B, S, din) ((P, B·S, d) for a router), and the
     unembed record as (B, S, d_model).  With ``collect_cache`` Aux.cache
-    holds the roped K and V of every attention layer, stacked to (P, B,
-    S, Hkv, hd): the prefill of the serving engine.  ``attn_impl`` is
+    holds every layer's decode cache stacked over periods (the roped K and
+    V, MLA's latent and rope, mamba's conv window and state): the prefill
+    of the serving engine.  ``attn_impl`` is
     "ref", "pallas" (the flash-attention forward kernel) or "flash" (the
     trainable flash kernels); ``attn_scores`` ("fused"/"separate", with
     "flash") puts a (P, B) score tap ``l{i}.attn.qkv_scores`` in place of
     the wq/wk/wv taps (``models/attention.attn``); MLA takes neither.
     ``ssm_mode`` ("ref" or "pallas") is the mamba layers' scan
-    (``models/ssm.mamba``).  ``Aux.aux_loss`` is the sum of the MoE
+    (``models/ssm.mamba``).  ``pad_mask`` (B, S) bool marks the real
+    positions of a right-padded batch (the bucketed prefill); only the
+    mamba layers read it.  ``Aux.aux_loss`` is the sum of the MoE
     layers' load-balance losses."""
     check_supported(cfg)
     specs = cfg.layer_specs()
@@ -189,7 +199,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             h, aux = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions,
                                   tape, f"l{i}", collector=cache,
                                   attn_impl=attn_impl,
-                                  attn_scores=attn_scores, ssm_mode=ssm_mode)
+                                  attn_scores=attn_scores, ssm_mode=ssm_mode,
+                                  pad_mask=pad_mask)
             aux_loss = aux_loss + aux
         per_period.append(tape.records)
         per_cache.append(cache)

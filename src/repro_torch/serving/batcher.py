@@ -16,8 +16,13 @@ slots advance neither their lengths nor their caches, and a request is
 finished before its next token would write past ``max_len`` when the
 model has no sliding window (the "reject" half of ring-or-reject).
 
+It serves every stack the engine does: the splice copies each cache
+buffer by name (ring caches, MLA latents, mamba conv windows and f32
+states alike), and the reject rule applies to any stack without a
+sliding window, as the reference applies it (a pure-mamba stack too).
 ``attn_impl`` picks the prefill attention ("ref" as in the reference, or
-"pallas", the flash-attention kernel); ``decode_kernel`` the decode
+"pallas", the flash-attention kernel; an MLA stack takes "ref" whatever
+is asked, ``engine.prefill_attn_impl``); ``decode_kernel`` the decode
 attention.  ``mesh=`` (the model-parallel batcher) is not ported.
 """
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.engine import decode_step, init_serve_state, prefill
+from repro_torch.serving.engine import (decode_step, init_serve_state,
+                                       prefill, prefill_attn_impl)
 
 
 @dataclasses.dataclass
@@ -78,7 +84,7 @@ class ContinuousBatcher:
         self.num_slots = num_slots
         self.max_len = max_len
         self.decode_kernel = decode_kernel
-        self.attn_impl = attn_impl
+        self.attn_impl = prefill_attn_impl(cfg, attn_impl)
         self.device = params["embed"]["tokens"].device
         self.state = init_serve_state(cfg, num_slots, max_len, self.device)
         self.slots = [_Slot() for _ in range(num_slots)]
@@ -114,7 +120,7 @@ class ContinuousBatcher:
                               attn_impl=self.attn_impl, true_len=s)
         # splice the single-sequence caches and length into the batch state
         for name, buf in self.state.caches.items():
-            buf[:, slot_id] = st1.caches[name][:, 0]
+            buf[:, slot_id] = st1.caches[name][:, 0].to(buf.dtype)
         self.state.lengths[slot_id] = st1.lengths[0]
         tok = torch.argmax(logits, -1)[0].to(torch.int32)
         self._next_tok[slot_id] = tok

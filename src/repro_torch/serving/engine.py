@@ -1,22 +1,30 @@
 """Batched serving engine: prefill + one-token decode over layer caches.
 
-Mirrors ``src/repro/serving/engine.py`` for dense GQA stacks on one
-device.  Every cache buffer carries a leading period axis P, as the
-decoder's stacked parameters do:
+Mirrors ``src/repro/serving/engine.py`` on one device, for every stack the
+model code builds.  Every cache buffer carries a leading period axis P,
+as the decoder's stacked parameters do:
 
-  k/v   (P, B, W, Hkv, hd)   W = sliding window (ring) or max_len
+  GQA   k/v     (P, B, W, Hkv, hd)   W = sliding window (ring) or max_len
+  MLA   latent  (P, B, W, kv_lora)   the *compressed* cache (absorbed decode)
+        rope    (P, B, W, qk_rope)
+  Mamba conv    (P, B, conv_w-1, d_inner)   constant-size recurrent state
+        h       (P, B, d_inner, d_state)    f32
 
-Every cache is a ring buffer: slot = position mod W.  RoPE is applied at
-write time with absolute positions, so ring order is harmless (softmax is
-permutation-invariant; validity is tracked by ``lengths`` alone, because a
-full ring holds exactly the last W tokens).  For a full-attention config a
+Every attention cache is a ring buffer: slot = position mod W.  RoPE is
+applied at write time with absolute positions, so ring order is harmless
+(softmax is permutation-invariant; validity is tracked by ``lengths``
+alone, because a full ring holds exactly the last W tokens); the MLA
+latent cache follows the same discipline.  For a full-attention config a
 wrapped ring forgets the oldest context; the batcher finishes a request
-before that happens.
+before that happens.  Decode routes MoE feed-forwards dropless, as the
+reference does: every expert gets room for all B·k rows.
 
-``decode_kernel="pallas"`` routes cache attention through
+``decode_kernel="pallas"`` routes GQA cache attention through
 ``kernels/ops.py::decode_attention`` (the CUDA flash-decode kernel on the
 card, its plain version on the CPU); "ref" takes the reference's oracle
-``kernels/ref.py::decode_attention_ref``.
+``kernels/ref.py::decode_attention_ref``.  MLA decode has no kernel (nor
+in the reference), and its prefill runs the materialised attention only:
+``prefill_attn_impl`` gives the prefill route a stack takes.
 
 ``make_decode_runner`` steps ``decode_step`` as one CUDA graph on the
 card (the reference jits the step), eagerly on the CPU.
@@ -24,8 +32,8 @@ card (the reference jits the step), eagerly on the CPU.
 Where the reference returns new arrays (``.at[].set``), the port writes
 the preallocated caches IN PLACE: ``decode_step`` updates the cache
 tensors of the state it is given and returns a state that shares them.
-A caller that needs the old caches clones them first.  MLA, mamba, MoE,
-frontends and the model-axis (``model_axes``) paths are not ported.
+A caller that needs the old caches clones them first.  The model-axis
+(``model_axes``) paths come with the multi-device part of the port.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dtype_of, embed, mlp, rmsnorm, rope,
                                        unembed)
@@ -41,27 +52,20 @@ from repro_torch.models.transformer import _period, check_supported, forward
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Raise unless the engine serves ``cfg``: a stack of dense GQA/MHA
-    attention layers with MLPs and no frontend.  Mamba layers, MLA, MoE
-    and the frontends' embeds need serving code (decode states, the
-    absorbed MLA decode, dropless expert dispatch at decode, embeds in
-    prefill) that the PyTorch port does not carry yet; each is refused by
-    name."""
+    """Raise unless the engine serves ``cfg``.  On one device it serves
+    every stack the model code builds (GQA, MLA and mamba mixers, MLP and
+    MoE feed-forwards, the frontends' embeds); the model-axis serving of
+    the multi-device part of the port will be refused here."""
     check_supported(cfg)
-    needs = []
-    if cfg.ssm_state > 0:
-        needs.append("SSM (mamba) serving (MambaState, mamba_decode)")
-    if cfg.attention == "mla":
-        needs.append("MLA serving (mla_decode over the latent cache)")
-    if cfg.num_experts > 0:
-        needs.append("MoE serving (dropless dispatch at decode)")
-    if cfg.frontend != "none":
-        needs.append(f"frontend serving (the {cfg.frontend} embeds in "
-                     f"prefill)")
-    if needs:
-        raise NotImplementedError(
-            f"{cfg.name} needs {' and '.join(needs)}, which the PyTorch "
-            f"port does not carry yet; it serves dense GQA stacks")
+
+
+def prefill_attn_impl(cfg: ModelConfig, attn_impl: str) -> str:
+    """The prefill attention route ``cfg`` takes when ``attn_impl`` is
+    asked for: an MLA stack runs its materialised attention ("ref"; the
+    flash kernels are GQA kernels, and the reference has no MLA kernel
+    either), every other stack ``attn_impl`` (a hybrid's mamba layers
+    scan with the oracle whatever the route)."""
+    return "ref" if cfg.attention == "mla" else attn_impl
 
 
 class ServeState(NamedTuple):
@@ -78,12 +82,27 @@ def _window(cfg: ModelConfig, max_len: int) -> int:
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """name → (shape, dtype) of every cache buffer."""
     check_servable(cfg)
+    p = cfg.num_periods
     w = _window(cfg, max_len)
-    kv = (cfg.num_periods, batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dtype = dtype_of(cfg)
     out = {}
-    for i, _ in enumerate(cfg.layer_specs()):
-        out[f"l{i}.attn.k"] = (kv, dtype_of(cfg))
-        out[f"l{i}.attn.v"] = (kv, dtype_of(cfg))
+    for i, spec in enumerate(cfg.layer_specs()):
+        if spec.mixer == "attn" and cfg.attention == "mla":
+            # the GQA ring-or-reject sizing: a configured sliding window
+            # bounds the cache, full attention gets max_len
+            out[f"l{i}.attn.latent"] = ((p, batch, w, cfg.kv_lora_rank),
+                                        dtype)
+            out[f"l{i}.attn.rope"] = ((p, batch, w, cfg.qk_rope_dim), dtype)
+        elif spec.mixer == "attn":
+            kv = (p, batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+            out[f"l{i}.attn.k"] = (kv, dtype)
+            out[f"l{i}.attn.v"] = (kv, dtype)
+        else:
+            di = cfg.resolved_d_inner
+            out[f"l{i}.mamba.conv"] = ((p, batch, cfg.conv_width - 1, di),
+                                       dtype)
+            out[f"l{i}.mamba.h"] = ((p, batch, di, cfg.ssm_state),
+                                    torch.float32)
     return out
 
 
@@ -133,6 +152,18 @@ def _gqa_decode(lp, hn: torch.Tensor, cfg: ModelConfig,
     return o.reshape(bsz, h * hd) @ lp["wo"]
 
 
+def _persist(buf: torch.Tensor, new: torch.Tensor,
+             active: Optional[torch.Tensor]) -> None:
+    """Copy a recurrent state's new value into its buffer (B, ...), cast
+    to the buffer's dtype; rows where ``active`` is False keep theirs.
+    The buffer's storage stays, as a captured graph needs."""
+    new = new.to(buf.dtype)
+    if active is not None:
+        new = torch.where(active.reshape((-1,) + (1,) * (buf.ndim - 1)),
+                          new, buf)
+    buf.copy_(new)
+
+
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 state: ServeState, decode_kernel: str = "ref",
                 active: Optional[torch.Tensor] = None
@@ -140,33 +171,81 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     """One new token per sequence. tokens: (B,) → (logits (B,V), state).
 
     The caches of ``state`` are written in place and shared by the
-    returned state.  ``active`` (B,) bool gates rows the batcher has
-    evicted: inactive rows advance neither their length nor any cache
-    buffer (their logits are garbage and discarded by the caller)."""
+    returned state; every write casts to its own buffer's dtype, so mixed
+    precisions (an f32 mamba ``h`` beside a bf16 cache) round-trip each
+    buffer whatever the dict's order.  ``active`` (B,) bool gates rows
+    the batcher has evicted: inactive rows advance neither their length
+    nor any cache buffer (their logits are garbage and discarded by the
+    caller)."""
     if decode_kernel not in ("ref", "pallas"):
         raise ValueError(f"decode_kernel must be 'ref' or 'pallas', got "
                          f"{decode_kernel!r}")
     check_servable(cfg)
     specs = cfg.layer_specs()
+    caches = state.caches
     pos = state.lengths                                   # (B,)
     h = embed(params["embed"], tokens[:, None], cfg)[:, 0]
     for p in range(cfg.num_periods):
         pp = _period(params["layers"], p)
-        for i in range(len(specs)):
+        for i, spec in enumerate(specs):
             lp = pp[f"l{i}"]
-            k_cache = state.caches[f"l{i}.attn.k"][p]
-            v_cache = state.caches[f"l{i}.attn.v"][p]
             hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-            h = h + _gqa_decode(lp["mixer"], hn, cfg, k_cache, v_cache, pos,
-                                k_cache.shape[1], decode_kernel, active)
-            hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-            h = h + mlp(lp["ff"], hn[:, None], cfg)[:, 0]
+            if spec.mixer == "attn" and cfg.attention == "mla":
+                lat = caches[f"l{i}.attn.latent"][p]
+                w = lat.shape[1]
+                out, _, _ = attn_mod.mla_decode(
+                    lp["mixer"], hn, cfg, lat, caches[f"l{i}.attn.rope"][p],
+                    pos, torch.clamp(pos + 1, max=w).to(torch.int32),
+                    slot=pos % w, active=active)
+            elif spec.mixer == "attn":
+                k_cache = caches[f"l{i}.attn.k"][p]
+                out = _gqa_decode(lp["mixer"], hn, cfg, k_cache,
+                                  caches[f"l{i}.attn.v"][p], pos,
+                                  k_cache.shape[1], decode_kernel, active)
+            else:
+                conv = caches[f"l{i}.mamba.conv"][p]
+                hs = caches[f"l{i}.mamba.h"][p]
+                out, new = ssm_mod.mamba_decode(
+                    lp["mixer"], hn, cfg, ssm_mod.MambaState(conv, hs))
+                _persist(conv, new.conv, active)
+                _persist(hs, new.h, active)
+            h = h + out
+            if cfg.d_ff > 0:
+                hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+                if spec.ff == "moe":
+                    ff = moe_mod.moe(lp["ff"], hn[:, None], cfg,
+                                     dropless=True).y[:, 0]
+                else:
+                    ff = mlp(lp["ff"], hn[:, None], cfg)[:, 0]
+                h = h + ff
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(params["embed"], h, cfg)
     lengths = (state.lengths + 1 if active is None
                else torch.where(active, state.lengths + 1, state.lengths))
-    return logits, ServeState(caches=state.caches,
+    return logits, ServeState(caches=caches,
                               lengths=lengths.to(torch.int32))
+
+
+def _snapshot(state: ServeState):
+    """A restore() that puts back everything one decode step from
+    ``state`` writes: each ring cache's slot at ``lengths mod W`` and the
+    whole of each mamba buffer (read-modify-write)."""
+    saved = []
+    for name, buf in state.caches.items():
+        if ".mamba." in name:
+            saved.append((buf, None, buf.clone()))
+        else:
+            rows = torch.arange(buf.shape[1], device=buf.device)
+            slot = (state.lengths % buf.shape[2]).long()
+            saved.append((buf, (rows, slot), buf[:, rows, slot].clone()))
+
+    def restore():
+        for buf, at, old in saved:
+            if at is None:
+                buf.copy_(old)
+            else:
+                buf[:, at[0], at[1]] = old
+    return restore
 
 
 DECODE_WARMUP = 2     # eager steps before a decode step is captured
@@ -182,10 +261,13 @@ def make_decode_runner(params, cfg: ModelConfig, state: ServeState,
     port's counterpart of the reference's ``jax.jit`` of the step: one
     ``decode_step`` captured in a CUDA graph, replayed at each call.
       * DECODE_WARMUP eager steps on a side stream first build the
-        kernels' libraries and cuBLAS's workspace.  They write the cache
-        slots at the current lengths, which the first replayed step writes
-        again before it reads them, and they leave the lengths where they
-        were.  Their launches are real and counted.
+        kernels' libraries and cuBLAS's workspace.  What they write is put
+        back afterwards (``_snapshot``): the ring caches' slots at the
+        current lengths and the whole of every mamba conv window and
+        state, which a step reads, modifies and writes, so that two
+        warm-up steps do not advance the recurrence before the first
+        token.  They leave the lengths where they were.  Their launches
+        are real and counted.
       * The graph runs over static buffers: the tokens (copied in at each
         call), a copy of ``state.lengths`` that the graph advances in
         place, and ``state``'s caches, written in place as ``decode_step``
@@ -214,12 +296,15 @@ def make_decode_runner(params, cfg: ModelConfig, state: ServeState,
 
     static = ServeState(caches=state.caches, lengths=state.lengths.clone())
     tokens_in = torch.zeros_like(static.lengths)
+    restore = _snapshot(static)
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
         for _ in range(DECODE_WARMUP):
             decode_step(params, cfg, tokens_in, static, decode_kernel)
     torch.cuda.current_stream(dev).wait_stream(side)
+    restore()
+    del restore
     graph = torch.cuda.CUDAGraph()
     before = ops.launch_counts()
     with torch.cuda.graph(graph):
@@ -240,47 +325,70 @@ def make_decode_runner(params, cfg: ModelConfig, state: ServeState,
 
 # ----------------------------------------------------------------- prefill
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
-            attn_impl: str = "ref", true_len: Optional[int] = None
+            embeds: Optional[torch.Tensor] = None, attn_impl: str = "ref",
+            true_len: Optional[int] = None
             ) -> tuple[torch.Tensor, ServeState]:
     """Process the prompt and build decode caches.
 
-    tokens: (B, S_prompt).  Returns (last_logits (B,V), ServeState).
-    attn_impl="pallas" routes prefill attention through the flash kernel.
+    tokens: (B, S_prompt); ``embeds`` (B, N_front, D), a frontend's
+    output, goes before them, and the lengths and the ring placement count
+    all S_total = N_front + S positions.  Returns (last_logits (B,V),
+    ServeState).  attn_impl="pallas" routes prefill attention through the
+    flash kernel (GQA layers; see ``prefill_attn_impl``).
 
     ``true_len`` enables bucketed prefill: the prompt arrives right-padded
-    to a bucket length S and only the first ``true_len`` tokens are real
-    (causal attention never lets a real query see a padded key).  Cache
-    slot s of a cap-W buffer takes source position
+    to a bucket length S and only the first ``true_len`` tokens are real.
+    Causal attention never lets a real query see a padded key, and the
+    mamba layers zero Δ at pad positions (an identity step) and take
+    their conv window from the real tail, so their state is the unpadded
+    run's.  Cache slot s of a cap-W buffer takes source position
     ``s + W·⌊(true_len−1−s)/W⌋``: the plain copy when true_len ≤ W and
-    the ring layout that ``slot = pos mod W`` continues when it is not."""
+    the ring layout that ``slot = pos mod W`` continues when it is not.
+    Mamba states are copied as they are.  A capacity-routed MoE prefill
+    lets the pad tokens compete for expert capacity, as the reference's
+    does, so its routing can differ from the unpadded run's (decode
+    routes dropless).  ``true_len`` with ``embeds`` raises, as in the
+    reference."""
     bsz, s = tokens.shape
+    pad_mask = None
     if true_len is not None:
+        if embeds is not None:
+            raise ValueError("true_len (bucketed prefill) does not compose "
+                             "with frontend embeds")
         true_len = int(true_len)
         if not 1 <= true_len <= s:
             raise ValueError(f"true_len {true_len} outside [1, {s}]")
-    logits, aux = forward(params, cfg, tokens, collect_cache=True,
-                          attn_impl=attn_impl)
+        pad_mask = (torch.arange(s, device=tokens.device)[None]
+                    < true_len).expand(bsz, s)
+    logits, aux = forward(params, cfg, tokens, embeds=embeds,
+                          collect_cache=True, attn_impl=attn_impl,
+                          pad_mask=pad_mask)
+    s_total = s + (embeds.shape[1] if embeds is not None else 0)
     caches = {}
     for name, (shape, dt) in cache_shapes(cfg, bsz, max_len).items():
-        got = aux.cache[name]                     # (P, B, S, Hkv, hd)
+        got = aux.cache[name]                 # (P, B, S_total, ...) or state
+        if ".mamba." in name:
+            caches[name] = got.to(dt)
+            continue
         cap = shape[2]
         buf = torch.zeros(shape, dtype=dt, device=got.device)
         if true_len is None:
-            if s <= cap:
-                buf[:, :, :s] = got
+            if s_total <= cap:
+                buf[:, :, :s_total] = got
             else:  # ring placement of the last `cap` positions
-                slots = torch.arange(s - cap, s, device=got.device) % cap
+                slots = (torch.arange(s_total - cap, s_total,
+                                      device=got.device) % cap)
                 buf[:, :, slots] = got[:, :, -cap:].to(dt)
         else:
             sidx = torch.arange(cap, device=got.device)
             src = sidx + cap * torch.div(true_len - 1 - sidx, cap,
                                          rounding_mode="floor")
             take = got[:, :, torch.clamp(src, 0, s - 1)]
-            valid = (src >= 0)[None, None, :, None, None]
+            valid = (src >= 0).reshape((1, 1, cap) + (1,) * (got.ndim - 3))
             buf = torch.where(valid, take.to(dt), buf)
         caches[name] = buf
     if true_len is None:
-        lengths = torch.full((bsz,), s, dtype=torch.int32,
+        lengths = torch.full((bsz,), s_total, dtype=torch.int32,
                              device=tokens.device)
         last = logits[:, -1].clone()      # not a view: frees the (B,S,V)
     else:
@@ -291,9 +399,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
 
 
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
-             max_len: int, decode_kernel: str = "ref") -> torch.Tensor:
+             max_len: int, decode_kernel: str = "ref",
+             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy generation. Returns (B, steps) sampled tokens."""
-    logits, st = prefill(params, cfg, prompt, max_len)
+    logits, st = prefill(params, cfg, prompt, max_len, embeds=embeds)
     toks = []
     tok = torch.argmax(logits, -1).to(torch.int32)
     for _ in range(steps):

@@ -10,9 +10,9 @@ text positions only) and its ``full`` drops them, so the port's
 ``ghost`` is held to the reference's ``ghost_rev`` (the same exact
 quantity) and its ``full`` to ``vmap(grad)`` of the reference's
 per-example loss with the embeds.  Then, for each of the six new archs:
-``tap_structure`` against the records one forward writes, the serving
-refusals, and the train launcher on the CPU with ``ghost`` and
-``ghost_rev``.
+``tap_structure`` against the records one forward writes, and the train
+launcher on the CPU with ``ghost`` and ``ghost_rev`` (their serving is
+held to the reference in ``test_torch_serve_zoo.py``).
 
 Inputs are made with numpy from a seed; the weights come from the
 reference (``params_from_jax``).  Tolerance: f32 rtol 1e-5 / atol 1e-6
@@ -34,11 +34,9 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import scorer as tscorer  # noqa: E402
 from repro_torch.core.strategies import make_proposal  # noqa: E402
-from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
-from repro_torch.serving import engine as tengine  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 B, S = 3, 10
@@ -182,22 +180,6 @@ def test_tap_structure_equals_the_records_a_forward_writes(name):
     assert bool(routers) == (cfg.num_experts > 0)
     for k in routers:
         assert shapes[k] == (cfg.num_periods, B * S, cfg.num_experts)
-
-
-@pytest.mark.parametrize("name,what", [("minicpm3-4b", "MLA serving"),
-                                       ("dbrx-132b", "MoE serving"),
-                                       ("musicgen-medium",
-                                        "frontend serving")])
-def test_serving_refuses_the_new_archs_by_name(name, what, capsys):
-    cfg = configs.get_smoke_config(name)
-    with pytest.raises(NotImplementedError, match=what):
-        tengine.check_servable(cfg)
-    with pytest.raises(NotImplementedError, match=what):
-        tengine.cache_shapes(cfg, 2, 16)
-    with pytest.raises(SystemExit) as e:
-        tserve.parse_args(["--arch", name, "--smoke", "--device", "cpu"])
-    assert e.value.code == 2
-    assert what in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("strategy", ["ghost", "ghost_rev"])

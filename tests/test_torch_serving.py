@@ -302,9 +302,3 @@ def test_serve_launcher_defaults_to_the_card_and_pallas(capsys):
     assert e.value.code == 2
     assert "CUDA is not available" in capsys.readouterr().err
 
-
-def test_serve_launcher_refuses_unported_arch(capsys):
-    with pytest.raises(SystemExit) as e:
-        tserve.parse_args(["--arch", "falcon-mamba-7b", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "SSM (mamba)" in capsys.readouterr().err

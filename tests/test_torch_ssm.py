@@ -387,22 +387,32 @@ def test_forward_only_kernel_refusals(falcon):
     loss.sum().backward()
     assert live["layers"]["l0"]["mixer"]["a_log"].grad is not None
     lp = ttf._period(tparams["layers"], 0)["l0"]["mixer"]
-    with pytest.raises(NotImplementedError, match="mamba serving slice"):
-        tssm.mamba(lp, torch.zeros(1, 4, cfg.d_model), cfg, collector={})
+    # the prefill collector (the serving engine's decode state) works, on
+    # the oracle scan whatever the mode
+    for mode in ("ref", "pallas"):
+        c = {}
+        tssm.mamba(lp, torch.zeros(1, 4, cfg.d_model), cfg, mode=mode,
+                   collector=c)
+        assert set(c) == {"mamba.conv", "mamba.h"}
+        assert c["mamba.h"].dtype == torch.float32
     with pytest.raises(ValueError, match="ssm_mode must be one of"):
         tssm.mamba(lp, torch.zeros(1, 4, cfg.d_model), cfg, mode="scan")
 
 
 def test_model_code_admits_mamba_but_not_moe_or_mla():
-    """A mamba stack with MoE feed-forwards builds (jamba's layout); the
-    serving engine refuses it by name."""
-    from repro_torch.serving.engine import check_servable
+    """A mamba stack with MoE feed-forwards builds (jamba's layout), and
+    the serving engine serves it: a prefill and a decode step."""
+    from repro_torch.serving.engine import (check_servable, decode_step,
+                                            prefill)
     _, cfg = _mamba_cfg(num_experts=4, num_experts_per_tok=2, d_ff=40)
     p = ttf.init_transformer(torch.Generator().manual_seed(0), cfg, "cpu")
     assert set(p["layers"]["l0"]["ff"]) == {"router", "w_in", "w_gate",
                                             "w_out"}
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        check_servable(cfg)
+    check_servable(cfg)
+    logits, st = prefill(p, cfg, torch.zeros(2, 6, dtype=torch.int32), 8)
+    logits, st = decode_step(p, cfg, torch.argmax(logits, -1).to(
+        torch.int32), st)
+    assert torch.isfinite(logits).all() and st.lengths.tolist() == [7, 7]
     # a hybrid of mamba and GQA attention layers with MLPs: both mixers
     _, cfg = _mamba_cfg(num_layers=2, attn_every=2, attention="gqa",
                         num_heads=4, num_kv_heads=2, d_ff=40)
