@@ -277,6 +277,38 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 card vs CPU ≤ 1e-4 with identical expert ids; minicpm3 × 2
                 with sliding window 8 decoding past the ring's wrap, card
                 vs CPU and each against its windowed forward.
+ 38. async     — mlp_svhn at the paper's width (65,536 resident examples),
+                --async-scoring at swap cadence 1 and 4, 40 steps, the
+                scoring pass on its own CUDA stream: median step ms beside
+                the relaxed step's in the same call; one multi-tap launch a
+                step, on the scoring stream; each run bitwise the port's
+                relaxed master fed the store as written through step
+                K⌊t/K⌋ − 1 (draws, losses, params, both buffers); a
+                profiler window: idle share and the overlap share (time
+                with kernels on both streams at once over time with one).
+ 39. streaming — mlp_svhn at the paper's width over 524,288 examples (6 GiB
+                of f32 rows) in pinned host chunks of 1,024 rows behind a
+                window of 64 chunks (1/8 of the data): sync, then async at
+                swap cadence 4, 40 steps each, against the resident runs of
+                the same compositions, bitwise (draws, losses, params,
+                store); step ms, hit rate, misses, streamed rows, peak GiB,
+                and the host→device GB/s of a 256-row fetch and of a window
+                built from the host.  Halved, with the cut printed, if the
+                host cannot pin it.
+ 40. serve loop — glm4-9b at phase 7's cut, streamed, async at swap cadence
+                2, 24 steps without and with the serve loop (8 slots,
+                prompts of 64, 16 new tokens, 2 decodes a tick, the
+                kernels' route, every plain version forbidden): step ms,
+                ghost_norm 8 a step all on the scoring stream,
+                flash_attention 4 a prefill and decode_attention 4 a decode
+                (all tensor-core), rows ingested, dropped and live, peak
+                GiB, a profiler window with the overlap share; a prefill and
+                2 decode steps against the published snapshot bitwise those
+                against an explicit copy of the params of its step.
+ 41. planes parity — f32 smoke widths, card vs CPU from the same params,
+                data and uniforms: 4 async steps at swap cadence 2, 3
+                streamed sync steps, two serve ticks with an ingest; draws,
+                finished tokens and live rows equal, values within 1e-5.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -884,7 +916,8 @@ def phase_profile(train_mod, argv, cfg=None, steps=8, warm=3, tag="profile",
     (with the config override ``cfg`` and the attention path ``attn``)
     builds."""
     args = train_mod.parse_args(argv)
-    state, step, data, _ = train_mod.build(args, cfg, **attn)
+    built = train_mod.build(args, cfg, **attn)
+    state, step, data = built.state, built.step, built.data
     carry = {"state": state}
     del state
 
@@ -4441,6 +4474,652 @@ def phase_serve_zoo_parity():
     return out
 
 
+# ------------------------------------------------- slice 15: async planes
+ASYNC_STEPS = 40
+STREAM_N = 2 ** 19        # 524,288 examples: 6 GiB of f32 rows
+STREAM_CHUNK = 1024
+STREAM_WINDOW = 64        # chunks: 768 MiB of rows, 1/8 of the data
+STREAM_SWAP = 4
+# phase 39 scores 4 chunks a step, so that the scored chunks pass the cold
+# window (chunks 0–63) at step 16, and drops scores older than 8 steps back
+# to the uniform belief (appendix B.1), so that the window follows the
+# sweep: from step 16 each prefetch admits chunks the window lacks
+STREAM_SCORE_BATCH = 4096
+STREAM_STALENESS = 8
+LOOP_STEPS = 24
+LOOP_PROFILE_STEPS = 4
+LOOP_STREAM = ["--stream", "--async-scoring", "--swap-every", "2"]
+LOOP_SERVE = ["--serve-loop", "--serve-slots", "8", "--serve-prompt-len",
+              "64", "--serve-max-new", "16", "--serve-decode-steps", "2",
+              "--serve-reserve-chunks", "2"]
+PLANES_RTOL = 1e-5        # card vs CPU at smoke widths, f32 (phase 41)
+
+
+def side_counts() -> dict:
+    """The launches off the default stream of the scoring kernels."""
+    w = kernel_wrappers()
+    return {k: w[k].side_launches
+            for k in ("per_example_sqnorm_multi", "ghost_norm")}
+
+
+def reset_side_counts() -> None:
+    w = kernel_wrappers()
+    for k in ("per_example_sqnorm_multi", "ghost_norm"):
+        w[k].side_launches = 0
+
+
+def drive(built, steps, state=None):
+    """``steps`` steps of a launcher-built path, as ``run``'s loop takes
+    them (the serve loop's ingest after each): (state, each step's
+    metrics, CUDA-event ms a step, wall ms a step).  The pipeline's
+    scoring stream is joined before the clocks stop."""
+    state = built.state if state is None else state
+    mets, marks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m, *_ = built.step(state, built.data)
+        end.record()
+        if built.serve is not None:
+            state = built.serve.ingest_into(state)
+        mets.append(m)
+        marks.append((start, end))
+    if built.pipe is not None:
+        built.pipe.join()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    return state, mets, [s.elapsed_time(e) for s, e in marks], wall
+
+
+def stream_profile(fn, steps, tag):
+    """Idle and overlap shares of ``steps`` calls of fn(), from the
+    profiler's trace: each kernel's interval on its stream; busy = time
+    with a kernel on any stream, overlap share = time with kernels on two
+    streams at once over busy, idle share = 1 − busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = scratch_dir("chip_smoke_streams") / (
+        re.sub(r"[^a-z0-9]+", "_", tag.lower()) + ".json")
+    prof.export_chrome_trace(str(path))
+    by_stream: dict = {}
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        if e.get("cat") == "kernel" and "dur" in e:
+            s = str(e.get("args", {}).get("stream", e.get("tid")))
+            by_stream.setdefault(s, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    if not by_stream:
+        print(f"{tag}: device time not measured (no kernel in the trace)",
+              flush=True)
+        return None
+    points = sorted((t, d, s) for s, iv in by_stream.items()
+                    for a, b in iv for t, d in ((a, 1), (b, -1)))
+    active: dict = {}
+    busy = both = 0.0
+    last = None
+    for t, d, s in points:
+        if last is not None:
+            n = sum(1 for c in active.values() if c > 0)
+            busy += (t - last) if n >= 1 else 0.0
+            both += (t - last) if n >= 2 else 0.0
+        active[s] = active.get(s, 0) + d
+        last = t
+    streams = {s: {"kernels": len(iv),
+                   "kernel_ms": sum(b - a for a, b in iv) / 1e3}
+               for s, iv in by_stream.items()}
+    out = {"steps": steps, "wall_ms": wall_ms, "busy_ms": busy / 1e3,
+           "idle_share": 1 - busy / 1e3 / wall_ms,
+           "overlap_share": both / busy if busy else 0.0,
+           "overlap_ms": both / 1e3, "streams": streams,
+           "card_after": card_state()}
+    print(f"{tag}: {steps} steps, device busy {busy / 1e3:.3f} ms of "
+          f"{wall_ms:.3f} ms wall (idle share {out['idle_share']:.3f}), "
+          f"kernels on two streams at once {both / 1e3:.3f} ms (overlap "
+          f"share {out['overlap_share']:.4f}); by stream "
+          f"{json.dumps(streams)}", flush=True)
+    return out
+
+
+def same_buffers(a, b) -> bool:
+    """Two stores (plain or buffered) bitwise equal."""
+    if hasattr(a, "read_buf"):
+        return (same_store(a.read_buf, b.read_buf)
+                and same_store(a.write_buf, b.write_buf)
+                and a.synced_at == b.synced_at)
+    return same_store(a, b)
+
+
+def same_steps(mets_a, mets_b,
+               fields=("loss", "grad_norm", "trace_stale")) -> bool:
+    """Each step's draws and ``fields`` bitwise equal."""
+    return len(mets_a) == len(mets_b) and all(
+        torch.equal(a.sample_indices, b.sample_indices)
+        and all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+        for a, b in zip(mets_a, mets_b))
+
+
+def phase_async(train_mod, ref):
+    """38: mlp_svhn at the paper's width, --async-scoring at swap cadence 1
+    and 4 beside the relaxed step; each bitwise the port's relaxed master
+    fed the store as written through step K⌊t/K⌋ − 1; the scoring kernel
+    on the side stream once a step; idle and overlap shares."""
+    steps = ["--steps", str(ASYNC_STEPS)]
+
+    def relaxed_ms():
+        relaxed, r_l = counted_run(train_mod, ref, mlp_argv(*steps))
+        expect_launches(r_l, {"per_example_sqnorm_multi": ASYNC_STEPS},
+                        "relaxed")
+        return statistics.median(relaxed.step_ms[WARMUP_STEPS:])
+
+    r_ms = relaxed_ms()
+    out = {"steps": ASYNC_STEPS, "relaxed_step_ms": r_ms}
+    for k in (1, 4):
+        built = train_mod.build(train_mod.parse_args(mlp_argv(
+            *steps, "--async-scoring", "--swap-every", str(k))))
+        gen0 = built.state.rng.get_state()
+        reset_counts()
+        reset_side_counts()
+        state, mets, ms, wall = run_forbidding_plain(
+            ref, lambda: drive(built, ASYNC_STEPS))
+        launches, side = read_counts(), side_counts()
+        expect_launches(launches, {"per_example_sqnorm_multi": ASYNC_STEPS},
+                        f"async K={k}")
+        if side["per_example_sqnorm_multi"] != ASYNC_STEPS:
+            fail(f"async K={k}: {side} launches off the default stream; "
+                 f"the scoring pass must launch on its own stream")
+        # the port's relaxed master fed the lagged store, on one stream
+        pipe, init = built.pipe, built.state
+        gen = torch.Generator(device="cuda")
+        gen.set_state(gen0)
+        store = init.store.write_buf
+        hist = [store]
+        p, o, sp = init.params, init.opt_state, init.stale_params
+        lag = []
+        for t in range(ASYNC_STEPS):
+            store, _ = pipe._scoring(sp, store, t, built.data)
+            hist.append(store)
+            p, o, sp, _, _, m = pipe._master(p, o, sp, hist[(t // k) * k], t,
+                                             gen, built.data)
+            lag.append(m)
+        torch.cuda.synchronize()
+        # (the lagged master's traces are NaN: it gets no fresh scores)
+        if not (same_steps(mets, lag, ("loss", "grad_norm", "ess_frac"))
+                and same_tree(state.params, p)
+                and same_store(state.store.write_buf, store)
+                and same_store(state.store.read_buf,
+                               hist[(ASYNC_STEPS // k) * k])):
+            fail(f"async K={k} is not bitwise the relaxed master fed the "
+                 f"store of step K⌊t/K⌋ − 1")
+        swaps = pipe.swaps
+        cell = [state]
+
+        def more():
+            cell[0], _ = built.pipe.step(cell[0], built.data)
+
+        prof = stream_profile(more, 8, f"async K={k}")
+        out[f"k{k}"] = {
+            "step_ms_median": statistics.median(ms[WARMUP_STEPS:]),
+            "wall_ms_a_step": wall, "launches": launches,
+            "side_launches": side, "swaps": swaps, "profile": prof}
+        print(f"async K={k}: mlp_svhn full width, {ASYNC_STEPS} steps, "
+              f"median step {out[f'k{k}']['step_ms_median']:.3f} ms against "
+              f"relaxed {r_ms:.3f} ms (CUDA events, same call), "
+              f"{wall:.3f} ms wall a step; {side['per_example_sqnorm_multi']}"
+              f" multi-tap launches on the scoring stream; {swaps} "
+              f"publishes; bitwise the lagged relaxed master", flush=True)
+        del built, state, mets, hist, lag, p, o, sp, store, cell
+        torch.cuda.empty_cache()
+    out["relaxed_step_ms_after"] = relaxed_ms()
+    print(f"async: relaxed median step {r_ms:.3f} ms before the async runs, "
+          f"{out['relaxed_step_ms_after']:.3f} ms after (CUDA events)",
+          flush=True)
+    return out
+
+
+def build_streamed(train_mod, argv):
+    """A launcher build, and its seconds."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    built = train_mod.build(train_mod.parse_args(argv))
+    torch.cuda.synchronize()
+    return built, time.perf_counter() - t0
+
+
+def h2d_rates(plane, n):
+    """GB/s of the scoring stream's fetch (host gather + copy, 256 rows)
+    and of a window build whose every chunk comes from the host; the
+    swapped-in window's rows, gathered as hits, bitwise the host chunks'."""
+    from repro_torch.data.streaming import host_score_slice
+    row = sum(math.prod(plane.store.row_shape(k))
+              * torch.empty((), dtype=plane.store.dtype(k)).element_size()
+              for k in plane.store.keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(20):
+        plane.fetch_sharded(host_score_slice(t, 1, n, 256)[None])
+    torch.cuda.synchronize()
+    fetch_s = (time.perf_counter() - t0) / 20
+    chunks = plane.store.num_chunks
+    mass = torch.zeros(chunks)
+    far = chunks // 2
+    mass[far:far + plane.window_chunks] = 1.0
+    t0 = time.perf_counter()
+    swapped = plane.prefetch(mass) and plane.swap_window()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cs = plane.chunk_size
+    idx = torch.arange(far * cs, (far + plane.window_chunks) * cs, 7)
+    hits = plane.stats.hits
+    got = plane.gather_global(idx.numpy())
+    want = plane.store.fetch_rows(idx.numpy())
+    if not swapped or plane.stats.hits - hits != idx.numel() or not all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
+        fail(f"streaming h2d: the window built from chunks {far}.. does "
+             f"not serve their host rows bitwise as hits")
+    win_bytes = plane.window_chunks * plane.chunk_size * row
+    return {"fetch_rows": 256, "fetch_ms": fetch_s * 1e3,
+            "fetch_gb_s": 256 * row / fetch_s / 1e9,
+            "window_bytes": win_bytes, "window_build_ms": build_s * 1e3,
+            "window_gb_s": win_bytes / build_s / 1e9}
+
+
+def phase_streaming(train_mod, ref, n=STREAM_N):
+    """39: mlp_svhn at the paper's width over ``n`` examples held in
+    pinned host chunks behind a window of STREAM_WINDOW chunks: sync and
+    async (swap STREAM_SWAP) streamed runs bitwise their resident runs;
+    step ms, hit rate, misses, streamed rows, host→device GB/s, peaks.
+    The dataset is halved (and the cut printed) if the host cannot pin
+    it."""
+    base = mlp_argv("--examples", str(n), "--steps", str(ASYNC_STEPS),
+                    "--score-batch", str(STREAM_SCORE_BATCH),
+                    "--staleness-threshold", str(STREAM_STALENESS))
+    stream = ["--stream", "--chunk-size", str(STREAM_CHUNK),
+              "--window-chunks", str(STREAM_WINDOW)]
+    asyn = ["--async-scoring", "--swap-every", str(STREAM_SWAP)]
+    out = {"examples": n, "chunk": STREAM_CHUNK, "window": STREAM_WINDOW,
+           "steps": ASYNC_STEPS, "score_batch": STREAM_SCORE_BATCH,
+           "staleness_threshold": STREAM_STALENESS}
+    for comp, extra in (("sync", []), ("async", asyn)):
+        runs = {}
+        for where, more in (("resident", []), ("streamed", stream)):
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                built, build_s = build_streamed(train_mod,
+                                                base + extra + more)
+            except RuntimeError as e:
+                if where == "streamed" and "pin" in str(e).lower() \
+                        and n > STREAM_N // 8:
+                    print(f"streaming: pinning {n} rows failed ({e}); "
+                          f"halving the dataset", flush=True)
+                    return phase_streaming(train_mod, ref, n // 2)
+                raise
+            reset_counts()
+            reset_side_counts()
+            state, mets, ms, wall = run_forbidding_plain(
+                ref, lambda: drive(built, ASYNC_STEPS))
+            rec = {"step_ms_median": statistics.median(ms[WARMUP_STEPS:]),
+                   "wall_ms_a_step": wall, "build_s": build_s,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "launches": read_counts(), "side_launches": side_counts()}
+            expect_launches(rec["launches"],
+                            {"per_example_sqnorm_multi": ASYNC_STEPS},
+                            f"{where} {comp}")
+            if where == "streamed":
+                st = built.pipe.plane.stats
+                rec.update(hit_rate=st.hit_rate, hits=st.hits,
+                           misses=st.misses, streamed_rows=st.streamed_rows,
+                           window_swaps=st.swaps,
+                           pinned_host_gib=built.pipe.plane.store.nbytes()
+                           / 2**30)
+                if st.swaps == 0:
+                    fail(f"streaming {comp}: the window never swapped, so "
+                         f"the copy-stream build went unchecked")
+                if comp == "sync":
+                    rec["h2d"] = h2d_rates(built.pipe.plane, n)
+            runs[where] = (state, mets, rec)
+            del built
+            torch.cuda.empty_cache()
+        (rs, rm, rr), (ss, sm, sr) = runs["resident"], runs["streamed"]
+        if not (same_steps(rm, sm) and same_tree(rs.params, ss.params)
+                and same_buffers(rs.store, ss.store)):
+            fail(f"streaming {comp}: the streamed run is not bitwise the "
+                 f"resident run")
+        out[comp] = {"resident": rr, "streamed": sr}
+        print(f"streaming {comp}: {n} examples ({sr['pinned_host_gib']:.2f} "
+              f"GiB in pinned chunks of {STREAM_CHUNK}), window "
+              f"{STREAM_WINDOW} chunks; median step {sr['step_ms_median']:.3f}"
+              f" ms streamed against {rr['step_ms_median']:.3f} ms resident "
+              f"(CUDA events, same call; wall {sr['wall_ms_a_step']:.3f} / "
+              f"{rr['wall_ms_a_step']:.3f} ms a step); hit rate "
+              f"{sr['hit_rate']:.4f} ({sr['hits']} hits, {sr['misses']} "
+              f"misses), {sr['streamed_rows']} rows streamed, "
+              f"{sr['window_swaps']} window swaps; peak "
+              f"{sr['peak_gib']:.2f} GiB streamed, {rr['peak_gib']:.2f} GiB "
+              f"resident (data generation included); bitwise equal",
+              flush=True)
+        if comp == "sync":
+            print(f"streaming h2d: {json.dumps(sr['h2d'])}", flush=True)
+    return out
+
+
+def phase_serve_loop(train_mod, ref):
+    """40: glm4-9b at full width (phase 7's cut and trainer), streamed and
+    async (swap 2), with and without the serve loop (8 slots, prompts of
+    64, 16 new tokens, 2 decodes a tick, the kernels' route): step ms,
+    rows ingested, dropped and live, flash launches a prefill and decode
+    launches a tick (all tensor-core), the scoring kernels on the side
+    stream, peaks, an overlap profile; a decode against the published
+    snapshot bitwise a decode against an explicit copy of the params of
+    the step it was taken at."""
+    from repro_torch.core.weight_store import EMPTY
+    from repro_torch.serving.engine import decode_step, prefill
+    cfg = lm_config()
+    base = LM_ARGV + ["--steps", str(LOOP_STEPS)] + LOOP_STREAM
+    out = {"steps": LOOP_STEPS, "argv": base + LOOP_SERVE}
+    for name, extra in (("no_serve", []), ("serve", LOOP_SERVE)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        built = train_mod.build(train_mod.parse_args(base + extra), cfg)
+        serve, pipe = built.serve, built.pipe
+        counts = {"prefills": 0, "decodes": 0}
+        explicit = {}
+        if serve is not None:
+            batcher = serve.batcher
+            insert, step = batcher.try_insert, batcher.step
+
+            def counted_insert(req, insert=insert):
+                ok = insert(req)
+                counts["prefills"] += int(ok)
+                return ok
+
+            def counted_step(step=step, batcher=batcher):
+                counts["decodes"] += int(any(not s.free
+                                             for s in batcher.slots))
+                return step()
+
+            batcher.try_insert, batcher.step = counted_insert, counted_step
+
+            # the explicit copy is taken at the run's last publish only, so
+            # that one step of the timed run carries its clone
+            last_pub = max(
+                t for t in range(LOOP_STEPS) if t % serve.serve_every == 0
+                and (t // serve.serve_every) % serve.publish_every == 0)
+
+            def tick(state, serve=serve, last_pub=last_pub):
+                serve.on_train_step(state)
+                if int(state.step) == last_pub:
+                    explicit["step"] = int(state.step)
+                    explicit["params"] = _clone_tree(state.params)
+
+            pipe.serve_tick = tick
+        reset_counts()
+        reset_side_counts()
+        state, mets, ms, wall = run_forbidding_plain(
+            ref, lambda: drive(built, LOOP_STEPS))
+        launches, side = read_counts(), side_counts()
+        rec = {"step_ms_median": statistics.median(ms[LM_WARMUP:]),
+               "wall_ms_a_step": wall, "launches": launches,
+               "side_launches": side,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "losses": [float(m.loss) for m in mets]}
+        if not all(math.isfinite(v) for v in rec["losses"]):
+            fail(f"serve loop {name}: non-finite losses {rec['losses']}")
+        want_gn = len(GHOST_MAIN) * LOOP_STEPS
+        if launches["ghost_norm"] != want_gn or side["ghost_norm"] != want_gn:
+            fail(f"serve loop {name}: ghost_norm {launches['ghost_norm']} "
+                 f"launches, {side['ghost_norm']} on the scoring stream; "
+                 f"expected {want_gn}, all on it")
+        check_tc(launches, f"serve loop {name}")
+        if serve is not None:
+            want = {"ghost_norm": want_gn,
+                    "flash_attention": LM_LAYERS * counts["prefills"],
+                    "decode_attention": LM_LAYERS * counts["decodes"]}
+            expect_launches(launches, want, "serve loop")
+            ws_ = state.store.write_buf.scored_at
+            lo = serve.ingest.start_row
+            rec.update(
+                prefills=counts["prefills"], decodes=counts["decodes"],
+                flash_a_prefill=launches["flash_attention"]
+                / max(counts["prefills"], 1),
+                decode_a_tick=launches["decode_attention"] / LOOP_STEPS,
+                ingested=serve.ingest.ingested, dropped=serve.ingest.dropped,
+                live=int((ws_[lo:] != EMPTY).sum()),
+                finished=serve.finished, publishes=serve.publishes,
+                hit_rate=pipe.plane.stats.hit_rate)
+            if serve.ingest.ingested < 1 or rec["live"] != \
+                    serve.ingest.ingested:
+                fail(f"serve loop: {serve.ingest.ingested} rows ingested, "
+                     f"{rec['live']} live")
+            # the published snapshot against an explicit copy
+            pub = serve.published
+            if explicit.get("step") != pub.synced_at:
+                fail("serve loop: no explicit copy of the published step")
+            g = torch.Generator(device="cuda").manual_seed(11)
+            prompt = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                                   device="cuda")
+            logits = []
+            for params in (pub.params, explicit["params"]):
+                lg, st = prefill(params, cfg, prompt, 80, attn_impl="pallas")
+                seq = [lg]
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                for _ in range(2):
+                    lg, st = decode_step(params, cfg, tok, st,
+                                         decode_kernel="pallas")
+                    seq.append(lg)
+                    tok = torch.argmax(lg, -1).to(torch.int32)
+                logits.append(seq)
+            if not all(torch.equal(a, b) for a, b in zip(*logits)):
+                fail("serve loop: a decode against the published snapshot "
+                     "differs from one against the explicit copy")
+            rec["snapshot_step"] = pub.synced_at
+            rec["snapshot_vs_live_equal"] = same_tree(pub.params,
+                                                      state.params)
+            cell = [state]
+
+            def more(built=built):
+                cell[0], _, *_ = built.step(cell[0], None)
+                cell[0] = built.serve.ingest_into(cell[0])
+
+            rec["profile"] = stream_profile(more, LOOP_PROFILE_STEPS,
+                                            "serve loop")
+            del cell
+        out[name] = rec
+        print(f"serve loop {name}: glm4-9b × {LM_LAYERS}, {LOOP_STEPS} steps "
+              f"streamed, async swap 2: median step "
+              f"{rec['step_ms_median']:.3f} ms (CUDA events), {wall:.3f} ms wall a step, peak "
+              f"{rec['peak_gib']:.2f} GiB, launches {launches}, on the "
+              f"scoring stream {side}"
+              + (f"; {rec['prefills']} prefills ({rec['flash_a_prefill']:.0f}"
+                 f" flash launches each), {rec['decodes']} decodes "
+                 f"({rec['decode_a_tick']:.0f} decode launches a tick), rows "
+                 f"ingested {rec['ingested']}, dropped {rec['dropped']}, live"
+                 f" {rec['live']}; snapshot of step {rec['snapshot_step']} "
+                 f"decodes bitwise as its explicit copy"
+                 if serve is not None else ""), flush=True)
+        del built, state, mets, serve, pipe, explicit
+        torch.cuda.empty_cache()
+    return out
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / max(b.abs().max(), 1e-30))
+
+
+def _tree_rel(a, b) -> float:
+    if isinstance(a, dict):
+        return max(_tree_rel(a[k], b[k]) for k in a)
+    return _rel(a, b)
+
+
+def phase_planes_parity():
+    """41: card vs CPU in f32 at smoke widths, from the same params, data
+    and uniforms: two async steps at swap cadence 2 (the scoring on the
+    card's side stream), three streamed sync steps, and two serve ticks
+    with an ingest.  Draws equal, values within PLANES_RTOL."""
+    from repro_torch.configs import get_smoke_config, mlp_svhn
+    from repro_torch.core.async_pipeline import (AsyncPipeline,
+                                                 init_async_state,
+                                                 make_async_steps)
+    from repro_torch.core.importance import ISConfig
+    from repro_torch.core.issgd import (ISSGDConfig, init_train_state,
+                                        read_sampling_proposal)
+    from repro_torch.core.sampler import two_stage_sample
+    from repro_torch.core.scorer import make_mlp_scorer
+    from repro_torch.core.weight_store import (init_store, read_proposal,
+                                               reserve_tail)
+    from repro_torch.data import make_svhn_like
+    from repro_torch.data.store import ChunkedExampleStore
+    from repro_torch.data.streaming import (StreamedISSGD,
+                                            StreamingDataPlane,
+                                            make_streamed_steps)
+    from repro_torch.models import mlp, transformer
+    from repro_torch.optim import sgd
+    from repro_torch.serving import (ContinuousBatcher, ServeLoop,
+                                     TrafficIngest, make_synthetic_traffic)
+    n, steps = 1024, 4
+    cfg = mlp_svhn.smoke()
+    icfg = ISSGDConfig(batch_size=32, score_batch_size=128,
+                       is_cfg=ISConfig(smoothing=0.5), score_shards=2)
+    train, _ = make_svhn_like(torch.Generator().manual_seed(0), n=n,
+                              dim=cfg.input_dim)
+    params = mlp.init_mlp_classifier(torch.Generator().manual_seed(1), cfg,
+                                     "cpu")
+    u = torch.rand(steps, icfg.batch_size,
+                   generator=torch.Generator().manual_seed(2))
+    pel = lambda p, b: mlp.per_example_loss(p, b, cfg)
+    scorer, opt = make_mlp_scorer(cfg, "ghost"), sgd(0.05)
+    n_w = n // icfg.score_shards
+
+    def shared_draw(store, step, dev):
+        q = read_sampling_proposal(store, step, icfg, n_w)
+        return two_stage_sample(q, icfg.batch_size,
+                                num_shards=icfg.score_shards,
+                                uniforms=u[step].to(dev))
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        data = {k: v.to(dev) for k, v in train.arrays.items()}
+        p0 = {k: {j: v.to(dev) for j, v in d.items()}
+              for k, d in params.items()}
+        # (a) async, K = 2, scoring on the card's side stream
+        s_step, m_step = make_async_steps(pel, scorer, opt, icfg, n)
+
+        def master(p, o, sp, read_buf, step, gen, data_, m_step=m_step,
+                   dev=dev):
+            return m_step(p, o, sp, read_buf, step, gen, data_,
+                          sample_indices=shared_draw(read_buf, step, dev))
+
+        pipe = AsyncPipeline(s_step, master, 2)
+        st = init_async_state(p0, opt, n, dev)
+        a_mets = []
+        for _ in range(steps):
+            st, m = pipe.step(st, data)
+            a_mets.append(m)
+        pipe.join()
+        # (b) streamed sync
+        sc, smp, ms_ = make_streamed_steps(pel, scorer, opt, icfg, n, 64)
+
+        def sample(store, step, gen, smp=smp, dev=dev):
+            _, mass = smp(store, step, gen)
+            return shared_draw(store, step, dev), mass
+
+        plane = StreamingDataPlane(ChunkedExampleStore.from_arrays(
+            train.arrays, 64, pin_memory=dev == "cuda"), 4, device=dev)
+        drv = StreamedISSGD(plane, sc, sample, ms_, icfg, n)
+        sst = init_train_state(p0, opt, n, dev)
+        s_mets = []
+        for _ in range(steps - 1):
+            sst, m = drv.step(sst)
+            s_mets.append(m)
+        res[dev] = (st, a_mets, sst, s_mets)
+    errs = {}
+    for i, what in ((0, "async"), (2, "streamed")):
+        cpu_st, gpu_st = res["cpu"][i], res["cuda"][i]
+        cm, gm = res["cpu"][i + 1], res["cuda"][i + 1]
+        if not all(torch.equal(a.sample_indices, b.sample_indices.cpu())
+                   for a, b in zip(cm, gm)):
+            fail(f"planes parity {what}: the draws differ card vs CPU")
+        errs[what] = max(
+            max(_rel(b.loss, a.loss) for a, b in zip(cm, gm)),
+            max(_rel(b.trace_stale, a.trace_stale) for a, b in zip(cm, gm)),
+            _tree_rel(gpu_st.params, cpu_st.params))
+        bufs = (("read_buf", "write_buf") if what == "async" else (None,))
+        for buf in bufs:
+            a = getattr(cpu_st.store, buf) if buf else cpu_st.store
+            b = getattr(gpu_st.store, buf) if buf else gpu_st.store
+            if not torch.equal(a.scored_at, b.scored_at.cpu()):
+                fail(f"planes parity {what}: scored_at differs")
+            errs[what] = max(errs[what], _rel(b.weights, a.weights))
+    # (c) two serve ticks and an ingest, glm4-9b smoke (f32)
+    lcfg = get_smoke_config("glm4-9b")
+    lparams = transformer.init_transformer(torch.Generator().manual_seed(3),
+                                           lcfg, "cpu")
+    toks = torch.randint(0, lcfg.vocab_size, (64, 17),
+                         generator=torch.Generator().manual_seed(4))
+    loops = {}
+    for dev in ("cpu", "cuda"):
+        store = ChunkedExampleStore.from_arrays({"tokens": toks}, 8,
+                                                pin_memory=dev == "cuda")
+        store.append_chunk()
+        lp = _to_dev(lparams, dev)
+        serve = ServeLoop(
+            ContinuousBatcher(lp, lcfg, num_slots=2, max_len=7,
+                              decode_kernel="pallas", attn_impl="pallas"),
+            TrafficIngest(store, seq_len=17, start_row=64, capacity_rows=8),
+            make_synthetic_traffic(lcfg.vocab_size, 4, max_new_tokens=3,
+                                   seed=5), decode_steps=2)
+        state = init_train_state(lp, opt, 72, dev)._replace(
+            store=reserve_tail(init_store(72, dev), 64))
+        for _ in range(2):
+            serve.on_train_step(state)
+            state = serve.ingest_into(state)
+        loops[dev] = (serve, state, store)
+    (cs, cst, cstore), (gs, gst, gstore) = loops["cpu"], loops["cuda"]
+    rows = torch.arange(64, 72)
+    if cs.batcher.finished != gs.batcher.finished or \
+            cs.ingest.ingested != gs.ingest.ingested or \
+            cs.ingest.ingested < 1 or \
+            not torch.equal(cstore.fetch_rows(rows)["tokens"],
+                            gstore.fetch_rows(rows)["tokens"]) or \
+            not torch.equal(cst.store.scored_at, gst.store.scored_at.cpu()):
+        fail(f"planes parity serve: tokens, ingested rows or live rows "
+             f"differ card vs CPU ({cs.batcher.finished} vs "
+             f"{gs.batcher.finished})")
+    errs["serve"] = max(_rel(gs.batcher.state.caches[k],
+                             cs.batcher.state.caches[k])
+                        for k in cs.batcher.state.caches)
+    if max(errs.values()) > PLANES_RTOL:
+        fail(f"planes parity: card vs CPU {errs} > {PLANES_RTOL}")
+    print(f"planes parity: f32 smoke widths, card vs CPU from the same "
+          f"params, data and uniforms: async K=2 ({steps} steps), streamed "
+          f"sync ({steps - 1} steps), two serve ticks with "
+          f"{cs.ingest.ingested} rows ingested: draws, finished tokens and live rows equal, "
+          f"largest relative errors {errs}", flush=True)
+    return errs
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4530,6 +5209,10 @@ def main() -> int:
     serve_mini = phase_serve_minicpm3(serve_mod, ref)
     serve_music = phase_serve_musicgen(serve_mod, ref)
     serve_zoo_errs = phase_serve_zoo_parity()
+    async_res = phase_async(train_mod, ref)
+    stream_res = phase_streaming(train_mod, ref)
+    loop_res = phase_serve_loop(train_mod, ref)
+    planes_errs = phase_planes_parity()
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -4588,6 +5271,10 @@ def main() -> int:
         "card": card, "falcon_mamba": serve_falcon, "jamba": serve_jamba,
         "minicpm3": serve_mini, "musicgen": serve_music,
         "card_vs_cpu": serve_zoo_errs,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 15 times " + json.dumps({
+        "card": card, "async": async_res, "streaming": stream_res,
+        "serve_loop": loop_res, "card_vs_cpu": planes_errs,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
@@ -4706,8 +5393,26 @@ def main() -> int:
                            serve_falcon["batcher"]["launches"][name],
                        "serve_jamba": serve_jamba["launches"][name],
                        "serve_minicpm3": serve_mini["launches"][name],
-                       "serve_musicgen": serve_music["launches"][name]},
+                       "serve_musicgen": serve_music["launches"][name],
+                       "async_mlp_k1": async_res["k1"]["launches"][name],
+                       "async_mlp_k4": async_res["k4"]["launches"][name],
+                       **{f"stream_{w}_{c}":
+                          stream_res[c][w]["launches"][name]
+                          for c in ("sync", "async")
+                          for w in ("resident", "streamed")},
+                       "serve_loop_glm4":
+                           loop_res["serve"]["launches"][name],
+                       "serve_loop_glm4_no_serve":
+                           loop_res["no_serve"]["launches"][name]},
         })
+        if name in ("per_example_sqnorm_multi", "ghost_norm"):
+            kernels[-1]["side_stream_launches"] = {
+                "async_mlp_k1": async_res["k1"]["side_launches"][name],
+                "async_mlp_k4": async_res["k4"]["side_launches"][name],
+                "stream_streamed_async":
+                    stream_res["async"]["streamed"]["side_launches"][name],
+                "serve_loop_glm4":
+                    loop_res["serve"]["side_launches"][name]}
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]
         if "shapes" in timing[name]:

@@ -134,6 +134,20 @@ def stage1_block_sums(proposal: torch.Tensor, w: int,
     return None if cfg.index == "dense" else block_masses(proposal, w)
 
 
+def draw_minibatch(proposal: torch.Tensor, cfg: ISSGDConfig, w: int,
+                   generator: torch.Generator, uniform: bool
+                   ) -> torch.Tensor:
+    """The master's draw of ``cfg.batch_size`` indices: uniform over the
+    table, or two-stage ∝ ``proposal`` over ``w`` logical shards.  The
+    streamed sample step (``data/streaming.py``) draws with it too."""
+    if uniform:
+        return torch.randint(0, proposal.shape[0], (cfg.batch_size,),
+                             generator=generator, device=proposal.device)
+    return two_stage_sample(proposal, cfg.batch_size, num_shards=w,
+                            generator=generator,
+                            block_sums=stage1_block_sums(proposal, w, cfg))
+
+
 def _check_mode(cfg: ISSGDConfig) -> None:
     if cfg.mode not in MODES:
         raise ValueError(f"mode {cfg.mode!r} is not ported; this port runs "
@@ -164,12 +178,29 @@ def _score_slice(step: int, w: int, n_w: int, sb_w: int,
     return (shard + base[None, :]).reshape(-1)
 
 
+def scoring_layout(cfg: ISSGDConfig, num_examples: int,
+                   n_dev: int = 1) -> tuple[int, int, int]:
+    """(w_loc, n_w, sb_w): the logical shards a device scores, their
+    length and each one's slice a step.  The streaming scheduler
+    (``data/streaming.py``) replays ``_score_slice`` from it on the host.
+    One device: ``n_dev`` other than 1 waits for the multi-device port."""
+    if n_dev != 1:
+        raise ValueError(f"n_dev={n_dev}: this port runs one device")
+    sb = num_examples if cfg.mode == "exact" else cfg.score_batch_size
+    n_w, sb_w = _resolve_shards(cfg, num_examples, sb)
+    return max(cfg.score_shards, 1), n_w, sb_w
+
+
 def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
-                      num_examples: int) -> Callable:
+                      num_examples: int, streaming: bool = False
+                      ) -> Callable:
     """The workers' half: ``scoring_pass(score_params, store, step, data)
     -> (store, fresh_scores, stale_slice)``.  Rescore this step's
     round-robin slice and write it; `stale_slice` is the proposal over
-    the slice *before* the write (the eq. 9 monitor input)."""
+    the slice *before* the write (the eq. 9 monitor input).  With
+    ``streaming`` ``data`` is the slice's rows themselves, gathered by
+    the host (``data/streaming.py``); the writes land at the same
+    indices, so the two forms are bitwise equal."""
     _check_mode(cfg)
     n = num_examples
     sb = n if cfg.mode == "exact" else cfg.score_batch_size
@@ -180,7 +211,8 @@ def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
 
     def scoring_pass(score_params, store: WeightStore, step: int, data):
         score_idx = _score_slice(step, w, n_w, sb_w, store.weights.device)
-        fresh = scorer(score_params, gather_batch(data, score_idx))
+        fresh = scorer(score_params,
+                       data if streaming else gather_batch(data, score_idx))
         stale_slice = read_proposal(store, step, cfg.is_cfg)[score_idx]
         # reserved rows (scored_at == EMPTY) stay inert: score 0, stamp kept
         live = store.scored_at[score_idx] > EMPTY
@@ -196,7 +228,8 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                      cfg: ISSGDConfig, num_examples: int,
                      aux_loss: Optional[Callable] = None,
                      fused_score: Optional[Callable] = None,
-                     monitors=None, gated: bool = False) -> Callable:
+                     monitors=None, gated: bool = False,
+                     streaming: bool = False) -> Callable:
     """The master's half: ``master_pass(params, opt_state, stale_params,
     store, step, generator, data, fresh_scores=None, stale_slice=None,
     sample_indices=None, use_is=None) -> (params, opt_state,
@@ -218,7 +251,10 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     monitors, over the store and proposal the draw used.  With ``gated``
     (relaxed mode only) ``use_is`` is required, a host bool: False runs
     the uniform-mode draw and scales, True the relaxed ones, each the
-    same operations as that mode's step."""
+    same operations as that mode's step.  With ``streaming`` ``data`` is
+    the minibatch's rows themselves, gathered by the host at
+    ``sample_indices`` (required then: the host drew them,
+    ``data/streaming.py``)."""
     _check_mode(cfg)
     if cfg.mode == "fused" and fused_score is None:
         raise ValueError("mode='fused' requires fused_score")
@@ -240,6 +276,9 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
         if gated and not isinstance(use_is, bool):
             raise ValueError(f"a gated master pass needs use_is, a host "
                              f"bool; got {use_is!r}")
+        if streaming and sample_indices is None:
+            raise ValueError("a streaming master pass takes the rows of "
+                             "the drawn indices: pass sample_indices")
         device = store.weights.device
         sampled_store = store
         proposal = read_sampling_proposal(store, step, cfg, n_w)
@@ -250,20 +289,14 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
         # ---- compose the minibatch ----------------------------------------
         if sample_indices is not None:
             idx = sample_indices.to(device=device, dtype=torch.long)
-        elif uniform:
-            idx = torch.randint(0, n, (cfg.batch_size,), generator=generator,
-                                device=device)
         else:
-            idx = two_stage_sample(proposal, cfg.batch_size, num_shards=w,
-                                   generator=generator,
-                                   block_sums=stage1_block_sums(proposal, w,
-                                                                cfg))
+            idx = draw_minibatch(proposal, cfg, w, generator, uniform)
         if uniform:
             scales = torch.ones(idx.shape[0], dtype=torch.float32,
                                 device=device)
         else:
             scales = is_loss_scale(proposal[idx], mean_weight)
-        batch = gather_batch(data, idx)
+        batch = data if streaming else gather_batch(data, idx)
 
         # ---- unbiased IS-scaled update (§4.1) -------------------------------
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)

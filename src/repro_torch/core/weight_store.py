@@ -270,3 +270,86 @@ def staleness_stats(store: WeightStore, step: int) -> dict:
         / torch.clamp(frac, min=1e-9),
         "max_age": torch.max(torch.where(scored, age, -1)),
     }
+
+
+def reserve_tail(store: WeightStore, num_live: int) -> WeightStore:
+    """Mark every row past ``num_live`` as reserved capacity (EMPTY):
+    no proposal mass, inert under scoring, until ``mark_live``.  The
+    serving loop reserves rows for the traffic it will ingest."""
+    idx = torch.arange(store.scored_at.shape[0],
+                       device=store.scored_at.device)
+    return store._replace(scored_at=torch.where(
+        idx < num_live, store.scored_at,
+        torch.full_like(store.scored_at, EMPTY)))
+
+
+def mark_live(store: WeightStore, indices) -> WeightStore:
+    """Flip reserved rows to never scored (-1) once real data lands in
+    them: eligible for scoring and, neutral until scored, for sampling."""
+    idx = torch.as_tensor(indices, dtype=torch.long,
+                          device=store.scored_at.device)
+    return store._replace(scored_at=store.scored_at.index_put(
+        (idx,), torch.full_like(idx, -1, dtype=torch.int32)))
+
+
+class BufferedWeightStore(NamedTuple):
+    """The double-buffered store of the async pipeline
+    (``core/async_pipeline.py``).
+
+    The master samples from ``read_buf``, a snapshot of the table as of
+    step ``synced_at`` (a host int, -1 before the first publish), while
+    the scoring pass writes ``write_buf``; the two share no tensor.
+    ``publish`` copies ``write_buf`` into a fresh ``read_buf``.  With
+    swap cadence K the master at step t samples from the table as written
+    through step K·⌊t/K⌋ − 1: a relaxed run whose proposal is
+    L(t) = t − K·⌊t/K⌋ + 1 ∈ [1, K] steps staler, the lag visible in
+    ``read_buf.scored_at``."""
+    read_buf: WeightStore
+    write_buf: WeightStore
+    synced_at: int
+
+
+def _copy_store(store: WeightStore) -> WeightStore:
+    """Fresh tensors of every field: ``read_buf`` never aliases
+    ``write_buf``."""
+    return WeightStore(weights=store.weights.clone(),
+                       scored_at=store.scored_at.clone(),
+                       qscale=(None if store.qscale is None
+                               else store.qscale.clone()))
+
+
+def to_buffered(store: WeightStore) -> BufferedWeightStore:
+    """Wrap a plain store: both buffers distinct copies of it, nothing
+    published yet."""
+    return BufferedWeightStore(read_buf=_copy_store(store),
+                               write_buf=_copy_store(store), synced_at=-1)
+
+
+def publish(bstore: BufferedWeightStore, step: int) -> BufferedWeightStore:
+    """The swap: ``read_buf`` ← a copy of ``write_buf``, stamped with the
+    last step whose writes it now holds."""
+    return BufferedWeightStore(read_buf=_copy_store(bstore.write_buf),
+                               write_buf=bstore.write_buf,
+                               synced_at=int(step))
+
+
+def mark_live_buffered(bstore: BufferedWeightStore,
+                       indices) -> BufferedWeightStore:
+    """``mark_live`` on ``write_buf`` only: the rows reach the master's
+    snapshot at the next ``publish``, so the proposal never sees rows
+    newer than its snapshot."""
+    return bstore._replace(write_buf=mark_live(bstore.write_buf, indices))
+
+
+class PublishedParams(NamedTuple):
+    """A parameter snapshot for serving, the weights' counterpart of
+    ``read_buf``: under publish cadence K it is at most K steps stale."""
+    params: object      # the tree of the step it was taken at
+    synced_at: int      # the train step it was taken at
+
+
+def publish_params(params, step: int) -> PublishedParams:
+    """Snapshot the training params.  It holds the step's own tensors: the
+    port's optimizers update out of place, so no later step writes them
+    (the reference copies only because its step donates the buffers)."""
+    return PublishedParams(params=params, synced_at=int(step))

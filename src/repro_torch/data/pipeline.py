@@ -13,8 +13,49 @@ noisy slices + label noise), the property ISSGD exploits.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+
+#: Gather modes of ``take_rows`` (``src/repro/data/pipeline.py``): the
+#: hot paths build their indices in bounds and promise it; "clip" clamps
+#: for callers that mask clamped rows afterwards; "fill" poisons
+#: out-of-range rows so that a schedule bug shows instead of repeating a
+#: row silently.
+GATHER_MODES = ("promise_in_bounds", "clip", "fill")
+
+
+def _fill_value(dtype: torch.dtype):
+    """JAX's ``mode="fill"`` value: NaN for floats, the minimum of a
+    signed and the maximum of an unsigned integer, True for bool."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point or dtype.is_complex:
+        return math.nan
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def take_rows(array: torch.Tensor, indices: torch.Tensor,
+              mode: str = "promise_in_bounds") -> torch.Tensor:
+    """Row gather with an explicit out-of-bounds mode, as JAX's
+    ``array.at[indices].get(mode=...)``: negative indices count from the
+    end; then "promise_in_bounds" is a plain index, "clip" clamps to the
+    first or last row and "fill" gives ``_fill_value`` rows."""
+    if mode not in GATHER_MODES:
+        raise ValueError(f"mode={mode!r} not in {GATHER_MODES}")
+    if mode == "promise_in_bounds":
+        return array[indices]
+    n = array.shape[0]
+    idx = torch.where(indices < 0, indices + n, indices)
+    safe = torch.clamp(idx, 0, max(n - 1, 0))
+    rows = array.index_select(0, safe)
+    if mode == "clip":
+        return rows
+    oob = ((idx < 0) | (idx >= n)).reshape((-1,) + (1,) * (array.dim() - 1))
+    return torch.where(oob, torch.full_like(rows, _fill_value(array.dtype)),
+                       rows)
 
 
 @dataclasses.dataclass
@@ -27,10 +68,26 @@ class ArrayDataset:
         """Number of examples (the common leading-axis length)."""
         return next(iter(self.arrays.values())).shape[0]
 
+    def batch(self, indices: torch.Tensor,
+              mode: str = "promise_in_bounds") -> dict:
+        """The rows at ``indices`` of every tensor (``take_rows``)."""
+        return gather_batch(self.arrays, indices, mode=mode)
 
-def gather_batch(arrays: dict, indices: torch.Tensor) -> dict:
-    """Row-gather every tensor of a dataset dict at `indices`."""
-    return {k: v.index_select(0, indices) for k, v in arrays.items()}
+    def slice(self, start: int, count: int) -> dict:
+        """``count`` contiguous rows from ``start``, placed as
+        ``lax.dynamic_slice_in_dim`` places them: a negative start counts
+        from the end, then the start is clamped so the slice fits."""
+        n = self.size
+        start = start + n if start < 0 else start
+        start = min(max(start, 0), max(n - count, 0))
+        return {k: v[start:start + count] for k, v in self.arrays.items()}
+
+
+def gather_batch(arrays: dict, indices: torch.Tensor,
+                 mode: str = "promise_in_bounds") -> dict:
+    """Row-gather every tensor of a dataset dict at `indices`
+    (``take_rows`` per tensor)."""
+    return {k: take_rows(v, indices, mode=mode) for k, v in arrays.items()}
 
 
 def make_svhn_like(generator: torch.Generator, n: int = 65_536,

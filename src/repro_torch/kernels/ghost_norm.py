@@ -106,7 +106,8 @@ def ghost_norm(x: torch.Tensor, d: torch.Tensor, *,
     if n_pairs > lib.gn_max_pairs():
         raise ValueError(f"S={s} gives {n_pairs} tile pairs a row; the "
                          f"kernel's grid takes at most {lib.gn_max_pairs()}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
+    stream = current.cuda_stream
     d_bf16 = int(d.dtype == torch.bfloat16)
     tc = uses_tensor_cores(x, d)
     if tc:
@@ -130,8 +131,10 @@ def ghost_norm(x: torch.Tensor, d: torch.Tensor, *,
             partial.data_ptr(), out.data_ptr(), stream))
     ghost_norm.launches += 1
     ghost_norm.tc_launches += int(tc)
+    ghost_norm.side_launches += int(current != torch.cuda.default_stream(dev))
     return out
 
 
 ghost_norm.launches = 0
 ghost_norm.tc_launches = 0        # of those, the tensor-core instance
+ghost_norm.side_launches = 0      # of those, off the default stream

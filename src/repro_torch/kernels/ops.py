@@ -19,12 +19,15 @@ from repro_torch.kernels import selective_scan as _ss
 
 
 # the CUDA wrappers and their launch counters (``launches``, and
-# ``tc_launches`` / ``scored`` where a wrapper keeps them)
+# ``tc_launches`` / ``scored`` / ``side_launches`` where a wrapper keeps
+# them).  Every counter counts launches on any stream; ``side_launches``
+# counts those off the device's default stream (the async pipeline's
+# scoring stream).
 _COUNTED = (_pes.per_example_sqnorm, _pes.per_example_sqnorm_multi,
             _gn.ghost_norm, _fa.flash_attention, _da.decode_attention,
             _fab.flash_attention_bwd, _fab.attn_score_sweep,
             _ss.selective_scan)
-_COUNTERS = ("launches", "tc_launches", "scored")
+_COUNTERS = ("launches", "tc_launches", "scored", "side_launches")
 
 
 def launch_counts() -> dict:

@@ -118,7 +118,8 @@ def per_example_sqnorm_multi(xs, ds, *, with_bias: bool = True
     if b == 0:
         return out
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
+    stream = current.cuda_stream
     cap = lib.pes_max_taps()
     for lo in range(0, len(xs), cap):
         chunk = [_tap(x, d) for x, d in zip(xs[lo:lo + cap], ds[lo:lo + cap])]
@@ -128,7 +129,12 @@ def per_example_sqnorm_multi(xs, ds, *, with_bias: bool = True
                                     stream)
         _raise_on(lib, code, "per_example_sqnorm_multi")
         per_example_sqnorm_multi.launches += 1
+        per_example_sqnorm_multi.side_launches += int(
+            current != torch.cuda.default_stream(dev))
     return out
 
 
 per_example_sqnorm_multi.launches = 0
+# of those, launched on a stream other than the device's default one (the
+# async pipeline's scoring stream)
+per_example_sqnorm_multi.side_launches = 0

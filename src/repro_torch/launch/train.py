@@ -35,8 +35,23 @@ sampling structures:
       --adapt-every 10 --metrics-jsonl /tmp/run.jsonl
   python tools/metrics_report.py /tmp/run.jsonl
 
-Flags of the reference launcher that this port does not carry yet are
-refused by name.  As in the reference, the attention path of an LM
+The asynchronous planes: ``--async-scoring`` runs the scoring pass on a
+side CUDA stream beside the master (``core/async_pipeline.py``, the
+store published every ``--swap-every`` steps); ``--stream`` keeps the
+dataset in host chunks behind a proposal-driven device window
+(``data/streaming.py``; bitwise the resident run); ``--serve-loop``
+(with ``--stream`` and an LM) decodes traffic against published params
+each step and ingests it back into the store (``serving/loop.py``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
+      --examples 1024 --device cpu --stream --async-scoring --swap-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+      --smoke --device cpu --steps 6 --examples 256 --seq 16 --batch 8 \
+      --score-batch 32 --stream --serve-loop
+
+The multi-device flags of the reference launcher (``--mesh``,
+``--model-parallel``, ``--(no-)sequence-parallel``) are refused by
+name.  As in the reference, the attention path of an LM
 (``attn_impl``, ``attn_scores``) and the scorer's mamba scan
 (``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
 arguments, e.g. ``run(args, attn_impl="flash", attn_scores="fused")`` or
@@ -58,29 +73,33 @@ from repro_torch import configs
 from repro_torch.configs import mlp_svhn
 from repro_torch.core.importance import ISConfig
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.core.async_pipeline import AsyncPipeline, make_async_steps
 from repro_torch.core.controller import ControllerConfig, ProposalController
 from repro_torch.core.issgd import (ISSGDConfig, TrainState,
                                     init_train_state, make_score_step,
                                     make_train_step)
+from repro_torch.core.weight_store import (init_store, reserve_tail,
+                                           to_buffered)
 from repro_torch.core.scorer import make_lm_scorer, make_mlp_scorer
 from repro_torch.core.strategies import PROPOSALS, make_proposal
-from repro_torch.data import make_svhn_like, make_token_dataset
+from repro_torch.data import (ChunkedExampleStore, make_svhn_like,
+                              make_token_dataset)
+from repro_torch.data.streaming import (StreamedISSGD, StreamingDataPlane,
+                                        make_streamed_steps)
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer
 from repro_torch.optim import sgd
+from repro_torch.serving import (ContinuousBatcher, ServeLoop, TrafficIngest,
+                                 make_synthetic_traffic)
 from repro_torch.telemetry import EventSink, MonitorSet, NullSink, Telemetry
 
 PORT = ("the PyTorch port (one device: mlp_svhn, the dense GQA transformer "
         "LMs and the mamba LMs)")
 
-# flags of src/repro/launch/train.py the port does not carry yet
-LATER_FLAGS = (
-    "--mesh", "--model-parallel",
-    "--sequence-parallel", "--no-sequence-parallel", "--async-scoring",
-    "--swap-every", "--no-trace-monitors", "--stream", "--chunk-size",
-    "--window-chunks", "--prefetch-every", "--serve-loop", "--serve-slots",
-    "--serve-prompt-len", "--serve-max-new", "--serve-rate", "--serve-every",
-    "--serve-publish-every", "--serve-decode-steps", "--serve-reserve-chunks")
+# flags of src/repro/launch/train.py the port does not carry yet: the
+# multi-device ones
+LATER_FLAGS = ("--mesh", "--model-parallel", "--sequence-parallel",
+               "--no-sequence-parallel")
 
 # the StepMetrics fields a logged step records, in the reference's order
 METRIC_KEYS = ("loss", "grad_norm", "trace_ideal", "trace_stale",
@@ -92,8 +111,10 @@ INT_MONITORS = ("empty_rows", "staleness")
 class Built(NamedTuple):
     state: TrainState
     step: Callable       # train_step(state, data) -> (state, metrics)
-    data: dict
+    data: Optional[dict]  # None when streamed: the plane holds the rows
     probe: Optional[Callable]  # fused mode: score_step(state, data) -> state
+    pipe: object = None   # AsyncPipeline or StreamedISSGD, when one runs
+    serve: Optional[ServeLoop] = None
 
 
 class TrainResult(NamedTuple):
@@ -101,6 +122,7 @@ class TrainResult(NamedTuple):
     history: list        # one record per logged step
     step_ms: list        # every step's time (CUDA events on the card)
     decisions: tuple = ()  # the adaptive controller's, in order
+    built: Optional[Built] = None
 
 
 def use_full_f32() -> None:
@@ -187,9 +209,59 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "--profile-steps window into this directory")
     ap.add_argument("--profile-steps", default="2:2",
                     help="profiler window as START:COUNT train steps")
+    ap.add_argument("--async-scoring", action="store_true",
+                    help="run the scoring pass on a side CUDA stream beside "
+                    "the master update, over the double-buffered store "
+                    "(core/async_pipeline.py; mode relaxed|uniform)")
+    ap.add_argument("--swap-every", type=int, default=1,
+                    help="async: publish write_buf -> read_buf every K "
+                    "steps (the proposal lag is L in [1, K])")
+    ap.add_argument("--no-trace-monitors", action="store_true",
+                    help="async: skip the fig-4 trace monitors in the "
+                    "scoring step (traces log as nan)")
+    ap.add_argument("--stream", action="store_true",
+                    help="host-resident chunked dataset (pinned on the "
+                    "card) behind a proposal-aware device window "
+                    "(data/streaming.py); bitwise the resident run, "
+                    "composes with --async-scoring")
+    ap.add_argument("--chunk-size", type=int, default=0,
+                    help="examples per host chunk (0 = auto: the largest "
+                    "divisor of the example count at most an eighth of it)")
+    ap.add_argument("--window-chunks", type=int, default=4,
+                    help="device-resident hot chunks")
+    ap.add_argument("--prefetch-every", type=int, default=1,
+                    help="stage a fresh proposal-ranked window every K "
+                    "steps")
+    ap.add_argument("--serve-loop", action="store_true",
+                    help="close the train/serve loop: a continuous-"
+                    "batching decode tick each train step against "
+                    "published param snapshots, finished requests "
+                    "ingested back into the store (requires --stream and "
+                    "an LM arch)")
+    ap.add_argument("--serve-slots", type=int, default=2,
+                    help="serve loop: concurrent decode slots")
+    ap.add_argument("--serve-prompt-len", type=int, default=4,
+                    help="serve loop: synthetic-traffic prompt length")
+    ap.add_argument("--serve-max-new", type=int, default=4,
+                    help="serve loop: tokens generated per request")
+    ap.add_argument("--serve-rate", type=int, default=1,
+                    help="serve loop: new requests per serve tick")
+    ap.add_argument("--serve-every", type=int, default=1,
+                    help="serve loop: a serve tick every K train steps")
+    ap.add_argument("--serve-publish-every", type=int, default=0,
+                    help="serve loop: snapshot the params for serving "
+                    "every K serve ticks (0 = --swap-every)")
+    ap.add_argument("--serve-decode-steps", type=int, default=2,
+                    help="serve loop: lock-step decodes per serve tick")
+    ap.add_argument("--serve-reserve-chunks", type=int, default=2,
+                    help="serve loop: zero chunks appended up front as "
+                    "traffic capacity (reserved rows carry no proposal "
+                    "mass until ingested)")
     ap.add_argument("--telemetry-blocking", action="store_true",
                     help="synchronise the card before each span closes "
-                    "(the step's device wall clock; off by default)")
+                    "(the step's device wall clock; off by default). It "
+                    "waits for every stream, so it serialises the async "
+                    "scoring/master overlap")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU runs only when asked for "
                     "(--device cpu)")
@@ -219,10 +291,34 @@ def validate_flags(ap: argparse.ArgumentParser,
     """The reference's refusals of flag combinations
     (``src/repro/launch/train.py::validate_flags`` and its telemetry
     checks), on one device."""
+    if args.async_scoring and args.mode not in ("relaxed", "uniform"):
+        ap.error("--async-scoring requires --mode relaxed|uniform (fused "
+                 "scores ride the train forward and exact has no separate "
+                 "pass to overlap)")
     if args.adaptive_is and args.mode != "relaxed":
         ap.error("--adaptive-is requires --mode relaxed (the controller "
                  "gates the relaxed sampler between uniform and IS; the "
                  "other modes have no gate to drive)")
+    if args.stream and args.mode == "exact":
+        ap.error("--stream does not support --mode exact (the oracle "
+                 "rescores the full dataset each step; keep it resident)")
+    if args.swap_every < 1 or args.prefetch_every < 1:
+        ap.error("--swap-every and --prefetch-every must be >= 1")
+    if args.serve_loop:
+        if not args.stream:
+            ap.error("--serve-loop requires --stream (served traffic is "
+                     "ingested as chunks of the host-resident store)")
+        if args.arch == "mlp_svhn":
+            ap.error("--serve-loop needs a token arch (the decode service "
+                     "generates tokens); pick a transformer --arch")
+        if args.mode not in ("relaxed", "fused"):
+            ap.error("--serve-loop requires --mode relaxed|fused (uniform "
+                     "sampling draws reserved-capacity rows before they "
+                     "are ingested; exact is excluded by --stream)")
+    if args.table_dtype == "int8" and (args.stream or args.serve_loop):
+        ap.error("--table-dtype int8 does not compose with --stream/"
+                 "--serve-loop yet (the streamed serving ingest assumes a "
+                 "float table); use f32 or bf16 there")
     cs = args.index_chunk_size
     if args.table_dtype == "int8" and (cs <= 0 or args.examples % cs):
         ap.error(f"--table-dtype int8 needs --index-chunk-size > 0 "
@@ -318,16 +414,30 @@ def fused_objective(args: argparse.Namespace, cfg=None) -> Callable:
     return lambda p, b: transformer.per_example_loss_and_score(p, cfg, b)
 
 
+def auto_chunk_size(n: int) -> int:
+    """``--chunk-size 0``: the largest divisor of ``n`` that is at most an
+    eighth of it (the reference's rule)."""
+    return next(c for c in range(max(n // 8, 1), 0, -1) if n % c == 0)
+
+
 def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-          attn_scores=None, ssm_mode: str = "ref") -> Built:
-    """(state, train_step, data, probe) for ``args``: model, data, step
-    and, in fused mode, the probe step (None otherwise).  With
+          attn_scores=None, ssm_mode: str = "ref", telemetry=None,
+          controller=None) -> Built:
+    """(state, train_step, data, probe, pipe, serve) for ``args``: model,
+    data, step and, in fused mode, the probe step (None otherwise).  With
     ``--monitors`` the step returns ``(state, metrics, monitors)``; with
     ``--adaptive-is`` it takes the gate, ``step(state, data, use_is)``.
     ``cfg`` overrides the arch's config (e.g. a cut depth); ``attn_impl``
     ("ref" or "flash") and ``attn_scores`` (None, "fused" or "separate")
     pick an LM's attention path, ``ssm_mode`` ("ref" or "pallas") its
-    scorer's mamba scan (``build_lm``)."""
+    scorer's mamba scan (``build_lm``).
+
+    With ``--async-scoring`` or ``--stream`` the step drives ``pipe``
+    (an AsyncPipeline or a StreamedISSGD, built with ``telemetry`` and,
+    under ``--adaptive-is``, the ``controller`` whose gate it reads; the
+    step then ignores a passed gate), and ``--serve-loop`` adds
+    ``serve``, whose ``ingest_into`` the loop calls after each step.
+    A streamed run's ``data`` is None."""
     use_full_f32()
     device = torch.device(args.device)
     builder = build_mlp if args.arch == "mlp_svhn" else build_lm
@@ -344,16 +454,105 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         table_dtype=args.table_dtype, score_ttl=args.score_ttl,
         index_chunk_size=args.index_chunk_size)
     fused = fused_objective(args, cfg) if args.mode == "fused" else None
-    step = make_train_step(pel, scorer, opt, tcfg, train.size,
-                           fused_score=fused,
-                           monitors=MonitorSet.parse(args.monitors),
-                           gated=args.adaptive_is)
-    probe = (make_score_step(scorer, tcfg, train.size)
-             if args.mode == "fused" else None)
+    monitors = MonitorSet.parse(args.monitors)
     state = init_train_state(params, opt, train.size, device, seed=args.seed,
                              table_dtype=args.table_dtype,
                              index_chunk_size=args.index_chunk_size)
+    if args.stream:
+        return _build_streamed(args, cfg, state, train, pel, scorer, opt,
+                               tcfg, fused, monitors, telemetry, controller)
+    if args.async_scoring:
+        print(f"async scoring, swap every {args.swap_every}", flush=True)
+        pipe = AsyncPipeline(
+            *make_async_steps(pel, scorer, opt, tcfg, train.size,
+                              monitor_traces=not args.no_trace_monitors,
+                              monitors=monitors, gated=args.adaptive_is),
+            args.swap_every, telemetry=telemetry, controller=controller)
+        return Built(state._replace(store=to_buffered(state.store)),
+                     _pipe_step(pipe), train.arrays, None, pipe)
+    step = make_train_step(pel, scorer, opt, tcfg, train.size,
+                           fused_score=fused, monitors=monitors,
+                           gated=args.adaptive_is)
+    probe = (make_score_step(scorer, tcfg, train.size)
+             if args.mode == "fused" else None)
     return Built(state, step, train.arrays, probe)
+
+
+def _pipe_step(pipe) -> Callable:
+    """``pipe.step`` in ``make_train_step``'s form: ``(state, metrics)``
+    plus the monitors when the master computes them; a passed gate is the
+    controller's, which the pipeline reads itself."""
+    def step(state, data, use_is=None):
+        state, metrics = pipe.step(state, data)
+        if pipe.last_monitors is not None:
+            return state, metrics, pipe.last_monitors
+        return state, metrics
+    return step
+
+
+def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
+                    monitors, telemetry, controller) -> Built:
+    """The ``--stream`` half of ``build``: the host chunk store (pinned on
+    the card), the serve loop's reserved capacity, the plane and the
+    StreamedISSGD driver."""
+    device = torch.device(args.device)
+    n_live = train.size
+    csize = args.chunk_size or auto_chunk_size(n_live)
+    store = ChunkedExampleStore.from_arrays(
+        train.arrays, csize, pin_memory=device.type == "cuda")
+    n_examples = n_live
+    if args.serve_loop:
+        # reserve traffic capacity before the plane lays out its chunks
+        for _ in range(max(args.serve_reserve_chunks, 1)):
+            store.append_chunk()
+        n_examples = store.num_examples
+        state = state._replace(store=reserve_tail(
+            init_store(n_examples, device, table_dtype=args.table_dtype,
+                       chunk_size=args.index_chunk_size), n_live))
+    if args.async_scoring:
+        state = state._replace(store=to_buffered(state.store))
+    wc = max(1, min(args.window_chunks, store.num_chunks))
+    plane = StreamingDataPlane(store, wc, device=device)
+    pipe = StreamedISSGD(
+        plane, *make_streamed_steps(
+            pel, scorer, opt, tcfg, n_examples, csize, fused_score=fused,
+            async_mode=args.async_scoring,
+            monitor_traces=not args.no_trace_monitors, monitors=monitors,
+            gated=args.adaptive_is),
+        tcfg, n_examples, async_mode=args.async_scoring,
+        swap_every=args.swap_every, prefetch_every=args.prefetch_every,
+        telemetry=telemetry, controller=controller)
+    serve = None
+    if args.serve_loop:
+        scfg = resolve_config(args, cfg)
+        serve_max_len = args.serve_prompt_len + args.serve_max_new
+        batcher = ContinuousBatcher(state.params, scfg,
+                                    num_slots=args.serve_slots,
+                                    max_len=serve_max_len,
+                                    decode_kernel="pallas",
+                                    attn_impl="pallas")
+        serve = ServeLoop(
+            batcher,
+            TrafficIngest(store, seq_len=args.seq + 1, start_row=n_live,
+                          capacity_rows=n_examples - n_live),
+            make_synthetic_traffic(scfg.vocab_size, args.serve_prompt_len,
+                                   rate=args.serve_rate,
+                                   max_new_tokens=args.serve_max_new,
+                                   seed=args.seed + 7),
+            publish_every=args.serve_publish_every or args.swap_every,
+            serve_every=args.serve_every,
+            decode_steps=args.serve_decode_steps, telemetry=telemetry,
+            join=pipe.join)
+        pipe.serve_tick = serve.on_train_step
+        print(f"serve-loop: {args.serve_slots} slots, max_len "
+              f"{serve_max_len}, {n_examples - n_live} reserved rows",
+              flush=True)
+    print(f"streaming: {store.num_chunks} chunks x {csize} rows "
+          f"host-resident, window {wc} chunks/shard x 1 shard(s)"
+          + (f", async swap every {args.swap_every}"
+             if args.async_scoring else ""), flush=True)
+    return Built(state, _pipe_step(pipe), None,
+                 pipe.probe if args.mode == "fused" else None, pipe, serve)
 
 
 def open_sink(args: argparse.Namespace):
@@ -363,8 +562,9 @@ def open_sink(args: argparse.Namespace):
     if args.metrics_jsonl:
         sink = EventSink(args.metrics_jsonl, run={
             "arch": args.arch, "mode": args.mode, "steps": args.steps,
-            "mesh": 0, "model_parallel": 1, "async_scoring": False,
-            "stream": False, "serve_loop": False, "swap_every": 1,
+            "mesh": 0, "model_parallel": 1,
+            "async_scoring": args.async_scoring, "stream": args.stream,
+            "serve_loop": args.serve_loop, "swap_every": args.swap_every,
             "monitors": list(MonitorSet.parse(args.monitors).names),
             "proposal_strategy": proposal_name(args),
             "adaptive_is": args.adaptive_is, "seed": args.seed,
@@ -374,7 +574,9 @@ def open_sink(args: argparse.Namespace):
     ctl = None
     if args.adaptive_is:
         ctl = ProposalController(
-            ControllerConfig(adapt_every=args.adapt_every))
+            ControllerConfig(adapt_every=args.adapt_every,
+                             adapt_swap=args.async_scoring),
+            swap_every=args.swap_every)
         # the tap is truthy over a NullSink too: the metrics records the
         # controller folds keep coming, file or no file
         sink = ctl.attach(sink)
@@ -425,26 +627,29 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     ``ssm_mode``, see ``build``) and train, logging every ``--log-every``
     steps and emitting telemetry records every ``--metrics-every``;
     restore before the loop and save after it when asked.  A step's
-    time covers the train step, not the probe.  Everything a step logs
-    (metrics and monitors) is read from the card in one transfer, on the
-    logging steps only."""
-    state, step, data, probe = build(args, cfg, attn_impl=attn_impl,
-                                     attn_scores=attn_scores,
-                                     ssm_mode=ssm_mode)
-    if args.restore_checkpoint:
-        state, ck_step = restore_checkpoint(args.restore_checkpoint, state)
-        print(f"restored {args.restore_checkpoint} (step {ck_step})",
-              flush=True)
+    time covers the train step, not the probe or the serve loop's
+    ingest.  Everything a step logs (metrics and monitors) is read from
+    the card in one transfer, on the logging steps only."""
     sink, ctl = open_sink(args)
     try:
-        return _train_loop(args, state, step, data, probe, sink, ctl)
+        tel = Telemetry(sink, every=args.metrics_every or args.log_every,
+                        blocking=args.telemetry_blocking)
+        built = build(args, cfg, attn_impl=attn_impl,
+                      attn_scores=attn_scores, ssm_mode=ssm_mode,
+                      telemetry=tel, controller=ctl)
+        if args.restore_checkpoint:
+            state, ck_step = restore_checkpoint(args.restore_checkpoint,
+                                                built.state)
+            built = built._replace(state=state)
+            print(f"restored {args.restore_checkpoint} (step {ck_step})",
+                  flush=True)
+        return _train_loop(args, built, sink, ctl, tel)
     finally:
         sink.close()
 
 
-def _train_loop(args, state, step, data, probe, sink, ctl) -> TrainResult:
-    tel = Telemetry(sink, every=args.metrics_every or args.log_every,
-                    blocking=args.telemetry_blocking)
+def _train_loop(args, built: Built, sink, ctl, tel) -> TrainResult:
+    state, step, data, probe, pipe, serve = built
     profile = _Profile(args, sink)
     on_cuda = torch.device(args.device).type == "cuda"
     marks = []           # (start, end) CUDA events or host clock pairs
@@ -466,12 +671,17 @@ def _train_loop(args, state, step, data, probe, sink, ctl) -> TrainResult:
         state, m, *mon = out
         mon = mon[0] if mon else {}
         marks.append((start, end))
+        if serve is not None:
+            # finished traffic lands in the store between steps
+            state = serve.ingest_into(state)
         if probe is not None and i % args.probe_every == 0:
             state = probe(state, data)
         profile.after(i)
         log_now = i % args.log_every == 0 or i == args.steps - 1
         emit_now = bool(sink) and (tel.due(i) or i == args.steps - 1)
         if log_now or emit_now:
+            if pipe is not None:
+                pipe.join()     # the traces come from the scoring stream
             # ONE host transfer for everything this step logs
             vals = torch.stack(
                 [getattr(m, k).double() for k in METRIC_KEYS]
@@ -480,6 +690,10 @@ def _train_loop(args, state, step, data, probe, sink, ctl) -> TrainResult:
                    "elapsed_s": round(time.time() - t0, 2)}
             mon_vals = {k: int(v) if k in INT_MONITORS else v
                         for k, v in zip(mon, vals[len(METRIC_KEYS):])}
+            if isinstance(pipe, StreamedISSGD):
+                rec["stream_hit_rate"] = round(pipe.plane.stats.hit_rate, 4)
+            if serve is not None:
+                rec["served_rows"] = int(serve.ingest.ingested)
             if log_now:
                 history.append(rec)
                 print(f"step {i:5d} loss {rec['loss']:.4f} "
@@ -495,14 +709,30 @@ def _train_loop(args, state, step, data, probe, sink, ctl) -> TrainResult:
             # after the step's metrics have been folded into the window
             d = ctl.maybe_decide(i)
             if d is not None:
+                if pipe is not None:
+                    pipe.swap_every = d.swap_every
                 print(f"controller: step {i} use_is={d.use_is} "
-                      f"reason={d.reason}", flush=True)
+                      f"swap_every={d.swap_every} reason={d.reason}",
+                      flush=True)
+    if pipe is not None:
+        pipe.join()
     profile.stop(args.steps - 1)    # a window that ran past the end
     if on_cuda:
         torch.cuda.synchronize(args.device)
         step_ms = [s.elapsed_time(e) for s, e in marks]
     else:
         step_ms = [(e - s) * 1e3 for s, e in marks]
+    if serve is not None:
+        print(f"serve-loop: ingested {serve.ingest.ingested} rows "
+              f"({serve.ingest.dropped} dropped, "
+              f"{len(serve.batcher.finished)} requests finished)",
+              flush=True)
+    if isinstance(pipe, StreamedISSGD):
+        st = pipe.plane.stats
+        print(f"streaming stats: window hit rate {st.hit_rate:.3f} "
+              f"({st.hits} hits / {st.misses} misses), "
+              f"{st.streamed_rows} scoring rows streamed, "
+              f"{st.swaps} window swaps", flush=True)
     if args.save_checkpoint:
         save_checkpoint(args.save_checkpoint, state, step=state.step)
         print(f"saved checkpoint to {args.save_checkpoint}", flush=True)
@@ -512,9 +742,17 @@ def _train_loop(args, state, step, data, probe, sink, ctl) -> TrainResult:
     end = {"steps": args.steps, "elapsed_s": round(time.time() - t0, 2)}
     if history:
         end["final_loss"] = history[-1]["loss"]
+    if isinstance(pipe, StreamedISSGD):
+        st = pipe.plane.stats
+        end.update(stream_hit_rate=round(st.hit_rate, 4),
+                   stream_window_swaps=st.swaps)
+    if serve is not None:
+        end.update(served_rows=int(serve.ingest.ingested),
+                   served_dropped=int(serve.ingest.dropped))
     sink.emit("run_end", step=args.steps - 1, **end)
     return TrainResult(state, history, step_ms,
-                       tuple(ctl.decisions) if ctl else ())
+                       tuple(ctl.decisions) if ctl else (),
+                       built._replace(state=state))
 
 
 def main(argv=None, cfg=None) -> TrainResult:

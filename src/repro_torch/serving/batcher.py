@@ -23,12 +23,15 @@ sliding window, as the reference applies it (a pure-mamba stack too).
 ``attn_impl`` picks the prefill attention ("ref" as in the reference, or
 "pallas", the flash-attention kernel; an MLA stack takes "ref" whatever
 is asked, ``engine.prefill_attn_impl``); ``decode_kernel`` the decode
-attention.  ``mesh=`` (the model-parallel batcher) is not ported.
+attention.  ``sample`` maps logits to tokens (greedy argmax by default);
+finished requests also queue on ``completed`` until ``drain_completed``
+(the serving loop's ingest, ``serving/loop.py``).  ``mesh=`` (the
+model-parallel batcher) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -73,6 +76,7 @@ class ContinuousBatcher:
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
                  max_len: int, decode_kernel: str = "ref",
+                 sample: Optional[Callable] = None,
                  prefill_buckets: bool = True, min_bucket: int = 8,
                  attn_impl: str = "ref", mesh=None):
         if mesh is not None:
@@ -90,10 +94,12 @@ class ContinuousBatcher:
         self.slots = [_Slot() for _ in range(num_slots)]
         self._next_tok = torch.zeros(num_slots, dtype=torch.int32,
                                      device=self.device)
+        self.sample = sample or (lambda logits: torch.argmax(logits, -1))
         self.prefill_buckets = prefill_buckets
         self.min_bucket = min_bucket
         self._prefill_shapes: set = set()
         self.finished: dict[int, list[int]] = {}
+        self.completed: list[tuple[Request, list[int]]] = []
 
     @property
     def prefill_traces(self) -> int:
@@ -122,7 +128,7 @@ class ContinuousBatcher:
         for name, buf in self.state.caches.items():
             buf[:, slot_id] = st1.caches[name][:, 0].to(buf.dtype)
         self.state.lengths[slot_id] = st1.lengths[0]
-        tok = torch.argmax(logits, -1)[0].to(torch.int32)
+        tok = self.sample(logits)[0].to(torch.int32)
         self._next_tok[slot_id] = tok
         self.slots[slot_id] = _Slot(request=req, generated=[int(tok)],
                                     prompt_len=s)
@@ -137,7 +143,7 @@ class ContinuousBatcher:
         logits, self.state = decode_step(
             self.params, self.cfg, self._next_tok, self.state,
             decode_kernel=self.decode_kernel, active=self._active_mask())
-        toks = torch.argmax(logits, -1).to(torch.int32)
+        toks = self.sample(logits).to(torch.int32)
         self._next_tok = toks
         host = toks.tolist()
         for i in active:
@@ -151,11 +157,18 @@ class ContinuousBatcher:
                     (self.cfg.sliding_window <= 0 and total >= self.max_len))
             if done:
                 self.finished[slot.request.uid] = slot.generated
+                self.completed.append((slot.request, list(slot.generated)))
                 self.slots[i] = _Slot()
                 # freeze the freed slot: the active mask keeps decode from
                 # touching its cache rows until the next insert
                 self.state.lengths[i] = 0
         return len([s for s in self.slots if not s.free])
+
+    def drain_completed(self) -> list[tuple[Request, list[int]]]:
+        """Return and clear the finished (request, generated) pairs, in
+        the order they finished."""
+        out, self.completed = self.completed, []
+        return out
 
     def run(self, requests: list[Request], max_steps: int = 10_000) -> dict:
         """Serve a request list to completion (greedy admission)."""

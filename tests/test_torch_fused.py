@@ -357,9 +357,9 @@ def test_sample_indices_replays_reference():
 
 
 # -------------------------------------------------------------- launcher
-@pytest.mark.parametrize("flag", ["--mesh", "--async-scoring", "--stream",
-                                  "--swap-every", "--no-trace-monitors",
-                                  "--chunk-size", "--serve-loop"])
+@pytest.mark.parametrize("flag", ["--mesh", "--model-parallel",
+                                  "--sequence-parallel",
+                                  "--no-sequence-parallel"])
 def test_flags_still_later_are_refused_by_name(flag, capsys):
     assert flag in ttrain.LATER_FLAGS
     with pytest.raises(SystemExit) as e:

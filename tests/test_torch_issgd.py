@@ -239,8 +239,8 @@ def test_launcher_flags_have_reference_defaults():
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2", "--device", "cpu"], "PyTorch port"),
-    (["--stream", "--device", "cpu"], "PyTorch port"),
-    (["--async-scoring", "--device", "cpu"], "PyTorch port"),
+    (["--model-parallel", "2", "--device", "cpu"], "PyTorch port"),
+    (["--sequence-parallel", "--device", "cpu"], "PyTorch port"),
     (["--bogus", "--device", "cpu"], "unrecognized"),
 ])
 def test_launcher_refuses_what_the_slice_lacks(argv, match, capsys):
