@@ -309,6 +309,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 data and uniforms: 4 async steps at swap cadence 2, 3
                 streamed sync steps, two serve ticks with an ingest; draws,
                 finished tokens and live rows equal, values within 1e-5.
+ 42. sharded  — the sharded ISSGD step over torch.distributed: (a) world 1
+                over NCCL on cuda:0 through --mesh 1 against the one-device
+                step of the same call, mlp_svhn at full width (W = 4, 40
+                steps) and glm4-9b at phase 7's cut (4 steps), bitwise
+                (draws, metrics, params, stale params, store), every plain
+                version forbidden: 1 multi-tap launch a step, 8 ghost_norm
+                (all tensor-core), the all-reduces and their elements a
+                step, both step times; a 256-row ghost scoring batch
+                against two of 128, the GEMMs over the batch (other bits)
+                and one a shard's slice (the launcher's row block: the same
+                bits); (b) world 2 on the one card, two spawned ranks over
+                a gloo group on CUDA tensors, the same mlp_svhn run: every
+                step's draws, losses, grad norms and Σw, the final store and
+                params bitwise (a)'s, the trace monitors within 1e-5;
+                32,768 rows of the store and the data a rank, no tensor of
+                65,536 rows in a step recorded op by op, 1 multi-tap launch
+                a step a rank; the hierarchical draw over the group bitwise
+                the one-device draw of the same table (4,096 draws); the
+                step time, shared between the two processes; --mesh past
+                the card count refused, naming it.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -328,6 +348,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 # --- the main path's scoring shapes: five fc taps of mlp_svhn at B=256
 MAIN_B = 256
@@ -5114,6 +5135,306 @@ def phase_planes_parity():
     return errs
 
 
+# --- phase 42: the sharded ISSGD step over torch.distributed
+SHARD_STEPS = 40
+SHARD_W = 4               # logical scoring shards: 2 a rank in the world of 2
+SHARD_LM_STEPS = 4
+SHARD_N = 65536           # the mlp_svhn rows: no width of the step is 65,536
+SHARD_LOSS_RTOL = 1e-5
+SHARD_DRAWS = 4096        # draws of the draw-alone check
+SHARD_FIELDS = ("loss", "grad_norm", "trace_ideal", "trace_stale",
+                "trace_unif", "ess_frac", "mean_weight")
+
+
+class RowRecorder(TorchDispatchMode):
+    """Every op input or output whose shape holds ``n``."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.n = n
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_flatten
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten((args, kwargs, out))[0]:
+            if isinstance(t, torch.Tensor) and self.n in tuple(t.shape):
+                self.seen.append((str(func), tuple(t.shape)))
+        return out
+
+
+class StepRecorder:
+    """While active, every step the launcher builds (``make_train_step``,
+    ``make_sharded_train_step``) keeps each step's metrics (device
+    tensors: no host synchronisation), and its step number ``watch`` runs
+    under a RowRecorder of ``n``-row tensors."""
+
+    NAMES = ("make_train_step", "make_sharded_train_step")
+
+    def __init__(self, train_mod, watch=-1, n=SHARD_N):
+        self.mod, self.watch, self.n = train_mod, watch, n
+        self.mets, self.seen = [], None
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.mod, k) for k in self.NAMES}
+        for k, orig in self.saved.items():
+            setattr(self.mod, k, self._wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for k, orig in self.saved.items():
+            setattr(self.mod, k, orig)
+
+    def _wrap(self, orig):
+        def make(*a, **k):
+            out = orig(*a, **k)
+            step = out[0] if isinstance(out, tuple) else out
+
+            def rec(*sa, **sk):
+                if len(self.mets) == self.watch:
+                    with RowRecorder(self.n) as r:
+                        res = step(*sa, **sk)
+                    self.seen = r.seen
+                else:
+                    res = step(*sa, **sk)
+                self.mets.append(res[1])
+                return res
+            rec.with_monitors, rec.gated = step.with_monitors, step.gated
+            return (rec, *out[1:]) if isinstance(out, tuple) else rec
+        return make
+
+
+def _sharded_rank(group, device, argv, out_dir):
+    """One rank of phase 42b, in its own process: the trainer through
+    ``run`` with the rank's group, every plain version forbidden; then
+    the hierarchical draw over the group from the table it reached
+    against the one-device draw from the whole table.  What it saw is
+    saved for the parent."""
+    import os
+    from repro_torch.core import collectives
+    from repro_torch.core.collectives import gather_rows
+    from repro_torch.core.importance import ISConfig
+    from repro_torch.core.sampler import two_stage_sample
+    from repro_torch.core.weight_store import read_proposal
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_mod
+    train_mod.use_full_f32()
+    if group.rank:
+        sys.stdout = open(os.devnull, "w")
+    args = train_mod.parse_args(argv)
+    args.device = device
+    reset_counts()
+    collectives.reset_counts()
+    with StepRecorder(train_mod, watch=WARMUP_STEPS) as rec:
+        result = run_forbidding_plain(
+            ref, lambda: train_mod.run(args, group=group))
+    torch.cuda.synchronize()
+    idx, met = _stacked(rec.mets)
+    out = {"indices": idx, "metrics": met,
+           "store": [t.cpu() for t in result.state.store if t is not None],
+           "params": (_to_dev(result.state.params, "cpu")
+                      if group.rank == 0 else None),
+           "data_rows": result.built.data["x"].shape[0],
+           "seen": rec.seen, "step_ms": result.step_ms,
+           "launches": read_counts(), "collectives": dict(collectives.COUNTS)}
+    # the draw alone: the sharded draw from this rank's rows of the table
+    # the run reached, against the one-device draw from the whole table
+    q = read_proposal(result.state.store, result.state.step,
+                      ISConfig(smoothing=args.smoothing))
+    u = torch.rand(SHARD_DRAWS, device=q.device,
+                   generator=torch.Generator(device=q.device).manual_seed(7))
+    mine = two_stage_sample(q, SHARD_DRAWS, SHARD_W // group.size,
+                            uniforms=u, group=group)
+    whole = gather_rows(q, torch.arange(SHARD_N, device=q.device), group)
+    out["draw_equal"] = torch.equal(
+        mine, two_stage_sample(whole, SHARD_DRAWS, SHARD_W, uniforms=u))
+    torch.save(out, f"{out_dir}/rank{group.rank}.pt")
+
+
+def _stacked(mets):
+    return (torch.stack([m.sample_indices for m in mets]).cpu(),
+            {f: torch.stack([getattr(m, f) for m in mets]).cpu()
+             for f in SHARD_FIELDS})
+
+
+def phase_sharded(train_mod, ref):
+    """42: the sharded ISSGD step.  (a) world 1 over NCCL on cuda:0
+    through ``--mesh 1``, against the one-device step (group None) of the
+    same call: mlp_svhn at full width, W = 4, 40 steps, and glm4-9b at
+    phase 7's cut, 4 steps; bitwise (draws, metrics, params, store); the
+    kernels' launches and the all-reduces a step.  A row's ghost score in
+    a 256-row batch against a 128-row one, with the GEMMs over the batch
+    and one a shard's slice.  (b) world 2 on the one card: two spawned
+    ranks over a gloo group on CUDA tensors (NCCL takes one rank a
+    device), the same mlp_svhn run, bitwise world 1's in every draw,
+    loss, grad norm and Σw and in the final store and params; 32,768 rows
+    of the store and the data a rank, no tensor of 65,536 rows in a step
+    recorded op by op, 1 multi-tap launch a step a rank; the hierarchical
+    draw over the group bitwise the one-device draw from the same table.
+    And ``--mesh`` beyond the card count is refused, naming the count."""
+    from repro_torch.configs import mlp_svhn
+    from repro_torch.core import collectives
+    from repro_torch.core.scorer import make_mlp_scorer
+    from repro_torch.launch import mesh
+    argv = mlp_argv("--steps", str(SHARD_STEPS), "--score-shards",
+                    str(SHARD_W))
+    out = {"steps": SHARD_STEPS, "score_shards": SHARD_W}
+
+    def world1(what, argv, cfg, launches, warm):
+        torch.cuda.empty_cache()
+        with StepRecorder(train_mod) as plain_rec:
+            plain, plain_l = counted_run(train_mod, ref, argv, cfg)
+        torch.cuda.empty_cache()
+        reset_counts()
+        collectives.reset_counts()
+        with StepRecorder(train_mod) as rec:
+            w1 = run_forbidding_plain(ref, lambda: train_mod.main(
+                argv + ["--mesh", "1"], cfg))
+        w1_l, ar = read_counts(), dict(collectives.COUNTS)
+        steps = len(rec.mets)
+        for tag, got in (("group None", plain_l), ("world 1", w1_l)):
+            expect_launches(got, {k: v * steps for k, v in launches.items()},
+                            f"sharded {what} {tag}")
+        if "ghost_norm" in launches:
+            check_tc(w1_l, f"sharded {what} world 1")
+        if not (same_steps(rec.mets, plain_rec.mets, SHARD_FIELDS)
+                and same_tree(w1.state.params, plain.state.params)
+                and same_tree(w1.state.stale_params,
+                              plain.state.stale_params)
+                and same_store(w1.state.store, plain.state.store)):
+            fail(f"sharded {what}: world 1 over NCCL is not bitwise the "
+                 f"one-device step")
+        if ar["all_reduce"] % steps or ar["elements"] % steps:
+            fail(f"sharded {what}: {ar} all-reduces in {steps} steps; a "
+                 f"step's should not vary")
+        res = {"steps": steps,
+               "step_ms_none": statistics.median(plain.step_ms[warm:]),
+               "step_ms_world1": statistics.median(w1.step_ms[warm:]),
+               "launches": w1_l, "launches_none": plain_l,
+               "all_reduce_a_step": ar["all_reduce"] // steps,
+               "all_reduce_elements_a_step": ar["elements"] // steps}
+        print(f"sharded {what}: world 1 over NCCL ≡ the one-device step "
+              f"bitwise over {steps} steps (draws, metrics, params, "
+              f"store); median step {res['step_ms_world1']:.3f} ms against "
+              f"{res['step_ms_none']:.3f} ms one-device (CUDA events, "
+              f"same call); {res['all_reduce_a_step']} all-reduces a step "
+              f"of {res['all_reduce_elements_a_step']} elements; launches "
+              f"{ {k: v for k, v in w1_l.items() if v} }", flush=True)
+        return res, _stacked(rec.mets), w1
+
+    out["mlp_world1"], (idx1, met1), w1 = world1(
+        "mlp_svhn", argv, None, {"per_example_sqnorm_multi": 1},
+        WARMUP_STEPS)
+    out["lm_world1"], _, _ = world1(
+        f"glm4-9b × {LM_LAYERS}", LM_ARGV + ["--steps", str(SHARD_LM_STEPS)],
+        lm_config(), {"ghost_norm": len(GHOST_MAIN)}, LM_WARMUP)
+
+    # a row of a 256-row scoring batch against the same row in a batch of
+    # 128 (a rank's slice in world 2), the GEMMs over the whole batch and
+    # one a logical shard's slice of 64 rows (the launcher's row block)
+    rows = {k: v[:MAIN_B] for k, v in w1.built.data.items()}
+    half = MAIN_B // 2
+    sd = out["scores_batch_256_vs_2x128"] = {}
+    for rb in (0, MAIN_B // SHARD_W):
+        score = make_mlp_scorer(mlp_svhn.CONFIG, "ghost", row_block=rb)
+        whole = score(w1.state.stale_params, rows)
+        halves = torch.cat([score(w1.state.stale_params,
+                                  {k: v[a:a + half] for k, v in rows.items()})
+                            for a in (0, half)])
+        sd[f"row_block_{rb}"] = {"rows_differing": int((whole != halves)
+                                                       .sum()),
+                                 "max_rel": rel_err(halves, whole)}
+    print(f"sharded: rows of a 256-row ghost scoring batch that score other "
+          f"bits in two batches of {half}: {sd}", flush=True)
+    if sd[f"row_block_{MAIN_B // SHARD_W}"]["rows_differing"]:
+        fail(f"sharded: with GEMMs of one shard's slice, a row still scores "
+             f"other bits in another batch: {sd}")
+
+    # (b) two ranks time-sharing the one card
+    torch.cuda.empty_cache()
+    d = scratch_dir("chip_smoke_sharded")
+    t0 = time.perf_counter()
+    mesh.run_world(_sharded_rank, 2, "cuda", backend="gloo",
+                   args=(argv, str(d)))
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for r, got in enumerate(ranks):
+        if [t.shape[0] for t in got["store"]] != [SHARD_N // 2] * 2 or \
+                got["data_rows"] != SHARD_N // 2:
+            fail(f"sharded world 2 rank {r}: store "
+                 f"{[t.shape[0] for t in got['store']]} and data "
+                 f"{got['data_rows']} rows; expected {SHARD_N // 2}")
+        if got["seen"] is None or got["seen"]:
+            fail(f"sharded world 2 rank {r}: a step made or took tensors of "
+                 f"{SHARD_N} rows: {(got['seen'] or ['not recorded'])[:4]}")
+        expect_launches(got["launches"],
+                        {"per_example_sqnorm_multi": SHARD_STEPS},
+                        f"sharded world 2 rank {r}")
+        if not got["draw_equal"]:
+            fail(f"sharded world 2 rank {r}: the hierarchical draw over the "
+                 f"group differs from the one-device draw of the same table")
+        if not (torch.equal(got["indices"], idx1) and all(
+                torch.equal(got["metrics"][f], met1[f])
+                for f in ("loss", "grad_norm", "mean_weight"))):
+            differ = (got["indices"] != idx1).any(dim=1).nonzero()
+            fail(f"sharded world 2 rank {r}: draws or losses differ from "
+                 f"world 1's (steps drawing otherwise: "
+                 f"{differ.flatten().tolist()[:8]}; losses "
+                 f"{rel_err(got['metrics']['loss'], met1['loss']):.2e})")
+    if not all(torch.equal(ranks[0]["metrics"][f], ranks[1]["metrics"][f])
+               for f in SHARD_FIELDS):
+        fail("sharded world 2: the ranks' metrics differ")
+    from repro_torch.optim import tree_leaves
+    w1_store = [t.cpu() for t in w1.state.store if t is not None]
+    if not (all(torch.equal(torch.cat([r["store"][i] for r in ranks]),
+                            w1_store[i]) for i in range(2))
+            and all(torch.equal(a, b.cpu()) for a, b in zip(
+                tree_leaves(ranks[0]["params"]),
+                tree_leaves(w1.state.params), strict=True))):
+        fail("sharded world 2: store or params not bitwise world 1's")
+    metric_err = {f: rel_err(ranks[0]["metrics"][f], met1[f])
+                  for f in SHARD_FIELDS}
+    if max(metric_err.values()) > SHARD_LOSS_RTOL:
+        fail(f"sharded world 2: metrics {metric_err} from world 1's > "
+             f"{SHARD_LOSS_RTOL}")
+    ar = ranks[0]["collectives"]
+    out["mlp_world2"] = {
+        "step_ms_time_shared": [statistics.median(r["step_ms"][WARMUP_STEPS:])
+                                for r in ranks],
+        "wall_s_with_spawn": wall_s, "metric_rel_err": metric_err,
+        "draw_alone_equal": SHARD_DRAWS,
+        "launches": [r["launches"] for r in ranks],
+        "all_reduce_a_step": ar["all_reduce"] // SHARD_STEPS,
+        "all_reduce_elements_a_step": ar["elements"] // SHARD_STEPS,
+        "rows_a_rank": SHARD_N // 2}
+    w2 = out["mlp_world2"]
+    print(f"sharded world 2 (two processes over gloo on CUDA tensors, one "
+          f"card): every step's draws, losses, grad norms and Σw, the store "
+          f"and the params bitwise world 1's over {SHARD_STEPS} steps (the "
+          f"trace monitors within {max(metric_err.values()):.2e}); "
+          f"{SHARD_N // 2} rows a rank, no {SHARD_N}-row tensor in step "
+          f"{WARMUP_STEPS}; the draw over the group ≡ the one-device draw "
+          f"({SHARD_DRAWS} draws); median step "
+          f"{w2['step_ms_time_shared'][0]:.3f} / "
+          f"{w2['step_ms_time_shared'][1]:.3f} ms (time-shared between two "
+          f"processes on one card: not a speed figure); "
+          f"{w2['all_reduce_a_step']} all-reduces a step of "
+          f"{w2['all_reduce_elements_a_step']} elements; {wall_s:.1f} s with "
+          f"the spawn", flush=True)
+    del w1
+    torch.cuda.empty_cache()
+
+    count = torch.cuda.device_count()
+    try:
+        train_mod.main(mlp_argv("--steps", "1", "--mesh", str(count + 1)))
+    except ValueError as e:
+        if f"{count} CUDA device" not in str(e):
+            fail(f"--mesh {count + 1}: refused without the count: {e}")
+    else:
+        fail(f"--mesh {count + 1} ran on {count} card(s)")
+    return out
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
@@ -5213,6 +5534,7 @@ def main() -> int:
     stream_res = phase_streaming(train_mod, ref)
     loop_res = phase_serve_loop(train_mod, ref)
     planes_errs = phase_planes_parity()
+    sharded = phase_sharded(train_mod, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -5275,6 +5597,9 @@ def main() -> int:
     print("slice 15 times " + json.dumps({
         "card": card, "async": async_res, "streaming": stream_res,
         "serve_loop": loop_res, "card_vs_cpu": planes_errs,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 16 times " + json.dumps({
+        "card": card, "sharded": sharded,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
@@ -5403,7 +5728,15 @@ def main() -> int:
                        "serve_loop_glm4":
                            loop_res["serve"]["launches"][name],
                        "serve_loop_glm4_no_serve":
-                           loop_res["no_serve"]["launches"][name]},
+                           loop_res["no_serve"]["launches"][name],
+                       **{f"sharded_{m}_{w}":
+                          sharded[f"{m}_world1"][key][name]
+                          for m in ("mlp", "lm")
+                          for w, key in (("none", "launches_none"),
+                                         ("world1", "launches"))},
+                       **{f"sharded_mlp_world2_rank{r}":
+                          sharded["mlp_world2"]["launches"][r][name]
+                          for r in range(2)}},
         })
         if name in ("per_example_sqnorm_multi", "ghost_norm"):
             kernels[-1]["side_stream_launches"] = {

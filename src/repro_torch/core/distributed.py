@@ -1,0 +1,137 @@
+"""The sharded ISSGD step: the paper's system shape over a data group
+(``src/repro/core/distributed.py``).
+
+  * the dataset and the WeightStore (``weights``, ``scored_at``, an int8
+    table's scales) are sharded over the group's ranks in contiguous
+    blocks of the example axis, one rank a device;
+  * each rank scores the round-robin slices of the logical scoring
+    shards it owns, the paper's worker fan-out, with no communication;
+  * the draw is the hierarchical two-stage draw (W shard totals shared by
+    one all-reduce of W floats, each draw resolved by the rank that owns
+    its shard, one all-reduce of the B indices), so no rank ever holds
+    the f32[N] table: a step moves W floats, B indices and the B sampled
+    proposal weights and minibatch rows, the paper's "one float per
+    sample instead of gradients";
+  * parameters stay replicated and every rank computes the same master
+    update on the same gathered minibatch.
+
+A rank runs the one-code-path step of ``core/issgd.py`` with the group
+(``make_train_step(..., group=...)``) on the state ``shard_train_state``
+gives it and the rows ``shard_dataset`` gives it.  ``launch/train.py
+--mesh N`` spawns the ranks (``launch/mesh.py``).  The asynchronous and
+streamed variants of the reference's module are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.issgd import (ISSGDConfig, TrainState,
+                                    make_score_step, make_train_step)
+from repro_torch.core.weight_store import WeightStore
+from repro_torch.dist import DataGroup, axis_info
+from repro_torch.optim import tree_leaves
+
+
+def resolve_score_shards(cfg: ISSGDConfig,
+                         group: Optional[DataGroup]) -> ISSGDConfig:
+    """W defaults to the number of ranks when the config leaves it at 1,
+    and must be a multiple of it."""
+    _, nd = axis_info(group)
+    w = cfg.score_shards
+    if w <= 1:
+        return dataclasses.replace(cfg, score_shards=nd)
+    if w % nd:
+        raise ValueError(f"score_shards={w} must be a multiple of the "
+                         f"data-axis device count {nd}")
+    return cfg
+
+
+def _check_rows(num_examples: int, group: Optional[DataGroup]) -> int:
+    _, nd = axis_info(group)
+    if num_examples % nd:
+        raise ValueError(f"num_examples={num_examples} not divisible by "
+                         f"{nd} devices")
+    return num_examples // nd
+
+
+def _rows(x: torch.Tensor, group: Optional[DataGroup],
+          device) -> torch.Tensor:
+    """This rank's contiguous block of ``x``'s leading axis, as its own
+    tensor on ``device``."""
+    rank, nd = axis_info(group)
+    n_local = x.shape[0] // nd
+    return x[rank * n_local:(rank + 1) * n_local].to(device).clone()
+
+
+def shard_store(store: WeightStore, group: Optional[DataGroup],
+                device) -> WeightStore:
+    """This rank's rows of a whole store: ``weights`` and ``scored_at``,
+    and an int8 table's scales of the chunks in those rows (the chunk
+    size must divide the rows a rank holds)."""
+    _, nd = axis_info(group)
+    n = store.weights.shape[0]
+    _check_rows(n, group)
+    if store.qscale is not None and store.qscale.shape[0] % nd:
+        raise ValueError(f"int8 table of {store.qscale.shape[0]} chunks "
+                         f"does not split over {nd} devices: the chunk "
+                         f"size must divide the per-shard rows ({n // nd})")
+    return WeightStore(
+        weights=_rows(store.weights, group, device),
+        scored_at=_rows(store.scored_at, group, device),
+        qscale=(None if store.qscale is None
+                else _rows(store.qscale, group, device)))
+
+
+def shard_train_state(state: TrainState, group: Optional[DataGroup],
+                      device=None) -> TrainState:
+    """A rank's TrainState from a whole one (built or restored on the
+    host): its rows of the store on ``device`` (default: the params'),
+    params, optimizer state and stale params as they are (replicated)."""
+    if device is None:
+        device = tree_leaves(state.params)[0].device
+    return state._replace(store=shard_store(state.store, group, device))
+
+
+def shard_dataset(data: dict, group: Optional[DataGroup],
+                  device=None) -> dict:
+    """This rank's contiguous rows of every dataset tensor (on ``device``,
+    default each tensor's own)."""
+    n = next(iter(data.values())).shape[0]
+    _check_rows(n, group)
+    return {k: _rows(v, group, v.device if device is None else device)
+            for k, v in data.items()}
+
+
+def make_sharded_train_step(per_example_loss: Callable, scorer: Callable,
+                            optimizer, cfg: ISSGDConfig, num_examples: int,
+                            group: Optional[DataGroup],
+                            aux_loss: Optional[Callable] = None,
+                            fused_score: Optional[Callable] = None,
+                            monitors=None, gated: bool = False
+                            ) -> tuple[Callable, ISSGDConfig]:
+    """(step, cfg): the ISSGD step over ``group``, ``step(state, data[,
+    use_is]) -> (state, metrics[, monitors])`` on the rank's state and
+    rows (``shard_train_state``, ``shard_dataset``), and the config with
+    W resolved against the group.  Every rank calls it with the same
+    arguments in the same order; the metrics and monitors come out the
+    same on every rank."""
+    cfg = resolve_score_shards(cfg, group)
+    _check_rows(num_examples, group)
+    step = make_train_step(per_example_loss, scorer, optimizer, cfg,
+                           num_examples, aux_loss=aux_loss,
+                           fused_score=fused_score, monitors=monitors,
+                           gated=gated, group=group)
+    return step, cfg
+
+
+def make_sharded_score_step(scorer: Callable, cfg: ISSGDConfig,
+                            num_examples: int,
+                            group: Optional[DataGroup]) -> Callable:
+    """Fused mode's probe over ``group``: each rank rescores its shards'
+    round-robin slices, with no collective."""
+    cfg = resolve_score_shards(cfg, group)
+    _check_rows(num_examples, group)
+    return make_score_step(scorer, cfg, num_examples, group=group)

@@ -73,17 +73,21 @@ def effective_sample_size(weights: torch.Tensor,
 
 
 def proposal_entropy(weights: torch.Tensor,
-                     sum_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     sum_w: Optional[torch.Tensor] = None,
+                     group=None) -> torch.Tensor:
     """Entropy (nats) of ω = w/Σw, which B.3 suggests monitoring:
 
         H(ω) = log Σw − (Σ w·log w)/Σw,
 
     zero-mass rows contributing their limit 0.  ``sum_w`` lets the master
-    pass share the total it already holds."""
+    pass share the total it already holds.  Over a data group
+    (``weights`` this rank's rows) both sums are summed over the
+    group."""
+    from repro_torch.core.collectives import psum
     if sum_w is None:
-        sum_w = torch.sum(weights)
+        sum_w = psum(torch.sum(weights), group)
     sum_w = torch.clamp(sum_w, min=1e-30)
     wlogw = torch.where(weights > 0,
                         weights * torch.log(torch.clamp(weights, min=1e-30)),
                         torch.zeros_like(weights))
-    return torch.log(sum_w) - torch.sum(wlogw) / sum_w
+    return torch.log(sum_w) - psum(torch.sum(wlogw), group) / sum_w

@@ -1,4 +1,4 @@
-"""ISSGD — the paper's importance-sampling SGD (section 4), one device.
+"""ISSGD — the paper's importance-sampling SGD (section 4).
 
 One train step runs the paper's three actors in order:
 
@@ -27,6 +27,18 @@ The config's ``index``, ``table_dtype``, ``score_ttl`` and
 ``index_chunk_size`` select the billion-row structures: the stage-1
 masses through the mass index, a bf16 or int8 table, and the TTL decay
 of stale scores.
+
+Distribution (``core/distributed.py`` builds the sharded step): every
+half takes a data group (``repro_torch.dist.DataGroup``, ``None`` for one
+device).  Sharded, a rank holds the contiguous rows of the dataset and
+the store that its W / ranks logical scoring shards cover, scores their
+round-robin slices with no communication, and the master draws with the
+hierarchical two-stage draw and reads the B sampled rows through
+one-owner all-reduces (``core/collectives.py``): no rank ever holds the
+f32[N] table.  Parameters stay replicated and every rank computes the
+same master update on the same gathered minibatch.  Because W, not the
+number of ranks, fixes the decomposition, a sharded run draws the
+indices of the one-device run.
 """
 from __future__ import annotations
 
@@ -37,15 +49,17 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import variance
+from repro_torch.core.collectives import axis_info, gather_rows, psum
 from repro_torch.core.importance import (ISConfig, effective_sample_size,
                                          is_loss_scale)
 from repro_torch.core.mass_index import block_masses
-from repro_torch.core.sampler import two_stage_sample
+from repro_torch.core.sampler import shard_totals, two_stage_sample
 from repro_torch.core.weight_store import (EMPTY, WeightStore,
                                            decay_proposal, init_store,
                                            read_proposal, write_scores,
                                            write_scores_global)
 from repro_torch.data.pipeline import gather_batch
+from repro_torch.dist import DataGroup
 from repro_torch.optim import (Optimizer, clip_by_global_norm, global_norm,
                                tree_leaves, tree_map)
 from repro_torch.telemetry.monitors import proposal_monitors
@@ -99,14 +113,16 @@ class StepMetrics(NamedTuple):
 def init_train_state(params, optimizer: Optimizer, num_examples: int,
                      device: torch.device | str, seed: int = 0,
                      table_dtype: str = "f32",
-                     index_chunk_size: int = 0) -> TrainState:
+                     index_chunk_size: int = 0,
+                     store_device=None) -> TrainState:
     """Fresh state: stale params alias θ₀ (updates are functional), the
     store unscored (uniform proposal until the first sweep), in the
     storage dtype ``table_dtype`` (int8 scales per ``index_chunk_size``
-    rows)."""
+    rows), on ``store_device`` (default ``device``, the generator's)."""
     return TrainState(
         params=params, opt_state=optimizer.init(params), stale_params=params,
-        store=init_store(num_examples, device, table_dtype=table_dtype,
+        store=init_store(num_examples, store_device or device,
+                         table_dtype=table_dtype,
                          chunk_size=index_chunk_size), step=0,
         rng=torch.Generator(device=device).manual_seed(seed))
 
@@ -134,18 +150,32 @@ def stage1_block_sums(proposal: torch.Tensor, w: int,
     return None if cfg.index == "dense" else block_masses(proposal, w)
 
 
+def proposal_totals(proposal: torch.Tensor, cfg: ISSGDConfig, w: int,
+                    group: Optional[DataGroup] = None) -> torch.Tensor:
+    """The W shard masses of the proposal (this rank's rows, ``w`` logical
+    shards), the same on every rank: the draw's stage 1, and their sum
+    the master's Σw, so both have the same bits on any number of ranks."""
+    return shard_totals(proposal, w, stage1_block_sums(proposal, w, cfg),
+                        group)
+
+
 def draw_minibatch(proposal: torch.Tensor, cfg: ISSGDConfig, w: int,
-                   generator: torch.Generator, uniform: bool
-                   ) -> torch.Tensor:
-    """The master's draw of ``cfg.batch_size`` indices: uniform over the
-    table, or two-stage ∝ ``proposal`` over ``w`` logical shards.  The
-    streamed sample step (``data/streaming.py``) draws with it too."""
+                   generator: torch.Generator, uniform: bool,
+                   group: Optional[DataGroup] = None,
+                   totals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The master's draw of ``cfg.batch_size`` global indices: uniform
+    over the N rows of the table, or two-stage ∝ ``proposal`` (this
+    rank's rows) over its ``w`` logical shards, from ``totals``
+    (``proposal_totals``) when the caller holds them.  The streamed
+    sample step (``data/streaming.py``) draws with it too."""
     if uniform:
-        return torch.randint(0, proposal.shape[0], (cfg.batch_size,),
-                             generator=generator, device=proposal.device)
+        n = proposal.shape[0] * axis_info(group)[1]
+        return torch.randint(0, n, (cfg.batch_size,), generator=generator,
+                             device=proposal.device)
+    if totals is None:
+        totals = proposal_totals(proposal, cfg, w, group)
     return two_stage_sample(proposal, cfg.batch_size, num_shards=w,
-                            generator=generator,
-                            block_sums=stage1_block_sums(proposal, w, cfg))
+                            generator=generator, group=group, totals=totals)
 
 
 def _check_mode(cfg: ISSGDConfig) -> None:
@@ -157,22 +187,34 @@ def _check_mode(cfg: ISSGDConfig) -> None:
                          f"{', '.join(INDEXES)}")
 
 
-def _resolve_shards(cfg: ISSGDConfig, n: int, sb: int) -> tuple[int, int]:
-    """(n_w, sb_w): logical shard length and per-shard scoring slice."""
+def _resolve_shards(cfg: ISSGDConfig, n: int, sb: int,
+                    n_dev: int = 1) -> tuple[int, int, int]:
+    """(w_loc, n_w, sb_w): the logical shards a rank holds, their length
+    and each one's scoring slice a step."""
     w = max(cfg.score_shards, 1)
+    if w % n_dev:
+        raise ValueError(f"score_shards={w} must be divisible by the "
+                         f"device count {n_dev}")
     if n % w:
         raise ValueError(f"num_examples={n} not divisible by "
                          f"score_shards={w}")
     if sb % w:
         raise ValueError(f"score_batch_size={sb} not divisible by "
                          f"score_shards={w}")
-    return n // w, sb // w
+    return w // n_dev, n // w, sb // w
+
+
+def _check_shard_rows(store: WeightStore, n: int, n_dev: int) -> None:
+    if store.weights.shape[0] * n_dev != n:
+        raise ValueError(f"store shard of {store.weights.shape[0]} rows × "
+                         f"{n_dev} devices ≠ num_examples={n}")
 
 
 def _score_slice(step: int, w: int, n_w: int, sb_w: int,
                  device) -> torch.Tensor:
-    """Indices of this step's round-robin scoring slice: each of the W
-    logical shards contributes `sb_w` examples."""
+    """Indices of this step's round-robin scoring slice: each of the `w`
+    logical shards (a rank's own, at its local rows) contributes `sb_w`
+    examples."""
     base = (step * sb_w + torch.arange(sb_w, device=device)) % n_w
     shard = torch.arange(w, device=device)[:, None] * n_w
     return (shard + base[None, :]).reshape(-1)
@@ -180,37 +222,41 @@ def _score_slice(step: int, w: int, n_w: int, sb_w: int,
 
 def scoring_layout(cfg: ISSGDConfig, num_examples: int,
                    n_dev: int = 1) -> tuple[int, int, int]:
-    """(w_loc, n_w, sb_w): the logical shards a device scores, their
-    length and each one's slice a step.  The streaming scheduler
-    (``data/streaming.py``) replays ``_score_slice`` from it on the host.
-    One device: ``n_dev`` other than 1 waits for the multi-device port."""
-    if n_dev != 1:
-        raise ValueError(f"n_dev={n_dev}: this port runs one device")
+    """(w_loc, n_w, sb_w): the logical shards each of ``n_dev`` devices
+    scores, their length and each one's slice a step.  The streaming
+    scheduler (``data/streaming.py``) replays ``_score_slice`` from it on
+    the host."""
+    if num_examples % n_dev:
+        raise ValueError(f"num_examples={num_examples} not divisible by "
+                         f"{n_dev} devices")
     sb = num_examples if cfg.mode == "exact" else cfg.score_batch_size
-    n_w, sb_w = _resolve_shards(cfg, num_examples, sb)
-    return max(cfg.score_shards, 1), n_w, sb_w
+    return _resolve_shards(cfg, num_examples, sb, n_dev)
 
 
 def make_scoring_pass(scorer: Callable, cfg: ISSGDConfig,
-                      num_examples: int, streaming: bool = False
-                      ) -> Callable:
+                      num_examples: int, streaming: bool = False,
+                      group: Optional[DataGroup] = None) -> Callable:
     """The workers' half: ``scoring_pass(score_params, store, step, data)
     -> (store, fresh_scores, stale_slice)``.  Rescore this step's
     round-robin slice and write it; `stale_slice` is the proposal over
     the slice *before* the write (the eq. 9 monitor input).  With
     ``streaming`` ``data`` is the slice's rows themselves, gathered by
     the host (``data/streaming.py``); the writes land at the same
-    indices, so the two forms are bitwise equal."""
+    indices, so the two forms are bitwise equal.  Over a data group
+    ``store`` and ``data`` are this rank's rows and the pass scores its
+    own shards' slices: no collective."""
     _check_mode(cfg)
     n = num_examples
     sb = n if cfg.mode == "exact" else cfg.score_batch_size
-    w = max(cfg.score_shards, 1)
-    n_w, sb_w = _resolve_shards(cfg, n, sb)
+    n_dev = axis_info(group)[1]
+    w_loc, n_w, sb_w = _resolve_shards(cfg, n, sb, n_dev)
     # a slice longer than its shard wraps around it: its indices repeat
     write = write_scores_global if sb_w > n_w else write_scores
 
     def scoring_pass(score_params, store: WeightStore, step: int, data):
-        score_idx = _score_slice(step, w, n_w, sb_w, store.weights.device)
+        _check_shard_rows(store, n, n_dev)
+        score_idx = _score_slice(step, w_loc, n_w, sb_w,
+                                 store.weights.device)
         fresh = scorer(score_params,
                        data if streaming else gather_batch(data, score_idx))
         stale_slice = read_proposal(store, step, cfg.is_cfg)[score_idx]
@@ -229,7 +275,8 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                      aux_loss: Optional[Callable] = None,
                      fused_score: Optional[Callable] = None,
                      monitors=None, gated: bool = False,
-                     streaming: bool = False) -> Callable:
+                     streaming: bool = False,
+                     group: Optional[DataGroup] = None) -> Callable:
     """The master's half: ``master_pass(params, opt_state, stale_params,
     store, step, generator, data, fresh_scores=None, stale_slice=None,
     sample_indices=None, use_is=None) -> (params, opt_state,
@@ -254,7 +301,14 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     same operations as that mode's step.  With ``streaming`` ``data`` is
     the minibatch's rows themselves, gathered by the host at
     ``sample_indices`` (required then: the host drew them,
-    ``data/streaming.py``)."""
+    ``data/streaming.py``).
+
+    Over a data group ``store`` and ``data`` are this rank's rows: the
+    draw is the hierarchical two-stage draw, the sampled proposal and
+    minibatch rows come through ``gather_rows``, the sums through
+    ``psum``, and the update is the same on every rank.  The gate is the
+    controller's host bool, the same on every rank because it folds
+    replicated metrics."""
     _check_mode(cfg)
     if cfg.mode == "fused" and fused_score is None:
         raise ValueError("mode='fused' requires fused_score")
@@ -265,8 +319,8 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     monitors = monitors or None
     n = num_examples
     sb = n if cfg.mode == "exact" else cfg.score_batch_size
-    w = max(cfg.score_shards, 1)
-    n_w, _ = _resolve_shards(cfg, n, sb)
+    n_dev = axis_info(group)[1]
+    w_loc, n_w, _ = _resolve_shards(cfg, n, sb, n_dev)
 
     def master_pass(params, opt_state, stale_params, store: WeightStore,
                     step: int, generator: torch.Generator, data,
@@ -279,10 +333,12 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
         if streaming and sample_indices is None:
             raise ValueError("a streaming master pass takes the rows of "
                              "the drawn indices: pass sample_indices")
+        _check_shard_rows(store, n, n_dev)
         device = store.weights.device
         sampled_store = store
         proposal = read_sampling_proposal(store, step, cfg, n_w)
-        sum_w = torch.sum(proposal)
+        totals = proposal_totals(proposal, cfg, w_loc, group)
+        sum_w = torch.sum(totals)
         mean_weight = sum_w / n
         uniform = cfg.mode == "uniform" or (gated and not use_is)
 
@@ -290,13 +346,16 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
         if sample_indices is not None:
             idx = sample_indices.to(device=device, dtype=torch.long)
         else:
-            idx = draw_minibatch(proposal, cfg, w, generator, uniform)
+            idx = draw_minibatch(proposal, cfg, w_loc, generator, uniform,
+                                 group, totals)
+        sampled_w = None
         if uniform:
             scales = torch.ones(idx.shape[0], dtype=torch.float32,
                                 device=device)
         else:
-            scales = is_loss_scale(proposal[idx], mean_weight)
-        batch = data if streaming else gather_batch(data, idx)
+            sampled_w = gather_rows(proposal, idx, group)
+            scales = is_loss_scale(sampled_w, mean_weight)
+        batch = data if streaming else gather_rows(data, idx, group)
 
         # ---- unbiased IS-scaled update (§4.1) -------------------------------
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -317,8 +376,11 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
             # monitors then read an importance-sampled slice (biased
             # upward), and the probe step's uniform slices stay the
             # faithful ones
-            fresh_scores, stale_slice = batch_scores, proposal[idx]
-            store = write_scores_global(store, idx, batch_scores, step)
+            fresh_scores = batch_scores
+            stale_slice = (gather_rows(proposal, idx, group)
+                           if sampled_w is None else sampled_w)
+            store = write_scores_global(store, idx, batch_scores, step,
+                                        group)
         gnorm = global_norm(grads)
         if cfg.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, cfg.grad_clip, norm=gnorm)
@@ -339,8 +401,9 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
             else:
                 traces = variance.trace_sigma_all_dist(fresh_scores,
                                                        stale_slice,
-                                                       n_total=sb)
-            sum_w2 = torch.sum(torch.square(proposal))
+                                                       n_total=sb,
+                                                       group=group)
+            sum_w2 = psum(torch.sum(torch.square(proposal)), group)
             ess = effective_sample_size(proposal, s1=sum_w, s2=sum_w2) / n
             metrics = StepMetrics(
                 loss=loss, grad_norm=gnorm,
@@ -353,7 +416,7 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                 # writes; they only read, so the trajectory is unchanged
                 mon = proposal_monitors(sampled_store, proposal, step, n,
                                         monitors, sum_w=sum_w,
-                                        sum_w2=sum_w2)
+                                        sum_w2=sum_w2, group=group)
                 return (new_params, opt_state, stale_params, store, metrics,
                         mon)
         return new_params, opt_state, stale_params, store, metrics
@@ -366,7 +429,8 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
                     num_examples: int,
                     aux_loss: Optional[Callable] = None,
                     fused_score: Optional[Callable] = None,
-                    monitors=None, gated: bool = False) -> Callable:
+                    monitors=None, gated: bool = False,
+                    group: Optional[DataGroup] = None) -> Callable:
     """The synchronous step ``master_pass ∘ scoring_pass`` over one store:
     ``train_step(state, data, sample_indices=None) -> (state, metrics)``.
     Step t's master samples from a proposal that already holds step t's
@@ -377,14 +441,14 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
     With a non-empty ``monitors`` the step returns ``(state, metrics,
     monitors)``; with ``gated`` it is ``train_step(state, data, use_is,
     sample_indices=None)``, ``use_is`` the controller's host bool (see
-    ``make_master_pass``)."""
+    ``make_master_pass``).  With a data ``group`` the state's store and
+    ``data`` are this rank's rows (``core/distributed.py``)."""
     monitors = monitors or None
     scoring = (None if cfg.mode == "fused"
-               else make_scoring_pass(scorer, cfg, num_examples))
+               else make_scoring_pass(scorer, cfg, num_examples, group=group))
     master = make_master_pass(per_example_loss, optimizer, cfg, num_examples,
                               aux_loss=aux_loss, fused_score=fused_score,
-                              monitors=monitors,
-                              gated=gated)
+                              monitors=monitors, gated=gated, group=group)
 
     def _train_step(state: TrainState, data: dict, use_is,
                     sample_indices: Optional[torch.Tensor]):
@@ -418,12 +482,14 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
 
 
 def make_score_step(scorer: Callable, cfg: ISSGDConfig,
-                    num_examples: int) -> Callable:
+                    num_examples: int,
+                    group: Optional[DataGroup] = None) -> Callable:
     """The probe: ``score_step(state, data) -> state`` rescores this
     step's round-robin slice with the workers' stale params and writes it
     to the store.  Fused mode runs it every K steps to keep the examples
-    it never samples covered."""
-    scoring = make_scoring_pass(scorer, cfg, num_examples)
+    it never samples covered.  Over a data group each rank scores its own
+    shards' slices: no collective."""
+    scoring = make_scoring_pass(scorer, cfg, num_examples, group=group)
 
     def score_step(state: TrainState, data: dict) -> TrainState:
         store, _, _ = scoring(state.stale_params, state.store, state.step,

@@ -9,8 +9,8 @@ incrementally, for tables of a billion rows.
     split its work by the row count.  ``sampler.chunk_proposal_mass`` is
     this function.
   * ``block_masses`` — the W stage-1 masses of ``two_stage_sample``,
-    the same ``torch.sum`` call on the same (W, n_w) view as the draw's
-    own reduction, so tree-mode draws equal dense draws bitwise.
+    the same ``sampler.row_sums`` call on the same (W, n_w) view as the
+    draw's own reduction, so tree-mode draws equal dense draws bitwise.
   * ``MassIndex`` — the leaves and a perfect binary segment tree of
     pairwise sums.  ``refresh_chunks`` recomputes only the touched leaves
     and their O(log C) ancestors, each from its children, so the result
@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.sampler import cumsum
+from repro_torch.core.sampler import cumsum, row_sums as _row_sums
 
 
 def _num_chunks(n: int, chunk_size: int) -> int:
@@ -41,18 +41,6 @@ def _num_chunks(n: int, chunk_size: int) -> int:
     if chunk_size <= 0:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
     return -(-n // chunk_size)
-
-
-def _row_sums(rows: torch.Tensor) -> torch.Tensor:
-    """Σ over the last axis of (R, k) rows by a fixed pairwise halving:
-    column j adds column j + ⌊k/2⌋, an odd last column carries over.
-    Every add is elementwise, so a row's sum does not depend on R."""
-    while rows.shape[1] > 1:
-        k = rows.shape[1]
-        h = k // 2
-        s = rows[:, :h] + rows[:, h:2 * h]
-        rows = s if k % 2 == 0 else torch.cat([s, rows[:, 2 * h:]], dim=1)
-    return rows[:, 0]
 
 
 def _chunk_rows(table: torch.Tensor, chunk_size: int,
@@ -94,7 +82,7 @@ def block_masses(table: torch.Tensor, num_blocks: int) -> torch.Tensor:
         raise ValueError(f"table size {n} not divisible by "
                          f"{num_blocks} blocks")
     ctype = torch.float64 if table.dtype == torch.float64 else torch.float32
-    return torch.sum(table.to(ctype).reshape(num_blocks, -1), dim=1)
+    return _row_sums(table.to(ctype).reshape(num_blocks, -1))
 
 
 class MassIndex(NamedTuple):

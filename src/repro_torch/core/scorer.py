@@ -125,21 +125,32 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
     return sq, losses.detach()
 
 
-def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
-    """Scorer for the paper's MLP classifier: fn(params, batch) → ω̃ (B,)."""
+def make_mlp_scorer(cfg: MLPConfig, strategy: str,
+                    row_block: int = 0) -> Callable:
+    """Scorer for the paper's MLP classifier: fn(params, batch) → ω̃ (B,).
+
+    ``row_block`` (the rows of one logical shard's scoring slice, set by
+    the launcher when W > 1) makes the forward and backward GEMMs one a
+    block: a row then scores the same bits whether its rank scores one
+    shard's slice or all W, so a sharded run's store is the one-device
+    run's bit for bit on the card too (``models/mlp.py::_matmul_rows``).
+    The kernels still take the whole batch in one launch."""
     n_layers = len(cfg.hidden) + 1
     dims = mlp_dims(cfg)
 
     if strategy == "loss":
         @torch.no_grad()
         def score(params, batch):
-            return torch.clamp(per_example_loss(params, batch, cfg), min=0.0)
+            return torch.clamp(per_example_loss(params, batch, cfg,
+                                                row_block=row_block),
+                               min=0.0)
         return score
 
     if strategy == "logit_grad":
         @torch.no_grad()
         def score(params, batch):
-            logits = mlp_forward(params, batch["x"], cfg)
+            logits = mlp_forward(params, batch["x"], cfg,
+                                 row_block=row_block)
             p = torch.softmax(logits.float(), dim=-1)
             py = torch.gather(p, 1, batch["y"].long()[:, None])[:, 0]
             sq = torch.sum(torch.square(p), -1) - 2.0 * py + 1.0
@@ -153,7 +164,8 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str) -> Callable:
 
             def loss_with_taps(taps):
                 tape = Tape(taps=taps, records={})
-                losses = per_example_loss(params, batch, cfg, tape=tape)
+                losses = per_example_loss(params, batch, cfg, tape=tape,
+                                          row_block=row_block)
                 return losses, tape.records
 
             sq, _ = ghost_sq_norms(loss_with_taps, shapes, b,

@@ -15,6 +15,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.collectives import psum
+from repro_torch.dist import DataGroup
+
 
 class TraceSigma(NamedTuple):
     """Tr Σ(q) under the ideal, stale, and uniform proposals (fig. 4)."""
@@ -56,17 +59,21 @@ def trace_sigma_all(grad_norms, stale_weights, g_true_sq=0.0,
 
 def trace_sigma_all_dist(grad_norms: torch.Tensor,
                          stale_weights: torch.Tensor, n_total: int,
-                         g_true_sq: float = 0.0) -> TraceSigma:
-    """Single-device form of the reference's sharded monitors: the same
-    partial sums (Σg, Σg², Σw, Σg²/w) the mesh would combine, over the
-    whole scored slice."""
+                         g_true_sq: float = 0.0,
+                         group: Optional[DataGroup] = None) -> TraceSigma:
+    """The figure-4 monitors over a scored slice that may be sharded over
+    a data group: the partial sums (Σg, Σg², Σw, Σg²/w) of this rank's
+    part, summed over the group, then eqs. 6-9 with ``n_total`` the
+    slice's global length.  For one device the sums are over the whole
+    slice."""
     g = grad_norms.float()
     w = stale_weights.float()
     n = float(n_total)
-    sum_g = torch.sum(g)
-    sum_g2 = torch.sum(torch.square(g))
-    sum_w = torch.sum(w)
-    sum_ratio = torch.sum(torch.square(g) / torch.clamp(w, min=1e-30))
+    sum_g = psum(torch.sum(g), group)
+    sum_g2 = psum(torch.sum(torch.square(g)), group)
+    sum_w = psum(torch.sum(w), group)
+    sum_ratio = psum(torch.sum(torch.square(g) / torch.clamp(w, min=1e-30)),
+                     group)
     return TraceSigma(
         ideal=torch.square(sum_g / n) - g_true_sq,
         stale=(sum_w / n) * (sum_ratio / n) - g_true_sq,

@@ -12,12 +12,18 @@ table.  Writes are functional (a new store per write).  Indices can
 repeat within one write: fused mode and the ASGD baseline write at
 minibatch indices drawn with replacement, and a relaxed scoring slice
 wraps around its logical shard when ``score_batch_size / W > N / W``.
-Those writes go through ``write_scores_global``, last-write-wins (the
-reference's ``core/collectives.py::scatter_rows`` rule): of the
+Those writes go through ``write_scores_global``, last-write-wins
+(``core/collectives.py::scatter_rows``, the reference's rule): of the
 positions that name one row only the last is written, so the result
 never depends on which of colliding writes the device applies last.
 ``write_scores`` keeps the plain write for indices known to be unique
 (an exact-mode sweep of all N rows), where it is the same thing.
+
+Sharded over a data group, a rank holds the contiguous rows
+[rank·n_local, (rank + 1)·n_local) (an int8 table the scales of its own
+chunks, so ``n_local`` must be a multiple of the chunk size), and
+``write_scores_global`` takes global indices: each rank applies the
+writes it owns and drops the rest.
 
 Every read and write dispatches on the storage dtype, so an f32 store
 runs the program it ran before the quantized tables existed.  An int8
@@ -30,8 +36,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.collectives import scatter_rows
 from repro_torch.core.importance import (ISConfig, apply_staleness_filter,
                                          smooth_weights)
+from repro_torch.dist import DataGroup
 
 # scored_at sentinel for reserved rows: no proposal mass, never scored
 EMPTY = -2
@@ -193,38 +201,23 @@ def decay_proposal(proposal: torch.Tensor, scored_at: torch.Tensor,
                        decayed)
 
 
-def _scatter_last(array: torch.Tensor, idx: torch.Tensor,
-                  values: torch.Tensor) -> torch.Tensor:
-    """``array`` with ``values`` written at ``idx``, last write wins.
-
-    Position i survives only if no j > i names the same row (a (B, B)
-    upper-triangular equality mask); the others are sent to one scratch
-    row past the end and dropped with it, so the surviving indices are
-    unique and the write is defined on every device, without a host
-    synchronisation."""
-    n = array.shape[0]
-    dup_later = torch.triu(idx[:, None] == idx[None, :], diagonal=1)
-    safe = torch.where(dup_later.any(dim=1), n, idx)
-    out = torch.cat([array, array.new_zeros(1)])
-    out.index_put_((safe,), values.to(array.dtype))
-    return out[:n]
-
-
 def write_scores_global(store: WeightStore, global_indices: torch.Tensor,
-                        scores: torch.Tensor, step: int | torch.Tensor
-                        ) -> WeightStore:
+                        scores: torch.Tensor, step: int | torch.Tensor,
+                        group: Optional[DataGroup] = None) -> WeightStore:
     """Push fresh ω̃ and their step stamps (a scalar or one per index) at
-    indices that may repeat: last-write-wins.  On one device global
-    indices are the store's own rows."""
+    global indices that may repeat: last-write-wins, and over a data
+    group each rank writes only the rows it owns (``scatter_rows``).  On
+    one device global indices are the store's own rows."""
     idx = global_indices.long()
     stamp = torch.as_tensor(step, dtype=torch.int32,
                             device=store.scored_at.device).expand(idx.shape)
-    scored_at = _scatter_last(store.scored_at, idx, stamp)
+    scored_at = scatter_rows(store.scored_at, idx, stamp, group)
     if store.qscale is not None:
-        w = _scatter_last(dequantize_weights(store), idx, scores.float())
+        w = scatter_rows(dequantize_weights(store), idx, scores.float(),
+                         group)
         return _requantize(store._replace(scored_at=scored_at), w)
     return store._replace(
-        weights=_scatter_last(store.weights, idx, scores.float()),
+        weights=scatter_rows(store.weights, idx, scores.float(), group),
         scored_at=scored_at)
 
 

@@ -16,7 +16,9 @@ bounded window of chunks on the device and fetches the rest from here.
 A device copy that is still reading a chunk is guarded: the plane
 registers the copy's event with ``guard_reads``, and ``write_rows``
 waits for it before it writes that chunk, so a copy always sees the
-chunk as it was when the copy was enqueued.
+chunk as it was when the copy was enqueued.  ``write_rows`` also counts
+the writes to each chunk (``write_count``), so that the plane can tell a
+resident chunk whose device copy is still current from one written since.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ class ChunkedExampleStore:
         self.pin_memory = bool(pin_memory)
         self._chunks = chunks
         self._guards: dict[int, object] = {}
+        self._writes = [0] * len(chunks)
         for c, chunk in enumerate(chunks):
             for k, v in chunk.items():
                 if v.shape[0] != self.chunk_size:
@@ -167,6 +170,7 @@ class ChunkedExampleStore:
                     f"expected {want}/{self.dtype(k)}")
             owned[k] = self._alloc(want, v.dtype).copy_(v)
         self._chunks.append(owned)
+        self._writes.append(0)
         return self.num_chunks - 1
 
     def guard_reads(self, chunk_ids, event) -> None:
@@ -174,6 +178,10 @@ class ChunkedExampleStore:
         the chunks ``chunk_ids``: ``write_rows`` waits for it."""
         for c in np.asarray(chunk_ids).reshape(-1):
             self._guards[int(c)] = event
+
+    def write_count(self, c: int) -> int:
+        """How many ``write_rows`` calls have written chunk ``c``."""
+        return self._writes[c]
 
     def _check(self, gidx: np.ndarray) -> None:
         if gidx.size and (gidx.min() < 0 or gidx.max() >= self.num_examples):
@@ -197,6 +205,7 @@ class ChunkedExampleStore:
             chunk = self._chunks[int(c)]
             for k in self.keys:
                 chunk[k][at] = rows[k][sel].to(chunk[k].dtype)
+            self._writes[int(c)] += 1
 
     # ---- reads ------------------------------------------------------------
 

@@ -40,7 +40,10 @@ The window is a snapshot, as the reference's: a chunk written on the
 host (``ChunkedExampleStore.write_rows``, the serving loop's ingest)
 after the window that holds it was built serves its old rows to the
 master's gathers until a prefetch rebuilds that window; the scoring
-stream always reads the host.  Multi-device planes (``mesh=``) are not
+stream always reads the host.  A rebuild serves every chunk as the host
+holds it, as the reference's ``prefetch`` (which stacks every chunk from
+the host): a resident chunk is copied on the device only while its
+``write_count`` is the one it had when the live window was built.  Multi-device planes (``mesh=``) are not
 ported.
 """
 from __future__ import annotations
@@ -197,17 +200,18 @@ class StreamingDataPlane:
     * ``prefetch(chunk_mass)`` / ``swap_window()``: the next window is the
       top ``window_chunks`` chunks by proposal mass, ties toward lower
       chunk ids, built into a pending buffer (chunks already resident by
-      a device copy, the others from their pinned host chunks) on a copy
-      stream; the swap makes the current stream wait for those copies.
+      a device copy unless written since the live window was built, the
+      others from their pinned host chunks) on a copy stream; the swap
+      makes the current stream wait for those copies.
 
     Every path gives a row's exact bits.  ``mesh=`` is refused: the
-    multi-device plane waits for the port's multi-device slice."""
+    sharded plane is not ported yet."""
 
     def __init__(self, store: ChunkedExampleStore, window_chunks: int,
                  device="cuda", mesh=None):
         if mesh is not None:
-            raise ValueError("mesh= (the sharded plane) is not ported: this "
-                             "port runs one device")
+            raise ValueError("mesh= (the sharded plane) is not ported yet: "
+                             "this plane serves one device")
         self.store = store
         self.device = torch.device(device)
         self.on_cuda = self.device.type == "cuda"
@@ -225,7 +229,8 @@ class StreamingDataPlane:
         cold = np.arange(self.window_chunks)[None, :]
         self._install_window(cold, {
             k: v.to(self.device)
-            for k, v in store.stack_chunks(cold.reshape(-1)).items()})
+            for k, v in store.stack_chunks(cold.reshape(-1)).items()},
+            self._write_counts(cold))
 
     # ---- the two-level gather ---------------------------------------------
 
@@ -288,9 +293,15 @@ class StreamingDataPlane:
 
     # ---- proposal-aware window refresh ------------------------------------
 
-    def _install_window(self, ids: np.ndarray, arrays: dict) -> None:
+    def _write_counts(self, ids: np.ndarray) -> np.ndarray:
+        return np.asarray([self.store.write_count(int(c))
+                           for c in ids.reshape(-1)], np.int64)
+
+    def _install_window(self, ids: np.ndarray, arrays: dict,
+                        writes: np.ndarray) -> None:
         self._window_ids = ids
         self._window = arrays
+        self._window_writes = writes   # each slot's write count at build
         if self.on_cuda:
             cur = torch.cuda.current_stream(self.device)
             for t in arrays.values():
@@ -299,15 +310,23 @@ class StreamingDataPlane:
         slot[ids.reshape(-1)] = np.arange(ids.size)
         self._chunk_slot = slot
 
-    def _build(self, ids: np.ndarray) -> dict:
-        """The window of chunks ``ids``: resident chunks copied on the
-        device, the others from their host chunks."""
+    def _build(self, ids: np.ndarray) -> tuple[dict, np.ndarray, list]:
+        """The window of chunks ``ids``, its write counts and the chunks
+        read from the host: a resident chunk not written since the live
+        window was built is copied on the device, every other chunk from
+        its host chunk."""
         cs = self.chunk_size
         out = {k: torch.empty((ids.size * cs,) + self.store.row_shape(k),
                               dtype=self.store.dtype(k), device=self.device)
                for k in self.store.keys}
+        writes = self._write_counts(ids)
+        from_host = []
         for j, c in enumerate(ids.tolist()):
             s = int(self._chunk_slot[c]) if c < self._chunk_slot.size else -1
+            if s >= 0 and self._window_writes[s] != writes[j]:
+                s = -1
+            if s < 0:
+                from_host.append(c)
             for k, dst in out.items():
                 part = dst[j * cs:(j + 1) * cs]
                 if s >= 0:
@@ -315,7 +334,7 @@ class StreamingDataPlane:
                 else:
                     part.copy_(self.store.chunk(c)[k],
                                non_blocking=self.on_cuda)
-        return out
+        return out, writes, from_host
 
     def prefetch(self, chunk_mass) -> bool:
         """Stage the next window off the per-chunk proposal mass into the
@@ -339,19 +358,19 @@ class StreamingDataPlane:
         if np.array_equal(new_ids, self._window_ids):
             self._pending = None
             return False
-        fresh = np.setdiff1d(new_ids, self._window_ids)
         if not self.on_cuda:
-            self._pending = (new_ids, self._build(new_ids.reshape(-1)), None)
+            self._pending = (new_ids, *self._build(new_ids.reshape(-1))[:2],
+                             None)
             return True
         self._copy.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._copy):
-            arrays = self._build(new_ids.reshape(-1))
+            arrays, writes, from_host = self._build(new_ids.reshape(-1))
             done = torch.cuda.Event()
             done.record(self._copy)
         for t in self._window.values():
             t.record_stream(self._copy)
-        self.store.guard_reads(fresh, done)
-        self._pending = (new_ids, arrays, done)
+        self.store.guard_reads(from_host, done)
+        self._pending = (new_ids, arrays, writes, done)
         return True
 
     def swap_window(self) -> bool:
@@ -359,11 +378,11 @@ class StreamingDataPlane:
         gathers) once its copies have landed.  No-op when none is staged."""
         if self._pending is None:
             return False
-        ids, arrays, done = self._pending
+        ids, arrays, writes, done = self._pending
         self._pending = None
         if done is not None:
             torch.cuda.current_stream(self.device).wait_event(done)
-        self._install_window(ids, arrays)
+        self._install_window(ids, arrays, writes)
         self._swaps += 1
         return True
 

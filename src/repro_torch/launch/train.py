@@ -1,4 +1,4 @@
-"""ISSGD training launcher of the PyTorch port (one device).
+"""ISSGD training launcher of the PyTorch port.
 
 Runs the paper's experiment (mlp_svhn), a dense GQA transformer LM
 (glm4-9b, deepseek-7b, internlm2-20b) or the attention-free mamba LM
@@ -49,9 +49,19 @@ each step and ingests it back into the store (``serving/loop.py``):
       --smoke --device cpu --steps 6 --examples 256 --seq 16 --batch 8 \
       --score-batch 32 --stream --serve-loop
 
-The multi-device flags of the reference launcher (``--mesh``,
-``--model-parallel``, ``--(no-)sequence-parallel``) are refused by
-name.  As in the reference, the attention path of an LM
+Sharded execution (``core/distributed.py``): ``--mesh N`` runs the step
+on N ranks of a data group, the dataset and the weight store sharded
+over them (``launch/mesh.py``; NCCL with rank r on ``cuda:r``, gloo with
+``--device cpu``).  It prints the same losses as the one-device run with
+``--score-shards N``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --mesh 2 \
+      --device cpu --steps 8 --examples 1024
+
+``--mesh`` does not compose with ``--async-scoring``, ``--stream`` or
+``--save-checkpoint`` yet; the model-parallel flags of the reference
+launcher (``--model-parallel``, ``--(no-)sequence-parallel``) are
+refused by name.  As in the reference, the attention path of an LM
 (``attn_impl``, ``attn_scores``) and the scorer's mamba scan
 (``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
 arguments, e.g. ``run(args, attn_impl="flash", attn_scores="fused")`` or
@@ -64,10 +74,12 @@ import argparse
 import json
 import os
 import statistics
+import sys
 import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.configs import mlp_svhn
@@ -75,6 +87,9 @@ from repro_torch.core.importance import ISConfig
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.core.async_pipeline import AsyncPipeline, make_async_steps
 from repro_torch.core.controller import ControllerConfig, ProposalController
+from repro_torch.core.distributed import (make_sharded_score_step,
+                                          make_sharded_train_step,
+                                          shard_dataset, shard_train_state)
 from repro_torch.core.issgd import (ISSGDConfig, TrainState,
                                     init_train_state, make_score_step,
                                     make_train_step)
@@ -86,6 +101,7 @@ from repro_torch.data import (ChunkedExampleStore, make_svhn_like,
                               make_token_dataset)
 from repro_torch.data.streaming import (StreamedISSGD, StreamingDataPlane,
                                         make_streamed_steps)
+from repro_torch.launch import mesh
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer
 from repro_torch.optim import sgd
@@ -93,13 +109,15 @@ from repro_torch.serving import (ContinuousBatcher, ServeLoop, TrafficIngest,
                                  make_synthetic_traffic)
 from repro_torch.telemetry import EventSink, MonitorSet, NullSink, Telemetry
 
-PORT = ("the PyTorch port (one device: mlp_svhn, the dense GQA transformer "
-        "LMs and the mamba LMs)")
+PORT = ("the PyTorch port (data-parallel meshes only: mlp_svhn, the dense "
+        "GQA transformer LMs and the mamba LMs)")
 
 # flags of src/repro/launch/train.py the port does not carry yet: the
-# multi-device ones
-LATER_FLAGS = ("--mesh", "--model-parallel", "--sequence-parallel",
+# model-parallel ones
+LATER_FLAGS = ("--model-parallel", "--sequence-parallel",
                "--no-sequence-parallel")
+# what --mesh does not compose with yet, by flag
+MESH_LATER = ("--async-scoring", "--stream", "--save-checkpoint")
 
 # the StepMetrics fields a logged step records, in the reference's order
 METRIC_KEYS = ("loss", "grad_norm", "trace_ideal", "trace_stale",
@@ -175,7 +193,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="restore a TrainState (the port's or the JAX "
                     "launcher's npz) before training")
     ap.add_argument("--score-shards", type=int, default=0,
-                    help="logical scoring shards W (0 = 1 on one device)")
+                    help="logical scoring shards W (0 = auto: the mesh "
+                    "size, 1 on one device)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run the sharded step on N ranks of a data group "
+                    "(launch/mesh.py: NCCL, rank r on cuda:r; gloo with "
+                    "--device cpu); 0 = one device")
     ap.add_argument("--index", default="dense", choices=["dense", "tree"],
                     help="stage-1 masses of the draw: 'tree' through the "
                     "mass index (core/mass_index.py, draws bitwise equal "
@@ -320,13 +343,14 @@ def validate_flags(ap: argparse.ArgumentParser,
                  "--serve-loop yet (the streamed serving ingest assumes a "
                  "float table); use f32 or bf16 there")
     cs = args.index_chunk_size
-    if args.table_dtype == "int8" and (cs <= 0 or args.examples % cs):
+    n_local = args.examples // max(args.mesh, 1)
+    if args.table_dtype == "int8" and (cs <= 0 or n_local % cs):
         ap.error(f"--table-dtype int8 needs --index-chunk-size > 0 "
-                 f"dividing the per-shard rows ({args.examples}); got {cs} "
+                 f"dividing the per-shard rows ({n_local}); got {cs} "
                  f"(per-chunk scales may not straddle shards)")
-    if cs > 0 and args.examples % cs:
+    if cs > 0 and n_local % cs:
         ap.error(f"--index-chunk-size {cs} must divide the per-shard rows "
-                 f"({args.examples})")
+                 f"({n_local})")
     try:
         MonitorSet.parse(args.monitors)
     except ValueError as e:
@@ -338,6 +362,29 @@ def validate_flags(ap: argparse.ArgumentParser,
                  f"{args.profile_steps!r}")
 
 
+def refuse_mesh_later(args: argparse.Namespace) -> None:
+    """ValueError naming the first flag of ``MESH_LATER`` that is set."""
+    for flag in MESH_LATER:
+        if getattr(args, flag[2:].replace("-", "_")):
+            raise ValueError(f"--mesh does not compose with {flag} in "
+                             f"{PORT} yet")
+
+
+def check_mesh(args: argparse.Namespace) -> None:
+    """``--mesh``'s refusals, as ValueErrors naming the flag or the
+    count: what it does not compose with yet, a world the cards cannot
+    hold, rows or shards that do not split over it."""
+    refuse_mesh_later(args)
+    if args.examples % args.mesh:
+        raise ValueError(f"--examples {args.examples} not divisible by "
+                         f"--mesh {args.mesh}")
+    if args.score_shards > 1 and args.score_shards % args.mesh:
+        raise ValueError(f"--score-shards {args.score_shards} must be a "
+                         f"multiple of --mesh {args.mesh}")
+    mesh.check_world(args.mesh, args.device,
+                     mesh.default_backend(args.device))
+
+
 def profile_window(args: argparse.Namespace) -> tuple[int, int]:
     """(first step, step count) of the profiler window."""
     start, count = map(int, args.profile_steps.split(":"))
@@ -347,6 +394,16 @@ def profile_window(args: argparse.Namespace) -> tuple[int, int]:
 def proposal_name(args: argparse.Namespace) -> str:
     """--proposal-strategy, or --strategy when it is unset."""
     return args.proposal_strategy or args.strategy
+
+
+def score_row_block(args: argparse.Namespace) -> int:
+    """The rows of one logical shard's scoring slice when W > 1, else 0:
+    the MLP scorer multiplies that many rows at a time, so that a rank
+    holding some of the W shards scores them with the bits the
+    one-device run gives them."""
+    w = args.score_shards if args.score_shards > 1 else max(args.mesh, 1)
+    sb = args.examples if args.mode == "exact" else args.score_batch
+    return sb // w if w > 1 else 0
 
 
 def _generator(device: torch.device):
@@ -381,7 +438,8 @@ def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
                               dim=cfg.input_dim)
     params = mlp_mod.init_mlp_classifier(gen(args.seed + 1), cfg, device)
     return (params, train, lambda p, b: mlp_mod.per_example_loss(p, b, cfg),
-            make_proposal(make_mlp_scorer, cfg, proposal_name(args)))
+            make_proposal(make_mlp_scorer, cfg, proposal_name(args),
+                          row_block=score_row_block(args)))
 
 
 def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
@@ -422,7 +480,7 @@ def auto_chunk_size(n: int) -> int:
 
 def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
           attn_scores=None, ssm_mode: str = "ref", telemetry=None,
-          controller=None) -> Built:
+          controller=None, group=None) -> Built:
     """(state, train_step, data, probe, pipe, serve) for ``args``: model,
     data, step and, in fused mode, the probe step (None otherwise).  With
     ``--monitors`` the step returns ``(state, metrics, monitors)``; with
@@ -437,7 +495,12 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     under ``--adaptive-is``, the ``controller`` whose gate it reads; the
     step then ignores a passed gate), and ``--serve-loop`` adds
     ``serve``, whose ``ingest_into`` the loop calls after each step.
-    A streamed run's ``data`` is None."""
+    A streamed run's ``data`` is None.
+
+    With a data ``group`` (``--mesh``) the step and the probe are the
+    sharded ones and ``data`` is this rank's rows; the state's store is
+    still whole and on the host, for ``run`` to restore into and then
+    keep this rank's rows (``shard_train_state``)."""
     use_full_f32()
     device = torch.device(args.device)
     builder = build_mlp if args.arch == "mlp_svhn" else build_lm
@@ -457,7 +520,19 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     monitors = MonitorSet.parse(args.monitors)
     state = init_train_state(params, opt, train.size, device, seed=args.seed,
                              table_dtype=args.table_dtype,
-                             index_chunk_size=args.index_chunk_size)
+                             index_chunk_size=args.index_chunk_size,
+                             store_device=device if group is None else "cpu")
+    if group is not None:
+        refuse_mesh_later(args)
+        step, tcfg = make_sharded_train_step(
+            pel, scorer, opt, tcfg, train.size, group, fused_score=fused,
+            monitors=monitors, gated=args.adaptive_is)
+        print(f"mesh: ({group.size},) over {group.size} devices "
+              f"({dist.get_backend(group.pg)}, {tcfg.score_shards} "
+              f"scoring shards)", flush=True)
+        probe = (make_sharded_score_step(scorer, tcfg, train.size, group)
+                 if args.mode == "fused" else None)
+        return Built(state, step, shard_dataset(train.arrays, group), probe)
     if args.stream:
         return _build_streamed(args, cfg, state, train, pel, scorer, opt,
                                tcfg, fused, monitors, telemetry, controller)
@@ -562,7 +637,7 @@ def open_sink(args: argparse.Namespace):
     if args.metrics_jsonl:
         sink = EventSink(args.metrics_jsonl, run={
             "arch": args.arch, "mode": args.mode, "steps": args.steps,
-            "mesh": 0, "model_parallel": 1,
+            "mesh": args.mesh, "model_parallel": 1,
             "async_scoring": args.async_scoring, "stream": args.stream,
             "serve_loop": args.serve_loop, "swap_every": args.swap_every,
             "monitors": list(MonitorSet.parse(args.monitors).names),
@@ -622,27 +697,34 @@ class _Profile:
 
 
 def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-        attn_scores=None, ssm_mode: str = "ref") -> TrainResult:
+        attn_scores=None, ssm_mode: str = "ref",
+        group=None) -> TrainResult:
     """Build from ``args`` (and ``cfg``, ``attn_impl``, ``attn_scores``,
-    ``ssm_mode``, see ``build``) and train, logging every ``--log-every``
-    steps and emitting telemetry records every ``--metrics-every``;
-    restore before the loop and save after it when asked.  A step's
-    time covers the train step, not the probe or the serve loop's
-    ingest.  Everything a step logs (metrics and monitors) is read from
-    the card in one transfer, on the logging steps only."""
+    ``ssm_mode``, ``group``, see ``build``) and train, logging every
+    ``--log-every`` steps and emitting telemetry records every
+    ``--metrics-every``; restore before the loop and save after it when
+    asked.  A step's time covers the train step, not the probe or the
+    serve loop's ingest.  Everything a step logs (metrics and monitors)
+    is read from the card in one transfer, on the logging steps only.
+    With a data ``group`` this is one rank of the sharded run: it
+    restores on the host and keeps its rows, as the reference restores
+    before placement."""
     sink, ctl = open_sink(args)
     try:
         tel = Telemetry(sink, every=args.metrics_every or args.log_every,
                         blocking=args.telemetry_blocking)
         built = build(args, cfg, attn_impl=attn_impl,
                       attn_scores=attn_scores, ssm_mode=ssm_mode,
-                      telemetry=tel, controller=ctl)
+                      telemetry=tel, controller=ctl, group=group)
         if args.restore_checkpoint:
             state, ck_step = restore_checkpoint(args.restore_checkpoint,
                                                 built.state)
             built = built._replace(state=state)
             print(f"restored {args.restore_checkpoint} (step {ck_step})",
                   flush=True)
+        if group is not None:
+            built = built._replace(state=shard_train_state(
+                built.state, group, torch.device(args.device)))
         return _train_loop(args, built, sink, ctl, tel)
     finally:
         sink.close()
@@ -755,15 +837,40 @@ def _train_loop(args, built: Built, sink, ctl, tel) -> TrainResult:
                        built._replace(state=state))
 
 
-def main(argv=None, cfg=None) -> TrainResult:
-    args = parse_args(argv)
-    result = run(args, cfg)
+def _print_done(args: argparse.Namespace, result: TrainResult) -> None:
     if result.step_ms:
         clock = ("CUDA events" if torch.device(args.device).type == "cuda"
                  else "host clock")
         print(f"done: {args.steps} steps on {args.device}, median step "
               f"{statistics.median(result.step_ms):.3f} ms ({clock})",
               flush=True)
+
+
+def _mesh_rank(group, device: str, args: argparse.Namespace,
+               cfg=None) -> TrainResult:
+    """One rank of ``--mesh``: rank 0 alone prints and writes the metrics
+    files and the profile."""
+    args = argparse.Namespace(**vars(args))
+    args.device = device
+    if group.rank:
+        sys.stdout = open(os.devnull, "w")
+        args.metrics_out = args.metrics_jsonl = args.profile_dir = ""
+    result = run(args, cfg, group=group)
+    _print_done(args, result)
+    return result
+
+
+def main(argv=None, cfg=None) -> Optional[TrainResult]:
+    """Parse ``argv`` and train.  ``--mesh 1`` runs its one rank in this
+    process and returns its result, a larger mesh spawns its ranks and
+    returns None."""
+    args = parse_args(argv)
+    if args.mesh:
+        check_mesh(args)
+        return mesh.run_world(_mesh_rank, args.mesh, args.device,
+                              args=(args, cfg))
+    result = run(args, cfg)
+    _print_done(args, result)
     return result
 
 

@@ -46,14 +46,28 @@ def init_mlp_classifier(generator: torch.Generator, cfg: MLPConfig,
     return params
 
 
+def _matmul_rows(h: torch.Tensor, w: torch.Tensor,
+                 row_block: int) -> torch.Tensor:
+    """``h @ w``, one GEMM per ``row_block`` rows when ``row_block`` is
+    set: cuBLAS picks its kernel by the row count, so a row's bits then
+    do not depend on how many blocks share the batch (and the backward's
+    GEMMs are per block too)."""
+    if not row_block or h.shape[0] <= row_block:
+        return h @ w
+    return torch.cat([h[i:i + row_block] @ w
+                      for i in range(0, h.shape[0], row_block)])
+
+
 def mlp_forward(params: Params, x: torch.Tensor, cfg: MLPConfig,
-                tape: Optional[Tape] = None) -> torch.Tensor:
-    """x: (B, input_dim) → logits (B, num_classes)."""
+                tape: Optional[Tape] = None,
+                row_block: int = 0) -> torch.Tensor:
+    """x: (B, input_dim) → logits (B, num_classes); with ``row_block``
+    each linear multiplies that many rows at a time."""
     n = len(cfg.hidden) + 1
     h = x
     for i in range(n):
         p = params[f"fc{i}"]
-        y = h @ p["w"] + p["b"]
+        y = _matmul_rows(h, p["w"], row_block) + p["b"]
         if tape is not None:
             y = tape.linear(f"fc{i}", h, y)
         h = torch.relu(y) if i < n - 1 else y
@@ -61,9 +75,10 @@ def mlp_forward(params: Params, x: torch.Tensor, cfg: MLPConfig,
 
 
 def per_example_loss(params: Params, batch: dict, cfg: MLPConfig,
-                     tape: Optional[Tape] = None) -> torch.Tensor:
+                     tape: Optional[Tape] = None,
+                     row_block: int = 0) -> torch.Tensor:
     """Cross-entropy per example. batch: {x (B,D), y (B,)}."""
-    logits = mlp_forward(params, batch["x"], cfg, tape)
+    logits = mlp_forward(params, batch["x"], cfg, tape, row_block)
     lp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(lp, 1, batch["y"].long()[:, None])[:, 0]
 

@@ -25,8 +25,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.collectives import pmax, psum
 from repro_torch.core.importance import proposal_entropy
 from repro_torch.core.weight_store import EMPTY, WeightStore
+from repro_torch.dist import DataGroup
 
 MONITOR_NAMES = ("ess", "entropy", "max_weight_frac", "empty_rows",
                  "staleness")
@@ -73,30 +75,33 @@ class MonitorSet:
 def proposal_monitors(store: WeightStore, proposal: torch.Tensor,
                       step: int, num_examples: int, monitors: MonitorSet,
                       sum_w: Optional[torch.Tensor] = None,
-                      sum_w2: Optional[torch.Tensor] = None
+                      sum_w2: Optional[torch.Tensor] = None,
+                      group: Optional[DataGroup] = None
                       ) -> dict[str, torch.Tensor]:
     """The enabled monitors as ``{name: 0-dim tensor}``.  ``store`` and
     ``proposal`` are what the master pass sampled from (EMPTY rows
     already at zero mass); ``sum_w``/``sum_w2`` are its Σw and Σw²,
-    shared instead of reduced again."""
+    shared instead of reduced again.  Over a data group they are this
+    rank's rows, and each monitor is summed or maxed over the group, the
+    same on every rank."""
     out: dict[str, torch.Tensor] = {}
     names = monitors.names
     if any(n in names for n in ("ess", "entropy", "max_weight_frac")):
         if sum_w is None:
-            sum_w = torch.sum(proposal)
+            sum_w = psum(torch.sum(proposal), group)
         sum_w = torch.clamp(sum_w, min=1e-30)
     if "ess" in names:
         if sum_w2 is None:
-            sum_w2 = torch.sum(torch.square(proposal))
+            sum_w2 = psum(torch.sum(torch.square(proposal)), group)
         out["ess"] = (torch.square(sum_w) / torch.clamp(sum_w2, min=1e-30)
                       / num_examples)
     if "entropy" in names:
-        out["entropy"] = proposal_entropy(proposal, sum_w)
+        out["entropy"] = proposal_entropy(proposal, sum_w, group)
     if "max_weight_frac" in names:
-        out["max_weight_frac"] = torch.max(proposal) / sum_w
+        out["max_weight_frac"] = pmax(torch.max(proposal), group) / sum_w
     if "empty_rows" in names:
-        out["empty_rows"] = torch.sum(
-            (store.scored_at <= EMPTY).to(torch.int32))
+        out["empty_rows"] = psum(torch.sum(
+            (store.scored_at <= EMPTY).to(torch.int32)), group)
     if "staleness" in names:
-        out["staleness"] = step - torch.max(store.scored_at)
+        out["staleness"] = step - pmax(torch.max(store.scored_at), group)
     return out

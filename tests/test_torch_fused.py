@@ -357,7 +357,7 @@ def test_sample_indices_replays_reference():
 
 
 # -------------------------------------------------------------- launcher
-@pytest.mark.parametrize("flag", ["--mesh", "--model-parallel",
+@pytest.mark.parametrize("flag", ["--model-parallel",
                                   "--sequence-parallel",
                                   "--no-sequence-parallel"])
 def test_flags_still_later_are_refused_by_name(flag, capsys):

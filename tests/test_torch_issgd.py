@@ -238,7 +238,6 @@ def test_launcher_flags_have_reference_defaults():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2", "--device", "cpu"], "PyTorch port"),
     (["--model-parallel", "2", "--device", "cpu"], "PyTorch port"),
     (["--sequence-parallel", "--device", "cpu"], "PyTorch port"),
     (["--bogus", "--device", "cpu"], "unrecognized"),

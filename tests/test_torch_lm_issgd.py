@@ -250,7 +250,7 @@ def test_launcher_takes_a_config_override():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "dbrx-132b", "--mesh", "2", "--device", "cpu"],
+    (["--arch", "dbrx-132b", "--sequence-parallel", "--device", "cpu"],
      "does not carry yet"),
     (["--arch", "jamba-v0.1-52b", "--model-parallel", "2", "--device",
       "cpu"], "does not carry yet"),

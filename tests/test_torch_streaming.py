@@ -193,6 +193,30 @@ def test_window_is_a_snapshot_as_in_the_reference():
         assert not plane.prefetch(np.arange(4.0))
 
 
+def test_rebuild_serves_rows_written_since_the_last_build():
+    """A rebuild serves every chunk as the host holds it: row 5 (chunk 0,
+    resident before and after) written after the window was built is
+    served fresh once a prefetch moves the window from chunks 0,1 to
+    0,2, as the reference's ``prefetch`` stacks every chunk from the
+    host."""
+    arrays = {"x": np.arange(64, dtype=np.float32)[:, None]}
+    new = {"x": np.full((1, 1), -5.0, np.float32)}
+    planes = (JPlane(JStore.from_arrays(arrays, 16), window_chunks=2),
+              StreamingDataPlane(ChunkedExampleStore.from_arrays(arrays, 16),
+                                 2, device="cpu"))
+    got = []
+    for plane in planes:
+        plane.store.write_rows(np.asarray([5]), new)
+        assert plane.prefetch(np.asarray([3.0, 0.0, 2.0, 0.0], np.float32))
+        plane.swap_window()
+        np.testing.assert_array_equal(plane.window_ids, [[0, 2]])
+        before = plane.stats.hits
+        got.append(_np(plane.gather_global(np.asarray([5, 37]))["x"])
+                   .reshape(-1).tolist())
+        assert plane.stats.hits - before == 2
+    assert got[0] == got[1] == [-5.0, 37.0]
+
+
 def test_grown_rows_route_through_the_host():
     arrays = {"x": np.random.default_rng(1).normal(size=(64, 4))
               .astype(np.float32)}
@@ -218,8 +242,9 @@ def test_host_score_slice_replays_the_device_schedule():
         np.testing.assert_array_equal(
             host_score_slice(t, *layout),
             _np(issgd._score_slice(t, 4, 128, 12, "cpu")))
-    with pytest.raises(ValueError, match="one device"):
-        issgd.scoring_layout(cfg, N, 2)
+    # a rank of two scores half the shards, as the reference lays it out
+    assert issgd.scoring_layout(cfg, N, 2) == \
+        jissgd.scoring_layout(jcfg, N, 2) == (2, 128, 12)
 
 
 # ---------------------------------------------------------------------------
