@@ -329,6 +329,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 the one-device draw of the same table (4,096 draws); the
                 step time, shared between the two processes; --mesh past
                 the card count refused, naming it.
+ 43. sharded planes — the planes over torch.distributed, every plain
+                version forbidden: (a) phase 39's streamed mlp_svhn
+                (524,288 rows in pinned chunks of 1,024, score batch
+                4,096, W = 4, 40 steps), sync and async (swap 4), through
+                --mesh 1 over NCCL against the one-device run of the same
+                call, bitwise (draws, losses, grad norms, Σw, both
+                buffers, params, stale params); step ms of both, hit rate,
+                all-reduces and elements a step, 1 multi-tap launch a step
+                (async: on the scoring stream); (b) a world of 2 over gloo
+                on the one card, streamed async, 262,144 rows a rank in its
+                own pinned chunks behind a window of 32: bitwise (a)'s
+                async run, no 524,288-row tensor in a recorded step, no
+                foreign chunk held or served, the scoring kernel on each
+                rank's side stream, a gather-free checkpoint saved at step
+                20 (save s, file MB); (c) the one-device streamed async run
+                restores that file and runs the last 20 steps: bitwise
+                (b)'s uninterrupted 40; (d) glm4-9b at phase 7's cut
+                through --mesh 1 --stream --async-scoring --swap-every 2,
+                4 steps, bitwise the one-device run, 8 ghost_norm launches
+                a step, all on the scoring stream and tensor-core; the LM
+                row blocks: phase 7's cut as a resident world of 2 on the
+                one card at W = 2 draws what one device draws (16
+                ghost_norm launches a step there, 8 a rank).
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -5164,12 +5187,12 @@ class RowRecorder(TorchDispatchMode):
 
 
 class StepRecorder:
-    """While active, every step the launcher builds (``make_train_step``,
-    ``make_sharded_train_step``) keeps each step's metrics (device
-    tensors: no host synchronisation), and its step number ``watch`` runs
-    under a RowRecorder of ``n``-row tensors."""
+    """While active, every step the launcher builds
+    (``make_sharded_train_step``, with a group or None) keeps each step's
+    metrics (device tensors: no host synchronisation), and its step
+    number ``watch`` runs under a RowRecorder of ``n``-row tensors."""
 
-    NAMES = ("make_train_step", "make_sharded_train_step")
+    NAMES = ("make_sharded_train_step",)
 
     def __init__(self, train_mod, watch=-1, n=SHARD_N):
         self.mod, self.watch, self.n = train_mod, watch, n
@@ -5435,6 +5458,421 @@ def phase_sharded(train_mod, ref):
         fail(f"--mesh {count + 1} ran on {count} card(s)")
     return out
 
+PLANES_STEPS = 40
+PLANES_SAVE_AT = 20        # (b) saves its gather-free checkpoint here
+PLANES_WINDOW_W2 = 32      # chunks a rank's window holds in the world of 2
+PLANES_WATCH = WARMUP_STEPS  # the step (b) records op by op
+PLANES_LM_STEPS = 4
+PLANES_LM_W = 2            # logical scoring shards of the LM world of 2
+PLANE_FIELDS = ("loss", "grad_norm", "mean_weight")
+PLANE_TRACES = ("trace_ideal", "trace_stale", "trace_unif", "ess_frac")
+
+
+def planes_argv(*extra) -> list:
+    """Phase 39's streamed mlp_svhn trainer at W = SHARD_W."""
+    return mlp_argv("--examples", str(STREAM_N), "--steps",
+                    str(PLANES_STEPS), "--score-batch",
+                    str(STREAM_SCORE_BATCH), "--staleness-threshold",
+                    str(STREAM_STALENESS), "--score-shards", str(SHARD_W),
+                    "--stream", "--chunk-size", str(STREAM_CHUNK), *extra)
+
+
+def expect_side(side: dict, want: dict, what: str) -> None:
+    """Fail unless each scoring kernel named in ``want`` launched that
+    often off the default stream."""
+    for k, v in want.items():
+        if side[k] != v:
+            fail(f"{what}: {side[k]} {k} launches on the scoring stream; "
+                 f"expected {v}")
+
+
+def buffers_of(store) -> list:
+    """The tensors of a plain or buffered store, in order."""
+    bufs = (store.read_buf, store.write_buf) if hasattr(store, "read_buf") \
+        else (store,)
+    return [t for b in bufs for t in b if t is not None]
+
+
+def plane_run(group, device, argv, cfg=None, save=None, restore=None,
+              watch=None):
+    """One launcher-built run of ``argv`` on ``group``'s rank (one device
+    with None), driven step by step as ``run``'s loop drives it, every
+    plain version forbidden, the counts set to 0 just before the first
+    step.  ``save`` = (step, path) saves a gather-free checkpoint before
+    that step (its all-reduces left out of the counts), ``restore`` a
+    path to start from, ``watch`` a step run under a RowRecorder of
+    N-row tensors.  (what it saw, the final state, the build)."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import collectives
+    from repro_torch.core.distributed import shard_train_state
+    from repro_torch.data.store import ForeignChunkError
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_mod
+    train_mod.use_full_f32()
+    args = train_mod.parse_args(argv)
+    args.device = device
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    built = train_mod.build(args, cfg, group=group)
+    state = built.state
+    if restore:
+        state, _ = restore_checkpoint(restore, state)
+    if group is not None:
+        state = shard_train_state(state, group, torch.device(device))
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    mets, marks = [], []
+
+    def loop():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(args.steps):
+            if save is not None and i == save[0]:
+                built.pipe.join()
+                torch.cuda.synchronize()
+                counts = dict(collectives.COUNTS)
+                ts = time.perf_counter()
+                save_checkpoint(save[1], state, state.step, group=group)
+                out["save_s"] = time.perf_counter() - ts
+                collectives.COUNTS.update(counts)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if i == watch:
+                with RowRecorder(args.examples) as rec:
+                    state, m, *_ = built.step(state, built.data)
+                out["seen"] = rec.seen
+            else:
+                state, m, *_ = built.step(state, built.data)
+            end.record()
+            mets.append(m)
+            marks.append((start, end))
+        if built.pipe is not None:
+            built.pipe.join()
+        torch.cuda.synchronize()
+        out["wall_ms_a_step"] = (time.perf_counter() - t) * 1e3 / args.steps
+
+    reset_counts()
+    reset_side_counts()
+    collectives.reset_counts()
+    run_forbidding_plain(ref, loop)
+    idx, met = _stacked(mets)
+    out.update(indices=idx, metrics=met,
+               step_ms=[s.elapsed_time(e) for s, e in marks],
+               launches=read_counts(), side_launches=side_counts(),
+               ghost_tc=kernel_wrappers()["ghost_norm"].tc_launches,
+               all_reduce_a_step=collectives.COUNTS["all_reduce"]
+               / args.steps,
+               all_reduce_elements_a_step=collectives.COUNTS["elements"]
+               / args.steps)
+    plane = getattr(built.pipe, "plane", None)
+    if plane is not None:
+        st, store = plane.stats, plane.store
+        held = store.held_chunks
+        try:
+            store.fetch_rows([(held.stop % store.num_chunks)
+                              * store.chunk_size])
+            refused = False
+        except ForeignChunkError:
+            refused = True
+        out.update(hit_rate=st.hit_rate, hits=st.hits, misses=st.misses,
+                   streamed_rows=st.streamed_rows, window_swaps=st.swaps,
+                   held=(held.start, held.stop),
+                   window=plane.window_ids.tolist(),
+                   held_rows=sum(c[store.keys[0]].shape[0]
+                                 for _, c in store.iter_chunks()),
+                   foreign_refused=refused)
+    return out, state, built
+
+
+def _plane_rank(group, device, argv, out_dir, save=None, watch=None,
+                cfg_layers=None, keep_state=True):
+    """One spawned rank of phase 43: ``plane_run`` and what it saw saved
+    for the parent, the final state on the host when ``keep_state``."""
+    import os
+    if group.rank:
+        sys.stdout = open(os.devnull, "w")
+    cfg = None if cfg_layers is None else lm_config(cfg_layers)
+    out, state, _ = plane_run(group, device, argv, cfg, save=save,
+                              watch=watch)
+    if keep_state:
+        out.update(store=[t.cpu() for t in buffers_of(state.store)],
+                   params=_to_dev(state.params, "cpu"),
+                   stale_params=_to_dev(state.stale_params, "cpu"))
+    torch.save(out, f"{out_dir}/rank{group.rank}.pt")
+
+
+def _plane_world1(group, device, argv, cfg=None):
+    return plane_run(group, device, argv, cfg)[:2]
+
+
+def same_plane_runs(a, b, what, traces_bitwise=True) -> None:
+    """Fail unless two runs drew the same indices with the same losses,
+    grad norms and Σw bitwise (and trace monitors bitwise, or within
+    SHARD_LOSS_RTOL)."""
+    if not (torch.equal(a["indices"], b["indices"]) and all(
+            torch.equal(a["metrics"][f], b["metrics"][f])
+            for f in PLANE_FIELDS)):
+        differ = (a["indices"] != b["indices"]).any(dim=1).nonzero()
+        fail(f"{what}: draws or losses differ (steps drawing otherwise: "
+             f"{differ.flatten().tolist()[:8]}; losses "
+             f"{rel_err(a['metrics']['loss'], b['metrics']['loss']):.2e})")
+    for f in PLANE_TRACES:
+        x, y = a["metrics"][f], b["metrics"][f]
+        if traces_bitwise and not torch.equal(x, y):
+            fail(f"{what}: {f} differs")
+        if not traces_bitwise and rel_err(x, y) > SHARD_LOSS_RTOL:
+            fail(f"{what}: {f} {rel_err(x, y):.2e} from the other run's")
+
+
+def same_final(sa, sb) -> bool:
+    """Two final states (on one device) bitwise: store buffers, params,
+    stale params."""
+    return (same_buffers(sa.store, sb.store)
+            and same_tree(sa.params, sb.params)
+            and same_tree(sa.stale_params, sb.stale_params))
+
+
+def _slice_steps(run, a, b) -> dict:
+    """A run's draws and metrics of steps [a, b)."""
+    return {"indices": run["indices"][a:b],
+            "metrics": {f: v[a:b] for f, v in run["metrics"].items()}}
+
+
+def _plane_summary(r) -> dict:
+    keys = ("build_s", "wall_ms_a_step", "launches", "side_launches",
+            "all_reduce_a_step", "all_reduce_elements_a_step", "hit_rate",
+            "hits", "misses", "streamed_rows", "window_swaps", "save_s")
+    out = {k: r[k] for k in keys if k in r}
+    ms = (r["step_ms"][WARMUP_STEPS:] if len(r["step_ms"]) > WARMUP_STEPS
+          else r["step_ms"])
+    out["step_ms_median"] = statistics.median(ms)
+    out["step_ms_quartiles"] = (statistics.quantiles(ms, n=4)[::2]
+                                if len(ms) > 1 else [ms[0], ms[0]])
+    return out
+
+
+def phase_sharded_planes(train_mod, ref):
+    """43: the sharded planes (see the module docstring)."""
+    from repro_torch.launch import mesh
+    out = {"examples": STREAM_N, "chunk": STREAM_CHUNK, "steps":
+           PLANES_STEPS, "score_batch": STREAM_SCORE_BATCH,
+           "score_shards": SHARD_W}
+    t_phase = time.perf_counter()
+    asyn = ["--async-scoring", "--swap-every", str(STREAM_SWAP)]
+    mlp_launch = {"per_example_sqnorm_multi": PLANES_STEPS}
+
+    # (a) --mesh 1 over NCCL against one device, sync and async
+    keep = {}
+    for comp, extra in (("sync", []), ("async", asyn)):
+        argv = planes_argv("--window-chunks", str(STREAM_WINDOW), *extra)
+        one, one_state, built = plane_run(None, "cuda", argv)
+        del built
+        w1, w1_state = mesh.run_world(_plane_world1, 1, "cuda",
+                                      args=(argv,))
+        for tag, r in (("one device", one), ("world 1", w1)):
+            expect_launches(r["launches"], mlp_launch,
+                            f"planes (a) {comp} {tag}")
+            if comp == "async":
+                expect_side(r["side_launches"], mlp_launch,
+                            f"planes (a) {comp} {tag}")
+        same_plane_runs(w1, one, f"planes (a) {comp}: world 1 over NCCL "
+                                 f"against one device")
+        if not same_final(w1_state, one_state):
+            fail(f"planes (a) {comp}: world 1's store, params or stale "
+                 f"params are not bitwise the one-device run's")
+        out[f"a_{comp}"] = {"one_device": _plane_summary(one),
+                            "world1": _plane_summary(w1)}
+        a = out[f"a_{comp}"]
+        print(f"sharded planes (a) {comp}: world 1 over NCCL ≡ one device "
+              f"bitwise over {PLANES_STEPS} steps (draws, metrics, both "
+              f"buffers, params, stale params); median step "
+              f"{a['world1']['step_ms_median']:.3f} ms (quartiles "
+              f"{a['world1']['step_ms_quartiles'][0]:.3f}–"
+              f"{a['world1']['step_ms_quartiles'][1]:.3f}) against "
+              f"{a['one_device']['step_ms_median']:.3f} ms one-device "
+              f"({a['one_device']['step_ms_quartiles'][0]:.3f}–"
+              f"{a['one_device']['step_ms_quartiles'][1]:.3f}; CUDA "
+              f"events, same call); hit rate "
+              f"{w1['hit_rate']:.4f} / {one['hit_rate']:.4f}; "
+              f"{w1['all_reduce_a_step']:.2f} all-reduces a step of "
+              f"{w1['all_reduce_elements_a_step']:.0f} elements", flush=True)
+        if comp == "async":
+            keep = {"run": one, "state": one_state}
+        del one_state, w1_state
+        torch.cuda.empty_cache()
+
+    # (b) a world of 2 over gloo on the one card, streamed async
+    d = scratch_dir("chip_smoke_planes")
+    ckpt = d / "planes_step20.npz"
+    argv2 = planes_argv("--window-chunks", str(PLANES_WINDOW_W2), *asyn)
+    t0 = time.perf_counter()
+    mesh.run_world(_plane_rank, 2, "cuda", backend="gloo",
+                   args=(argv2, str(d), (PLANES_SAVE_AT, str(ckpt)),
+                         PLANES_WATCH))
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    half, per = STREAM_N // 2, STREAM_N // STREAM_CHUNK // 2
+    for r, got in enumerate(ranks):
+        what = f"planes (b) rank {r}"
+        expect_launches(got["launches"], mlp_launch, what)
+        expect_side(got["side_launches"], mlp_launch, what)
+        if got.get("seen") is None or got["seen"]:
+            fail(f"{what}: step {PLANES_WATCH} made or took tensors of "
+                 f"{STREAM_N} rows: {(got.get('seen') or ['not recorded'])[:4]}")
+        if (got["held"] != (r * per, (r + 1) * per)
+                or got["held_rows"] != half or not got["foreign_refused"]
+                or not all(r * per <= c < (r + 1) * per
+                           for c in got["window"][0])):
+            fail(f"{what}: holds chunks {got['held']} ({got['held_rows']} "
+                 f"rows), window {got['window']}, foreign row refused "
+                 f"{got['foreign_refused']}; expected chunks "
+                 f"[{r * per}, {(r + 1) * per}) alone")
+        if [t.shape[0] for t in got["store"]] != [half] * 4:
+            fail(f"{what}: store buffers of {[t.shape[0] for t in got['store']]}"
+                 f" rows; expected {half}")
+        same_plane_runs(got, keep["run"], f"{what} against (a)'s async run",
+                        traces_bitwise=False)
+    whole = [torch.cat([r_["store"][i] for r_ in ranks]) for i in range(4)]
+    a_state = keep["state"]
+    if not (all(torch.equal(x, y.cpu()) for x, y in zip(
+            whole, buffers_of(a_state.store), strict=True))
+            and same_tree(_to_dev(a_state.params, "cpu"), ranks[0]["params"])
+            and same_tree(_to_dev(a_state.stale_params, "cpu"),
+                          ranks[0]["stale_params"])):
+        fail("planes (b): the world of 2's store, params or stale params "
+             "are not bitwise (a)'s async run's")
+    out["b_world2"] = {"ranks": [_plane_summary(r_) for r_ in ranks],
+                       "wall_s_with_spawn": wall_s,
+                       "file_mb": ckpt.stat().st_size / 2**20,
+                       "rows_a_rank": half}
+    b = out["b_world2"]
+    print(f"sharded planes (b): a world of 2 over gloo on one card ≡ (a)'s "
+          f"async run bitwise over {PLANES_STEPS} steps (draws, losses, grad "
+          f"norms, Σw, both buffers, params; traces within "
+          f"{SHARD_LOSS_RTOL}); {half} rows a rank in its own pinned chunks, "
+          f"window {PLANES_WINDOW_W2} chunks, no foreign chunk, no "
+          f"{STREAM_N}-row tensor in step {PLANES_WATCH}; "
+          f"{PLANES_STEPS} multi-tap launches a rank, all on its scoring "
+          f"stream; hit rates {[round(r_['hit_rate'], 4) for r_ in ranks]}; "
+          f"median step {[round(x['step_ms_median'], 3) for x in b['ranks']]}"
+          f" ms a rank (time-shared: no speed figure); gather-free save at "
+          f"step {PLANES_SAVE_AT} {[round(r_['save_s'], 3) for r_ in ranks]} "
+          f"s a rank, file {b['file_mb']:.2f} MB; {wall_s:.1f} s with the "
+          f"spawn", flush=True)
+
+    # (c) one device resumes (b)'s file for the last steps
+    rest = PLANES_STEPS - PLANES_SAVE_AT
+    argv_c = planes_argv("--window-chunks", str(STREAM_WINDOW), *asyn)
+    argv_c[argv_c.index("--steps") + 1] = str(rest)
+    res_c, state_c, built = plane_run(None, "cuda", argv_c,
+                                      restore=str(ckpt))
+    del built
+    expect_launches(res_c["launches"],
+                    {"per_example_sqnorm_multi": rest}, "planes (c)")
+    same_plane_runs(res_c, _slice_steps(keep["run"], PLANES_SAVE_AT,
+                                        PLANES_STEPS),
+                    "planes (c): the resumed run against the uninterrupted")
+    if not same_final(state_c, a_state):
+        fail("planes (c): the resumed run ends with another store or params "
+             "than the uninterrupted run")
+    out["c_resume"] = _plane_summary(res_c)
+    print(f"sharded planes (c): one device restores (b)'s gather-free file "
+          f"at step {PLANES_SAVE_AT} and runs {rest} steps ≡ the "
+          f"uninterrupted run bitwise (draws, metrics, both buffers, params)",
+          flush=True)
+    del state_c, a_state, keep
+    torch.cuda.empty_cache()
+
+    # (d) glm4-9b at phase 7's cut, --mesh 1 --stream --async-scoring
+    lm_argv = LM_ARGV + ["--steps", str(PLANES_LM_STEPS), "--stream",
+                         "--async-scoring", "--swap-every", "2"]
+    ghost = {"ghost_norm": len(GHOST_MAIN) * PLANES_LM_STEPS}
+    one, one_state, built = plane_run(None, "cuda", lm_argv, lm_config())
+    del built
+    w1, w1_state = mesh.run_world(_plane_world1, 1, "cuda",
+                                  args=(lm_argv, lm_config()))
+    for tag, r in (("one device", one), ("world 1", w1)):
+        expect_launches(r["launches"], ghost, f"planes (d) {tag}")
+        expect_side(r["side_launches"], ghost, f"planes (d) {tag}")
+        if r["ghost_tc"] != ghost["ghost_norm"]:
+            fail(f"planes (d) {tag}: {r['ghost_tc']} of "
+                 f"{ghost['ghost_norm']} ghost_norm launches tensor-core")
+    same_plane_runs(w1, one, "planes (d): glm4-9b world 1 against one device")
+    if not same_final(w1_state, one_state):
+        fail("planes (d): glm4-9b world 1's store or params are not bitwise "
+             "the one-device run's")
+    out["d_lm"] = {"one_device": _plane_summary(one),
+                   "world1": _plane_summary(w1)}
+    print(f"sharded planes (d): glm4-9b × {LM_LAYERS} streamed async (swap "
+          f"2) through --mesh 1 ≡ one device bitwise over "
+          f"{PLANES_LM_STEPS} steps; {len(GHOST_MAIN)} ghost_norm launches "
+          f"a step, all on the scoring stream and tensor-core; median step "
+          f"{out['d_lm']['world1']['step_ms_median']:.3f} / "
+          f"{out['d_lm']['one_device']['step_ms_median']:.3f} ms (CUDA "
+          f"events, same call)", flush=True)
+    del one_state, w1_state
+    torch.cuda.empty_cache()
+
+    # the LM row blocks: glm4-9b × LM_LAYERS as a resident world of 2
+    out["lm_row_blocks"] = phase_lm_row_blocks(mesh)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"sharded planes: phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_lm_row_blocks(mesh) -> dict:
+    """Phase 7's glm4-9b cut at W = PLANES_LM_W, resident: one device
+    (2 row blocks a scoring pass, 16 ghost_norm launches a step) against
+    a world of 2 over gloo on the one card (8 a rank): the same draws and
+    losses.  The cut goes to 2 layers if two ranks of 4 do not fit."""
+    from repro_torch.launch import train as train_mod
+    for layers in (LM_LAYERS, 2):
+        argv = LM_ARGV + ["--steps", str(PLANES_LM_STEPS), "--score-shards",
+                          str(PLANES_LM_W)]
+        n_ghost = len(GHOST_MAIN) * PLANES_LM_STEPS
+        one = plane_run(None, "cuda", argv, lm_config(layers))[0]
+        torch.cuda.empty_cache()
+        expect_launches(one["launches"], {"ghost_norm": 2 * n_ghost},
+                        f"LM row blocks one device × {layers}")
+        d = scratch_dir("chip_smoke_lm_rows")
+        try:
+            mesh.run_world(_plane_rank, 2, "cuda", backend="gloo",
+                           args=(argv, str(d), None, None, layers, False))
+        except Exception as e:  # noqa: BLE001 - only an OOM falls back
+            if "out of memory" not in str(e).lower() or layers == 2:
+                raise
+            print(f"LM row blocks: two ranks of glm4-9b × {layers} do not "
+                  f"fit on one card ({str(e)[:200]}); cutting to 2 layers",
+                  flush=True)
+            continue
+        ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        for r, got in enumerate(ranks):
+            what = f"LM row blocks world 2 rank {r} × {layers}"
+            expect_launches(got["launches"], {"ghost_norm": n_ghost}, what)
+            if got["ghost_tc"] != n_ghost:
+                fail(f"{what}: {got['ghost_tc']} of {n_ghost} ghost_norm "
+                     f"launches tensor-core")
+            same_plane_runs(got, one, f"{what} against one device",
+                            traces_bitwise=False)
+        res = {"layers": layers, "score_shards": PLANES_LM_W,
+               "steps": PLANES_LM_STEPS,
+               "one_device": _plane_summary(one),
+               "ranks": [_plane_summary(r_) for r_ in ranks],
+               "ghost_norm_a_step_one_device": 2 * len(GHOST_MAIN),
+               "ghost_norm_a_step_a_rank": len(GHOST_MAIN)}
+        print(f"LM row blocks: glm4-9b × {layers} at W = {PLANES_LM_W}, a "
+              f"resident world of 2 on one card draws what one device draws "
+              f"over {PLANES_LM_STEPS} steps (losses, grad norms, Σw "
+              f"bitwise); ghost_norm {2 * len(GHOST_MAIN)} a step on one "
+              f"device (2 row blocks), {len(GHOST_MAIN)} a rank", flush=True)
+        return res
+    fail("LM row blocks: no cut fits")
+
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
@@ -5535,6 +5973,7 @@ def main() -> int:
     loop_res = phase_serve_loop(train_mod, ref)
     planes_errs = phase_planes_parity()
     sharded = phase_sharded(train_mod, ref)
+    planes = phase_sharded_planes(train_mod, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -5600,6 +6039,9 @@ def main() -> int:
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print("slice 16 times " + json.dumps({
         "card": card, "sharded": sharded,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 17 times " + json.dumps({
+        "card": card, "sharded_planes": planes,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": launches,
@@ -5736,7 +6178,24 @@ def main() -> int:
                                          ("world1", "launches"))},
                        **{f"sharded_mlp_world2_rank{r}":
                           sharded["mlp_world2"]["launches"][r][name]
-                          for r in range(2)}},
+                          for r in range(2)},
+                       **{f"planes_mlp_{c}_{w}":
+                          planes[f"a_{c}"][w]["launches"][name]
+                          for c in ("sync", "async")
+                          for w in ("one_device", "world1")},
+                       **{f"planes_mlp_world2_rank{r}":
+                          planes["b_world2"]["ranks"][r]["launches"][name]
+                          for r in range(2)},
+                       "planes_mlp_resume": planes["c_resume"]["launches"][
+                           name],
+                       **{f"planes_lm_{w}": planes["d_lm"][w]["launches"][
+                           name] for w in ("one_device", "world1")},
+                       "lm_row_blocks_one_device":
+                           planes["lm_row_blocks"]["one_device"]["launches"][
+                               name],
+                       **{f"lm_row_blocks_world2_rank{r}":
+                          planes["lm_row_blocks"]["ranks"][r]["launches"][
+                              name] for r in range(2)}},
         })
         if name in ("per_example_sqnorm_multi", "ghost_norm"):
             kernels[-1]["side_stream_launches"] = {
@@ -5745,7 +6204,14 @@ def main() -> int:
                 "stream_streamed_async":
                     stream_res["async"]["streamed"]["side_launches"][name],
                 "serve_loop_glm4":
-                    loop_res["serve"]["side_launches"][name]}
+                    loop_res["serve"]["side_launches"][name],
+                "planes_mlp_async_world1":
+                    planes["a_async"]["world1"]["side_launches"][name],
+                **{f"planes_mlp_world2_rank{r}":
+                   planes["b_world2"]["ranks"][r]["side_launches"][name]
+                   for r in range(2)},
+                "planes_lm_world1":
+                    planes["d_lm"]["world1"]["side_launches"][name]}
         if "steps" in timing[name]:
             kernels[-1]["steps"] = timing[name]["steps"]
         if "shapes" in timing[name]:

@@ -24,6 +24,17 @@ file; the reference likewise keeps its template key for a port file.
 A host int leaf (the port's ``step``) is stored as a 0-d int32, as the
 reference's step.  Restored tensors take the template's device and
 dtype; keys missing from the file keep the template's value.
+
+A sharded run saves **gather-free** (``save_checkpoint(..., group=)``):
+the leaves of every WeightStore in the tree (``weights``, ``scored_at``,
+an int8 table's ``qscale``; both buffers of a BufferedWeightStore) are
+this rank's rows, and each rank writes them to a part file beside the
+target; after all parts are down, rank 0 reads them into host RAM and
+writes one npz in the reference's sharded layout (a ``<key>::shard<r>``
+entry a rank, the ``"sharded:"`` tag), with the replicated leaves
+(params, optimizer state, generator, step) written once, from its own
+copy.  No device ever holds a whole table, and the file restores at any
+world, one device included, in either package.
 """
 from __future__ import annotations
 
@@ -35,6 +46,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.weight_store import WeightStore
 
 _BF16_TAG = "bfloat16"
 _GEN_TAG = "torch.Generator:"
@@ -72,16 +85,26 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return np.asarray(leaf), ""
 
 
-def save_checkpoint(path: str | Path, tree: Any, step: int) -> Path:
-    """Atomic save: the npz is written to a temporary file in the target
-    directory, then renamed over ``path``."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    manifest, stored = {}, {}
-    for k, leaf in _flatten(tree).items():
-        stored[k], tag = _to_numpy(leaf)
-        if tag:
-            manifest[k] = tag
+def _store_keys(tree: Any, prefix: str = "") -> set[str]:
+    """The flat keys of the leaves of every WeightStore in ``tree``: the
+    example-axis-sharded leaves of a sharded run's state."""
+    if isinstance(tree, WeightStore):
+        return set(_flatten(tree, prefix))
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = ((k, getattr(tree, k)) for k in tree._fields)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return set()
+    return {key for k, v in items for key in _store_keys(v, f"{prefix}{k}/")}
+
+
+def _write_npz(path: Path, stored: dict, manifest: dict, step: int) -> None:
+    """``stored`` as an npz at ``path``, written to a temporary file in the
+    target directory, then renamed over it: a failed write leaves no file
+    at ``path``."""
     fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".npz")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -93,7 +116,105 @@ def save_checkpoint(path: str | Path, tree: Any, step: int) -> Path:
     except BaseException:
         os.unlink(tmp)
         raise
+
+
+def save_checkpoint(path: str | Path, tree: Any, step: int,
+                    group=None) -> Path:
+    """Atomic save: the npz is written to a temporary file in the target
+    directory, then renamed over ``path``.  With a data ``group`` every
+    rank calls it on its own state and the save is gather-free (see the
+    module docstring); a rank that fails makes every rank raise, and no
+    file is left at ``path``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if group is not None:
+        return _save_sharded(path, tree, step, group)
+    manifest, stored = {}, {}
+    for k, leaf in _flatten(tree).items():
+        stored[k], tag = _to_numpy(leaf)
+        if tag:
+            manifest[k] = tag
+    _write_npz(path, stored, manifest, step)
     return path
+
+
+def _part_path(path: Path, rank: int) -> Path:
+    return path.parent / f".{path.name}.rank{rank}.part.npz"
+
+
+def _all_ok(ok: bool, device, group) -> bool:
+    """Whether every rank of ``group`` is ok: one all-reduce of the
+    failures."""
+    from repro_torch.core.collectives import psum
+    failed = torch.tensor([0 if ok else 1], dtype=torch.int32, device=device)
+    return int(psum(failed, group).item()) == 0
+
+
+def _save_sharded(path: Path, tree: Any, step: int, group) -> Path:
+    """The gather-free save of one rank: its store rows to its part file,
+    then rank 0 merges the parts and the replicated leaves.  Each half
+    ends in an all-reduce of the failures, so every rank raises when one
+    fails, and the parts are removed either way."""
+    flat = _flatten(tree)
+    sharded = _store_keys(tree)
+    device = next(flat[k].device for k in sorted(sharded))
+    part = _part_path(path, group.rank)
+
+    def on_every_rank(fn, what: str) -> None:
+        err = None
+        try:
+            fn()
+        except Exception as e:          # re-raised below, on every rank
+            err = e
+        if not _all_ok(err is None, device, group):
+            raise err or RuntimeError(f"gather-free save of {path}: {what} "
+                                      f"failed on another rank")
+
+    def write_part():
+        with open(part, "wb") as f:
+            np.savez(f, **{k: _to_numpy(flat[k])[0] for k in sharded})
+
+    def merge():
+        if group.rank == 0:
+            _merge_parts(path, flat, sharded, step, group.size)
+
+    try:
+        on_every_rank(write_part, "writing a part")
+        on_every_rank(merge, "merging the parts")
+    finally:
+        part.unlink(missing_ok=True)
+    return path
+
+
+def _merge_parts(path: Path, flat: dict, sharded: set, step: int,
+                 world: int) -> None:
+    """Rank 0's half: the ranks' parts read into host RAM as
+    ``<key>::shard<r>`` entries with their manifest slices, the
+    replicated leaves from its own state, one atomic npz."""
+    manifest, stored = {}, {}
+    for k, leaf in flat.items():
+        if k not in sharded:
+            stored[k], tag = _to_numpy(leaf)
+            if tag:
+                manifest[k] = tag
+    parts = []
+    for r in range(world):
+        with np.load(_part_path(path, r), allow_pickle=False) as z:
+            parts.append({k: z[k] for k in z.files})
+    for k in sorted(sharded):
+        leaf = flat[k]
+        rows = [p[k].shape[0] for p in parts]
+        starts = np.cumsum([0] + rows)
+        rest = [[0, d] for d in leaf.shape[1:]]
+        for r, p in enumerate(parts):
+            stored[f"{k}{_SHARD_SEP}{r}"] = p[k]
+        manifest[k] = _SHARD_TAG + json.dumps({
+            "shape": [int(starts[-1]), *leaf.shape[1:]],
+            "dtype": (_BF16_TAG if leaf.dtype == torch.bfloat16
+                      else str(parts[0][k].dtype)),
+            "slices": [[[int(starts[r]), int(starts[r + 1])], *rest]
+                       for r in range(world)]})
+    _write_npz(path, stored, manifest, step)
 
 
 def _reassemble_sharded(meta: dict, shards: dict) -> tuple[np.ndarray, str]:

@@ -22,7 +22,10 @@ master on the current stream (``ScoringStream``).  Events order them:
     master t−1; scoring t and master t share no tensor and run at once;
   * the current stream waits for the side stream only at ``publish``,
     before it copies ``write_buf`` (and wherever a caller reads what the
-    scoring wrote, through ``join``).
+    scoring wrote, through ``join``); over a data group with the trace
+    monitors on, also at the end of each step, before it sums the
+    ranks' trace sums (``TraceSums``).  No collective runs on the side
+    stream.
 
 Tensors that one stream allocated and the other reads are marked with
 ``Tensor.record_stream``, so the caching allocator never hands their
@@ -50,6 +53,8 @@ from repro_torch.core.issgd import (ISSGDConfig, StepMetrics, TrainState,
                                     make_scoring_pass)
 from repro_torch.core.weight_store import (BufferedWeightStore, publish,
                                            to_buffered)
+from repro_torch.core.collectives import psum
+from repro_torch.dist import DataGroup
 from repro_torch.optim import Optimizer
 
 
@@ -62,22 +67,47 @@ class ScoreMetrics(NamedTuple):
     trace_unif: torch.Tensor
 
 
+class TraceSums(NamedTuple):
+    """A rank's part of the fig-4 monitors, as the scoring step of a data
+    group returns it: the partial sums of its part of the slice
+    (``variance.trace_sums``), the slice's global length and the group.
+    The scoring step issues no collective: ``finish`` sums them over the
+    group on the current stream, after the pipeline has joined the
+    scoring stream (``SwapCadence._close_async``)."""
+    sums: torch.Tensor
+    n_total: int
+    group: DataGroup
+
+    def finish(self) -> ScoreMetrics:
+        return _score_metrics(variance.traces_from_sums(
+            psum(self.sums, self.group), self.n_total))
+
+
+def _score_metrics(traces: variance.TraceSigma) -> ScoreMetrics:
+    return ScoreMetrics(
+        trace_ideal=torch.sqrt(torch.clamp(traces.ideal, min=0.0)),
+        trace_stale=torch.sqrt(torch.clamp(traces.stale, min=0.0)),
+        trace_unif=torch.sqrt(torch.clamp(traces.unif, min=0.0)))
+
+
 def score_trace_metrics(fresh_scores: torch.Tensor,
                         stale_slice: torch.Tensor, n_total: int,
-                        monitor: bool = True) -> ScoreMetrics:
+                        monitor: bool = True,
+                        group: Optional[DataGroup] = None):
     """The scoring step's fig-4 monitors, shared by the async pipeline and
     the streamed scoring step (``data/streaming.py``).  With
-    ``monitor=False`` they are NaN and cost nothing."""
+    ``monitor=False`` they are NaN and cost nothing.  Over a data group
+    the slice is this rank's part, and they are its ``TraceSums``: the
+    side stream never issues a collective, so it never has to agree with
+    the master's on an order of collectives across ranks."""
     if not monitor:
         nan = torch.full((), math.nan, device=fresh_scores.device)
         return ScoreMetrics(nan, nan, nan)
     with torch.no_grad():
-        traces = variance.trace_sigma_all_dist(fresh_scores, stale_slice,
-                                               n_total=n_total)
-        return ScoreMetrics(
-            trace_ideal=torch.sqrt(torch.clamp(traces.ideal, min=0.0)),
-            trace_stale=torch.sqrt(torch.clamp(traces.stale, min=0.0)),
-            trace_unif=torch.sqrt(torch.clamp(traces.unif, min=0.0)))
+        sums = variance.trace_sums(fresh_scores, stale_slice)
+        if group is not None:
+            return TraceSums(sums, n_total, group)
+        return _score_metrics(variance.traces_from_sums(sums, n_total))
 
 
 def tensors_of(tree) -> list:
@@ -137,7 +167,9 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
                      optimizer: Optimizer, cfg: ISSGDConfig,
                      num_examples: int, aux_loss: Optional[Callable] = None,
                      monitor_traces: bool = True, monitors=None,
-                     gated: bool = False) -> tuple[Callable, Callable]:
+                     gated: bool = False,
+                     group: Optional[DataGroup] = None
+                     ) -> tuple[Callable, Callable]:
     """The two computations of the async pipeline:
 
       scoring_step(stale_params, write_buf, step, data)
@@ -153,24 +185,35 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
     ``read_buf``, the lagged table the draw used, so ``staleness``
     observes L(t); ``gated`` (relaxed only) takes the controller's host
     bool ``use_is``.  The generator is the port's stateful one: the
-    master draws from it once and returns it."""
+    master draws from it once and returns it.
+
+    Over a data ``group`` (``core/distributed.py``) both steps take this
+    rank's rows of the buffers and the data.  The scoring step rescores
+    the round-robin slices of the rank's logical shards and writes its
+    rows of ``write_buf`` with no collective; with ``monitor_traces`` its
+    metrics are the rank's ``TraceSums``, which the pipeline sums over
+    the group after it joins the scoring stream.  The master is the
+    sharded master pass (the hierarchical draw from ``read_buf``, the
+    one-owner row reads), the same on every rank."""
     if cfg.mode not in ("relaxed", "uniform"):
         raise ValueError(
             "async scoring supports mode='relaxed'/'uniform' (exact needs "
             "the fig-1 sync barrier; fused already merges the passes), got "
             f"{cfg.mode!r}")
     monitors = monitors or None
-    scoring_pass = make_scoring_pass(scorer, cfg, num_examples)
+    scoring_pass = make_scoring_pass(scorer, cfg, num_examples, group=group)
     master_pass = make_master_pass(per_example_loss, optimizer, cfg,
                                    num_examples, aux_loss=aux_loss,
-                                   monitors=monitors, gated=gated)
+                                   monitors=monitors, gated=gated,
+                                   group=group)
     sb = cfg.score_batch_size
 
     def scoring_step(stale_params, write_buf, step: int, data):
         store, fresh, stale_slice = scoring_pass(stale_params, write_buf,
                                                  step, data)
         return store, score_trace_metrics(fresh, stale_slice, n_total=sb,
-                                          monitor=monitor_traces)
+                                          monitor=monitor_traces,
+                                          group=group)
 
     def _master(params, opt_state, stale_params, read_buf, step, generator,
                 data, use_is, sample_indices):
@@ -214,9 +257,14 @@ class SwapCadence:
         """The store with the scoring's ``write_buf``, published (after the
         current stream joins the side stream) every ``swap_every`` host
         steps, ``store.swaps`` at the telemetry's cadence, and the
-        scoring's fig-4 traces in the master's metrics."""
+        scoring's fig-4 traces in the master's metrics: a data group's
+        ``TraceSums`` summed on the current stream once it has joined
+        the side stream, every step on every rank."""
         tel = self.telemetry
         bs = BufferedWeightStore(bs.read_buf, write_buf, bs.synced_at)
+        if isinstance(smetrics, TraceSums):
+            self._side.join()
+            smetrics = smetrics.finish()
         if self._t % self.swap_every == 0:
             with tel.span("store.publish", step=self._t):
                 self._side.join()

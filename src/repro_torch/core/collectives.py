@@ -76,7 +76,17 @@ def gather_rows(arrays, idx: torch.Tensor, group: Optional[DataGroup]):
     n_local = arrays.shape[0]
     lidx = idx - rank * n_local
     mine = (lidx >= 0) & (lidx < n_local)
-    rows = arrays[torch.clamp(lidx, 0, n_local - 1)]
+    return owner_sum(arrays[torch.clamp(lidx, 0, n_local - 1)], mine, group)
+
+
+def owner_sum(rows: torch.Tensor, mine: torch.Tensor,
+              group: Optional[DataGroup]) -> torch.Tensor:
+    """The one-owner combine of ``gather_rows`` for rows a rank has
+    already taken: the rows where ``mine`` (B,) is False become exact
+    zeros and one all-reduce sums them, so each row comes out as its
+    owner's bits on every rank.  ``rows`` itself for one device."""
+    if group is None:
+        return rows
     mask = mine.reshape((-1,) + (1,) * (rows.dim() - 1))
     return psum(torch.where(mask, rows, torch.zeros_like(rows)), group)
 

@@ -29,7 +29,7 @@ JSONL alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, NamedTuple, Optional
+from typing import Callable, Iterable, List, NamedTuple, Optional
 
 from repro_torch.telemetry.events import _jsonable
 
@@ -97,13 +97,22 @@ class ProposalController:
     State folds only values that went through the tap, so
     :func:`replay_decisions` over the resulting JSONL reproduces
     ``self.decisions`` exactly.
+
+    ``agree`` (with ``adapt_swap``) maps the cadence this controller
+    chose to the one the run applies, before the decision is recorded:
+    over a data group each rank times its own dispatches, and the ranks
+    must publish at the same steps (``launch/train.py`` gives them rank
+    0's cadence, so rank 0's JSONL still replays exactly).  Every rank
+    calls it at every decision.
     """
 
     def __init__(self, cfg: ControllerConfig = ControllerConfig(), *,
-                 swap_every: int = 1, use_is: bool = False):
+                 swap_every: int = 1, use_is: bool = False,
+                 agree: Optional[Callable[[int], int]] = None):
         if cfg.adapt_every < 1:
             raise ValueError("adapt_every must be >= 1")
         self.cfg = cfg
+        self.agree = agree
         self.use_is = bool(use_is)
         self.swap_every = int(swap_every)
         self.decisions: List[Decision] = []
@@ -203,6 +212,8 @@ class ProposalController:
         if cfg.adapt_swap and dispatch_ratio is not None:
             self.swap_every = min(max(int(round(dispatch_ratio)),
                                       cfg.swap_min), cfg.swap_max)
+        if cfg.adapt_swap and self.agree is not None:
+            self.swap_every = int(self.agree(self.swap_every))
 
         d = Decision(step=int(step), use_is=self.use_is,
                      swap_every=self.swap_every, var_ratio=var_ratio,

@@ -17,9 +17,15 @@
 
 A rank runs the one-code-path step of ``core/issgd.py`` with the group
 (``make_train_step(..., group=...)``) on the state ``shard_train_state``
-gives it and the rows ``shard_dataset`` gives it.  ``launch/train.py
---mesh N`` spawns the ranks (``launch/mesh.py``).  The asynchronous and
-streamed variants of the reference's module are not ported yet.
+gives it and the rows ``shard_dataset`` gives it.  The planes run over
+the group too: ``make_sharded_async_steps`` gives the async pipeline's
+two steps (``core/async_pipeline.py``; the store double-buffered by
+rows), ``make_sharded_streamed_steps`` the streamed step's three
+(``data/streaming.py``; a rank's host store holds only its own chunks,
+and the minibatch rows come through one one-owner all-reduce).
+``launch/train.py --mesh N`` spawns the ranks (``launch/mesh.py``).
+With ``group=None`` every factory here gives the one-device step, so
+the launcher makes one call a path whatever the world.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import torch
 
 from repro_torch.core.issgd import (ISSGDConfig, TrainState,
                                     make_score_step, make_train_step)
-from repro_torch.core.weight_store import WeightStore
+from repro_torch.core.weight_store import BufferedWeightStore, WeightStore
 from repro_torch.dist import DataGroup, axis_info
 from repro_torch.optim import tree_leaves
 
@@ -89,16 +95,25 @@ def shard_train_state(state: TrainState, group: Optional[DataGroup],
                       device=None) -> TrainState:
     """A rank's TrainState from a whole one (built or restored on the
     host): its rows of the store on ``device`` (default: the params'),
+    of both buffers of a BufferedWeightStore (``synced_at`` as it is),
     params, optimizer state and stale params as they are (replicated)."""
     if device is None:
         device = tree_leaves(state.params)[0].device
-    return state._replace(store=shard_store(state.store, group, device))
+    store = state.store
+    if isinstance(store, BufferedWeightStore):
+        return state._replace(store=BufferedWeightStore(
+            shard_store(store.read_buf, group, device),
+            shard_store(store.write_buf, group, device), store.synced_at))
+    return state._replace(store=shard_store(store, group, device))
 
 
 def shard_dataset(data: dict, group: Optional[DataGroup],
                   device=None) -> dict:
     """This rank's contiguous rows of every dataset tensor (on ``device``,
-    default each tensor's own)."""
+    default each tensor's own); for one device and no ``device``,
+    ``data`` itself."""
+    if group is None and device is None:
+        return data
     n = next(iter(data.values())).shape[0]
     _check_rows(n, group)
     return {k: _rows(v, group, v.device if device is None else device)
@@ -135,3 +150,61 @@ def make_sharded_score_step(scorer: Callable, cfg: ISSGDConfig,
     cfg = resolve_score_shards(cfg, group)
     _check_rows(num_examples, group)
     return make_score_step(scorer, cfg, num_examples, group=group)
+
+
+def make_sharded_async_steps(per_example_loss: Callable, scorer: Callable,
+                             optimizer, cfg: ISSGDConfig, num_examples: int,
+                             group: Optional[DataGroup],
+                             aux_loss: Optional[Callable] = None,
+                             monitor_traces: bool = True, monitors=None,
+                             gated: bool = False
+                             ) -> tuple[Callable, Callable, ISSGDConfig]:
+    """(scoring_step, master_step, cfg): the async pipeline's two steps
+    over ``group`` (``async_pipeline.make_async_steps(..., group=)``),
+    for ``AsyncPipeline``, and the config with W resolved.  The scoring
+    step writes the rank's rows of ``write_buf`` with no collective (with
+    ``monitor_traces``, its trace sums are summed by the pipeline on the
+    current stream); the master draws from the rank's rows of
+    ``read_buf`` with the hierarchical draw."""
+    from repro_torch.core.async_pipeline import make_async_steps
+    cfg = resolve_score_shards(cfg, group)
+    _check_rows(num_examples, group)
+    scoring_step, master_step = make_async_steps(
+        per_example_loss, scorer, optimizer, cfg, num_examples,
+        aux_loss=aux_loss, monitor_traces=monitor_traces,
+        monitors=monitors, gated=gated, group=group)
+    return scoring_step, master_step, cfg
+
+
+def make_sharded_streamed_steps(per_example_loss: Callable,
+                                scorer: Callable, optimizer,
+                                cfg: ISSGDConfig, num_examples: int,
+                                group: Optional[DataGroup], chunk_size: int,
+                                aux_loss: Optional[Callable] = None,
+                                fused_score: Optional[Callable] = None,
+                                async_mode: bool = False,
+                                monitor_traces: bool = True, monitors=None,
+                                gated: bool = False
+                                ) -> tuple[Callable, Callable, Callable,
+                                           ISSGDConfig]:
+    """(scoring_step, sample_step, master_step, cfg): the streamed step's
+    three computations over ``group`` (``streaming.make_streamed_steps(
+    ..., group=)``), for ``StreamedISSGD`` over a plane of the same
+    group, and the config with W resolved.  The scoring step takes the
+    rows of the rank's own shards' slices; the sample step draws the
+    replicated indices and sums the rank's rows into its chunks' masses
+    (no collective for them); the master takes the replicated
+    minibatch rows."""
+    from repro_torch.data.streaming import make_streamed_steps
+    cfg = resolve_score_shards(cfg, group)
+    n_local = _check_rows(num_examples, group)
+    if n_local % chunk_size:
+        raise ValueError(f"chunk_size={chunk_size} must divide the "
+                         f"per-rank rows ({n_local}): a chunk may not "
+                         f"straddle ranks")
+    steps = make_streamed_steps(
+        per_example_loss, scorer, optimizer, cfg, num_examples, chunk_size,
+        aux_loss=aux_loss, fused_score=fused_score, async_mode=async_mode,
+        monitor_traces=monitor_traces, monitors=monitors, gated=gated,
+        group=group)
+    return (*steps, cfg)

@@ -195,10 +195,33 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str,
 
 
 # ----------------------------------------------------------- LM strategies
+def by_row_blocks(score: Callable, row_block: int) -> Callable:
+    """``score`` over a batch of more than ``row_block`` rows, one call a
+    block of ``row_block`` rows, the results concatenated; ``score``
+    itself when ``row_block`` is 0.  With the rows of one logical shard's
+    scoring slice as the block, a rank holding some of the W shards
+    scores them with the very calls (and so the bits) the one-device run
+    makes: on the card cuBLAS picks its GEMM kernel by the row count."""
+    if not row_block:
+        return score
+
+    def blocked(params, batch):
+        b = next(iter(batch.values())).shape[0]
+        if b <= row_block:
+            return score(params, batch)
+        return torch.cat([
+            score(params, {k: v[i:i + row_block] for k, v in batch.items()})
+            for i in range(0, b, row_block)])
+    return blocked
+
+
 def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
                    attn_impl: str = "ref",
-                   attn_scores: Optional[str] = None) -> Callable:
-    """Scorer for transformer LMs (one device): fn(params, batch) → ω̃ (B,).
+                   attn_scores: Optional[str] = None,
+                   row_block: int = 0) -> Callable:
+    """Scorer for transformer LMs: fn(params, batch) → ω̃ (B,), a
+    ``row_block`` rows at a time when it is set (``by_row_blocks``; the
+    launcher sets one logical shard's slice when W > 1).
 
     ``ssm_mode`` is the mamba layers' scan in every strategy: "ref" (the
     plain oracle) or "pallas" (the selective-scan kernel, forward-only, so
@@ -247,9 +270,8 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             losses, _ = per_example_loss(params, cfg, batch,
                                          ssm_mode=ssm_mode)
             return torch.clamp(losses.float(), min=0.0)
-        return score
 
-    if strategy == "logit_grad":
+    elif strategy == "logit_grad":
         @torch.no_grad()
         def score(params, batch):
             tokens = batch["tokens"]
@@ -261,9 +283,8 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             _, grad_norm = lm_head_metrics(params, cfg, h[:, n_front:],
                                            tokens[:, 1:])
             return grad_norm
-        return score
 
-    if strategy == "ghost":
+    elif strategy == "ghost":
         def score(params, batch):
             b, s = batch["tokens"].shape
             embeds = batch.get("embeds")
@@ -283,12 +304,11 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             sq, _ = ghost_sq_norms(loss_with_taps, tap_shapes, b,
                                    batch["tokens"].device, with_bias=False)
             return torch.sqrt(sq)
-        return score
 
-    if strategy == "ghost_rev":
-        return _make_ghost_rev_scorer(cfg, ssm_mode, attn_impl, attn_scores)
+    elif strategy == "ghost_rev":
+        score = _make_ghost_rev_scorer(cfg, ssm_mode, attn_impl, attn_scores)
 
-    if strategy == "full":
+    elif strategy == "full":
         from torch.func import grad, vmap
 
         def loss_one(p, example):
@@ -306,10 +326,11 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             sq = sum(torch.sum(torch.square(g.float()),
                                dim=tuple(range(1, g.ndim))) for g in leaves)
             return torch.sqrt(sq)
-        return score
 
-    raise ValueError(f"unknown strategy {strategy!r}; this port has "
-                     f"{', '.join(STRATEGIES)}")
+    else:
+        raise ValueError(f"unknown strategy {strategy!r}; this port has "
+                         f"{', '.join(STRATEGIES)}")
+    return by_row_blocks(score, row_block)
 
 
 # ----------------------------------------------- memory-scalable ghost_rev

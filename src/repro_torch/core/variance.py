@@ -57,27 +57,41 @@ def trace_sigma_all(grad_norms, stale_weights, g_true_sq=0.0,
         unif=trace_sigma_unif(grad_norms, g_true_sq, n_total))
 
 
+def trace_sums(grad_norms: torch.Tensor,
+               stale_weights: torch.Tensor) -> torch.Tensor:
+    """The partial sums (Σg, Σg², Σw, Σg²/w) of a scored slice, f32[4]:
+    summed over the ranks that hold its parts, they give the figure-4
+    monitors (``traces_from_sums``)."""
+    g = grad_norms.float()
+    w = stale_weights.float()
+    return torch.stack([
+        torch.sum(g), torch.sum(torch.square(g)), torch.sum(w),
+        torch.sum(torch.square(g) / torch.clamp(w, min=1e-30))])
+
+
+def traces_from_sums(sums: torch.Tensor, n_total: int,
+                     g_true_sq: float = 0.0) -> TraceSigma:
+    """Eqs. 6-9 from a whole slice's ``trace_sums``, ``n_total`` its
+    length."""
+    n = float(n_total)
+    sum_g, sum_g2, sum_w, sum_ratio = sums.unbind()
+    return TraceSigma(
+        ideal=torch.square(sum_g / n) - g_true_sq,
+        stale=(sum_w / n) * (sum_ratio / n) - g_true_sq,
+        unif=sum_g2 / n - g_true_sq)
+
+
 def trace_sigma_all_dist(grad_norms: torch.Tensor,
                          stale_weights: torch.Tensor, n_total: int,
                          g_true_sq: float = 0.0,
                          group: Optional[DataGroup] = None) -> TraceSigma:
     """The figure-4 monitors over a scored slice that may be sharded over
-    a data group: the partial sums (Σg, Σg², Σw, Σg²/w) of this rank's
-    part, summed over the group, then eqs. 6-9 with ``n_total`` the
-    slice's global length.  For one device the sums are over the whole
-    slice."""
-    g = grad_norms.float()
-    w = stale_weights.float()
-    n = float(n_total)
-    sum_g = psum(torch.sum(g), group)
-    sum_g2 = psum(torch.sum(torch.square(g)), group)
-    sum_w = psum(torch.sum(w), group)
-    sum_ratio = psum(torch.sum(torch.square(g) / torch.clamp(w, min=1e-30)),
-                     group)
-    return TraceSigma(
-        ideal=torch.square(sum_g / n) - g_true_sq,
-        stale=(sum_w / n) * (sum_ratio / n) - g_true_sq,
-        unif=sum_g2 / n - g_true_sq)
+    a data group: the partial sums of this rank's part, summed over the
+    group by one all-reduce of four floats, then eqs. 6-9 with
+    ``n_total`` the slice's global length.  For one device the sums are
+    over the whole slice."""
+    return traces_from_sums(psum(trace_sums(grad_norms, stale_weights),
+                                 group), n_total, g_true_sq)
 
 
 def g_true_sq_upper_bound(minibatch_mean_grad_norms: torch.Tensor

@@ -7,11 +7,15 @@ index space
     global index g  ->  chunk g // chunk_size, offset g % chunk_size
 
 and shard d of D owns the contiguous chunk range [d·K, (d+1)·K),
-K = num_chunks // D (one device here: shard 0 owns them all).  Chunks
-are CPU tensors; with ``pin_memory`` each one is its own page-locked
-allocation of PyTorch's caching host allocator, so that host→device
-copies from it can be asynchronous.  ``data/streaming.py`` keeps a
-bounded window of chunks on the device and fetches the rest from here.
+K = num_chunks // D.  One device's store holds every chunk; a rank of a
+data group's (``from_arrays(..., shard=(rank, world))``) holds only its
+own range, under the same global indices, and a read or write of a
+foreign chunk raises ``ForeignChunkError``: no process keeps the whole
+dataset.  Chunks are CPU tensors; with ``pin_memory`` each one is its
+own page-locked allocation of PyTorch's caching host allocator, so that
+host→device copies from it can be asynchronous.  ``data/streaming.py``
+keeps a bounded window of chunks on the device and fetches the rest
+from here.
 
 A device copy that is still reading a chunk is guarded: the plane
 registers the copy's event with ``guard_reads``, and ``write_rows``
@@ -48,15 +52,28 @@ def _index(gidx) -> np.ndarray:
                       else gidx).reshape(-1).astype(np.int64)
 
 
+class ForeignChunkError(IndexError):
+    """A read or write of a chunk that another rank's store holds."""
+
+
 class ChunkedExampleStore:
-    """Fixed-size host chunks of an example-axis dict of tensors."""
+    """Fixed-size host chunks of an example-axis dict of tensors: every
+    chunk, or with ``shard=(rank, world)`` rank ``rank``'s contiguous
+    range of ``num_chunks`` chunks, starting at global chunk
+    ``shard_chunks(rank, world).start``."""
 
     def __init__(self, chunks: list[dict[str, torch.Tensor]],
-                 chunk_size: int, pin_memory: bool = False):
+                 chunk_size: int, pin_memory: bool = False,
+                 shard: tuple[int, int] = (0, 1)):
         if not chunks:
             raise ValueError("need at least one chunk")
+        rank, world = shard
+        if not 0 <= rank < world:
+            raise ValueError(f"shard {shard}: rank out of range({world})")
         self.chunk_size = int(chunk_size)
         self.pin_memory = bool(pin_memory)
+        self.shard = (int(rank), int(world))
+        self._first = rank * len(chunks)
         self._chunks = chunks
         self._guards: dict[int, object] = {}
         self._writes = [0] * len(chunks)
@@ -64,15 +81,19 @@ class ChunkedExampleStore:
             for k, v in chunk.items():
                 if v.shape[0] != self.chunk_size:
                     raise ValueError(
-                        f"chunk {c} array {k!r} has {v.shape[0]} rows, "
-                        f"expected chunk_size={self.chunk_size}")
+                        f"chunk {self._first + c} array {k!r} has "
+                        f"{v.shape[0]} rows, expected "
+                        f"chunk_size={self.chunk_size}")
 
     @classmethod
     def from_arrays(cls, arrays: Mapping, chunk_size: int,
-                    pin_memory: bool = False) -> "ChunkedExampleStore":
+                    pin_memory: bool = False,
+                    shard: tuple[int, int] = (0, 1)
+                    ) -> "ChunkedExampleStore":
         """Chunk a dict of tensors (on any device) or numpy arrays into
         host memory, each chunk its own allocation (pinned with
-        ``pin_memory``); nothing references the inputs afterwards."""
+        ``pin_memory``); nothing references the inputs afterwards.  With
+        ``shard=(rank, world)`` only that rank's chunk range is copied."""
         n = next(iter(arrays.values())).shape[0]
         for k, v in arrays.items():
             if v.shape[0] != n:
@@ -81,8 +102,15 @@ class ChunkedExampleStore:
         if chunk_size <= 0 or n % chunk_size:
             raise ValueError(f"chunk_size={chunk_size} must divide the "
                              f"example count {n}")
+        rank, world = shard
+        total = n // chunk_size
+        if total % world:
+            raise ValueError(f"{total} chunks of {chunk_size} rows do not "
+                             f"split over {world} ranks: a chunk may not "
+                             f"straddle ranks")
+        per = total // world
         chunks = []
-        for c in range(n // chunk_size):
+        for c in range(rank * per, (rank + 1) * per):
             rows = slice(c * chunk_size, (c + 1) * chunk_size)
             chunk = {}
             for k, v in arrays.items():
@@ -94,14 +122,31 @@ class ChunkedExampleStore:
                 out.copy_(part)
                 chunk[k] = out
             chunks.append(chunk)
-        return cls(chunks, chunk_size, pin_memory=pin_memory)
+        return cls(chunks, chunk_size, pin_memory=pin_memory, shard=shard)
 
     # ---- shape / layout ---------------------------------------------------
 
     @property
     def num_chunks(self) -> int:
-        """Total host chunks (global index space = chunks x chunk_size)."""
-        return len(self._chunks)
+        """Chunks of the global index space (chunks x chunk_size rows),
+        those of other ranks included."""
+        return len(self._chunks) * self.shard[1]
+
+    @property
+    def held_chunks(self) -> range:
+        """The global ids of the chunks this store holds."""
+        return range(self._first, self._first + len(self._chunks))
+
+    def _local(self, c: int) -> int:
+        """Chunk ``c``'s position in this store, or ForeignChunkError."""
+        i = int(c) - self._first
+        if not 0 <= i < len(self._chunks):
+            held = self.held_chunks
+            raise ForeignChunkError(
+                f"chunk {int(c)} is not held by this store: rank "
+                f"{self.shard[0]} of {self.shard[1]} holds chunks "
+                f"[{held.start}, {held.stop})")
+        return i
 
     @property
     def num_examples(self) -> int:
@@ -122,7 +167,7 @@ class ChunkedExampleStore:
         return self._chunks[0][key].dtype
 
     def nbytes(self) -> int:
-        """Total host bytes across chunks."""
+        """Host bytes of the chunks this store holds."""
         return sum(v.numel() * v.element_size()
                    for c in self._chunks for v in c.values())
 
@@ -154,7 +199,14 @@ class ChunkedExampleStore:
     def append_chunk(self, chunk: Mapping | None = None) -> int:
         """Append one chunk (default: zeros) and return its chunk id.
         Existing rows keep their indices; the serving loop reserves its
-        traffic capacity this way and fills it with ``write_rows``."""
+        traffic capacity this way and fills it with ``write_rows``.  A
+        rank's store of a larger world refuses: growth would move every
+        rank's contiguous chunk range."""
+        if self.shard[1] > 1:
+            raise ValueError(
+                f"a store of rank {self.shard[0]} of {self.shard[1]} cannot "
+                f"grow: chunk ownership is laid out as contiguous ranges; "
+                f"append reserve chunks before sharding the store")
         if chunk is None:
             chunk = self.zeros_chunk()
         if set(chunk.keys()) != set(self.keys):
@@ -181,7 +233,7 @@ class ChunkedExampleStore:
 
     def write_count(self, c: int) -> int:
         """How many ``write_rows`` calls have written chunk ``c``."""
-        return self._writes[c]
+        return self._writes[self._local(c)]
 
     def _check(self, gidx: np.ndarray) -> None:
         if gidx.size and (gidx.min() < 0 or gidx.max() >= self.num_examples):
@@ -197,27 +249,29 @@ class ChunkedExampleStore:
         cidx, off = index_to_chunk(gidx, self.chunk_size)
         rows = {k: _host(v) for k, v in rows.items()}
         for c in np.unique(cidx):
+            i = self._local(c)
             guard = self._guards.pop(int(c), None)
             if guard is not None:
                 guard.synchronize()
             sel = torch.from_numpy(cidx == c)
             at = torch.from_numpy(off[cidx == c])
-            chunk = self._chunks[int(c)]
+            chunk = self._chunks[i]
             for k in self.keys:
                 chunk[k][at] = rows[k][sel].to(chunk[k].dtype)
-            self._writes[int(c)] += 1
+            self._writes[i] += 1
 
     # ---- reads ------------------------------------------------------------
 
     def chunk(self, c: int) -> dict[str, torch.Tensor]:
         """One chunk's tensors (no copy)."""
-        return self._chunks[c]
+        return self._chunks[self._local(c)]
 
     def iter_chunks(self, chunks: range | None = None
                     ) -> Iterator[tuple[int, dict[str, torch.Tensor]]]:
-        """Yield (chunk_id, chunk) over ``chunks`` (default: all)."""
-        for c in (chunks if chunks is not None else range(self.num_chunks)):
-            yield c, self._chunks[c]
+        """Yield (chunk_id, chunk) over ``chunks`` (default: every chunk
+        this store holds)."""
+        for c in (chunks if chunks is not None else self.held_chunks):
+            yield c, self.chunk(c)
 
     def fetch_rows(self, global_idx) -> dict[str, torch.Tensor]:
         """Host read at arbitrary global indices, grouped by chunk so each
@@ -233,7 +287,7 @@ class ChunkedExampleStore:
         for c in np.unique(cidx):
             sel = np.flatnonzero(cidx == c)
             at = off[sel]
-            chunk = self._chunks[int(c)]
+            chunk = self.chunk(c)
             if _is_run(sel) and _is_run(at):
                 # a contiguous run (the scoring stream's slices): one copy
                 for k in self.keys:
@@ -248,5 +302,5 @@ class ChunkedExampleStore:
     def stack_chunks(self, chunks) -> dict[str, torch.Tensor]:
         """Whole chunks concatenated in the given order."""
         ids = [int(c) for c in np.asarray(chunks).reshape(-1)]
-        return {k: torch.cat([self._chunks[c][k] for c in ids], dim=0)
+        return {k: torch.cat([self.chunk(c)[k] for c in ids], dim=0)
                 for k in self.keys}

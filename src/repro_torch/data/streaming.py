@@ -1,5 +1,5 @@
 """Streaming data plane: a host-resident dataset and a proposal-driven
-device window (the port of ``src/repro/data/streaming.py``, one device).
+device window (the port of ``src/repro/data/streaming.py``).
 
 The paper's training set is too large to sit next to the master: the
 workers sweep it, the master touches only the sampled minibatch.  Here
@@ -43,8 +43,17 @@ master's gathers until a prefetch rebuilds that window; the scoring
 stream always reads the host.  A rebuild serves every chunk as the host
 holds it, as the reference's ``prefetch`` (which stacks every chunk from
 the host): a resident chunk is copied on the device only while its
-``write_count`` is the one it had when the live window was built.  Multi-device planes (``mesh=``) are not
-ported.
+``write_count`` is the one it had when the live window was built.
+
+Over a data group (``group=``, ``core/distributed.py``) each rank's
+host store holds only its contiguous chunk range and its window holds
+the top ``window_chunks`` chunks of that range by the rank's own
+proposal mass (prefetch adds no collective); the scoring stream reads
+the slices of the rank's own logical shards; ``gather_global`` has each
+rank give the sampled rows it owns, from its window or its host chunks,
+and one one-owner all-reduce (``collectives.owner_sum``) makes the
+replicated minibatch.  The store cannot grow under a world larger than
+one.  A sharded run equals the one-device run bit for bit.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ import torch
 
 from repro_torch.core.async_pipeline import (ScoringStream, SwapCadence,
                                              score_trace_metrics)
+from repro_torch.core.collectives import owner_sum
 from repro_torch.core.issgd import (ISSGDConfig, StepMetrics, TrainState,
                                     draw_minibatch, make_master_pass,
                                     make_scoring_pass,
@@ -63,6 +73,7 @@ from repro_torch.core.sampler import chunk_proposal_mass, index_to_chunk
 from repro_torch.core.weight_store import BufferedWeightStore, WeightStore
 from repro_torch.data.pipeline import take_rows
 from repro_torch.data.store import ChunkedExampleStore
+from repro_torch.dist import DataGroup, axis_info
 
 
 def host_score_slice(step: int, w_loc: int, n_w: int,
@@ -82,7 +93,8 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
                         chunk_size: int, aux_loss: Optional[Callable] = None,
                         fused_score: Optional[Callable] = None,
                         async_mode: bool = False, monitor_traces: bool = True,
-                        monitors=None, gated: bool = False
+                        monitors=None, gated: bool = False,
+                        group: Optional[DataGroup] = None
                         ) -> tuple[Callable, Callable, Callable]:
     """``(scoring_step, sample_step, master_step)`` of the streamed step:
 
@@ -101,7 +113,13 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
     composition the master takes the fresh scores for the fig-4 traces;
     in async mode (relaxed/uniform) the scoring step carries them
     (``monitor_traces``) and the master's are NaN.  ``gated`` (relaxed)
-    gives both the sample and the master step a trailing ``use_is``."""
+    gives both the sample and the master step a trailing ``use_is``.
+
+    Over a data ``group`` the store is this rank's rows and
+    ``score_rows`` the rows of its own shards' slices; the sample step
+    draws with the hierarchical draw (the indices the same on every
+    rank) and its chunk masses are those of the rank's own chunks, with
+    no collective; ``batch_rows`` is the replicated minibatch."""
     if cfg.mode == "exact":
         raise ValueError(
             "mode='exact' rescores the full dataset every step, which "
@@ -117,27 +135,31 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
     monitors = monitors or None
     n = num_examples
     sb = cfg.score_batch_size
-    w_loc, n_w, _ = scoring_layout(cfg, n)
+    w_loc, n_w, _ = scoring_layout(cfg, n, axis_info(group)[1])
     expect_scores = (not async_mode) and cfg.mode != "fused"
     traces_in_scoring = async_mode and monitor_traces
-    scoring_pass = make_scoring_pass(scorer, cfg, n, streaming=True)
+    scoring_pass = make_scoring_pass(scorer, cfg, n, streaming=True,
+                                     group=group)
     master_pass = make_master_pass(per_example_loss, optimizer, cfg, n,
                                    aux_loss=aux_loss, fused_score=fused_score,
                                    monitors=monitors, gated=gated,
-                                   streaming=True)
+                                   streaming=True, group=group)
 
     def scoring_step(score_params, store: WeightStore, step: int,
                      score_rows):
         store, fresh, stale_slice = scoring_pass(score_params, store, step,
                                                  score_rows)
         return store, fresh, stale_slice, score_trace_metrics(
-            fresh, stale_slice, n_total=sb, monitor=traces_in_scoring)
+            fresh, stale_slice, n_total=sb, monitor=traces_in_scoring,
+            group=group)
 
     def _sample(store: WeightStore, step: int, generator, use_is):
         with torch.no_grad():
             proposal = read_sampling_proposal(store, step, cfg, n_w)
             uniform = cfg.mode == "uniform" or (gated and not use_is)
-            idx = draw_minibatch(proposal, cfg, w_loc, generator, uniform)
+            idx = draw_minibatch(proposal, cfg, w_loc, generator, uniform,
+                                 group)
+            # the masses of this rank's own chunks: no collective
             return idx, chunk_proposal_mass(proposal, chunk_size)
 
     if gated:
@@ -190,35 +212,41 @@ class WindowStats(NamedTuple):
 
 
 class StreamingDataPlane:
-    """A bounded device window over a ChunkedExampleStore (one device).
+    """A bounded device window over a ChunkedExampleStore: one device's,
+    or with ``group=`` one rank's over the chunk range its store holds.
 
     * ``gather_global(idx)``: the two-level gather; window hits gathered
       on the device, misses fetched from the host grouped by chunk and
-      copied in once.
-    * ``fetch_sharded(idx_per_shard)``: the scoring stream, (1, rows)
-      indices read from the host chunks; never the window.
+      copied in once.  Over a group each rank serves the rows it owns
+      and one one-owner all-reduce a key replicates them.
+    * ``fetch_sharded(idx_per_shard)``: the scoring stream, (shards, rows)
+      global indices of the rank's own logical shards' slices, read from
+      its host chunks; never the window.
     * ``prefetch(chunk_mass)`` / ``swap_window()``: the next window is the
-      top ``window_chunks`` chunks by proposal mass, ties toward lower
-      chunk ids, built into a pending buffer (chunks already resident by
-      a device copy unless written since the live window was built, the
+      top ``window_chunks`` chunks of the held range by proposal mass
+      (``chunk_mass``: one entry a held chunk), ties toward lower chunk
+      ids, built into a pending buffer (chunks already resident by a
+      device copy unless written since the live window was built, the
       others from their pinned host chunks) on a copy stream; the swap
       makes the current stream wait for those copies.
 
-    Every path gives a row's exact bits.  ``mesh=`` is refused: the
-    sharded plane is not ported yet."""
+    Every path gives a row's exact bits.  The hit, miss and streamed-row
+    counts are this rank's."""
 
     def __init__(self, store: ChunkedExampleStore, window_chunks: int,
-                 device="cuda", mesh=None):
-        if mesh is not None:
-            raise ValueError("mesh= (the sharded plane) is not ported yet: "
-                             "this plane serves one device")
+                 device="cuda", group: Optional[DataGroup] = None):
+        if store.shard != axis_info(group):
+            raise ValueError(f"the store holds the chunks of shard "
+                             f"{store.shard}, the group is rank/size "
+                             f"{axis_info(group)}")
         self.store = store
+        self.group = group
         self.device = torch.device(device)
         self.on_cuda = self.device.type == "cuda"
-        self.n_shards = 1
-        if not 1 <= window_chunks <= store.num_chunks:
+        held = store.held_chunks
+        if not 1 <= window_chunks <= len(held):
             raise ValueError(f"window_chunks={window_chunks} must be in "
-                             f"[1, {store.num_chunks}] (chunks per shard)")
+                             f"[1, {len(held)}] (chunks per shard)")
         self.window_chunks = int(window_chunks)
         self.chunk_size = store.chunk_size
         self._copy = (torch.cuda.Stream(device=self.device)
@@ -226,7 +254,7 @@ class StreamingDataPlane:
         self._hits = self._misses = self._streamed = 0
         self._swaps = self._prefetches = 0
         self._pending: Optional[tuple] = None
-        cold = np.arange(self.window_chunks)[None, :]
+        cold = held.start + np.arange(self.window_chunks)[None, :]
         self._install_window(cold, {
             k: v.to(self.device)
             for k, v in store.stack_chunks(cold.reshape(-1)).items()},
@@ -248,21 +276,35 @@ class StreamingDataPlane:
 
     def gather_global(self, idx) -> dict:
         """Global example indices → their rows on the device: hits from
-        the window, misses through one batched host fetch."""
+        the window, misses through one batched host fetch; over a group
+        each rank takes the rows it owns and ``owner_sum`` replicates
+        them."""
         self._sync_store_growth()
         idx = np.asarray(idx).reshape(-1).astype(np.int64)
         cidx, off = index_to_chunk(idx, self.chunk_size)
+        held = self.store.held_chunks
+        own = (cidx >= held.start) & (cidx < held.stop)
+        rows = self._own_rows(idx, cidx, off, own)
+        if self.group is None:
+            return rows
+        mine = self._to_device(torch.from_numpy(own))
+        return {k: owner_sum(r, mine, self.group) for k, r in rows.items()}
+
+    def _own_rows(self, idx, cidx, off, own) -> dict:
+        """The rows of the owned positions ``own`` on the device (the
+        others' rows are unspecified): window hits, misses fetched."""
         slot = self._chunk_slot[cidx]
         hit = slot >= 0
-        n_miss = int((~hit).sum())
-        self._hits += idx.size - n_miss
+        miss_at = own & ~hit
+        n_miss = int(miss_at.sum())
+        self._hits += int(hit.sum())
         self._misses += n_miss
         miss = None
         if n_miss:
-            fetched = self.store.fetch_rows(idx[~hit])
+            fetched = self.store.fetch_rows(idx[miss_at])
             if n_miss == idx.size:
                 return {k: self._to_device(v) for k, v in fetched.items()}
-            at = torch.from_numpy(np.flatnonzero(~hit))
+            at = torch.from_numpy(np.flatnonzero(miss_at))
             miss = {}
             for k, v in fetched.items():
                 full = torch.zeros((idx.size,) + tuple(v.shape[1:]),
@@ -281,12 +323,14 @@ class StreamingDataPlane:
             for k, r in rows.items()}
 
     def fetch_sharded(self, idx_per_shard) -> dict:
-        """The scoring stream: (1, rows) global indices → those rows on the
-        device, read from the host chunks."""
+        """The scoring stream: (shards, rows) global indices of the rank's
+        own logical shards' slices → those rows on the device, shard-major,
+        read from the host chunks (a foreign row raises
+        ``ForeignChunkError``)."""
         idx_per_shard = np.asarray(idx_per_shard)
-        if idx_per_shard.shape[0] != self.n_shards:
-            raise ValueError(f"expected {self.n_shards} shard rows, got "
-                             f"{idx_per_shard.shape[0]}")
+        if idx_per_shard.ndim != 2:
+            raise ValueError(f"expected (shards, rows) indices, got shape "
+                             f"{idx_per_shard.shape}")
         self._streamed += idx_per_shard.size
         return {k: self._to_device(v) for k, v in
                 self.store.fetch_rows(idx_per_shard.reshape(-1)).items()}
@@ -337,24 +381,25 @@ class StreamingDataPlane:
         return out, writes, from_host
 
     def prefetch(self, chunk_mass) -> bool:
-        """Stage the next window off the per-chunk proposal mass into the
-        pending buffer (the live window keeps serving until
+        """Stage the next window off the held chunks' proposal masses into
+        the pending buffer (the live window keeps serving until
         ``swap_window``).  Returns whether a new buffer was staged."""
         self._prefetches += 1
         self._sync_store_growth()
+        held = self.store.held_chunks
         if isinstance(chunk_mass, torch.Tensor):
             chunk_mass = chunk_mass.cpu().numpy()
         mass = np.asarray(chunk_mass).reshape(-1)
-        if mass.size < self.store.num_chunks:
+        if mass.size < len(held):
             # the store grew after the mass was read: unseen chunks carry
             # no proposal mass until they are scored
             mass = np.concatenate([mass, np.zeros(
-                (self.store.num_chunks - mass.size,), mass.dtype)])
-        if mass.size != self.store.num_chunks:
+                (len(held) - mass.size,), mass.dtype)])
+        if mass.size != len(held):
             raise ValueError(f"chunk_mass has {mass.size} entries, store "
-                             f"has {self.store.num_chunks} chunks")
+                             f"holds {len(held)} chunks")
         order = np.argsort(-mass, kind="stable")
-        new_ids = np.sort(order[:self.window_chunks])[None, :]
+        new_ids = held.start + np.sort(order[:self.window_chunks])[None, :]
         if np.array_equal(new_ids, self._window_ids):
             self._pending = None
             return False
@@ -425,7 +470,12 @@ class StreamedISSGD(SwapCadence):
     .streamed_rows, .window_swaps, .prefetches (and, async, store.swaps,
     with the publishes in ``swaps``) at its cadence.  Gated
     steps take the ``controller``'s gate in both the sample and the
-    master step; ``swap_every`` is read fresh each step."""
+    master step; ``swap_every`` is read fresh each step.
+
+    Over the plane's data group (``plane.group``; the steps from
+    ``distributed.make_sharded_streamed_steps`` over the same group)
+    every rank drives the same schedule on its own rows: its shards'
+    scoring slices, the replicated draw and minibatch, its own window."""
 
     def __init__(self, plane: StreamingDataPlane, scoring_step: Callable,
                  sample_step: Callable, master_step: Callable,
@@ -459,14 +509,19 @@ class StreamedISSGD(SwapCadence):
         self._scoring = scoring_step
         self._sample = sample_step
         self._master = master_step
-        self._layout = scoring_layout(cfg, num_examples)
+        rank, n_dev = axis_info(plane.group)
+        self._layout = scoring_layout(cfg, num_examples, n_dev)
+        self._first = rank * (num_examples // n_dev)
         self._side = ScoringStream(plane.device) if self.async_mode else None
         self.swaps = 0
         self._t: Optional[int] = None
 
     def _score_indices(self, t: int) -> np.ndarray:
-        """(1, rows) global indices of step t's scoring slice."""
-        return host_score_slice(t, *self._layout)[None, :]
+        """(shards, rows) global indices of step t's scoring slices of
+        this rank's logical shards."""
+        w_loc, _, sb_w = self._layout
+        return self._first + host_score_slice(t, *self._layout).reshape(
+            w_loc, sb_w)
 
     def step(self, state: TrainState, data: Optional[dict] = None
              ) -> tuple[TrainState, StepMetrics]:

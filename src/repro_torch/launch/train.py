@@ -11,7 +11,7 @@ falcon-mamba-7b on the card by default:
       --smoke --device cpu --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 20 \
       --examples 1024 --device cpu --mode fused --probe-every 8 \
-      --save-checkpoint /tmp/ck.npz
+      --save-checkpoint build/ck.npz       # after mkdir -p build
 
 It prints the reference launcher's per-step log line
 (``src/repro/launch/train.py``) and a closing line with the median step
@@ -53,15 +53,22 @@ Sharded execution (``core/distributed.py``): ``--mesh N`` runs the step
 on N ranks of a data group, the dataset and the weight store sharded
 over them (``launch/mesh.py``; NCCL with rank r on ``cuda:r``, gloo with
 ``--device cpu``).  It prints the same losses as the one-device run with
-``--score-shards N``:
+``--score-shards N``, and composes with ``--async-scoring``, ``--stream``
+(a rank's host store holds only its chunks) and ``--save-checkpoint``
+(gather-free: the file restores at any ``--mesh``, or none); under
+``--adaptive-is`` every rank applies rank 0's swap cadence
+(``rank0_cadence``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --mesh 2 \
       --device cpu --steps 8 --examples 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --mesh 2 \
+      --device cpu --steps 8 --examples 1024 --stream --async-scoring \
+      --swap-every 2 --save-checkpoint build/ck.npz
 
-``--mesh`` does not compose with ``--async-scoring``, ``--stream`` or
-``--save-checkpoint`` yet; the model-parallel flags of the reference
-launcher (``--model-parallel``, ``--(no-)sequence-parallel``) are
-refused by name.  As in the reference, the attention path of an LM
+``--mesh`` does not compose with ``--serve-loop`` yet (the sharded
+batcher); the model-parallel flags of the reference launcher
+(``--model-parallel``, ``--(no-)sequence-parallel``) are refused by
+name.  As in the reference, the attention path of an LM
 (``attn_impl``, ``attn_scores``) and the scorer's mamba scan
 (``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
 arguments, e.g. ``run(args, attn_impl="flash", attn_scores="fused")`` or
@@ -85,22 +92,23 @@ from repro_torch import configs
 from repro_torch.configs import mlp_svhn
 from repro_torch.core.importance import ISConfig
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-from repro_torch.core.async_pipeline import AsyncPipeline, make_async_steps
+from repro_torch.core.async_pipeline import AsyncPipeline
+from repro_torch.core.collectives import psum
 from repro_torch.core.controller import ControllerConfig, ProposalController
-from repro_torch.core.distributed import (make_sharded_score_step,
+from repro_torch.core.distributed import (make_sharded_async_steps,
+                                          make_sharded_score_step,
+                                          make_sharded_streamed_steps,
                                           make_sharded_train_step,
                                           shard_dataset, shard_train_state)
-from repro_torch.core.issgd import (ISSGDConfig, TrainState,
-                                    init_train_state, make_score_step,
-                                    make_train_step)
+from repro_torch.core.issgd import ISSGDConfig, TrainState, init_train_state
 from repro_torch.core.weight_store import (init_store, reserve_tail,
                                            to_buffered)
 from repro_torch.core.scorer import make_lm_scorer, make_mlp_scorer
 from repro_torch.core.strategies import PROPOSALS, make_proposal
 from repro_torch.data import (ChunkedExampleStore, make_svhn_like,
                               make_token_dataset)
-from repro_torch.data.streaming import (StreamedISSGD, StreamingDataPlane,
-                                        make_streamed_steps)
+from repro_torch.data.streaming import StreamedISSGD, StreamingDataPlane
+from repro_torch.dist import axis_info
 from repro_torch.launch import mesh
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer
@@ -116,8 +124,8 @@ PORT = ("the PyTorch port (data-parallel meshes only: mlp_svhn, the dense "
 # model-parallel ones
 LATER_FLAGS = ("--model-parallel", "--sequence-parallel",
                "--no-sequence-parallel")
-# what --mesh does not compose with yet, by flag
-MESH_LATER = ("--async-scoring", "--stream", "--save-checkpoint")
+# what --mesh does not compose with yet, by flag: the sharded batcher
+MESH_LATER = ("--serve-loop",)
 
 # the StepMetrics fields a logged step records, in the reference's order
 METRIC_KEYS = ("loss", "grad_norm", "trace_ideal", "trace_stale",
@@ -398,9 +406,9 @@ def proposal_name(args: argparse.Namespace) -> str:
 
 def score_row_block(args: argparse.Namespace) -> int:
     """The rows of one logical shard's scoring slice when W > 1, else 0:
-    the MLP scorer multiplies that many rows at a time, so that a rank
-    holding some of the W shards scores them with the bits the
-    one-device run gives them."""
+    the MLP scorer multiplies that many rows at a time and an LM scorer
+    scores that many rows a call, so that a rank holding some of the W
+    shards scores them with the bits the one-device run gives them."""
     w = args.score_shards if args.score_shards > 1 else max(args.mesh, 1)
     sb = args.examples if args.mode == "exact" else args.score_batch
     return sb // w if w > 1 else 0
@@ -460,7 +468,8 @@ def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         p, cfg, b, attn_impl=attn_impl)[0]
     return params, train, pel, make_proposal(
         make_lm_scorer, cfg, proposal_name(args), ssm_mode=ssm_mode,
-        attn_impl=attn_impl, attn_scores=attn_scores)
+        attn_impl=attn_impl, attn_scores=attn_scores,
+        row_block=score_row_block(args))
 
 
 def fused_objective(args: argparse.Namespace, cfg=None) -> Callable:
@@ -497,10 +506,11 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     ``serve``, whose ``ingest_into`` the loop calls after each step.
     A streamed run's ``data`` is None.
 
-    With a data ``group`` (``--mesh``) the step and the probe are the
-    sharded ones and ``data`` is this rank's rows; the state's store is
-    still whole and on the host, for ``run`` to restore into and then
-    keep this rank's rows (``shard_train_state``)."""
+    With a data ``group`` (``--mesh``) the step, the probe and the
+    pipelines are the sharded ones and ``data`` is this rank's rows (a
+    streamed rank's host store holds its chunks alone); the state's
+    store is still whole and on the host, for ``run`` to restore into
+    and then keep this rank's rows (``shard_train_state``)."""
     use_full_f32()
     device = torch.device(args.device)
     builder = build_mlp if args.arch == "mlp_svhn" else build_lm
@@ -524,33 +534,36 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
                              store_device=device if group is None else "cpu")
     if group is not None:
         refuse_mesh_later(args)
-        step, tcfg = make_sharded_train_step(
-            pel, scorer, opt, tcfg, train.size, group, fused_score=fused,
-            monitors=monitors, gated=args.adaptive_is)
+    if args.stream:
+        return _build_streamed(args, cfg, state, train, pel, scorer, opt,
+                               tcfg, fused, monitors, telemetry, controller,
+                               group)
+    data = shard_dataset(train.arrays, group)
+    if args.async_scoring:
+        *steps, tcfg = make_sharded_async_steps(
+            pel, scorer, opt, tcfg, train.size, group,
+            monitor_traces=not args.no_trace_monitors, monitors=monitors,
+            gated=args.adaptive_is)
+        _print_mesh(group, tcfg)
+        print(f"async scoring, swap every {args.swap_every}", flush=True)
+        pipe = AsyncPipeline(*steps, args.swap_every, telemetry=telemetry,
+                             controller=controller)
+        return Built(state._replace(store=to_buffered(state.store)),
+                     _pipe_step(pipe), data, None, pipe)
+    step, tcfg = make_sharded_train_step(
+        pel, scorer, opt, tcfg, train.size, group, fused_score=fused,
+        monitors=monitors, gated=args.adaptive_is)
+    _print_mesh(group, tcfg)
+    probe = (make_sharded_score_step(scorer, tcfg, train.size, group)
+             if args.mode == "fused" else None)
+    return Built(state, step, data, probe)
+
+
+def _print_mesh(group, tcfg: ISSGDConfig) -> None:
+    if group is not None:
         print(f"mesh: ({group.size},) over {group.size} devices "
               f"({dist.get_backend(group.pg)}, {tcfg.score_shards} "
               f"scoring shards)", flush=True)
-        probe = (make_sharded_score_step(scorer, tcfg, train.size, group)
-                 if args.mode == "fused" else None)
-        return Built(state, step, shard_dataset(train.arrays, group), probe)
-    if args.stream:
-        return _build_streamed(args, cfg, state, train, pel, scorer, opt,
-                               tcfg, fused, monitors, telemetry, controller)
-    if args.async_scoring:
-        print(f"async scoring, swap every {args.swap_every}", flush=True)
-        pipe = AsyncPipeline(
-            *make_async_steps(pel, scorer, opt, tcfg, train.size,
-                              monitor_traces=not args.no_trace_monitors,
-                              monitors=monitors, gated=args.adaptive_is),
-            args.swap_every, telemetry=telemetry, controller=controller)
-        return Built(state._replace(store=to_buffered(state.store)),
-                     _pipe_step(pipe), train.arrays, None, pipe)
-    step = make_train_step(pel, scorer, opt, tcfg, train.size,
-                           fused_score=fused, monitors=monitors,
-                           gated=args.adaptive_is)
-    probe = (make_score_step(scorer, tcfg, train.size)
-             if args.mode == "fused" else None)
-    return Built(state, step, train.arrays, probe)
 
 
 def _pipe_step(pipe) -> Callable:
@@ -566,15 +579,17 @@ def _pipe_step(pipe) -> Callable:
 
 
 def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
-                    monitors, telemetry, controller) -> Built:
+                    monitors, telemetry, controller, group=None) -> Built:
     """The ``--stream`` half of ``build``: the host chunk store (pinned on
-    the card), the serve loop's reserved capacity, the plane and the
-    StreamedISSGD driver."""
+    the card; over a data group the rank's chunk range alone), the serve
+    loop's reserved capacity, the plane and the StreamedISSGD driver."""
     device = torch.device(args.device)
     n_live = train.size
-    csize = args.chunk_size or auto_chunk_size(n_live)
+    rank, world = axis_info(group)
+    csize = args.chunk_size or auto_chunk_size(n_live // world)
     store = ChunkedExampleStore.from_arrays(
-        train.arrays, csize, pin_memory=device.type == "cuda")
+        train.arrays, csize, pin_memory=device.type == "cuda",
+        shard=(rank, world))
     n_examples = n_live
     if args.serve_loop:
         # reserve traffic capacity before the plane lays out its chunks
@@ -586,15 +601,16 @@ def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
                        chunk_size=args.index_chunk_size), n_live))
     if args.async_scoring:
         state = state._replace(store=to_buffered(state.store))
-    wc = max(1, min(args.window_chunks, store.num_chunks))
-    plane = StreamingDataPlane(store, wc, device=device)
+    wc = max(1, min(args.window_chunks, len(store.held_chunks)))
+    plane = StreamingDataPlane(store, wc, device=device, group=group)
+    *steps, tcfg = make_sharded_streamed_steps(
+        pel, scorer, opt, tcfg, n_examples, group, csize,
+        fused_score=fused, async_mode=args.async_scoring,
+        monitor_traces=not args.no_trace_monitors, monitors=monitors,
+        gated=args.adaptive_is)
+    _print_mesh(group, tcfg)
     pipe = StreamedISSGD(
-        plane, *make_streamed_steps(
-            pel, scorer, opt, tcfg, n_examples, csize, fused_score=fused,
-            async_mode=args.async_scoring,
-            monitor_traces=not args.no_trace_monitors, monitors=monitors,
-            gated=args.adaptive_is),
-        tcfg, n_examples, async_mode=args.async_scoring,
+        plane, *steps, tcfg, n_examples, async_mode=args.async_scoring,
         swap_every=args.swap_every, prefetch_every=args.prefetch_every,
         telemetry=telemetry, controller=controller)
     serve = None
@@ -623,17 +639,19 @@ def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
               f"{serve_max_len}, {n_examples - n_live} reserved rows",
               flush=True)
     print(f"streaming: {store.num_chunks} chunks x {csize} rows "
-          f"host-resident, window {wc} chunks/shard x 1 shard(s)"
+          f"host-resident, window {wc} chunks/shard x {world} shard(s)"
           + (f", async swap every {args.swap_every}"
              if args.async_scoring else ""), flush=True)
     return Built(state, _pipe_step(pipe), None,
                  pipe.probe if args.mode == "fused" else None, pipe, serve)
 
 
-def open_sink(args: argparse.Namespace):
+def open_sink(args: argparse.Namespace, group=None):
     """The run's event sink (a NullSink without ``--metrics-jsonl``),
     tapped by the controller with ``--adaptive-is``; (sink, controller
-    or None).  The run record carries the reference's keys."""
+    or None).  The run record carries the reference's keys.  Over a data
+    ``group`` the controller applies rank 0's swap cadence
+    (``rank0_cadence``)."""
     if args.metrics_jsonl:
         sink = EventSink(args.metrics_jsonl, run={
             "arch": args.arch, "mode": args.mode, "steps": args.steps,
@@ -651,11 +669,24 @@ def open_sink(args: argparse.Namespace):
         ctl = ProposalController(
             ControllerConfig(adapt_every=args.adapt_every,
                              adapt_swap=args.async_scoring),
-            swap_every=args.swap_every)
+            swap_every=args.swap_every,
+            agree=(None if group is None
+                   else rank0_cadence(group, args.device)))
         # the tap is truthy over a NullSink too: the metrics records the
         # controller folds keep coming, file or no file
         sink = ctl.attach(sink)
     return sink, ctl
+
+
+def rank0_cadence(group, device) -> Callable[[int], int]:
+    """The swap cadence every rank of ``group`` applies: rank 0's, which
+    its JSONL records (each rank's controller times its own dispatches,
+    while the gate folds replicated metrics and agrees by itself), by
+    one all-reduce of rank 0's value against the others' zeros."""
+    def agree(swap_every: int) -> int:
+        mine = swap_every if group.rank == 0 else 0
+        return int(psum(torch.tensor([mine], device=device), group).item())
+    return agree
 
 
 class _Profile:
@@ -709,7 +740,7 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     With a data ``group`` this is one rank of the sharded run: it
     restores on the host and keeps its rows, as the reference restores
     before placement."""
-    sink, ctl = open_sink(args)
+    sink, ctl = open_sink(args, group)
     try:
         tel = Telemetry(sink, every=args.metrics_every or args.log_every,
                         blocking=args.telemetry_blocking)
@@ -725,12 +756,13 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         if group is not None:
             built = built._replace(state=shard_train_state(
                 built.state, group, torch.device(args.device)))
-        return _train_loop(args, built, sink, ctl, tel)
+        return _train_loop(args, built, sink, ctl, tel, group)
     finally:
         sink.close()
 
 
-def _train_loop(args, built: Built, sink, ctl, tel) -> TrainResult:
+def _train_loop(args, built: Built, sink, ctl, tel,
+                group=None) -> TrainResult:
     state, step, data, probe, pipe, serve = built
     profile = _Profile(args, sink)
     on_cuda = torch.device(args.device).type == "cuda"
@@ -816,7 +848,9 @@ def _train_loop(args, built: Built, sink, ctl, tel) -> TrainResult:
               f"{st.streamed_rows} scoring rows streamed, "
               f"{st.swaps} window swaps", flush=True)
     if args.save_checkpoint:
-        save_checkpoint(args.save_checkpoint, state, step=state.step)
+        # over a data group every rank saves its rows, gather-free
+        save_checkpoint(args.save_checkpoint, state, step=state.step,
+                        group=group)
         print(f"saved checkpoint to {args.save_checkpoint}", flush=True)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
@@ -841,15 +875,19 @@ def _print_done(args: argparse.Namespace, result: TrainResult) -> None:
     if result.step_ms:
         clock = ("CUDA events" if torch.device(args.device).type == "cuda"
                  else "host clock")
+        ms = result.step_ms
+        q = statistics.quantiles(ms, n=4) if len(ms) > 1 else ms * 3
         print(f"done: {args.steps} steps on {args.device}, median step "
-              f"{statistics.median(result.step_ms):.3f} ms ({clock})",
-              flush=True)
+              f"{statistics.median(ms):.3f} ms (quartiles {q[0]:.3f}–"
+              f"{q[2]:.3f}; {clock})", flush=True)
 
 
 def _mesh_rank(group, device: str, args: argparse.Namespace,
                cfg=None) -> TrainResult:
     """One rank of ``--mesh``: rank 0 alone prints and writes the metrics
-    files and the profile."""
+    files and the profile; every rank takes part in the gather-free save
+    of ``--save-checkpoint``, and under ``--adaptive-is`` every rank's
+    controller folds the same replicated metrics to the same gate."""
     args = argparse.Namespace(**vars(args))
     args.device = device
     if group.rank:

@@ -81,8 +81,9 @@ class ContinuousBatcher:
                  attn_impl: str = "ref", mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (the model-parallel batcher) comes with slice 5 of "
-                "the PyTorch port (multi-device)")
+                "mesh= (the sharded batcher) is not ported yet: it is "
+                "step 4 of the multi-device port (ROADMAP Queue 1, item "
+                "12)")
         self.params = params
         self.cfg = cfg
         self.num_slots = num_slots

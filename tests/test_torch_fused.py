@@ -29,7 +29,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.mlp_svhn import smoke  # noqa: E402
-from repro_torch.core import asgd, issgd, sampler  # noqa: E402
+from repro_torch.core import asgd, distributed, issgd, sampler  # noqa: E402
 from repro_torch.core import weight_store as ws  # noqa: E402
 from repro_torch.core.scorer import make_mlp_scorer  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -396,7 +396,8 @@ def test_launcher_fused_mode_probes_after_step_i(monkeypatch):
             return inner(state, data)
         return probe
 
-    monkeypatch.setattr(ttrain, "make_score_step", spy)
+    # the launcher builds its probe through core/distributed.py
+    monkeypatch.setattr(distributed, "make_score_step", spy)
     res = ttrain.run(ttrain.parse_args([
         "--smoke", "--device", "cpu", "--mode", "fused", "--steps", "7",
         "--examples", "256", "--batch", "16", "--score-batch", "32",

@@ -420,10 +420,14 @@ def test_launcher_mesh_restores_a_checkpoint(tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--stream", "--async-scoring",
                                   "--save-checkpoint"])
 def test_launcher_mesh_refuses_by_name(flag):
-    argv = ["--smoke", "--device", "cpu", "--mesh", "2", flag]
+    """``--mesh`` composes with ``flag`` and still refuses the serve loop
+    (the sharded batcher) by name, whatever it is combined with."""
+    assert ttrain.MESH_LATER == ("--serve-loop",)
+    argv = ["--arch", "glm4-9b", "--smoke", "--device", "cpu", "--mesh",
+            "2", "--stream", "--serve-loop", flag]
     if flag == "--save-checkpoint":
         argv.append("ck.npz")
-    with pytest.raises(ValueError, match=flag):
+    with pytest.raises(ValueError, match="--serve-loop"):
         ttrain.main(argv)
 
 

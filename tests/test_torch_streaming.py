@@ -168,7 +168,7 @@ def test_window_choice_and_gathers_match_reference():
     with pytest.raises(ValueError, match="window_chunks"):
         StreamingDataPlane(ChunkedExampleStore.from_arrays(arrays, cs), 9,
                            device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         StreamingDataPlane(ChunkedExampleStore.from_arrays(arrays, cs), 2,
                            device="cpu", mesh=object())
 

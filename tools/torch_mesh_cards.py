@@ -1,0 +1,132 @@
+#!/usr/bin/env python
+"""Run the sharded planes of the launcher across cards over NCCL, one
+rank a card, against the one-device runs of the same flags.
+
+Usage:  python3 tools/torch_mesh_cards.py [--worlds 2,4] [--steps 30]
+            [--examples 131072]
+
+Needs as many CUDA cards as the largest world.  mlp_svhn at the paper's
+width (3072→2048×4→10) with ``--score-shards 4`` runs as one device and
+as ``--mesh N`` for each N of ``--worlds``:
+
+  * ``--async-scoring --swap-every 4`` and ``--stream --async-scoring
+    --swap-every 4`` (chunks of 1,024, a window of 32 chunks a rank):
+    each world's losses (``--metrics-out``, every step, full precision)
+    must equal the one-device run's;
+  * the largest world saves a gather-free checkpoint after ``--steps``
+    − 10 async steps, and one device restores it and runs the last 10:
+    the losses must equal the one-device run's last 10;
+  * the largest world with ``--adaptive-is --adapt-every 5`` must run
+    to its end (the controller's cadence is agreed by an all-reduce at
+    every decision; the cadence follows measured times, so no loss is
+    compared).
+
+Each run is a fresh launcher process.  It prints each run's median step
+and quartiles (CUDA events, the launcher's own) and the card line, and
+as its last line one JSON object; it exits 1 if any comparison fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "build", "mesh_cards")
+
+
+def launch(tag: str, argv: list) -> dict:
+    """One launcher run; its losses and step times."""
+    metrics = os.path.join(OUT, f"{tag}.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+           "--log-every", "1", "--metrics-out", metrics]
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                       timeout=900, env=dict(
+                           os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+    if r.returncode:
+        sys.exit(f"{tag}: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                 f"{r.stderr[-4000:]}")
+    with open(metrics) as f:
+        losses = [h["loss"] for h in json.load(f)]
+    done = re.search(r"median step ([\d.]+) ms", r.stdout)
+    quart = re.search(r"quartiles ([\d.]+)[–-]([\d.]+)", r.stdout)
+    out = {"losses": losses, "median_ms": float(done.group(1)),
+           "quartiles_ms": ([float(quart.group(1)), float(quart.group(2))]
+                            if quart else None),
+           "decisions": len(re.findall(r"^controller: ", r.stdout, re.M))}
+    print(f"{tag}: {len(losses)} steps, median step {out['median_ms']} ms"
+          + (f" (quartiles {out['quartiles_ms']})" if quart else ""),
+          flush=True)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--worlds", default="2,4")
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--examples", type=int, default=131072)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    worlds = [int(w) for w in args.worlds.split(",")]
+    if max(worlds) > torch.cuda.device_count():
+        sys.exit(f"--worlds {args.worlds} needs {max(worlds)} cards, this "
+                 f"machine has {torch.cuda.device_count()}")
+    os.makedirs(OUT, exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    base = ["--examples", str(args.examples), "--score-shards", "4",
+            "--score-batch", "4096", "--device", "cuda"]
+    planes = {"async": ["--async-scoring", "--swap-every", "4"],
+              "stream_async": ["--stream", "--async-scoring",
+                               "--swap-every", "4", "--chunk-size", "1024",
+                               "--window-chunks", "32"]}
+    steps = ["--steps", str(args.steps)]
+    res, bad = {}, []
+    for name, flags in planes.items():
+        one = launch(f"{name}_one_device", base + flags + steps)
+        res[f"{name}_one_device"] = one
+        for w in worlds:
+            got = launch(f"{name}_mesh{w}",
+                         base + flags + steps + ["--mesh", str(w)])
+            res[f"{name}_mesh{w}"] = got
+            if got["losses"] != one["losses"]:
+                bad.append(f"{name} --mesh {w}: losses differ from one "
+                           f"device")
+    w, head = max(worlds), args.steps - 10
+    ck = os.path.join(OUT, "ck.npz")
+    saved = launch(f"async_mesh{w}_save", base + planes["async"] + [
+        "--steps", str(head), "--mesh", str(w), "--save-checkpoint", ck])
+    resumed = launch("async_one_device_resume", base + planes["async"] + [
+        "--steps", "10", "--restore-checkpoint", ck])
+    want = res["async_one_device"]["losses"]
+    if saved["losses"] != want[:head] or resumed["losses"] != want[head:]:
+        bad.append(f"the --mesh {w} checkpoint does not resume as the "
+                   f"one-device run")
+    res[f"async_mesh{w}_save"], res["async_one_device_resume"] = (saved,
+                                                                 resumed)
+    adaptive = launch(f"async_mesh{w}_adaptive", base + planes["async"]
+                      + steps + ["--mesh", str(w), "--adaptive-is",
+                                 "--adapt-every", "5"])
+    res[f"async_mesh{w}_adaptive"] = adaptive
+    if adaptive["decisions"] != args.steps // 5:
+        bad.append(f"--mesh {w} --adaptive-is: {adaptive['decisions']} "
+                   f"decisions, want {args.steps // 5}")
+    for b in bad:
+        print(f"FAIL: {b}", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": not bad, "card": card, "worlds": worlds,
+                      "runs": {k: {kk: v[kk] for kk in ("median_ms",
+                                                        "quartiles_ms")}
+                               for k, v in res.items()}}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
