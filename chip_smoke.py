@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 of up to 3072 squares taken in another order), against
                 their exact-order emulator (bitwise), multi-tap against
                 chained single-tap launches and against itself (bitwise):
-                the main shapes, ragged and odd widths, bf16 and mixed
-                taps, 33 taps (two launches), bases off 16 bytes.
+                the main shapes (the single-tap kernel at (256, 3072 |
+                2048) and (256, 2048 | 10)), the taps of a
+                --model-parallel 4 step, ragged and odd widths, bf16 and
+                mixed taps, 33 taps (two launches), bases off 16 bytes.
   3. main     — the paper's trainer through the port's entry point at full
                 width (mlp_svhn 3072→2048×4→10, relaxed, ghost, 65,536
                 resident examples); every logged loss and √TrΣ finite, the
@@ -27,8 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 error ≤ 1e-4.
   5. times    — median step time (CUDA events), kernel vs plain time at the
                 main-path shapes with the L2 cache cold (device time from
-                the profiler, split by kernel), the byte bound, and a
-                profiler breakdown of a few steps.
+                the profiler, split by kernel; the single-tap kernel also
+                at the replicated fc4 tap of a --model-parallel 4 step,
+                (256, 2048 | 10)), beside the byte bound and the parent
+                design's recorded times, and a profiler breakdown of a
+                few steps.
   6. ghost    — the ghost-norm Gram kernel against its plain version on the
                 card: the tap shapes of the seq-64 LM step, the S = 512
                 flash-trainer step and the falcon-mamba ghost step, S = 2048
@@ -352,6 +357,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 row blocks: phase 7's cut as a resident world of 2 on the
                 one card at W = 2 draws what one device draws (16
                 ghost_norm launches a step there, 8 a rank).
+ 44. model parallel — --model-parallel over gloo ranks sharing the one
+                card (no speed figure: per-rank launches, model-axis
+                all-reduces and bytes a step, peak GiB), every plain
+                version forbidden: (a) phase 3's mlp_svhn at W = 4, 40
+                relaxed steps at (data, model) = (1, 4), (1, 2) and (2, 2)
+                against one device in the same call (its draws for the
+                first 5 steps or more, losses within 1e-4), the (2, 2)
+                world bitwise the (1, 2) one, a model group's ranks alike;
+                a step a rank 1 multi-tap launch and 1 single-tap launch at
+                M = 4 (the replicated 10-class tap), 0 at M = 2; 4 async
+                and 4 streamed steps at M = 2; (b) glm4-9b at phase 7's
+                cut at M = 2 and a score batch of 32 (two ranks on the
+                card each hold the gathered unembed tap), sequence
+                parallel on and off, 8 ghost_norm launches a step a
+                rank, all tensor-core, the
+                scored rows' ω̃ within 5e-2 of one device's (bf16) and of
+                each other, and one flash
+                attn_scores="fused" step at phase 16's seq 512, batch
+                4; (c)
+                falcon-mamba-7b × 2, dbrx-132b × 1, minicpm3-4b × 2 and
+                jamba in phase 31's layout, 3 relaxed steps each, the same
+                checks (the MoE archs at the median, at most a quarter
+                of the rows beyond 5e-2: top-k routing flips near ties
+                under bf16 reassociation); (d) the M = 2 mlp_svhn run's gather-free file
+                restored on one device, bit for bit its shards.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -706,6 +736,11 @@ def phase_kernels(pes, ref):
         ("ragged_bf16", 257, ragged, ((bf16, bf16),) * 3),
         ("ragged_mixed", 257, ragged, ((bf16, f32), (f32, bf16), (bf16, f32))),
         ("33_taps", 17, ((40, 24),) * 33, ((f32, f32),) * 33),
+        # the taps of a --model-parallel 4 step: four column shards and
+        # the replicated 10-class layer
+        ("model_parallel_4", MAIN_B,
+         tuple((a, b // 4 if b % 4 == 0 else b) for a, b in MAIN_TAPS),
+         ((f32, f32),) * n_main),
         ("odd_widths", 33, odd, ((f32, bf16), (bf16, f32), (f32, f32))),
         ("unaligned", 65, odd, ((f32, bf16), (bf16, f32), (f32, f32))),
     ]
@@ -913,19 +948,29 @@ def bound_ms(b, widths, elem_bytes=4):
         "operations"
 
 
+# the parent design's device µs at phase 5's shapes (PR 20's A/B and phase
+# 5, NVIDIA H100 80GB HBM3, 700 W), printed beside this build's
+PARENT_US = {"per_example_sqnorm_multi": "9.04–9.09",
+             "per_example_sqnorm": "3.95–4.03"}
+# the single-tap kernel's main-path launch: the replicated 10-class tap of
+# a --model-parallel 4 mlp_svhn step
+MP4_TAP = (2048, 10)
+
+
 def phase_times(pes, ref):
     f32 = ((torch.float32, torch.float32),)
     sets_needed = lambda widths: max(
         2, math.ceil(4 * L2_BYTES / (4 * MAIN_B * sum(a + b for a, b in widths))))
     rows = {}
     for name, widths in (("per_example_sqnorm_multi", MAIN_TAPS),
-                         ("per_example_sqnorm", MAIN_TAPS[:1])):
+                         ("per_example_sqnorm", MAIN_TAPS[:1]),
+                         ("per_example_sqnorm fc4", (MP4_TAP,))):
         inputs = [make_taps(MAIN_B, widths, f32 * len(widths), seed=500 + i)
                   for i in range(sets_needed(widths))]
         if name == "per_example_sqnorm_multi":
             kern = lambda xs, ds: pes.per_example_sqnorm_multi(xs, ds)
             plain = lambda xs, ds: ref.per_example_sqnorm_multi_ref(xs, ds)
-        else:
+        else:             # the single-tap kernel, at both of its shapes
             kern = lambda xs, ds: pes.per_example_sqnorm(xs[0], ds[0])
             plain = lambda xs, ds: ref.per_example_sqnorm_ref(xs[0], ds[0])
         # plain, kernel, kernel, plain: compare within one call, in turns
@@ -950,7 +995,12 @@ def phase_times(pes, ref):
         print(f"times: {name} device time a call by kernel (the faster "
               f"run): " + "; ".join(f"{k} {v * 1e3:.2f} us"
                                     for k, v in split.items())
-              + f"; {min(k1, k2) / bms:.2f}x the bound", flush=True)
+              + f"; {min(k1, k2) / bms:.2f}x the bound"
+              + (f"; the parent design's {PARENT_US[name]} us"
+                 if name in PARENT_US else ""), flush=True)
+    fc4 = rows.pop("per_example_sqnorm fc4")
+    rows["per_example_sqnorm"]["shapes"] = {
+        "model_parallel_4_fc4": dict(fc4, shape=[MAIN_B, *MP4_TAP])}
     return rows
 
 
@@ -5873,6 +5923,408 @@ def phase_lm_row_blocks(mesh) -> dict:
     fail("LM row blocks: no cut fits")
 
 
+MP_STEPS = 40             # (a): relaxed mlp_svhn steps a world
+MP_CHECK_STEPS = 5        # steps whose draws must equal one device's
+MP_PLANE_STEPS = 4        # (a): async and streamed steps at M = 2
+MP_LM_STEPS = 3           # (c): relaxed steps of the zoo's cuts
+MP_GLM_STEPS = 2          # (b): relaxed glm4-9b steps a variant
+MP_W = 4                  # (a): logical scoring shards (row blocks of 64)
+MP_LM_SB = 32             # (b): glm4-9b's score batch (phase 7: 128)
+MP_FLASH_B = 4            # (b): the flash step's batch (phase 16: 16)
+MP_LM_RTOL = 5e-2         # bf16 ghost scores of M partial sums vs one GEMM
+# the MoE archs: a token whose top-k experts are near a tie routes
+# otherwise when the bf16 partial sums reassociate, which moves its
+# example's score by more; their rows are held at the median, and at most
+# MP_MOE_SHARE of them may lie beyond MP_LM_RTOL
+MP_MOE = ("dbrx", "jamba")
+MP_MOE_SHARE = 0.25
+MP_FALCON_LAYERS, MP_DBRX_LAYERS, MP_MINI_LAYERS = 2, 1, 2
+
+
+def mp_run(group, model_group, device, argv, cfg=None, run_kw=None,
+           allow=(), save=None, keep_params=False):
+    """One launcher-built run of ``argv`` on this rank's groups (one
+    device with None), driven step by step as ``run``'s loop drives it,
+    every plain version forbidden but ``allow``, the counts set to 0 just
+    before the first step; ``save`` a path for a gather-free checkpoint
+    after the last step (its all-reduces left out of the counts).  What
+    it saw: draws, metrics, launches, tensor-core launches, the
+    all-reduces of each axis, step ms, peak GiB, the final store and,
+    with ``keep_params``, the params (this rank's shards) on the host
+    (an LM's would fill the host: the ranks and the parent share it)."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core import collectives
+    from repro_torch.core.distributed import (shard_train_state,
+                                              train_state_specs)
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_mod
+    train_mod.use_full_f32()
+    args = train_mod.parse_args(argv)
+    args.device = device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    built = train_mod.build(args, cfg, group=group, model_group=model_group,
+                            **(run_kw or {}))
+    state = built.state
+    if group is not None:
+        state = shard_train_state(state, group, torch.device(device),
+                                  param_specs=built.param_specs,
+                                  model_group=model_group)
+    mets, marks = [], []
+
+    def loop():
+        nonlocal state
+        for _ in range(args.steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m, *_ = built.step(state, built.data)
+            end.record()
+            mets.append(m)
+            marks.append((start, end))
+        if built.pipe is not None:
+            built.pipe.join()
+        torch.cuda.synchronize()
+
+    reset_counts()
+    collectives.reset_counts()
+    run_forbidding_plain(ref, loop, allow=allow)
+    counts = dict(collectives.COUNTS)
+    wrappers = kernel_wrappers()
+    out = {"launches": read_counts(),
+           "tc": {k: wrappers[k].tc_launches for k in TC_KERNELS},
+           "scored": wrappers["flash_attention_bwd"].scored,
+           "collectives": counts, "steps": args.steps,
+           "step_ms": [s.elapsed_time(e) for s, e in marks],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "store": [t.cpu() for t in buffers_of(state.store)],
+           "params": (_to_dev(state.params, "cpu") if keep_params
+                      else None)}
+    out["indices"], out["metrics"] = _stacked(mets)
+    if save is not None:
+        save_checkpoint(save, state, state.step, group=group,
+                        model_group=model_group,
+                        shard_specs=(None if built.param_specs is None else
+                                     train_state_specs(state,
+                                                       built.param_specs)))
+    del built, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_rank(group, device, jobs, out_dir, model_group=None):
+    """One spawned rank of phase 44: each job's ``mp_run`` on this rank's
+    groups, what it saw saved for the parent."""
+    import os
+    world_rank = group.rank * model_group.size + model_group.rank
+    if world_rank:
+        sys.stdout = open(os.devnull, "w")
+    out = {}
+    for job in jobs:
+        out[job["tag"]] = mp_run(group, model_group, device, job["argv"],
+                                 job.get("cfg"), job.get("run_kw"),
+                                 job.get("allow", ()), job.get("save"),
+                                 job.get("keep_params", False))
+    torch.save(out, f"{out_dir}/rank{world_rank}.pt")
+
+
+def mp_world(n_data, m_size, jobs, name):
+    """Phase 44's world of ``n_data`` × ``m_size`` ranks on the one card
+    (gloo on CUDA tensors): each rank's results, in world-rank order."""
+    from repro_torch.launch import mesh
+    d = scratch_dir(name)
+    t0 = time.perf_counter()
+    mesh.run_world(_mp_rank, n_data * m_size, "cuda", backend="gloo",
+                   args=(jobs, str(d)), model_parallel=m_size)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+             for r in range(n_data * m_size)]
+    return ranks, wall
+
+
+def _mp_rank_summary(r) -> dict:
+    c = r["collectives"]
+    steps = r["steps"]
+    return {"launches_a_step": {k: v / steps for k, v in r["launches"].items()
+                                if v},
+            "model_all_reduce_a_step": c["model_all_reduce"] / steps,
+            "model_bytes_a_step": 4 * c["model_elements"] / steps,
+            "model_max_message_elements": c["model_max_elements"],
+            "data_all_reduce_a_step": c["all_reduce"] / steps,
+            "step_ms_median_time_shared": statistics.median(r["step_ms"]),
+            "peak_gib": r["peak_gib"]}
+
+
+def _first_divergence(a, b) -> int:
+    """The first step whose draws differ (the run's length if none)."""
+    differ = (a != b).any(dim=1).nonzero().flatten().tolist()
+    return differ[0] if differ else a.shape[0]
+
+
+def _scored_rel(r, one) -> dict:
+    """How far the scored rows' ω̃ of a rank's store (whole: one data
+    rank) lie from the one-device run's: the largest difference over the
+    largest ω̃ (``max``), each row's relative difference's median and
+    the share of rows beyond MP_LM_RTOL."""
+    w, at = r["store"][0].float(), r["store"][1]
+    w1, at1 = one["store"][0].float(), one["store"][1]
+    if not torch.equal(at, at1):
+        fail("model parallel: the scored rows differ from one device's")
+    rows = at >= 0
+    each = ((w[rows] - w1[rows]).abs() / w1[rows].abs()).double()
+    return {"max": rel_err(w[rows], w1[rows]),
+            "median": each.median().item(),
+            "share_over": (each > MP_LM_RTOL).double().mean().item()}
+
+
+def phase_model_parallel(train_mod, ref):
+    """44: model parallelism over the one card, ranks sharing it over
+    gloo (no speed figure: per-rank counts, model-axis bytes and peak
+    GiB).  (a) mlp_svhn at phase 3's width, W = 4, 40 relaxed steps at
+    ``--model-parallel 4``, ``--model-parallel 2`` and ``--mesh 2
+    --model-parallel 2`` against one device in the same call: the first
+    steps' draws and losses (rtol 1e-4), the (2, 2) world bitwise the (1,
+    2) one, the ranks of a model group bitwise alike; launches a step a
+    rank: multi-tap 1, single-tap 1 at M = 4 (the replicated 10-class
+    layer) and 0 at M = 2; then 4 async and 4 streamed steps at M = 2.
+    (b) glm4-9b × 4 layers (phase 7's call at a score batch of 32) at M =
+    2, sequence parallel on and off: 8 ghost_norm launches a step a rank,
+    all tensor-core; the scored rows' ω̃ within MP_LM_RTOL of one
+    device's and of each other (the MoE archs of (c): the median, and at
+    most MP_MOE_SHARE of the rows beyond it), 2 steps each; one flash
+    ``attn_scores="fused"`` step at phase 16's seq 512, batch 4.  (c) falcon-mamba-7b
+    × 2, dbrx-132b × 1, minicpm3-4b × 2 (the cuts two ranks on one card
+    hold in this phase's time) and jamba in phase 31's layout, 3 relaxed
+    steps each against one device.  (d) the M = 2 mlp_svhn run's
+    gather-free file restored on one device, bit for bit its shards."""
+    from repro_torch.checkpoint import restore_checkpoint
+    t_phase = time.perf_counter()
+    out = {}
+    mlp = mlp_argv("--steps", str(MP_STEPS), "--score-shards", str(MP_W))
+    plane = mlp_argv("--steps", str(MP_PLANE_STEPS), "--score-shards",
+                     str(MP_W))
+    mp_flags = lambda m: ["--model-parallel", str(m)]
+    ckpt = scratch_dir("chip_smoke_mp_ckpt") / "mp2.npz"
+    # phase 7's call at a score batch of 32: two ranks on one card each
+    # hold the gathered (rows, 64, 151552) f32 unembed tap, and gloo moves
+    # the gathered logits through the host
+    lm = LM_ARGV + ["--steps", str(MP_GLM_STEPS), "--score-batch",
+                    str(MP_LM_SB)]
+    zoo = {
+        "falcon_mamba": dict(argv=MAMBA_ARGV + ["--strategy", "ghost",
+                                                "--steps", str(MP_LM_STEPS)],
+                             cfg=mamba_config(MP_FALCON_LAYERS)),
+        "dbrx": dict(argv=DBRX_ARGV + ["--steps", str(MP_LM_STEPS)],
+                     cfg=zoo_config("dbrx-132b", num_layers=MP_DBRX_LAYERS),
+                     allow=("ghost_norm_direct_ref",)),
+        "minicpm3": dict(argv=MINI_ARGV + ["--steps", str(MP_LM_STEPS)],
+                         cfg=zoo_config("minicpm3-4b",
+                                        num_layers=MP_MINI_LAYERS)),
+        "jamba": dict(argv=JAMBA_ARGV + ["--strategy", "ghost", "--steps",
+                                         str(MP_LM_STEPS)],
+                      cfg=zoo_config("jamba-v0.1-52b", num_layers=2,
+                                     attn_every=2, attn_offset=1,
+                                     moe_every=2, moe_offset=1),
+                      run_kw={"attn_impl": "flash"},
+                      allow=("ghost_norm_direct_ref",))}
+    # phase 16's seq 512 at a batch of MP_FLASH_B: gloo moves the gathered
+    # (batch, 512, 151552) logits through the host, and 16 rows' 2.5 GB
+    # messages lost a rank's connection in two of four runs
+    flash = dict(argv=FLASH_ARGV + ["--steps", "1", "--batch",
+                                    str(MP_FLASH_B), "--score-batch",
+                                    str(MP_FLASH_B)],
+                 cfg=lm_config(),
+                 run_kw={"attn_impl": "flash", "attn_scores": "fused"})
+
+    # one device, the same call
+    one = {"mlp": mp_run(None, None, "cuda", mlp),
+           "async": mp_run(None, None, "cuda", plane + [
+               "--async-scoring", "--swap-every", "2"]),
+           "stream": mp_run(None, None, "cuda", plane + [
+               "--stream", "--chunk-size", "1024", "--window-chunks", "16"]),
+           "glm4": mp_run(None, None, "cuda", lm, lm_config()),
+           "flash": mp_run(None, None, "cuda", flash["argv"], flash["cfg"],
+                           flash["run_kw"])}
+    for name, job in zoo.items():
+        one[name] = mp_run(None, None, "cuda", job["argv"], job["cfg"],
+                           job.get("run_kw"), job.get("allow", ()))
+
+    # (a) the MLP worlds; (b), (c), (d) ride the (1, 2) world
+    jobs2 = [dict(tag="mlp", argv=mlp + mp_flags(2), save=str(ckpt),
+                  keep_params=True),
+             dict(tag="async", argv=plane + mp_flags(2) + [
+                 "--async-scoring", "--swap-every", "2"]),
+             dict(tag="stream", argv=plane + mp_flags(2) + [
+                 "--stream", "--chunk-size", "1024", "--window-chunks",
+                 "16"]),
+             dict(tag="glm4_sp", argv=lm + mp_flags(2), cfg=lm_config()),
+             dict(tag="glm4_no_sp", argv=lm + mp_flags(2) + [
+                 "--no-sequence-parallel"], cfg=lm_config()),
+             dict(tag="flash", argv=flash["argv"] + mp_flags(2),
+                  cfg=flash["cfg"], run_kw=flash["run_kw"])]
+    jobs2 += [dict(tag=name, argv=job["argv"] + mp_flags(2), cfg=job["cfg"],
+                   run_kw=job.get("run_kw"), allow=job.get("allow", ()))
+              for name, job in zoo.items()]
+    # the two MLP worlds side by side (8 ranks of ~2.3 GiB), then (1, 2)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        w14 = pool.submit(mp_world, 1, 4, [dict(tag="mlp", argv=mlp
+                                                + mp_flags(4))],
+                          "chip_smoke_mp14")
+        w22 = pool.submit(mp_world, 2, 2, [dict(tag="mlp", argv=mlp + [
+            "--mesh", "2"] + mp_flags(2), keep_params=True)],
+            "chip_smoke_mp22")
+        worlds = {(1, 4): w14.result(), (2, 2): w22.result()}
+    worlds[(1, 2)] = mp_world(1, 2, jobs2, "chip_smoke_mp12")
+
+    # (a)
+    res = out["a_mlp"] = {}
+    for (n, m), (ranks, wall) in worlds.items():
+        what = f"model parallel (a) ({n}, {m})"
+        for r, got in enumerate(ranks):
+            g = got["mlp"]
+            expect_launches(g["launches"], {
+                "per_example_sqnorm_multi": MP_STEPS,
+                "per_example_sqnorm": MP_STEPS if m == 4 else 0},
+                f"{what} rank {r}")
+            if not all(torch.isfinite(g["metrics"][f]).all()
+                       for f in ("loss", "grad_norm")):
+                fail(f"{what} rank {r}: non-finite losses or grad norms")
+        base = ranks[0]["mlp"]
+        for r, got in enumerate(ranks[1:], 1):
+            if not (torch.equal(got["mlp"]["indices"], base["indices"])
+                    and all(torch.equal(got["mlp"]["metrics"][f],
+                                        base["metrics"][f])
+                            for f in SHARD_FIELDS)):
+                fail(f"{what} rank {r}: draws or metrics differ from rank "
+                     f"0's")
+        k = _first_divergence(base["indices"], one["mlp"]["indices"])
+        loss_err = rel_err(base["metrics"]["loss"][:k],
+                           one["mlp"]["metrics"]["loss"][:k])
+        if k < MP_CHECK_STEPS or loss_err > CARD_VS_CPU_RTOL:
+            fail(f"{what}: draws equal one device's for {k} steps (need "
+                 f"{MP_CHECK_STEPS}), losses {loss_err:.2e} from its")
+        res[f"{n}x{m}"] = {"same_draws_steps": k, "loss_rel_err": loss_err,
+                           "wall_s_with_spawn": wall,
+                           "ranks": [_mp_rank_summary(x["mlp"])
+                                     for x in ranks]}
+        print(f"model parallel (a) mlp_svhn ({n}, {m}): the ranks alike "
+              f"bitwise; one device's draws for {k} of {MP_STEPS} steps, "
+              f"losses within {loss_err:.2e}; a rank a step: "
+              f"{res[f'{n}x{m}']['ranks'][0]}; {wall:.1f} s with the spawn",
+              flush=True)
+    r12, r22 = worlds[(1, 2)][0], worlds[(2, 2)][0]
+    for mr in range(2):
+        a, lo, hi = r12[mr]["mlp"], r22[mr]["mlp"], r22[2 + mr]["mlp"]
+        # the trace monitors are sums over the data ranks: not bitwise
+        if not all(torch.equal(x["indices"], a["indices"]) and all(
+                torch.equal(x["metrics"][f], a["metrics"][f])
+                for f in PLANE_FIELDS) for x in (lo, hi)):
+            fail(f"model parallel (a): the (2, 2) world's model rank {mr} "
+                 f"is not bitwise the (1, 2) world's")
+        if not (same_tree(lo["params"], a["params"]) and all(
+                torch.equal(torch.cat([x, y]), z) for x, y, z in zip(
+                    lo["store"], hi["store"], a["store"]))):
+            fail("model parallel (a): the (2, 2) world's params or store "
+                 "are not the (1, 2) world's")
+    for tag in ("async", "stream"):
+        for r, got in enumerate(r12):
+            g = got[tag]
+            expect_launches(g["launches"], {
+                "per_example_sqnorm_multi": MP_PLANE_STEPS},
+                f"model parallel (a) {tag} rank {r}")
+            err = rel_err(g["metrics"]["loss"], one[tag]["metrics"]["loss"])
+            if not torch.equal(g["indices"], one[tag]["indices"]) or \
+                    err > CARD_VS_CPU_RTOL:
+                fail(f"model parallel (a) {tag} rank {r}: draws or losses "
+                     f"({err:.2e}) differ from one device's")
+        res[tag] = {"loss_rel_err": err,
+                    "ranks": [_mp_rank_summary(x[tag]) for x in r12]}
+    print(f"model parallel (a) async and streamed at M = 2: one device's "
+          f"draws over {MP_PLANE_STEPS} steps, losses within "
+          f"{res['async']['loss_rel_err']:.2e} / "
+          f"{res['stream']['loss_rel_err']:.2e}", flush=True)
+
+    # (b) and (c)
+    for tag, per_step in (("glm4_sp", {"ghost_norm": len(GHOST_MAIN)}),
+                          ("glm4_no_sp", {"ghost_norm": len(GHOST_MAIN)}),
+                          ("flash", {"flash_attention": 2 * LM_LAYERS,
+                                     "flash_attention_bwd": 2 * LM_LAYERS,
+                                     "ghost_norm": len(FLASH_GHOST)}),
+                          *((name, None) for name in zoo)):
+        ref_run = one[tag if tag in one else "glm4"]
+        ranks = [x[tag] for x in r12]
+        what = f"model parallel {tag}"
+        for r, g in enumerate(ranks):
+            if per_step is not None:
+                expect_launches(g["launches"],
+                                {k: v * g["steps"]
+                                 for k, v in per_step.items()},
+                                f"{what} rank {r}")
+                for k in TC_KERNELS:
+                    if g["tc"][k] != g["launches"][k]:
+                        fail(f"{what} rank {r}: {k} launched "
+                             f"{g['launches'][k]} times, {g['tc'][k]} of "
+                             f"them tensor-core")
+            elif not any(g["launches"].values()):
+                fail(f"{what} rank {r}: no kernel launched")
+            if not torch.isfinite(g["metrics"]["loss"]).all():
+                fail(f"{what} rank {r}: non-finite losses")
+        if not (torch.equal(ranks[0]["metrics"]["loss"],
+                            ranks[1]["metrics"]["loss"])
+                and all(torch.equal(x, y) for x, y in
+                        zip(ranks[0]["store"], ranks[1]["store"]))):
+            fail(f"{what}: the two model ranks' losses or stores differ")
+        err = _scored_rel(ranks[0], ref_run)
+        if tag in MP_MOE:
+            bad = (err["median"] > MP_LM_RTOL
+                   or err["share_over"] > MP_MOE_SHARE)
+        else:
+            bad = err["max"] > MP_LM_RTOL
+        if bad:
+            fail(f"{what}: the scored rows' ω̃ from one device's: {err}")
+        out[tag] = {"scored_rel_err": err,
+                    "losses": ranks[0]["metrics"]["loss"].tolist(),
+                    "one_device_losses": ref_run["metrics"]["loss"].tolist(),
+                    "ranks": [_mp_rank_summary(g) for g in ranks]}
+        print(f"{what}: ω̃ from one device's {err}; a rank a step: "
+              f"{out[tag]['ranks'][0]}", flush=True)
+    sp_err = _scored_rel(r12[0]["glm4_sp"], r12[0]["glm4_no_sp"])
+    out["glm4_sp_vs_no_sp_scored_rel_err"] = sp_err
+    if sp_err["max"] > MP_LM_RTOL:
+        fail(f"model parallel (b): sequence parallelism moved the scores: "
+             f"{sp_err}")
+    print(f"model parallel (b): ω̃ with sequence parallelism from ω̃ "
+          f"without: {sp_err}", flush=True)
+
+    # (d) the gather-free file restored on one device
+    template = train_mod.build(train_mod.parse_args(mlp)).state
+    restored, step = restore_checkpoint(ckpt, template)
+    whole = {k: {w: torch.cat([r12[0]["mlp"]["params"][k][w],
+                               r12[1]["mlp"]["params"][k][w]], dim=-1)
+                 for w in ("w", "b")}
+             for k in r12[0]["mlp"]["params"]}
+    if step != MP_STEPS or not (
+            same_tree(_to_dev(restored.params, "cpu"), whole)
+            and torch.equal(restored.store.weights.cpu(),
+                            r12[0]["mlp"]["store"][0])):
+        fail("model parallel (d): the M = 2 file does not restore on one "
+             "device as the ranks' shards")
+    import numpy as np
+    with np.load(ckpt) as z:
+        shard = z["params/fc0/w::shard0"].shape
+        out["d_checkpoint"] = {"file_mb": ckpt.stat().st_size / 1e6,
+                               "fc0_w_shard": list(shard)}
+    if shard != (3072, 1024):
+        fail(f"model parallel (d): fc0's chunk in the file is {shard}")
+    del template, restored
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"model parallel (d): the M = 2 file ({out['d_checkpoint']}) "
+          f"restores on one device bit for bit; phase 44 "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
@@ -5974,6 +6426,7 @@ def main() -> int:
     planes_errs = phase_planes_parity()
     sharded = phase_sharded(train_mod, ref)
     planes = phase_sharded_planes(train_mod, ref)
+    model_par = phase_model_parallel(train_mod, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -6043,8 +6496,13 @@ def main() -> int:
     print("slice 17 times " + json.dumps({
         "card": card, "sharded_planes": planes,
         "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 18 times " + json.dumps({
+        "card": card, "model_parallel": model_par,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
+    mp4 = model_par["a_mlp"]["1x4"]["ranks"][0]["launches_a_step"]
     main_counts = {"per_example_sqnorm_multi": launches,
-                   "per_example_sqnorm": launches,
+                   "per_example_sqnorm": {"per_example_sqnorm": round(
+                       mp4.get("per_example_sqnorm", 0) * MP_STEPS)},
                    "ghost_norm": lm_launches,
                    "flash_attention": serve["launches"],
                    "decode_attention": serve["launches"],
@@ -6068,7 +6526,12 @@ def main() -> int:
     timing["selective_scan"] = scan_row
     timed = {
         "per_example_sqnorm_multi": "one call at the MLP main-path shapes",
-        "per_example_sqnorm": "one call at the MLP main-path shapes",
+        "per_example_sqnorm": "one call at (256, 3072 | 2048); 'shapes' "
+                              "gives the replicated fc4 tap of a "
+                              "--model-parallel 4 step (256, 2048 | 10), "
+                              "its launch on the main path: 1 a step a "
+                              "rank, launches counted on rank 0 of phase "
+                              "44's (1, 4) world over 40 steps",
         "ghost_norm": "the 8 calls of one seq-64 LM step; 'steps' gives "
                       "the 5 of a flash-trainer step and the 4 of a "
                       "falcon-mamba ghost step",
@@ -6105,8 +6568,7 @@ def main() -> int:
             "bound_by": timing[name]["bound_by"],
             "library_ms": timing[name].get("library_ms"),
             "tflop_s": timing[name].get("tflop_s"),
-            "on_main_path": name not in ("per_example_sqnorm",
-                                         "attn_score_sweep"),
+            "on_main_path": name != "attn_score_sweep",
             "timed": timed[name],
             "phases": {"kernels": counts_after_check[name],
                        "main_mlp": launches[name],
@@ -6195,7 +6657,17 @@ def main() -> int:
                                name],
                        **{f"lm_row_blocks_world2_rank{r}":
                           planes["lm_row_blocks"]["ranks"][r]["launches"][
-                              name] for r in range(2)}},
+                              name] for r in range(2)},
+                       **{f"model_parallel_{w}_rank0_a_step":
+                          model_par["a_mlp"][w]["ranks"][0][
+                              "launches_a_step"].get(name, 0)
+                          for w in ("1x4", "1x2", "2x2")},
+                       **{f"model_parallel_{t}_rank0_a_step":
+                          model_par[t]["ranks"][0]["launches_a_step"].get(
+                              name, 0)
+                          for t in ("glm4_sp", "glm4_no_sp", "flash",
+                                    "falcon_mamba", "dbrx", "minicpm3",
+                                    "jamba")}},
         })
         if name in ("per_example_sqnorm_multi", "ghost_norm"):
             kernels[-1]["side_stream_launches"] = {
@@ -6217,7 +6689,7 @@ def main() -> int:
         if "shapes" in timing[name]:
             kernels[-1]["shapes"] = {
                 tag: {k: r[k] for k in ("shape", "lanes", "ms", "plain_ms",
-                                        "bound_ms", "bound_by")}
+                                        "bound_ms", "bound_by") if k in r}
                 for tag, r in timing[name]["shapes"].items()}
     print(card, flush=True)   # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)

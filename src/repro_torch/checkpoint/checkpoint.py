@@ -30,11 +30,20 @@ the leaves of every WeightStore in the tree (``weights``, ``scored_at``,
 an int8 table's ``qscale``; both buffers of a BufferedWeightStore) are
 this rank's rows, and each rank writes them to a part file beside the
 target; after all parts are down, rank 0 reads them into host RAM and
-writes one npz in the reference's sharded layout (a ``<key>::shard<r>``
-entry a rank, the ``"sharded:"`` tag), with the replicated leaves
-(params, optimizer state, generator, step) written once, from its own
-copy.  No device ever holds a whole table, and the file restores at any
-world, one device included, in either package.
+writes one npz in the reference's sharded layout (a ``<key>::shard<i>``
+entry a shard, the ``"sharded:"`` tag with the global shape, dtype and
+each shard's index slices), with the replicated leaves (params,
+optimizer state, generator, step) written once, from its own copy.
+
+Under model parallelism (``model_group=`` and ``shard_specs=``, a tree
+beside ``tree`` whose spec tuples mark the model-sharded leaves: the
+params, their stale copy and the optimizer state's mirrors of them)
+both axes are saved gather-free, replicas dropped as the reference
+drops them: the store's rows come from the ranks of model rank 0, one
+a data rank, and each model-sharded leaf's chunks from the ranks of
+data rank 0, one a model rank.  No rank ever builds a whole table or a
+whole sharded parameter, and the file restores at any world and any M,
+one device included, in either package.
 """
 from __future__ import annotations
 
@@ -119,16 +128,20 @@ def _write_npz(path: Path, stored: dict, manifest: dict, step: int) -> None:
 
 
 def save_checkpoint(path: str | Path, tree: Any, step: int,
-                    group=None) -> Path:
+                    group=None, model_group=None,
+                    shard_specs: Any = None) -> Path:
     """Atomic save: the npz is written to a temporary file in the target
     directory, then renamed over ``path``.  With a data ``group`` every
     rank calls it on its own state and the save is gather-free (see the
-    module docstring); a rank that fails makes every rank raise, and no
-    file is left at ``path``."""
+    module docstring), over the ``model_group`` too when one is given
+    with the ``shard_specs`` of the tree's model-sharded leaves; a rank
+    that fails makes every rank raise, and no file is left at
+    ``path``."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     if group is not None:
-        return _save_sharded(path, tree, step, group)
+        return _save_sharded(path, tree, step, group, model_group,
+                             shard_specs)
     manifest, stored = {}, {}
     for k, leaf in _flatten(tree).items():
         stored[k], tag = _to_numpy(leaf)
@@ -142,23 +155,67 @@ def _part_path(path: Path, rank: int) -> Path:
     return path.parent / f".{path.name}.rank{rank}.part.npz"
 
 
-def _all_ok(ok: bool, device, group) -> bool:
-    """Whether every rank of ``group`` is ok: one all-reduce of the
-    failures."""
-    from repro_torch.core.collectives import psum
+def _all_ok(ok: bool, device, group, model_group=None) -> bool:
+    """Whether every rank of the world (``group`` by ``model_group``) is
+    ok: an all-reduce of the failures over each axis."""
+    from repro_torch.core.collectives import model_sum, psum
     failed = torch.tensor([0 if ok else 1], dtype=torch.int32, device=device)
-    return int(psum(failed, group).item()) == 0
+    return int(model_sum(psum(failed, group), model_group).item()) == 0
 
 
-def _save_sharded(path: Path, tree: Any, step: int, group) -> Path:
-    """The gather-free save of one rank: its store rows to its part file,
+def _model_dims(tree: Any, specs: Any, prefix: str = "") -> dict[str, int]:
+    """{flat key: the model-split dim} of the leaves whose spec in
+    ``specs`` (a tree beside ``tree``) splits a dim over ``"model"``."""
+    if specs is None:
+        return {}
+    if isinstance(tree, torch.Tensor):
+        return {prefix.rstrip("/"): specs.index("model")} \
+            if "model" in specs else {}
+    if isinstance(tree, dict):
+        items = ((k, v, specs[k]) for k, v in tree.items())
+    elif hasattr(tree, "_fields"):
+        items = ((k, getattr(tree, k), getattr(specs, k))
+                 for k in tree._fields)
+    elif isinstance(tree, (list, tuple)):
+        items = ((i, v, sp) for i, (v, sp) in enumerate(zip(tree, specs)))
+    else:
+        return {}
+    return {key: dim for k, v, sp in items
+            for key, dim in _model_dims(v, sp, f"{prefix}{k}/").items()}
+
+
+def _save_sharded(path: Path, tree: Any, step: int, group,
+                  model_group=None, shard_specs=None) -> Path:
+    """The gather-free save of one rank: the shards it owns to its part
+    file with their global slices (its store rows when it is model rank
+    0, its chunk of each model-sharded leaf when it is data rank 0),
     then rank 0 merges the parts and the replicated leaves.  Each half
     ends in an all-reduce of the failures, so every rank raises when one
     fails, and the parts are removed either way."""
     flat = _flatten(tree)
-    sharded = _store_keys(tree)
-    device = next(flat[k].device for k in sorted(sharded))
-    part = _part_path(path, group.rank)
+    rows_keys = _store_keys(tree)
+    model_keys = _model_dims(tree, shard_specs) if model_group else {}
+    d, n_data = group.rank, group.size
+    m, n_model = (model_group.rank, model_group.size) if model_group \
+        else (0, 1)
+    world_rank, world = d * n_model + m, n_data * n_model
+    device = next(flat[k].device for k in sorted(rows_keys))
+    part = _part_path(path, world_rank)
+
+    def slices(k: str) -> list:
+        """This rank's shard of leaf k: [[start, stop]] a dim."""
+        leaf = flat[k]
+        out = [[0, n] for n in leaf.shape]
+        if k in rows_keys:
+            n = leaf.shape[0]
+            out[0] = [d * n, (d + 1) * n]
+        else:
+            dim, n = model_keys[k], leaf.shape[model_keys[k]]
+            out[dim] = [m * n, (m + 1) * n]
+        return out
+
+    owned = sorted([k for k in rows_keys if m == 0]
+                   + [k for k in model_keys if d == 0])
 
     def on_every_rank(fn, what: str) -> None:
         err = None
@@ -166,17 +223,21 @@ def _save_sharded(path: Path, tree: Any, step: int, group) -> Path:
             fn()
         except Exception as e:          # re-raised below, on every rank
             err = e
-        if not _all_ok(err is None, device, group):
+        if not _all_ok(err is None, device, group, model_group):
             raise err or RuntimeError(f"gather-free save of {path}: {what} "
                                       f"failed on another rank")
 
     def write_part():
         with open(part, "wb") as f:
-            np.savez(f, **{k: _to_numpy(flat[k])[0] for k in sharded})
+            np.savez(f, **{k: _to_numpy(flat[k])[0] for k in owned},
+                     __slices__=np.frombuffer(json.dumps(
+                         {k: slices(k) for k in owned}).encode(),
+                         dtype=np.uint8))
 
     def merge():
-        if group.rank == 0:
-            _merge_parts(path, flat, sharded, step, group.size)
+        if world_rank == 0:
+            _merge_parts(path, flat, set(rows_keys) | set(model_keys), step,
+                         world)
 
     try:
         on_every_rank(write_part, "writing a part")
@@ -189,31 +250,32 @@ def _save_sharded(path: Path, tree: Any, step: int, group) -> Path:
 def _merge_parts(path: Path, flat: dict, sharded: set, step: int,
                  world: int) -> None:
     """Rank 0's half: the ranks' parts read into host RAM as
-    ``<key>::shard<r>`` entries with their manifest slices, the
-    replicated leaves from its own state, one atomic npz."""
+    ``<key>::shard<i>`` entries, in rank order, with their manifest
+    slices; the replicated leaves from its own state; one atomic npz."""
     manifest, stored = {}, {}
     for k, leaf in flat.items():
         if k not in sharded:
             stored[k], tag = _to_numpy(leaf)
             if tag:
                 manifest[k] = tag
-    parts = []
+    shards: dict[str, list] = {k: [] for k in sharded}
     for r in range(world):
         with np.load(_part_path(path, r), allow_pickle=False) as z:
-            parts.append({k: z[k] for k in z.files})
+            part_slices = json.loads(bytes(z["__slices__"].tobytes())
+                                     .decode())
+            for k, sl in part_slices.items():
+                shards[k].append((z[k], sl))
     for k in sorted(sharded):
         leaf = flat[k]
-        rows = [p[k].shape[0] for p in parts]
-        starts = np.cumsum([0] + rows)
-        rest = [[0, d] for d in leaf.shape[1:]]
-        for r, p in enumerate(parts):
-            stored[f"{k}{_SHARD_SEP}{r}"] = p[k]
+        parts = shards[k]
+        for i, (arr, _) in enumerate(parts):
+            stored[f"{k}{_SHARD_SEP}{i}"] = arr
         manifest[k] = _SHARD_TAG + json.dumps({
-            "shape": [int(starts[-1]), *leaf.shape[1:]],
+            "shape": [max(sl[j][1] for _, sl in parts)
+                      for j in range(leaf.dim())],
             "dtype": (_BF16_TAG if leaf.dtype == torch.bfloat16
-                      else str(parts[0][k].dtype)),
-            "slices": [[[int(starts[r]), int(starts[r + 1])], *rest]
-                       for r in range(world)]})
+                      else str(parts[0][0].dtype)),
+            "slices": [sl for _, sl in parts]})
     _write_npz(path, stored, manifest, step)
 
 

@@ -168,7 +168,9 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
                      num_examples: int, aux_loss: Optional[Callable] = None,
                      monitor_traces: bool = True, monitors=None,
                      gated: bool = False,
-                     group: Optional[DataGroup] = None
+                     group: Optional[DataGroup] = None,
+                     model_group: Optional[DataGroup] = None,
+                     param_specs=None
                      ) -> tuple[Callable, Callable]:
     """The two computations of the async pipeline:
 
@@ -194,7 +196,11 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
     metrics are the rank's ``TraceSums``, which the pipeline sums over
     the group after it joins the scoring stream.  The master is the
     sharded master pass (the hierarchical draw from ``read_buf``, the
-    one-owner row reads), the same on every rank."""
+    one-owner row reads), the same on every rank.  With a
+    ``model_group`` the params are this rank's shards under
+    ``param_specs`` and the scorer and loss are model-axis-aware; the
+    scoring step's model-axis sums run on the scoring stream, as its
+    kernels do, and the master's on the current one."""
     if cfg.mode not in ("relaxed", "uniform"):
         raise ValueError(
             "async scoring supports mode='relaxed'/'uniform' (exact needs "
@@ -205,7 +211,8 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
     master_pass = make_master_pass(per_example_loss, optimizer, cfg,
                                    num_examples, aux_loss=aux_loss,
                                    monitors=monitors, gated=gated,
-                                   group=group)
+                                   group=group, model_group=model_group,
+                                   param_specs=param_specs)
     sb = cfg.score_batch_size
 
     def scoring_step(stale_params, write_buf, step: int, data):

@@ -26,6 +26,14 @@ and the minibatch rows come through one one-owner all-reduce).
 ``launch/train.py --mesh N`` spawns the ranks (``launch/mesh.py``).
 With ``group=None`` every factory here gives the one-device step, so
 the launcher makes one call a path whatever the world.
+
+Model parallelism (``--model-parallel M``): each factory also takes a
+model group and the parameters' spec tree (``resolve_param_specs``, the
+reference's ``_resolve_param_specs``/``opt_state_pspecs``), and
+``shard_train_state`` keeps this rank's column or row shard of every
+sharded parameter, of its stale copy and of its optimizer state; the
+store stays sharded over the data group alone, the same on the M ranks
+that share a data rank.
 """
 from __future__ import annotations
 
@@ -38,7 +46,21 @@ from repro_torch.core.issgd import (ISSGDConfig, TrainState,
                                     make_score_step, make_train_step)
 from repro_torch.core.weight_store import BufferedWeightStore, WeightStore
 from repro_torch.dist import DataGroup, axis_info
+from repro_torch.dist.sharding import (mesh_shape, opt_state_pspecs,
+                                       param_pspecs, shard_tree)
 from repro_torch.optim import tree_leaves
+
+
+def resolve_param_specs(logical_specs, params,
+                        model_group: Optional[DataGroup],
+                        n_data: int = 1):
+    """The spec tree of ``params`` (the whole, unsharded tree) under the
+    ``(data, model)`` mesh of this world, or None without a model group
+    (M = 1: every parameter replicated, today's run)."""
+    if model_group is None or logical_specs is None:
+        return None
+    return param_pspecs(logical_specs, params,
+                        mesh_shape(n_data, model_group.size))
 
 
 def resolve_score_shards(cfg: ISSGDConfig,
@@ -91,14 +113,39 @@ def shard_store(store: WeightStore, group: Optional[DataGroup],
                 else _rows(store.qscale, group, device)))
 
 
+def train_state_specs(state: TrainState, param_specs) -> TrainState:
+    """The spec tree beside a TrainState: the params' specs on the params
+    and their stale copy, ``opt_state_pspecs`` on the optimizer state,
+    None (replicated, or sharded over the data group) elsewhere; the
+    gather-free save reads the model-sharded leaves from it."""
+    return TrainState(
+        params=param_specs,
+        opt_state=opt_state_pspecs(state.opt_state, state.params,
+                                   param_specs),
+        stale_params=param_specs, store=None, step=None, rng=None)
+
+
 def shard_train_state(state: TrainState, group: Optional[DataGroup],
-                      device=None) -> TrainState:
+                      device=None, param_specs=None,
+                      model_group: Optional[DataGroup] = None
+                      ) -> TrainState:
     """A rank's TrainState from a whole one (built or restored on the
     host): its rows of the store on ``device`` (default: the params'),
-    of both buffers of a BufferedWeightStore (``synced_at`` as it is),
-    params, optimizer state and stale params as they are (replicated)."""
+    of both buffers of a BufferedWeightStore (``synced_at`` as it is);
+    params, optimizer state and stale params as they are (replicated),
+    or, with a ``model_group`` and ``param_specs``, this model rank's
+    shard of each sharded leaf (an optimizer state's subtrees that mirror
+    the params take their specs)."""
     if device is None:
         device = tree_leaves(state.params)[0].device
+    if model_group is not None and param_specs is not None:
+        m, size = model_group.rank, model_group.size
+        op = opt_state_pspecs(state.opt_state, state.params, param_specs)
+        state = state._replace(
+            params=shard_tree(state.params, param_specs, m, size),
+            stale_params=shard_tree(state.stale_params, param_specs, m,
+                                    size),
+            opt_state=shard_tree(state.opt_state, op, m, size))
     store = state.store
     if isinstance(store, BufferedWeightStore):
         return state._replace(store=BufferedWeightStore(
@@ -125,20 +172,24 @@ def make_sharded_train_step(per_example_loss: Callable, scorer: Callable,
                             group: Optional[DataGroup],
                             aux_loss: Optional[Callable] = None,
                             fused_score: Optional[Callable] = None,
-                            monitors=None, gated: bool = False
+                            monitors=None, gated: bool = False,
+                            model_group: Optional[DataGroup] = None,
+                            param_specs=None
                             ) -> tuple[Callable, ISSGDConfig]:
     """(step, cfg): the ISSGD step over ``group``, ``step(state, data[,
     use_is]) -> (state, metrics[, monitors])`` on the rank's state and
     rows (``shard_train_state``, ``shard_dataset``), and the config with
     W resolved against the group.  Every rank calls it with the same
     arguments in the same order; the metrics and monitors come out the
-    same on every rank."""
+    same on every rank.  A ``model_group`` and ``param_specs`` make it
+    the model-parallel step (``issgd.make_master_pass``)."""
     cfg = resolve_score_shards(cfg, group)
     _check_rows(num_examples, group)
     step = make_train_step(per_example_loss, scorer, optimizer, cfg,
                            num_examples, aux_loss=aux_loss,
                            fused_score=fused_score, monitors=monitors,
-                           gated=gated, group=group)
+                           gated=gated, group=group,
+                           model_group=model_group, param_specs=param_specs)
     return step, cfg
 
 
@@ -157,7 +208,9 @@ def make_sharded_async_steps(per_example_loss: Callable, scorer: Callable,
                              group: Optional[DataGroup],
                              aux_loss: Optional[Callable] = None,
                              monitor_traces: bool = True, monitors=None,
-                             gated: bool = False
+                             gated: bool = False,
+                             model_group: Optional[DataGroup] = None,
+                             param_specs=None
                              ) -> tuple[Callable, Callable, ISSGDConfig]:
     """(scoring_step, master_step, cfg): the async pipeline's two steps
     over ``group`` (``async_pipeline.make_async_steps(..., group=)``),
@@ -172,7 +225,8 @@ def make_sharded_async_steps(per_example_loss: Callable, scorer: Callable,
     scoring_step, master_step = make_async_steps(
         per_example_loss, scorer, optimizer, cfg, num_examples,
         aux_loss=aux_loss, monitor_traces=monitor_traces,
-        monitors=monitors, gated=gated, group=group)
+        monitors=monitors, gated=gated, group=group,
+        model_group=model_group, param_specs=param_specs)
     return scoring_step, master_step, cfg
 
 
@@ -184,7 +238,9 @@ def make_sharded_streamed_steps(per_example_loss: Callable,
                                 fused_score: Optional[Callable] = None,
                                 async_mode: bool = False,
                                 monitor_traces: bool = True, monitors=None,
-                                gated: bool = False
+                                gated: bool = False,
+                                model_group: Optional[DataGroup] = None,
+                                param_specs=None
                                 ) -> tuple[Callable, Callable, Callable,
                                            ISSGDConfig]:
     """(scoring_step, sample_step, master_step, cfg): the streamed step's
@@ -206,5 +262,5 @@ def make_sharded_streamed_steps(per_example_loss: Callable,
         per_example_loss, scorer, optimizer, cfg, num_examples, chunk_size,
         aux_loss=aux_loss, fused_score=fused_score, async_mode=async_mode,
         monitor_traces=monitor_traces, monitors=monitors, gated=gated,
-        group=group)
+        group=group, model_group=model_group, param_specs=param_specs)
     return (*steps, cfg)

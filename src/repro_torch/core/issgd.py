@@ -39,6 +39,13 @@ f32[N] table.  Parameters stay replicated and every rank computes the
 same master update on the same gathered minibatch.  Because W, not the
 number of ranks, fixes the decomposition, a sharded run draws the
 indices of the one-device run.
+
+Model parallelism: the master pass also takes a model group and the
+parameters' spec tree (``dist/sharding.py``).  A rank then holds its
+column or row shards of the parameters, its loss is model-axis-aware,
+and the gradient norm is the global one (``grad_global_norm``); the
+store, the draws and every replicated value are the same on each rank
+of a model group.
 """
 from __future__ import annotations
 
@@ -49,7 +56,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import variance
-from repro_torch.core.collectives import axis_info, gather_rows, psum
+from repro_torch.core.collectives import (axis_info, gather_rows,
+                                          model_sum, psum)
 from repro_torch.core.importance import (ISConfig, effective_sample_size,
                                          is_loss_scale)
 from repro_torch.core.mass_index import block_masses
@@ -60,6 +68,7 @@ from repro_torch.core.weight_store import (EMPTY, WeightStore,
                                            write_scores_global)
 from repro_torch.data.pipeline import gather_batch
 from repro_torch.dist import DataGroup
+from repro_torch.dist.sharding import is_sharded
 from repro_torch.optim import (Optimizer, clip_by_global_norm, global_norm,
                                tree_leaves, tree_map)
 from repro_torch.telemetry.monitors import proposal_monitors
@@ -178,6 +187,34 @@ def draw_minibatch(proposal: torch.Tensor, cfg: ISSGDConfig, w: int,
                             generator=generator, group=group, totals=totals)
 
 
+def grad_global_norm(grads, model_group: Optional[DataGroup] = None,
+                     param_specs=None) -> torch.Tensor:
+    """The global gradient norm when the parameters may be model-sharded
+    (``src/repro/core/issgd.py::_grad_global_norm``): a sharded leaf adds
+    its square-sum, a replicated leaf (the same on every rank) adds it
+    divided by M, and one all-reduce over the model group sums them
+    before the sqrt.  For M = 1 it is ``optim.global_norm``."""
+    if model_group is None:
+        return global_norm(grads)
+    if param_specs is None:
+        raise ValueError("a model group but no param_specs: the grad norm "
+                         "cannot tell sharded from replicated leaves")
+    n_model = model_group.size
+
+    def leaf(g, spec):
+        s = torch.sum(torch.square(g.float()))
+        return s if is_sharded(spec) else s / n_model
+
+    sq = sum(_zip_leaves(grads, param_specs, leaf))
+    return torch.sqrt(model_sum(sq, model_group))
+
+
+def _zip_leaves(tree, specs, fn) -> list:
+    if isinstance(tree, dict):
+        return [v for k in tree for v in _zip_leaves(tree[k], specs[k], fn)]
+    return [fn(tree, specs)]
+
+
 def _check_mode(cfg: ISSGDConfig) -> None:
     if cfg.mode not in MODES:
         raise ValueError(f"mode {cfg.mode!r} is not ported; this port runs "
@@ -276,7 +313,9 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                      fused_score: Optional[Callable] = None,
                      monitors=None, gated: bool = False,
                      streaming: bool = False,
-                     group: Optional[DataGroup] = None) -> Callable:
+                     group: Optional[DataGroup] = None,
+                     model_group: Optional[DataGroup] = None,
+                     param_specs=None) -> Callable:
     """The master's half: ``master_pass(params, opt_state, stale_params,
     store, step, generator, data, fresh_scores=None, stale_slice=None,
     sample_indices=None, use_is=None) -> (params, opt_state,
@@ -308,8 +347,17 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     minibatch rows come through ``gather_rows``, the sums through
     ``psum``, and the update is the same on every rank.  The gate is the
     controller's host bool, the same on every rank because it folds
-    replicated metrics."""
+    replicated metrics.
+
+    With a ``model_group`` the params are this rank's shards under
+    ``param_specs`` (the spec tree of ``dist/sharding.py``), the losses
+    come from a model-axis-aware ``per_example_loss``/``fused_score``,
+    and the grad norm (and ``grad_clip``) is the global one
+    (``grad_global_norm``)."""
     _check_mode(cfg)
+    if model_group is not None and param_specs is None:
+        raise ValueError("a model group needs param_specs: the grad norm "
+                         "must tell sharded from replicated leaves")
     if cfg.mode == "fused" and fused_score is None:
         raise ValueError("mode='fused' requires fused_score")
     if gated and cfg.mode != "relaxed":
@@ -381,7 +429,7 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                            if sampled_w is None else sampled_w)
             store = write_scores_global(store, idx, batch_scores, step,
                                         group)
-        gnorm = global_norm(grads)
+        gnorm = grad_global_norm(grads, model_group, param_specs)
         if cfg.grad_clip > 0:
             grads, _ = clip_by_global_norm(grads, cfg.grad_clip, norm=gnorm)
         new_params, opt_state = optimizer.update(grads, opt_state, params,
@@ -430,7 +478,9 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
                     aux_loss: Optional[Callable] = None,
                     fused_score: Optional[Callable] = None,
                     monitors=None, gated: bool = False,
-                    group: Optional[DataGroup] = None) -> Callable:
+                    group: Optional[DataGroup] = None,
+                    model_group: Optional[DataGroup] = None,
+                    param_specs=None) -> Callable:
     """The synchronous step ``master_pass ∘ scoring_pass`` over one store:
     ``train_step(state, data, sample_indices=None) -> (state, metrics)``.
     Step t's master samples from a proposal that already holds step t's
@@ -442,13 +492,17 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
     monitors)``; with ``gated`` it is ``train_step(state, data, use_is,
     sample_indices=None)``, ``use_is`` the controller's host bool (see
     ``make_master_pass``).  With a data ``group`` the state's store and
-    ``data`` are this rank's rows (``core/distributed.py``)."""
+    ``data`` are this rank's rows (``core/distributed.py``); with a
+    ``model_group`` its params are this rank's shards under
+    ``param_specs`` (``make_master_pass``)."""
     monitors = monitors or None
     scoring = (None if cfg.mode == "fused"
                else make_scoring_pass(scorer, cfg, num_examples, group=group))
     master = make_master_pass(per_example_loss, optimizer, cfg, num_examples,
                               aux_loss=aux_loss, fused_score=fused_score,
-                              monitors=monitors, gated=gated, group=group)
+                              monitors=monitors, gated=gated, group=group,
+                              model_group=model_group,
+                              param_specs=param_specs)
 
     def _train_step(state: TrainState, data: dict, use_is,
                     sample_indices: Optional[torch.Tensor]):

@@ -22,10 +22,12 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.collectives import model_sum
+from repro_torch.dist import DataGroup, axis_info
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Tape
-from repro_torch.models.mlp import (MLPConfig, mlp_dims, mlp_forward,
-                                    per_example_loss)
+from repro_torch.models.mlp import (MLPConfig, layer_is_sharded,
+                                    mlp_forward, per_example_loss)
 from repro_torch.optim import tree_leaves
 
 STRATEGIES = ("loss", "logit_grad", "ghost", "ghost_rev", "full")
@@ -63,7 +65,9 @@ def _contribution(x: torch.Tensor, dt: torch.Tensor, batch: int,
 def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
                    device: torch.device | str,
                    scanned_names: Optional[set] = None,
-                   with_bias: bool = False
+                   with_bias: bool = False,
+                   model_group: Optional[DataGroup] = None,
+                   sharded_names: Optional[set] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact per-example squared grad-norms via the tap trick.
 
@@ -79,6 +83,15 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
     (a name ending in ``.qkv_scores``) flushes the group and adds its
     gradient itself, summed over the periods when scanned.
 
+    With a ``model_group`` (model-sharded params) each tap has a
+    replication class: the taps in ``sharded_names`` carry this rank's
+    dY columns (or input rows), so their terms are partial sums over the
+    group, added as they are; every other tap is computed whole on every
+    rank and counted once, divided by the group's size.  A group of
+    rank-1 taps holds one class only (a change of class flushes it, so a
+    lone replicated tap takes ``ops.per_example_sqnorm``), and the total
+    is summed over the group: exact and the same on every rank.
+
     Returns (sq_norms (B,), per_example_losses (B,))."""
     taps = {k: torch.zeros(s, dtype=torch.float32, device=device,
                            requires_grad=True) for k, s in tap_shapes.items()}
@@ -88,9 +101,14 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
     dtaps = dict(zip(names, grads))
     del taps, grads       # the taps are large on an LM; the walk needs dtaps
 
+    _, n_model = axis_info(model_group)
     sq = torch.zeros(batch, dtype=torch.float32, device=device)
     group_x: list = []
     group_d: list = []
+    group_div = [False]
+
+    def counted_once(contrib, divide):
+        return contrib / n_model if divide else contrib
 
     def flush(sq):
         if not group_x:
@@ -103,30 +121,38 @@ def ghost_sq_norms(loss_with_taps: Callable, tap_shapes: dict, batch: int,
                                                    with_bias=with_bias)
         group_x.clear()
         group_d.clear()
-        return sq + contrib
+        return sq + counted_once(contrib, group_div[0])
 
     for name in names:
         x = records[name].detach()
         dt = dtaps.pop(name)
         scanned = (name in scanned_names) if scanned_names is not None \
             else name != "unembed"
+        divide = model_group is not None and \
+            name not in (sharded_names or ())
         if name.endswith(".qkv_scores"):      # the gradient IS the score
             sq = flush(sq)
             contrib = dt.float()
-            sq = sq + (torch.sum(contrib, dim=0) if scanned else contrib)
+            contrib = torch.sum(contrib, dim=0) if scanned else contrib
+            sq = sq + counted_once(contrib, divide)
             continue
         if not scanned and x.ndim == 2:       # rank-1 tap: groupable
+            if group_x and group_div[0] != divide:
+                sq = flush(sq)
             group_x.append(x)
             group_d.append(dt)
+            group_div[0] = divide
             continue
         sq = flush(sq)
-        sq = sq + _contribution(x, dt, batch, with_bias, scanned)
+        sq = sq + counted_once(_contribution(x, dt, batch, with_bias,
+                                             scanned), divide)
     sq = flush(sq)
-    return sq, losses.detach()
+    return model_sum(sq, model_group), losses.detach()
 
 
 def make_mlp_scorer(cfg: MLPConfig, strategy: str,
-                    row_block: int = 0) -> Callable:
+                    row_block: int = 0,
+                    model_group: Optional[DataGroup] = None) -> Callable:
     """Scorer for the paper's MLP classifier: fn(params, batch) → ω̃ (B,).
 
     ``row_block`` (the rows of one logical shard's scoring slice, set by
@@ -134,15 +160,22 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str,
     block: a row then scores the same bits whether its rank scores one
     shard's slice or all W, so a sharded run's store is the one-device
     run's bit for bit on the card too (``models/mlp.py::_matmul_rows``).
-    The kernels still take the whole batch in one launch."""
+    The kernels still take the whole batch in one launch.
+
+    With a ``model_group`` the scorer takes this rank's column shards:
+    ``ghost`` sums the partial per-example norms of the sharded layers
+    and the once-counted replicated ones over the group
+    (``ghost_sq_norms``); ``loss`` and ``logit_grad`` read the gathered
+    logits and need no sum.  ``full`` is the one-device oracle."""
     n_layers = len(cfg.hidden) + 1
-    dims = mlp_dims(cfg)
+    mg = model_group
 
     if strategy == "loss":
         @torch.no_grad()
         def score(params, batch):
             return torch.clamp(per_example_loss(params, batch, cfg,
-                                                row_block=row_block),
+                                                row_block=row_block,
+                                                model_group=mg),
                                min=0.0)
         return score
 
@@ -150,7 +183,7 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str,
         @torch.no_grad()
         def score(params, batch):
             logits = mlp_forward(params, batch["x"], cfg,
-                                 row_block=row_block)
+                                 row_block=row_block, model_group=mg)
             p = torch.softmax(logits.float(), dim=-1)
             py = torch.gather(p, 1, batch["y"].long()[:, None])[:, 0]
             sq = torch.sum(torch.square(p), -1) - 2.0 * py + 1.0
@@ -160,21 +193,33 @@ def make_mlp_scorer(cfg: MLPConfig, strategy: str,
     if strategy == "ghost":
         def score(params, batch):
             b = batch["x"].shape[0]
-            shapes = {f"fc{i}": (b, dims[i + 1]) for i in range(n_layers)}
+            # a tap is as wide as its (local) weight's columns
+            shapes = {f"fc{i}": (b, params[f"fc{i}"]["w"].shape[-1])
+                      for i in range(n_layers)}
+            sharded = {f"fc{i}" for i in range(n_layers)
+                       if mg is not None and layer_is_sharded(params, cfg,
+                                                              i)}
 
             def loss_with_taps(taps):
                 tape = Tape(taps=taps, records={})
                 losses = per_example_loss(params, batch, cfg, tape=tape,
-                                          row_block=row_block)
+                                          row_block=row_block,
+                                          model_group=mg)
                 return losses, tape.records
 
             sq, _ = ghost_sq_norms(loss_with_taps, shapes, b,
                                    batch["x"].device, scanned_names=set(),
-                                   with_bias=True)
+                                   with_bias=True, model_group=mg,
+                                   sharded_names=sharded)
             return torch.sqrt(sq)
         return score
 
     if strategy == "full":
+        if mg is not None:
+            raise ValueError(
+                "strategy 'full' (the per-example-gradient test oracle) "
+                "does not take model-sharded params; use 'ghost', which "
+                "sums partial per-example norms over the model group")
         from torch.func import grad, vmap
 
         def loss_one(p, x, y):
@@ -218,7 +263,9 @@ def by_row_blocks(score: Callable, row_block: int) -> Callable:
 def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
                    attn_impl: str = "ref",
                    attn_scores: Optional[str] = None,
-                   row_block: int = 0) -> Callable:
+                   row_block: int = 0,
+                   model_group: Optional[DataGroup] = None,
+                   seq_shard: bool = False) -> Callable:
     """Scorer for transformer LMs: fn(params, batch) → ω̃ (B,), a
     ``row_block`` rows at a time when it is set (``by_row_blocks``; the
     launcher sets one logical shard's slice when W > 1).
@@ -235,12 +282,28 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
     ||dQ||²+||dK||²+||dV||² at the attention interface: "fused" from the
     backward kernel's epilogue, "separate" from the score sweep (its
     bitwise twin for f32).  ω̃ is then no longer the exact full-parameter
-    gradient norm; every other layer's term stays exact."""
+    gradient norm; every other layer's term stays exact.
+
+    With a ``model_group`` the scorer takes this rank's shards and the
+    forward runs model-parallel (``seq_shard``: sequence-parallel norms).
+    ``ghost`` and ``ghost_rev`` sum the partial per-example norms of the
+    sharded taps and the once-counted replicated ones over the group
+    (``sharded_tap_names``), so ω̃ is exact and the same on every rank;
+    ``loss`` and ``logit_grad`` read the gathered logits and need no
+    sum.  ``full`` is the one-device oracle and refuses a group."""
     from repro_torch.models.ssm import check_ssm_mode
     from repro_torch.models.transformer import (forward, lm_head_metrics,
                                                 per_example_loss,
-                                                tap_structure)
+                                                sharded_tap_names,
+                                                tap_structure,
+                                                tap_structure_from_params)
     check_ssm_mode(ssm_mode)
+    mp = dict(model_group=model_group, seq_shard=seq_shard)
+    if strategy == "full" and model_group is not None:
+        raise ValueError(
+            "strategy 'full' (the per-example-gradient test oracle) does "
+            "not take model-sharded params; use 'ghost' or 'ghost_rev', "
+            "which sum partial per-example norms over the model group")
     if ssm_mode == "pallas" and strategy in ("ghost", "ghost_rev", "full"):
         raise ValueError(
             f"strategy {strategy!r} differentiates the model, and the "
@@ -268,7 +331,7 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
         @torch.no_grad()
         def score(params, batch):
             losses, _ = per_example_loss(params, cfg, batch,
-                                         ssm_mode=ssm_mode)
+                                         ssm_mode=ssm_mode, **mp)
             return torch.clamp(losses.float(), min=0.0)
 
     elif strategy == "logit_grad":
@@ -278,10 +341,11 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             embeds = batch.get("embeds")
             n_front = embeds.shape[1] if embeds is not None else 0
             h, _ = forward(params, cfg, tokens[:, :-1], embeds=embeds,
-                           ssm_mode=ssm_mode, return_hidden=True)
+                           ssm_mode=ssm_mode, return_hidden=True, **mp)
             # chunked head: never materializes (B,S,V) logits at once
             _, grad_norm = lm_head_metrics(params, cfg, h[:, n_front:],
-                                           tokens[:, 1:])
+                                           tokens[:, 1:],
+                                           model_group=model_group)
             return grad_norm
 
     elif strategy == "ghost":
@@ -290,23 +354,34 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
             embeds = batch.get("embeds")
             n_front = embeds.shape[1] if embeds is not None else 0
             # the taps cover the frontend's positions too
-            tap_shapes = tap_structure(cfg, b, n_front + s - 1,
-                                       attn_impl=attn_impl,
-                                       attn_scores=attn_scores)
+            if model_group is None:
+                tap_shapes = tap_structure(cfg, b, n_front + s - 1,
+                                           attn_impl=attn_impl,
+                                           attn_scores=attn_scores)
+                sharded = None
+            else:
+                tap_shapes = tap_structure_from_params(
+                    params, cfg, b, n_front + s - 1, attn_impl=attn_impl,
+                    attn_scores=attn_scores)
+                sharded = sharded_tap_names(params, cfg,
+                                            attn_scores=attn_scores)
 
             def loss_with_taps(taps):
                 losses, aux = per_example_loss(
                     params, cfg, batch, taps=taps, collect=True,
                     attn_impl=attn_impl, attn_scores=attn_scores,
-                    ssm_mode=ssm_mode)
+                    ssm_mode=ssm_mode, **mp)
                 return losses, aux.records
 
             sq, _ = ghost_sq_norms(loss_with_taps, tap_shapes, b,
-                                   batch["tokens"].device, with_bias=False)
+                                   batch["tokens"].device, with_bias=False,
+                                   model_group=model_group,
+                                   sharded_names=sharded)
             return torch.sqrt(sq)
 
     elif strategy == "ghost_rev":
-        score = _make_ghost_rev_scorer(cfg, ssm_mode, attn_impl, attn_scores)
+        score = _make_ghost_rev_scorer(cfg, ssm_mode, attn_impl, attn_scores,
+                                       model_group, seq_shard)
 
     elif strategy == "full":
         from torch.func import grad, vmap
@@ -335,7 +410,9 @@ def make_lm_scorer(cfg, strategy: str, ssm_mode: str = "ref",
 
 # ----------------------------------------------- memory-scalable ghost_rev
 def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
-                           attn_scores: Optional[str]) -> Callable:
+                           attn_scores: Optional[str],
+                           model_group: Optional[DataGroup] = None,
+                           seq_shard: bool = False) -> Callable:
     """Exact ghost scoring by a reverse walk over the layer periods
     (``src/repro/core/scorer.py::_make_ghost_rev_scorer``, one device).
 
@@ -350,19 +427,29 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
     records, takes ONE ``torch.autograd.grad`` to (its input, its taps)
     with the incoming dL/dh, adds the period's contributions and frees
     its graph before the next.  Memory: the P boundaries and one period's
-    records and cotangents, instead of ``ghost``'s for every layer."""
+    records and cotangents, instead of ``ghost``'s for every layer.
+
+    With a ``model_group`` each period's terms follow ``ghost``'s
+    classes (``sharded_tap_names``; the unembed term, from the gathered
+    logits, is counted once) and the total is summed over the group at
+    the end."""
     from repro_torch.models.layers import embed, rmsnorm, unembed
     from repro_torch.models.transformer import (_apply_layer, _period,
                                                 check_supported,
-                                                tap_structure)
+                                                sharded_tap_names,
+                                                tap_structure,
+                                                tap_structure_from_params)
     check_supported(cfg)
     specs = cfg.layer_specs()
+    mg = model_group
+    _, n_model = axis_info(mg)
 
     def period_fwd(h, pp, positions, tape):
         for i, spec in enumerate(specs):
             h, _ = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions, tape,
                                 f"l{i}", attn_impl=attn_impl,
-                                attn_scores=attn_scores, ssm_mode=ssm_mode)
+                                attn_scores=attn_scores, ssm_mode=ssm_mode,
+                                model_group=mg, seq_shard=seq_shard)
         return h
 
     def score(params, batch):
@@ -374,9 +461,11 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
         s = n_front + s_text
         device = tokens.device
 
+        sharded = (sharded_tap_names(params, cfg, attn_scores=attn_scores)
+                   if mg is not None else set())
         # ---- phase A: forward, keeping only the period boundaries
         with torch.no_grad():
-            h = embed(params["embed"], inputs, cfg)
+            h = embed(params["embed"], inputs, cfg, model_group=mg)
             if embeds is not None:
                 h = torch.cat([embeds.to(h.dtype), h], dim=1)
             positions = torch.arange(s, device=device)[None].expand(b, s)
@@ -390,8 +479,8 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
         # reference's vjp through log_softmax) and the unembed term
         h = h.detach().requires_grad_(True)
         hn = rmsnorm(params["final_norm"], h[:, n_front:], cfg.norm_eps)
-        lp = torch.log_softmax(unembed(params["embed"], hn, cfg).float(),
-                               dim=-1)
+        lp = torch.log_softmax(unembed(params["embed"], hn, cfg,
+                                       model_group=mg).float(), dim=-1)
         nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
         dh, = torch.autograd.grad(torch.sum(torch.mean(nll, dim=-1)), h)
         with torch.no_grad():
@@ -402,13 +491,17 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
             dlogits.scatter_add_(-1, targets[..., None],
                                  torch.full_like(dlogits[..., :1], -1.0))
             dlogits.div_(s_text)
-        sq = ops.ghost_norm(hn.detach(), dlogits)
+        # the gathered logits' term: whole on every rank, counted once
+        sq = ops.ghost_norm(hn.detach(), dlogits) / n_model
         del hn, dlogits
 
         # ---- phase B: reverse walk, one period of cotangents at a time
-        shapes = {k: v[1:] for k, v in tap_structure(
-            cfg, b, s, attn_impl=attn_impl,
-            attn_scores=attn_scores).items() if k != "unembed"}
+        full = (tap_structure(cfg, b, s, attn_impl=attn_impl,
+                              attn_scores=attn_scores) if mg is None else
+                tap_structure_from_params(params, cfg, b, s,
+                                          attn_impl=attn_impl,
+                                          attn_scores=attn_scores))
+        shapes = {k: v[1:] for k, v in full.items() if k != "unembed"}
         for p in reversed(range(cfg.num_periods)):
             h_in = boundaries.pop().requires_grad_(True)
             taps = {k: torch.zeros(v, dtype=torch.float32, device=device,
@@ -426,12 +519,15 @@ def _make_ghost_rev_scorer(cfg, ssm_mode: str, attn_impl: str,
                 x = tape.records.pop(name).detach()
                 dt = dtaps.pop(name)
                 if name.endswith(".qkv_scores"):   # the cotangent IS the score
-                    sq = sq + dt.float()
-                    continue
-                if x.ndim == 2 and x.shape[0] != b:    # token-flat (T, d)
-                    x = x.reshape(b, -1, x.shape[-1])
-                    dt = dt.reshape(b, -1, dt.shape[-1])
-                sq = sq + _contribution(x, dt, b, False, scanned=False)
-        return torch.sqrt(sq)
+                    c = dt.float()
+                else:
+                    if x.ndim == 2 and x.shape[0] != b:  # token-flat (T, d)
+                        x = x.reshape(b, -1, x.shape[-1])
+                        dt = dt.reshape(b, -1, dt.shape[-1])
+                    c = _contribution(x, dt, b, False, scanned=False)
+                if mg is not None and name not in sharded:
+                    c = c / n_model          # replicated: counted once
+                sq = sq + c
+        return torch.sqrt(model_sum(sq, mg))
 
     return score

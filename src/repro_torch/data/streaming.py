@@ -94,7 +94,9 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
                         fused_score: Optional[Callable] = None,
                         async_mode: bool = False, monitor_traces: bool = True,
                         monitors=None, gated: bool = False,
-                        group: Optional[DataGroup] = None
+                        group: Optional[DataGroup] = None,
+                        model_group: Optional[DataGroup] = None,
+                        param_specs=None
                         ) -> tuple[Callable, Callable, Callable]:
     """``(scoring_step, sample_step, master_step)`` of the streamed step:
 
@@ -119,7 +121,10 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
     ``score_rows`` the rows of its own shards' slices; the sample step
     draws with the hierarchical draw (the indices the same on every
     rank) and its chunk masses are those of the rank's own chunks, with
-    no collective; ``batch_rows`` is the replicated minibatch."""
+    no collective; ``batch_rows`` is the replicated minibatch.  A
+    ``model_group`` and ``param_specs`` go to the master pass
+    (``issgd.make_master_pass``): the rows and the draws are the same on
+    every rank of a model group, which shares one data rank's chunks."""
     if cfg.mode == "exact":
         raise ValueError(
             "mode='exact' rescores the full dataset every step, which "
@@ -143,7 +148,9 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
     master_pass = make_master_pass(per_example_loss, optimizer, cfg, n,
                                    aux_loss=aux_loss, fused_score=fused_score,
                                    monitors=monitors, gated=gated,
-                                   streaming=True, group=group)
+                                   streaming=True, group=group,
+                                   model_group=model_group,
+                                   param_specs=param_specs)
 
     def scoring_step(score_params, store: WeightStore, step: int,
                      score_rows):

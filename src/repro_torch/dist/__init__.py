@@ -1,17 +1,25 @@
-"""The data axis of the port: one ``torch.distributed`` process group.
+"""The mesh axes of the port: ``torch.distributed`` process groups.
 
 The reference writes its step against a tuple of mesh axis names
-(``src/repro/dist/sharding.py::data_axes``); inside ``shard_map`` they
-name real axes, and ``()`` is one device.  The port writes it against a
-``DataGroup``: the process group the collectives run over, this
-process's rank in it and its size, with one rank a device.  ``None``
-stands for one device, where every collective is exact local
-arithmetic (``core/collectives.py``).
+(``src/repro/dist/sharding.py::data_axes``, ``model_axes``); inside
+``shard_map`` they name real axes, and ``()`` is one device.  The port
+writes it against groups: a ``DataGroup`` is the process group the
+collectives of one axis run over, this process's rank in it and its
+size, with one rank a device.  ``None`` stands for one device, where
+every collective is exact local arithmetic (``core/collectives.py``).
 
-The example axis is laid out contiguously: global row ``g`` lives on
-rank ``g // n_local``.  The model axis (the logical→mesh rules of
-``dist/sharding.py`` and the activation context of ``dist/context.py``)
-belongs to model parallelism, which this port does not carry yet.
+A world of N·M ranks (``--mesh N --model-parallel M``) is the
+reference's ``(data, model)`` mesh with the model axis innermost: rank
+r = d·M + m.  Its data group holds the N ranks that share m, its model
+group the M ranks that share d (``launch/mesh.py`` makes both); M = 1
+has no model group.
+
+The example axis is laid out contiguously over the data group: global
+row ``g`` lives on data rank ``g // n_local``.  Parameters are split
+over the model group by the logical→mesh rules of ``dist/sharding.py``.
+The reference's ``dist/context.py::constrain_batch_dim`` is a hint to
+XLA's partitioner; a rank of the port holds only its own batch, so it
+has no counterpart here.
 """
 from __future__ import annotations
 
@@ -19,8 +27,9 @@ from typing import NamedTuple, Optional
 
 
 class DataGroup(NamedTuple):
-    """One data axis: the process group (``None`` for the default group),
-    this process's rank in it and the number of ranks."""
+    """One mesh axis (the data axis, or the model axis): the process
+    group (``None`` for the default group), this process's rank in it
+    and the number of ranks."""
     pg: object
     rank: int
     size: int

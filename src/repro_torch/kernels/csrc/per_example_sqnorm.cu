@@ -29,9 +29,18 @@
 //   * the strided loop keeps kUnroll loads in flight a thread: each round
 //     issues its kUnroll loads before its adds, which still run in the
 //     loop's element order (thread t adds elements t, t + 256, ... in turn).
-//     Issuing the next round (or the next sum) before a round's adds, and
-//     a (row, tap) grid whose last block of a row chains the row (an
-//     integer ticket), both measured slower on an H100 (PERF.md).
+//     The last, partial round is one masked round of the same kUnroll
+//     loads (the masked ones add nothing), so a 3072-wide sum costs a
+//     thread two trips to memory, not a round and then four dependent
+//     ones.  Rounds of 16 loads (one trip at 3072) measured no faster at
+//     that width, slower at 2048 and slower in the multi-tap kernel
+//     (PERF.md); issuing the next round (or the next sum) before a round's
+//     adds, and a (row, tap) grid whose last block of a row chains the row
+//     (an integer ticket), both measured slower on an H100 (PERF.md).
+//   * the single-tap kernel (one block a row) reduces the row's x and d
+//     sums at the same time, on two groups of kThreads threads, as the
+//     multi-tap kernel's groups do; each sum keeps the order above, so
+//     the redesign moved no bit (PERF.md, the kernel table).
 //   * ragged widths need no padded copies: the strided loop simply stops at
 //     the row's width (identical to summing zero padding), and the multi-tap
 //     launch takes a table of (x, d, din, dout) entries by value instead of
@@ -88,7 +97,9 @@ __device__ __forceinline__ float to_f32(unsigned short v) {
 }
 
 // Thread tid of kThreads sums the squares of elements tid, tid + kThreads,
-// ... of one row, in that order; kUnroll loads are issued before their adds.
+// ... of one row, in that order; each round issues its kUnroll loads before
+// its adds, and the last, partial round is the same round with the loads
+// past n masked off (and their adds skipped).
 template <typename T>
 __device__ __forceinline__ float row_sumsq(const T* __restrict__ r, int n,
                                            int tid) {
@@ -101,9 +112,14 @@ __device__ __forceinline__ float row_sumsq(const T* __restrict__ r, int n,
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) acc = __fadd_rn(acc, __fmul_rn(v[k], v[k]));
   }
-  for (; i < n; i += kThreads) {
-    const float v = to_f32(__ldg(r + i));
-    acc = __fadd_rn(acc, __fmul_rn(v, v));
+  if (i < n) {
+    float v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      v[k] = i + k * kThreads < n ? to_f32(__ldg(r + i + k * kThreads)) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      if (i + k * kThreads < n) acc = __fadd_rn(acc, __fmul_rn(v[k], v[k]));
   }
   return acc;
 }
@@ -135,32 +151,29 @@ __device__ __forceinline__ float row_score(float xs, float ds, int with_bias) {
   return with_bias ? __fadd_rn(r, ds) : r;
 }
 
-// ||x[n]||^2 * ||d[n]||^2 (+ ||d[n]||^2) of one tap by a block of kThreads;
-// valid in thread 0.
-__device__ float tap_row(const Tap& tap, int n, int with_bias) {
-  __shared__ float part[2][kWarps];
-  const int tid = threadIdx.x;
-  const float xs = warp_sum(thread_sumsq(tap.x, n, tap.din, tap.x_bf16, tid));
-  const float ds = warp_sum(thread_sumsq(tap.d, n, tap.dout, tap.d_bf16, tid));
-  if ((tid & 31) == 0) {
-    part[0][tid >> 5] = xs;
-    part[1][tid >> 5] = ds;
-  }
-  __syncthreads();
-  return row_score(warps_tree(part[0]), warps_tree(part[1]), with_bias);
-}
-
-__global__ void __launch_bounds__(kThreads)
+// ||x[n]||^2 * ||d[n]||^2 (+ ||d[n]||^2) of one tap, one block a row n:
+// group 0 (threads 0..kThreads-1) reduces x while group 1 reduces d, each
+// into part[group][warp]; thread 0 forms the row.
+__global__ void __launch_bounds__(2 * kThreads)
     sqnorm_kernel(Tap tap, int with_bias, float* out) {
-  const float r = tap_row(tap, blockIdx.x, with_bias);
-  if (threadIdx.x == 0) out[blockIdx.x] = r;
+  __shared__ float part[2][kWarps];
+  const int n = blockIdx.x;
+  const int grp = threadIdx.x / kThreads;
+  const int tid = threadIdx.x % kThreads;
+  const float acc = warp_sum(
+      grp ? thread_sumsq(tap.d, n, tap.dout, tap.d_bf16, tid)
+          : thread_sumsq(tap.x, n, tap.din, tap.x_bf16, tid));
+  if ((tid & 31) == 0) part[grp][tid >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    out[n] = row_score(warps_tree(part[0]), warps_tree(part[1]), with_bias);
 }
 
 // One block a row n, kGroups groups of kThreads threads: each group
-// reduces the sums (x or d of a tap) the table deals it, each as tap_row
-// would, into part[sum][warp]; then lane t of warp 0 forms tap t's row and
-// lane 0 chains the rows in tap order onto out[n] (accumulate) or from row
-// 0.  The deal moves time, never bits.
+// reduces the sums (x or d of a tap) the table deals it, each as the
+// single-tap kernel's groups do, into part[sum][warp]; then lane t of warp
+// 0 forms tap t's row and lane 0 chains the rows in tap order onto out[n]
+// (accumulate) or from row 0.  The deal moves time, never bits.
 __global__ void __launch_bounds__(kThreads * kGroups)
     sqnorm_multi_kernel(TapTable table, int n_taps, int with_bias,
                         int accumulate, float* out) {
@@ -230,7 +243,7 @@ int pes_launch(const void* x, const void* d, int x_bf16, int d_bf16, int b,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Tap tap{x, d, din, dout, x_bf16, d_bf16};
-  sqnorm_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sqnorm_kernel<<<b, 2 * kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       tap, with_bias, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,12 @@ process group at ``tcp://localhost:<free port>``:
     takes on CUDA tensors).
 
 A world of one runs in the calling process; a larger one spawns its
-ranks and waits for them.  Nothing here touches a device at import.
+ranks and waits for them.  With ``model_parallel`` M > 1 the world is
+N·M ranks, rank r = d·M + m (the model axis innermost, as in the
+reference's ``(data, model)`` mesh): every rank makes every data group
+(the ranks that share m) and every model group (the ranks that share d)
+with ``dist.new_group``, in one order, and keeps its own two.  Nothing
+here touches a device at import.
 """
 from __future__ import annotations
 
@@ -55,46 +60,77 @@ def check_world(world: int, device: str, backend: str) -> None:
                              f"device(s)")
 
 
+def mesh_groups(rank: int, world: int, model_parallel: int
+                ) -> tuple[DataGroup, DataGroup]:
+    """(data group, model group) of ``rank`` in an initialised world of
+    N·M ranks, M = ``model_parallel``: every data group is made first,
+    then every model group, on every rank in this order (``new_group``
+    is collective over the whole world)."""
+    import torch.distributed as dist
+    m_size = model_parallel
+    if world % m_size:
+        raise ValueError(f"a world of {world} ranks does not split into "
+                         f"model groups of {m_size}")
+    n_size = world // m_size
+    data_pgs = [dist.new_group([d * m_size + m for d in range(n_size)])
+                for m in range(m_size)]
+    model_pgs = [dist.new_group([d * m_size + m for m in range(m_size)])
+                 for d in range(n_size)]
+    d, m = divmod(rank, m_size)
+    return (DataGroup(data_pgs[m], d, n_size),
+            DataGroup(model_pgs[d], m, m_size))
+
+
 def init_rank(rank: int, world: int, port: int, backend: str,
-              device: str) -> DataGroup:
-    """Join this process to the world as ``rank``; its data group."""
+              device: str, model_parallel: int = 1):
+    """Join this process to the world as ``rank``: its data group, or,
+    with ``model_parallel`` > 1, its (data group, model group)."""
     import torch.distributed as dist
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
+    if model_parallel > 1:
+        return mesh_groups(rank, world, model_parallel)
     return data_axes()
 
 
 def _entry(rank: int, fn: Callable, world: int, port: int, backend: str,
-           device: str, args: tuple):
+           device: str, args: tuple, model_parallel: int = 1):
     import torch.distributed as dist
     if world > 1:
         # the ranks share the host's cores: oversubscribed intra-op
         # threads would spin against each other at every collective
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     dev = rank_device(device, rank, backend)
-    group = init_rank(rank, world, port, backend, dev)
+    groups = init_rank(rank, world, port, backend, dev, model_parallel)
     try:
-        return fn(group, dev, *args)
+        if model_parallel > 1:
+            group, model_group = groups
+            return fn(group, dev, *args, model_group=model_group)
+        return fn(groups, dev, *args)
     finally:
         dist.destroy_process_group()
 
 
 def run_world(fn: Callable, world: int, device: str,
-              backend: Optional[str] = None, args: tuple = ()):
+              backend: Optional[str] = None, args: tuple = (),
+              model_parallel: int = 1):
     """Run ``fn(group, device, *args)`` on each of ``world`` ranks and
     wait for all of them: a world of one in this process (returning what
     ``fn`` returns), a larger one in spawned processes (``fn`` and
-    ``args`` must pickle; returns None).  A rank that fails makes this
-    raise."""
+    ``args`` must pickle; returns None).  With ``model_parallel`` M > 1
+    the world holds ``world`` // M data ranks of M model ranks each, and
+    ``fn`` also takes its model group, ``fn(group, device, *args,
+    model_group=...)``.  A rank that fails makes this raise."""
     backend = backend or default_backend(device)
     check_world(world, device, backend)
     port = free_port()
     if world == 1:
         return _entry(0, fn, 1, port, backend, device, args)
     import torch.multiprocessing as mp
-    mp.spawn(_entry, args=(fn, world, port, backend, device, args),
+    mp.spawn(_entry, args=(fn, world, port, backend, device, args,
+                           model_parallel),
              nprocs=world, join=True)
     return None

@@ -65,10 +65,26 @@ over them (``launch/mesh.py``; NCCL with rank r on ``cuda:r``, gloo with
       --device cpu --steps 8 --examples 1024 --stream --async-scoring \
       --swap-every 2 --save-checkpoint build/ck.npz
 
-``--mesh`` does not compose with ``--serve-loop`` yet (the sharded
-batcher); the model-parallel flags of the reference launcher
-(``--model-parallel``, ``--(no-)sequence-parallel``) are refused by
-name.  As in the reference, the attention path of an LM
+Model parallelism: ``--model-parallel M`` splits the parameters, their
+stale copy and the optimizer state over M model ranks a data rank by
+the logical→mesh rules of ``dist/sharding.py`` (head-sharded attention,
+ffn-sharded MLP and experts, channel-parallel mamba, a vocab-parallel
+embed and unembed; the MLP's layers column-sharded where M divides
+their width).  The world is ``--mesh`` N (1 when unset) times M ranks;
+the ghost scores are summed over the model group, so every rank draws
+the one-device run's draws.  ``--(no-)sequence-parallel`` runs the LM's
+RMSNorm segments sequence-parallel (on by default when M > 1, skipped
+where M does not divide the sequence).  It composes with every mode,
+``--async-scoring``, ``--stream`` and ``--save-checkpoint`` (gather-free
+over both axes):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --mesh 2 \
+      --model-parallel 2 --device cpu --steps 8 --examples 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+      --smoke --device cpu --model-parallel 2 --steps 4 --seq 16
+
+``--mesh`` and ``--model-parallel`` do not compose with ``--serve-loop``
+yet (the sharded batcher).  As in the reference, the attention path of an LM
 (``attn_impl``, ``attn_scores``) and the scorer's mamba scan
 (``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
 arguments, e.g. ``run(args, attn_impl="flash", attn_scores="fused")`` or
@@ -99,7 +115,9 @@ from repro_torch.core.distributed import (make_sharded_async_steps,
                                           make_sharded_score_step,
                                           make_sharded_streamed_steps,
                                           make_sharded_train_step,
-                                          shard_dataset, shard_train_state)
+                                          resolve_param_specs,
+                                          shard_dataset, shard_train_state,
+                                          train_state_specs)
 from repro_torch.core.issgd import ISSGDConfig, TrainState, init_train_state
 from repro_torch.core.weight_store import (init_store, reserve_tail,
                                            to_buffered)
@@ -117,14 +135,12 @@ from repro_torch.serving import (ContinuousBatcher, ServeLoop, TrafficIngest,
                                  make_synthetic_traffic)
 from repro_torch.telemetry import EventSink, MonitorSet, NullSink, Telemetry
 
-PORT = ("the PyTorch port (data-parallel meshes only: mlp_svhn, the dense "
-        "GQA transformer LMs and the mamba LMs)")
+PORT = "the PyTorch port"
 
-# flags of src/repro/launch/train.py the port does not carry yet: the
-# model-parallel ones
-LATER_FLAGS = ("--model-parallel", "--sequence-parallel",
-               "--no-sequence-parallel")
-# what --mesh does not compose with yet, by flag: the sharded batcher
+# flags of src/repro/launch/train.py the port does not carry yet: none
+LATER_FLAGS = ()
+# what --mesh and --model-parallel do not compose with yet, by flag: the
+# sharded batcher
 MESH_LATER = ("--serve-loop",)
 
 # the StepMetrics fields a logged step records, in the reference's order
@@ -141,6 +157,7 @@ class Built(NamedTuple):
     probe: Optional[Callable]  # fused mode: score_step(state, data) -> state
     pipe: object = None   # AsyncPipeline or StreamedISSGD, when one runs
     serve: Optional[ServeLoop] = None
+    param_specs: object = None  # the params' spec tree under a model group
 
 
 class TrainResult(NamedTuple):
@@ -207,6 +224,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="run the sharded step on N ranks of a data group "
                     "(launch/mesh.py: NCCL, rank r on cuda:r; gloo with "
                     "--device cpu); 0 = one device")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="split the params, their stale copy and the "
+                    "optimizer state over M model ranks a data rank "
+                    "(dist/sharding.py; the world is --mesh times M "
+                    "ranks; an LM needs M to divide num_heads, "
+                    "num_kv_heads and d_inner)")
+    ap.add_argument("--sequence-parallel",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="LM with --model-parallel: run the RMSNorm "
+                    "segments sequence-parallel (on by default when M > 1 "
+                    "and M divides the sequence; both are exact)")
     ap.add_argument("--index", default="dense", choices=["dense", "tree"],
                     help="stage-1 masses of the draw: 'tree' through the "
                     "mass index (core/mass_index.py, draws bitwise equal "
@@ -368,28 +396,78 @@ def validate_flags(ap: argparse.ArgumentParser,
     except ValueError:
         ap.error(f"--profile-steps must be START:COUNT, got "
                  f"{args.profile_steps!r}")
+    validate_model_parallel(ap, args)
+
+
+def validate_model_parallel(ap: argparse.ArgumentParser,
+                            args: argparse.Namespace) -> None:
+    """The reference's refusals of ``--model-parallel``: the ``full``
+    oracle, and an LM whose heads, kv heads or d_inner M does not divide
+    (mlp_svhn's uneven widths replicate with a warning instead)."""
+    mp = args.model_parallel
+    if mp < 1:
+        ap.error(f"--model-parallel must be >= 1, got {mp}")
+    if mp == 1:
+        return
+    if proposal_name(args) == "full":
+        ap.error("--strategy full is the per-example-gradient test oracle "
+                 "and does not support --model-parallel; use ghost or "
+                 "ghost_rev")
+    if args.arch == "mlp_svhn":
+        return
+    try:
+        cfg = resolve_config(args)
+    except KeyError:
+        return              # the unknown arch is refused by parse_args
+    specs = cfg.layer_specs()
+    has_attn = any(sp.mixer == "attn" for sp in specs)
+    has_ssm = any(sp.mixer == "mamba" for sp in specs)
+    if has_attn and cfg.num_heads % mp:
+        ap.error(f"--model-parallel {mp} does not divide num_heads="
+                 f"{cfg.num_heads} of {cfg.name} (attention shards whole "
+                 f"heads); pick a degree dividing num_heads or change the "
+                 f"config's num_heads")
+    if has_attn and cfg.attention == "gqa" and cfg.num_kv_heads % mp:
+        ap.error(f"--model-parallel {mp} does not divide num_kv_heads="
+                 f"{cfg.num_kv_heads} of {cfg.name} (K/V shard whole "
+                 f"heads); pick a degree dividing num_kv_heads or change "
+                 f"the config's num_kv_heads")
+    if has_ssm and cfg.resolved_d_inner % mp:
+        ap.error(f"--model-parallel {mp} does not divide d_inner="
+                 f"{cfg.resolved_d_inner} of {cfg.name} (the selective "
+                 f"scan is channel-parallel); pick a degree dividing "
+                 f"d_inner (config field d_inner, default 2*d_model)")
 
 
 def refuse_mesh_later(args: argparse.Namespace) -> None:
     """ValueError naming the first flag of ``MESH_LATER`` that is set."""
+    which = "--model-parallel" if args.model_parallel > 1 and \
+        not args.mesh else "--mesh"
     for flag in MESH_LATER:
         if getattr(args, flag[2:].replace("-", "_")):
-            raise ValueError(f"--mesh does not compose with {flag} in "
+            raise ValueError(f"{which} does not compose with {flag} in "
                              f"{PORT} yet")
 
 
+def data_ranks(args: argparse.Namespace) -> int:
+    """N, the data ranks of the world (``--mesh``, 1 when unset)."""
+    return max(args.mesh, 1)
+
+
 def check_mesh(args: argparse.Namespace) -> None:
-    """``--mesh``'s refusals, as ValueErrors naming the flag or the
-    count: what it does not compose with yet, a world the cards cannot
-    hold, rows or shards that do not split over it."""
+    """``--mesh``'s and ``--model-parallel``'s refusals, as ValueErrors
+    naming the flag or the count: what they do not compose with yet, a
+    world the cards cannot hold, rows or shards that do not split over
+    the data ranks."""
     refuse_mesh_later(args)
-    if args.examples % args.mesh:
+    n = data_ranks(args)
+    if args.examples % n:
         raise ValueError(f"--examples {args.examples} not divisible by "
                          f"--mesh {args.mesh}")
-    if args.score_shards > 1 and args.score_shards % args.mesh:
+    if args.score_shards > 1 and args.score_shards % n:
         raise ValueError(f"--score-shards {args.score_shards} must be a "
                          f"multiple of --mesh {args.mesh}")
-    mesh.check_world(args.mesh, args.device,
+    mesh.check_world(n * args.model_parallel, args.device,
                      mesh.default_backend(args.device))
 
 
@@ -402,6 +480,12 @@ def profile_window(args: argparse.Namespace) -> tuple[int, int]:
 def proposal_name(args: argparse.Namespace) -> str:
     """--proposal-strategy, or --strategy when it is unset."""
     return args.proposal_strategy or args.strategy
+
+
+def seq_shard(args: argparse.Namespace) -> bool:
+    """Whether an LM's norms run sequence-parallel: under
+    ``--model-parallel`` M > 1, unless ``--no-sequence-parallel``."""
+    return args.model_parallel > 1 and args.sequence_parallel is not False
 
 
 def score_row_block(args: argparse.Namespace) -> int:
@@ -430,10 +514,12 @@ def resolve_config(args: argparse.Namespace, cfg=None):
 
 
 def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-              attn_scores=None, ssm_mode: str = "ref"):
+              attn_scores=None, ssm_mode: str = "ref", model_group=None):
     """(params, train data, per-example loss, scorer) of the MLP, which
     has neither attention nor mamba layers: ``attn_impl``,
-    ``attn_scores`` and ``ssm_mode`` must keep their defaults."""
+    ``attn_scores`` and ``ssm_mode`` must keep their defaults.  The
+    params are whole; the loss and the scorer take a ``model_group``'s
+    shards."""
     if attn_impl != "ref" or attn_scores is not None or ssm_mode != "ref":
         raise ValueError(f"mlp_svhn has no attention or mamba layers; "
                          f"attn_impl={attn_impl!r}, attn_scores="
@@ -445,40 +531,61 @@ def build_mlp(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     train, _ = make_svhn_like(gen(args.seed), n=args.examples,
                               dim=cfg.input_dim)
     params = mlp_mod.init_mlp_classifier(gen(args.seed + 1), cfg, device)
-    return (params, train, lambda p, b: mlp_mod.per_example_loss(p, b, cfg),
+    return (params, train,
+            lambda p, b: mlp_mod.per_example_loss(p, b, cfg,
+                                                  model_group=model_group),
             make_proposal(make_mlp_scorer, cfg, proposal_name(args),
-                          row_block=score_row_block(args)))
+                          row_block=score_row_block(args),
+                          model_group=model_group))
 
 
 def build_lm(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
-             attn_scores=None, ssm_mode: str = "ref"):
+             attn_scores=None, ssm_mode: str = "ref", model_group=None):
     """(params, train data, per-example loss, scorer) of a transformer LM
     (``src/repro/launch/train.py::build_lm`` on one device).  The master's
     loss runs the ``attn_impl`` attention path and the scorer runs it with
     ``attn_scores``; the master never sees a score tap.  ``ssm_mode``
     reaches the scorer only: the master differentiates its loss, so its
-    mamba layers scan with "ref", as in the reference."""
+    mamba layers scan with "ref", as in the reference.  With a
+    ``model_group`` both run model-parallel on its shards, the norms
+    sequence-parallel unless ``--no-sequence-parallel``."""
     device = torch.device(args.device)
     gen = _generator(device)
     cfg = resolve_config(args, cfg)
     train = make_token_dataset(gen(args.seed), n=args.examples,
                                seq=args.seq + 1, vocab=cfg.vocab_size)
     params = transformer.init_transformer(gen(args.seed + 1), cfg, device)
+    sp = model_group is not None and seq_shard(args)
     pel = lambda p, b: transformer.per_example_loss(
-        p, cfg, b, attn_impl=attn_impl)[0]
+        p, cfg, b, attn_impl=attn_impl, model_group=model_group,
+        seq_shard=sp)[0]
     return params, train, pel, make_proposal(
         make_lm_scorer, cfg, proposal_name(args), ssm_mode=ssm_mode,
         attn_impl=attn_impl, attn_scores=attn_scores,
-        row_block=score_row_block(args))
+        row_block=score_row_block(args), model_group=model_group,
+        seq_shard=sp)
 
 
-def fused_objective(args: argparse.Namespace, cfg=None) -> Callable:
-    """Fused mode's ``(params, batch) -> (losses, scores)``: one forward
-    and the closed-form logit-grad norm of its head."""
+def logical_specs(args: argparse.Namespace, cfg=None):
+    """The logical axes of the arch's parameters (``dist/sharding.py``)."""
     cfg = resolve_config(args, cfg)
     if args.arch == "mlp_svhn":
-        return lambda p, b: mlp_mod.per_example_loss_and_score(p, b, cfg)
-    return lambda p, b: transformer.per_example_loss_and_score(p, cfg, b)
+        return mlp_mod.mlp_specs(cfg)
+    return transformer.transformer_specs(cfg)
+
+
+def fused_objective(args: argparse.Namespace, cfg=None,
+                    model_group=None) -> Callable:
+    """Fused mode's ``(params, batch) -> (losses, scores)``: one forward
+    and the closed-form logit-grad norm of its head (model-parallel on a
+    ``model_group``'s shards)."""
+    cfg = resolve_config(args, cfg)
+    if args.arch == "mlp_svhn":
+        return lambda p, b: mlp_mod.per_example_loss_and_score(
+            p, b, cfg, model_group=model_group)
+    sp = model_group is not None and seq_shard(args)
+    return lambda p, b: transformer.per_example_loss_and_score(
+        p, cfg, b, model_group=model_group, seq_shard=sp)
 
 
 def auto_chunk_size(n: int) -> int:
@@ -489,7 +596,7 @@ def auto_chunk_size(n: int) -> int:
 
 def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
           attn_scores=None, ssm_mode: str = "ref", telemetry=None,
-          controller=None, group=None) -> Built:
+          controller=None, group=None, model_group=None) -> Built:
     """(state, train_step, data, probe, pipe, serve) for ``args``: model,
     data, step and, in fused mode, the probe step (None otherwise).  With
     ``--monitors`` the step returns ``(state, metrics, monitors)``; with
@@ -510,13 +617,21 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     pipelines are the sharded ones and ``data`` is this rank's rows (a
     streamed rank's host store holds its chunks alone); the state's
     store is still whole and on the host, for ``run`` to restore into
-    and then keep this rank's rows (``shard_train_state``)."""
+    and then keep this rank's rows (``shard_train_state``).  With a
+    ``model_group`` (``--model-parallel``) the steps are the
+    model-parallel ones and ``param_specs`` the params' spec tree; the
+    state's params are still whole, for ``run`` to restore into and then
+    keep this rank's shards."""
     use_full_f32()
     device = torch.device(args.device)
     builder = build_mlp if args.arch == "mlp_svhn" else build_lm
     params, train, pel, scorer = builder(args, cfg, attn_impl=attn_impl,
                                          attn_scores=attn_scores,
-                                         ssm_mode=ssm_mode)
+                                         ssm_mode=ssm_mode,
+                                         model_group=model_group)
+    specs = resolve_param_specs(logical_specs(args, cfg), params,
+                                model_group, data_ranks(args))
+    mp = dict(model_group=model_group, param_specs=specs)
     opt = sgd(args.lr)
     tcfg = ISSGDConfig(
         batch_size=args.batch, score_batch_size=args.score_batch,
@@ -526,7 +641,8 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         score_shards=max(args.score_shards, 1), index=args.index,
         table_dtype=args.table_dtype, score_ttl=args.score_ttl,
         index_chunk_size=args.index_chunk_size)
-    fused = fused_objective(args, cfg) if args.mode == "fused" else None
+    fused = (fused_objective(args, cfg, model_group)
+             if args.mode == "fused" else None)
     monitors = MonitorSet.parse(args.monitors)
     state = init_train_state(params, opt, train.size, device, seed=args.seed,
                              table_dtype=args.table_dtype,
@@ -537,31 +653,38 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     if args.stream:
         return _build_streamed(args, cfg, state, train, pel, scorer, opt,
                                tcfg, fused, monitors, telemetry, controller,
-                               group)
+                               group, mp)
     data = shard_dataset(train.arrays, group)
     if args.async_scoring:
         *steps, tcfg = make_sharded_async_steps(
             pel, scorer, opt, tcfg, train.size, group,
             monitor_traces=not args.no_trace_monitors, monitors=monitors,
-            gated=args.adaptive_is)
-        _print_mesh(group, tcfg)
+            gated=args.adaptive_is, **mp)
+        _print_mesh(group, tcfg, model_group)
         print(f"async scoring, swap every {args.swap_every}", flush=True)
         pipe = AsyncPipeline(*steps, args.swap_every, telemetry=telemetry,
                              controller=controller)
         return Built(state._replace(store=to_buffered(state.store)),
-                     _pipe_step(pipe), data, None, pipe)
+                     _pipe_step(pipe), data, None, pipe, param_specs=specs)
     step, tcfg = make_sharded_train_step(
         pel, scorer, opt, tcfg, train.size, group, fused_score=fused,
-        monitors=monitors, gated=args.adaptive_is)
-    _print_mesh(group, tcfg)
+        monitors=monitors, gated=args.adaptive_is, **mp)
+    _print_mesh(group, tcfg, model_group)
     probe = (make_sharded_score_step(scorer, tcfg, train.size, group)
              if args.mode == "fused" else None)
-    return Built(state, step, data, probe)
+    return Built(state, step, data, probe, param_specs=specs)
 
 
-def _print_mesh(group, tcfg: ISSGDConfig) -> None:
-    if group is not None:
+def _print_mesh(group, tcfg: ISSGDConfig, model_group=None) -> None:
+    if group is None:
+        return
+    if model_group is None:
         print(f"mesh: ({group.size},) over {group.size} devices "
+              f"({dist.get_backend(group.pg)}, {tcfg.score_shards} "
+              f"scoring shards)", flush=True)
+    else:
+        n, m = group.size, model_group.size
+        print(f"mesh: ({n}, {m}) (data, model) over {n * m} devices "
               f"({dist.get_backend(group.pg)}, {tcfg.score_shards} "
               f"scoring shards)", flush=True)
 
@@ -579,7 +702,8 @@ def _pipe_step(pipe) -> Callable:
 
 
 def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
-                    monitors, telemetry, controller, group=None) -> Built:
+                    monitors, telemetry, controller, group=None,
+                    mp=None) -> Built:
     """The ``--stream`` half of ``build``: the host chunk store (pinned on
     the card; over a data group the rank's chunk range alone), the serve
     loop's reserved capacity, the plane and the StreamedISSGD driver."""
@@ -607,8 +731,8 @@ def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
         pel, scorer, opt, tcfg, n_examples, group, csize,
         fused_score=fused, async_mode=args.async_scoring,
         monitor_traces=not args.no_trace_monitors, monitors=monitors,
-        gated=args.adaptive_is)
-    _print_mesh(group, tcfg)
+        gated=args.adaptive_is, **(mp or {}))
+    _print_mesh(group, tcfg, (mp or {}).get("model_group"))
     pipe = StreamedISSGD(
         plane, *steps, tcfg, n_examples, async_mode=args.async_scoring,
         swap_every=args.swap_every, prefetch_every=args.prefetch_every,
@@ -643,7 +767,8 @@ def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
           + (f", async swap every {args.swap_every}"
              if args.async_scoring else ""), flush=True)
     return Built(state, _pipe_step(pipe), None,
-                 pipe.probe if args.mode == "fused" else None, pipe, serve)
+                 pipe.probe if args.mode == "fused" else None, pipe, serve,
+                 (mp or {}).get("param_specs"))
 
 
 def open_sink(args: argparse.Namespace, group=None):
@@ -655,7 +780,7 @@ def open_sink(args: argparse.Namespace, group=None):
     if args.metrics_jsonl:
         sink = EventSink(args.metrics_jsonl, run={
             "arch": args.arch, "mode": args.mode, "steps": args.steps,
-            "mesh": args.mesh, "model_parallel": 1,
+            "mesh": args.mesh, "model_parallel": args.model_parallel,
             "async_scoring": args.async_scoring, "stream": args.stream,
             "serve_loop": args.serve_loop, "swap_every": args.swap_every,
             "monitors": list(MonitorSet.parse(args.monitors).names),
@@ -729,7 +854,7 @@ class _Profile:
 
 def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
         attn_scores=None, ssm_mode: str = "ref",
-        group=None) -> TrainResult:
+        group=None, model_group=None) -> TrainResult:
     """Build from ``args`` (and ``cfg``, ``attn_impl``, ``attn_scores``,
     ``ssm_mode``, ``group``, see ``build``) and train, logging every
     ``--log-every`` steps and emitting telemetry records every
@@ -739,14 +864,16 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
     is read from the card in one transfer, on the logging steps only.
     With a data ``group`` this is one rank of the sharded run: it
     restores on the host and keeps its rows, as the reference restores
-    before placement."""
+    before placement; with a ``model_group`` it then keeps its shards of
+    the params, their stale copy and the optimizer state."""
     sink, ctl = open_sink(args, group)
     try:
         tel = Telemetry(sink, every=args.metrics_every or args.log_every,
                         blocking=args.telemetry_blocking)
         built = build(args, cfg, attn_impl=attn_impl,
                       attn_scores=attn_scores, ssm_mode=ssm_mode,
-                      telemetry=tel, controller=ctl, group=group)
+                      telemetry=tel, controller=ctl, group=group,
+                      model_group=model_group)
         if args.restore_checkpoint:
             state, ck_step = restore_checkpoint(args.restore_checkpoint,
                                                 built.state)
@@ -755,15 +882,16 @@ def run(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
                   flush=True)
         if group is not None:
             built = built._replace(state=shard_train_state(
-                built.state, group, torch.device(args.device)))
-        return _train_loop(args, built, sink, ctl, tel, group)
+                built.state, group, torch.device(args.device),
+                param_specs=built.param_specs, model_group=model_group))
+        return _train_loop(args, built, sink, ctl, tel, group, model_group)
     finally:
         sink.close()
 
 
-def _train_loop(args, built: Built, sink, ctl, tel,
-                group=None) -> TrainResult:
-    state, step, data, probe, pipe, serve = built
+def _train_loop(args, built: Built, sink, ctl, tel, group=None,
+                model_group=None) -> TrainResult:
+    state, step, data, probe, pipe, serve, specs = built
     profile = _Profile(args, sink)
     on_cuda = torch.device(args.device).type == "cuda"
     marks = []           # (start, end) CUDA events or host clock pairs
@@ -848,9 +976,12 @@ def _train_loop(args, built: Built, sink, ctl, tel,
               f"{st.streamed_rows} scoring rows streamed, "
               f"{st.swaps} window swaps", flush=True)
     if args.save_checkpoint:
-        # over a data group every rank saves its rows, gather-free
+        # over a data group every rank saves its rows, gather-free; over
+        # a model group its chunks of the sharded leaves too
         save_checkpoint(args.save_checkpoint, state, step=state.step,
-                        group=group)
+                        group=group, model_group=model_group,
+                        shard_specs=(None if specs is None else
+                                     train_state_specs(state, specs)))
         print(f"saved checkpoint to {args.save_checkpoint}", flush=True)
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
@@ -883,30 +1014,33 @@ def _print_done(args: argparse.Namespace, result: TrainResult) -> None:
 
 
 def _mesh_rank(group, device: str, args: argparse.Namespace,
-               cfg=None) -> TrainResult:
-    """One rank of ``--mesh``: rank 0 alone prints and writes the metrics
-    files and the profile; every rank takes part in the gather-free save
-    of ``--save-checkpoint``, and under ``--adaptive-is`` every rank's
-    controller folds the same replicated metrics to the same gate."""
+               cfg=None, model_group=None) -> TrainResult:
+    """One rank of ``--mesh``/``--model-parallel``: rank 0 alone prints
+    and writes the metrics files and the profile; every rank takes part
+    in the gather-free save of ``--save-checkpoint``, and under
+    ``--adaptive-is`` every rank's controller folds the same replicated
+    metrics to the same gate."""
     args = argparse.Namespace(**vars(args))
     args.device = device
-    if group.rank:
+    if group.rank or (model_group is not None and model_group.rank):
         sys.stdout = open(os.devnull, "w")
         args.metrics_out = args.metrics_jsonl = args.profile_dir = ""
-    result = run(args, cfg, group=group)
+    result = run(args, cfg, group=group, model_group=model_group)
     _print_done(args, result)
     return result
 
 
 def main(argv=None, cfg=None) -> Optional[TrainResult]:
     """Parse ``argv`` and train.  ``--mesh 1`` runs its one rank in this
-    process and returns its result, a larger mesh spawns its ranks and
-    returns None."""
+    process and returns its result, a larger world (``--mesh`` N times
+    ``--model-parallel`` M ranks) spawns its ranks and returns None."""
     args = parse_args(argv)
-    if args.mesh:
+    if args.mesh or args.model_parallel > 1:
         check_mesh(args)
-        return mesh.run_world(_mesh_rank, args.mesh, args.device,
-                              args=(args, cfg))
+        return mesh.run_world(_mesh_rank, data_ranks(args)
+                              * args.model_parallel, args.device,
+                              args=(args, cfg),
+                              model_parallel=args.model_parallel)
     result = run(args, cfg)
     _print_done(args, result)
     return result

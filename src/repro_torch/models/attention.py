@@ -15,8 +15,14 @@ MLA (multi-head latent attention, minicpm3-4b) mirrors the reference's
 train and prefill path (``init_mla``, ``_mla_qkv``, ``mla``): low-rank
 query and key-value projections, a rope key shared by every head, and
 materialised f32 logits chunked over queries; and its absorbed one-token
-decode over the compressed cache (``mla_decode``).  Its model sharding
-comes with the multi-device part of the port.
+decode over the compressed cache (``mla_decode``).
+
+With a ``model_group`` (the reference's ``model_axes``) the training
+paths shard whole heads: ``attn_shard_info``/``mla_shard_info`` read the
+local head counts from the local weights, the replicated input enters
+through ``psum_backward``, the per-head math is local and the row-sharded
+wo's partial output leaves through ``psum_forward``.  The decode paths
+take no model group (sharded decode is not ported).
 """
 from __future__ import annotations
 
@@ -24,11 +30,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.collectives import psum_backward, psum_forward
+from repro_torch.dist import DataGroup
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
                                        init_rmsnorm, rmsnorm, rope,
-                                       tapped_linear)
+                                       specs_rmsnorm, tapped_linear)
 
 _NEG = -1e30
 
@@ -47,6 +55,47 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig,
         "wo": _dense_init(generator, cfg.num_heads * hd, cfg.d_model, dtype,
                           device),
     }
+
+
+def specs_attn() -> Params:
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+            "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+
+
+def attn_shard_info(params: Params, cfg: ModelConfig
+                    ) -> tuple[bool, int, int]:
+    """(sharded, local heads, local kv heads) of a GQA parameter tree,
+    from its shapes.  A layer sharded only in part (wq split but not
+    wk/wv, a split inside a head, a grouping the local counts break)
+    cannot run and raises naming the config fields to fix."""
+    hd = cfg.resolved_head_dim
+    q_cols = params["wq"].shape[-1]
+    k_cols = params["wk"].shape[-1]
+    q_sharded = q_cols != cfg.num_heads * hd
+    k_sharded = k_cols != cfg.num_kv_heads * hd
+    if not q_sharded and not k_sharded:
+        return False, cfg.num_heads, cfg.num_kv_heads
+    if q_sharded != k_sharded:
+        raise ValueError(
+            f"attention is only partially model-sharded (wq cols={q_cols}, "
+            f"wk cols={k_cols}): the model-parallel degree must divide "
+            f"both num_heads ({cfg.num_heads}) and num_kv_heads "
+            f"({cfg.num_kv_heads})")
+    if q_cols % hd or k_cols % hd:
+        raise ValueError(
+            f"model-axis shard splits mid-head (local wq cols={q_cols}, "
+            f"wk cols={k_cols}, head_dim={hd}): the model-parallel degree "
+            f"must divide num_heads ({cfg.num_heads}) and num_kv_heads "
+            f"({cfg.num_kv_heads}), not just their flattened projections")
+    h_l, hkv_l = q_cols // hd, k_cols // hd
+    if h_l % hkv_l or params["wo"].shape[0] != q_cols:
+        raise ValueError(
+            f"model-axis shard breaks the GQA grouping (local heads "
+            f"{h_l}, local kv heads {hkv_l}, wo rows "
+            f"{params['wo'].shape[0]}): num_heads ({cfg.num_heads}) and "
+            f"num_kv_heads ({cfg.num_kv_heads}) must both be divisible by "
+            f"the model-parallel degree")
+    return True, h_l, hkv_l
 
 
 def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -100,7 +149,8 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor, tape: Optional[Tape] = None,
          prefix: str = "attn", q_chunk: int = 512,
          collector: Optional[dict] = None, impl: str = "ref",
-         attn_scores: Optional[str] = None) -> torch.Tensor:
+         attn_scores: Optional[str] = None,
+         model_group: Optional[DataGroup] = None) -> torch.Tensor:
     """GQA self-attention. x: (B,S,D).
 
     impl="pallas" runs the flash-attention forward kernel (no autograd:
@@ -114,21 +164,29 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     per-example ||dQ||²+||dK||²+||dV||² of the post-rope attention
     operands: "fused" from the backward kernel's epilogue, "separate" from
     the score sweep over the materialized gradients (the bitwise twin).
-    The wo tap is unaffected."""
+    The wo tap is unaffected.
+
+    With head-sharded weights and a ``model_group`` the layer runs on
+    this rank's whole heads (the kernels see local heads) and the
+    partial wo output is summed over the group; the taps see the local
+    slices, and the score tap the local heads' score: partial terms."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}, got "
                          f"{impl!r}")
     check_attn_scores(impl, attn_scores)
     bsz, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    sharded, h, hkv = (attn_shard_info(params, cfg) if model_group
+                       is not None else (False, cfg.num_heads,
+                                         cfg.num_kv_heads))
     rep = h // hkv
+    xi = psum_backward(x, model_group) if sharded else x
     # with a score tap the attention-interface score replaces the wq/wk/wv
     # ghost Gram terms: those taps are suppressed
     qkv_tape = None if attn_scores is not None else tape
-    q = tapped_linear(x, params["wq"], f"{prefix}.wq", qkv_tape)
-    k = tapped_linear(x, params["wk"], f"{prefix}.wk", qkv_tape)
-    v = tapped_linear(x, params["wv"], f"{prefix}.wv", qkv_tape)
+    q = tapped_linear(xi, params["wq"], f"{prefix}.wq", qkv_tape)
+    k = tapped_linear(xi, params["wk"], f"{prefix}.wk", qkv_tape)
+    v = tapped_linear(xi, params["wv"], f"{prefix}.wv", qkv_tape)
     q = rope(q.reshape(bsz, s, h, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(bsz, s, hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(bsz, s, hkv, hd)
@@ -157,7 +215,8 @@ def attn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         out = _chunked_attention(qg, k, v, positions, positions,
                                  cfg.sliding_window, q_chunk)
     out = out.reshape(bsz, s, h * hd)
-    return tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
+    y = tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
+    return psum_forward(y, model_group) if sharded else y
 
 
 # ===================================================================== MLA
@@ -188,19 +247,69 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
-             positions: torch.Tensor, tape: Optional[Tape], prefix: str):
-    """The shared projections: (q_nope, q_rope, k_nope, k_rope, v,
-    latent), the rope key of shape (B, S, 1, r), shared by every head."""
-    bsz, s, _ = x.shape
+def specs_mla(cfg: ModelConfig) -> Params:
+    p = {"wkv_a": ("embed", "rank"), "kv_norm": specs_rmsnorm(),
+         "wkv_b": ("rank", "heads"), "wo": ("heads", "embed")}
+    if cfg.q_lora_rank:
+        p["wq_a"] = ("embed", "rank")
+        p["q_norm"] = specs_rmsnorm()
+        p["wq_b"] = ("rank", "heads")
+    else:
+        p["wq"] = ("embed", "heads")
+    return p
+
+
+def mla_shard_info(params: Params, cfg: ModelConfig) -> tuple[bool, int]:
+    """(sharded, local heads) of an MLA parameter tree.  The latent
+    projections (wq_a, wkv_a) stay replicated; the per-head expansions
+    (wq or wq_b, wkv_b) and wo shard whole heads.  A split inconsistent
+    across them, or inside a head, raises naming ``num_heads``."""
     h = cfg.num_heads
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    o_rows = params["wo"].shape[0]
+    kvb_cols = params["wkv_b"].shape[-1]
+    q_cols = (params["wq_b"] if cfg.q_lora_rank else params["wq"]).shape[-1]
+    if o_rows == h * vdim and kvb_cols == h * (nope + vdim) \
+            and q_cols == h * (nope + rdim):
+        return False, h
+    if o_rows % vdim or kvb_cols % (nope + vdim) or q_cols % (nope + rdim):
+        raise ValueError(
+            f"MLA model-axis shard splits mid-head (wo rows={o_rows}, "
+            f"wkv_b cols={kvb_cols}, wq cols={q_cols}): the model-parallel "
+            f"degree must divide num_heads ({cfg.num_heads})")
+    h_l = o_rows // vdim
+    if kvb_cols != h_l * (nope + vdim) or q_cols != h_l * (nope + rdim):
+        raise ValueError(
+            f"MLA is only partially model-sharded (local heads: wo "
+            f"{o_rows // vdim}, wkv_b {kvb_cols // (nope + vdim)}, wq "
+            f"{q_cols // (nope + rdim)}): the model-parallel degree must "
+            f"divide num_heads ({cfg.num_heads}) for every per-head "
+            f"projection")
+    return True, h_l
+
+
+def _mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor, tape: Optional[Tape], prefix: str,
+             model_group: Optional[DataGroup] = None,
+             h: Optional[int] = None):
+    """The shared projections: (q_nope, q_rope, k_nope, k_rope, v,
+    latent), the rope key of shape (B, S, 1, r), shared by every head.
+    ``h`` is the (local) head count; with a ``model_group`` the
+    replicated inputs of the head-sharded expansions, and the shared
+    rope key, take ``psum_backward`` (each rank's cotangent for them is
+    its heads' part)."""
+    bsz, s, _ = x.shape
+    h = cfg.num_heads if h is None else h
+    mg = model_group
     nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
         qa = tapped_linear(x, params["wq_a"], f"{prefix}.wq_a", tape)
         qa = rmsnorm(params["q_norm"], qa, cfg.norm_eps)
-        q = tapped_linear(qa, params["wq_b"], f"{prefix}.wq_b", tape)
+        q = tapped_linear(psum_backward(qa, mg), params["wq_b"],
+                          f"{prefix}.wq_b", tape)
     else:
-        q = tapped_linear(x, params["wq"], f"{prefix}.wq", tape)
+        q = tapped_linear(psum_backward(x, mg), params["wq"],
+                          f"{prefix}.wq", tape)
     q = q.reshape(bsz, s, h, nope + rdim)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
@@ -209,8 +318,10 @@ def _mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
     latent = kv_a[..., :cfg.kv_lora_rank]
     k_rope = kv_a[..., cfg.kv_lora_rank:]
     latent = rmsnorm(params["kv_norm"], latent, cfg.norm_eps)
-    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)
-    kv = tapped_linear(latent, params["wkv_b"], f"{prefix}.wkv_b", tape)
+    k_rope = psum_backward(rope(k_rope[..., None, :], positions,
+                                cfg.rope_theta), mg)
+    kv = tapped_linear(psum_backward(latent, mg), params["wkv_b"],
+                       f"{prefix}.wkv_b", tape)
     kv = kv.reshape(bsz, s, h, nope + cfg.v_head_dim)
     return q_nope, q_rope, kv[..., :nope], k_rope, kv[..., nope:], latent
 
@@ -235,18 +346,23 @@ def _mla_chunk(qn, qr, qp, k_nope, k_rope, v, positions, scale: float,
 def mla(params: Params, x: torch.Tensor, cfg: ModelConfig,
         positions: torch.Tensor, tape: Optional[Tape] = None,
         prefix: str = "attn", q_chunk: int = 512,
-        collector: Optional[dict] = None) -> torch.Tensor:
+        collector: Optional[dict] = None,
+        model_group: Optional[DataGroup] = None) -> torch.Tensor:
     """Materialised MLA for training, scoring and prefill. x: (B,S,D).
 
     With a ``collector`` the compressed cache is recorded: the normed
     latent (B, S, kv_lora_rank) under ``{prefix}.latent`` and the roped
     shared key (B, S, r) under ``{prefix}.rope``.  Each query row is
     independent of the others, so a short last chunk equals the
-    reference's zero-padded one."""
+    reference's zero-padded one.  With head-sharded expansions and a
+    ``model_group`` the per-head math runs on local heads and the
+    partial wo output is summed over the group, as in ``attn``."""
     bsz, s, _ = x.shape
-    h = cfg.num_heads
+    sharded, h = (mla_shard_info(params, cfg) if model_group is not None
+                  else (False, cfg.num_heads))
+    mg = model_group if sharded else None
     q_nope, q_rope, k_nope, k_rope, v, latent = _mla_qkv(
-        params, x, cfg, positions, tape, prefix)
+        params, x, cfg, positions, tape, prefix, model_group=mg, h=h)
     if collector is not None:
         collector[f"{prefix}.latent"] = latent
         collector[f"{prefix}.rope"] = k_rope[:, :, 0, :]
@@ -265,7 +381,8 @@ def mla(params: Params, x: torch.Tensor, cfg: ModelConfig,
             outs.append(_mla_chunk(*args))
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     out = out.reshape(bsz, s, h * cfg.v_head_dim)
-    return tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
+    y = tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
+    return psum_forward(y, mg)
 
 
 def mla_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -9,6 +9,12 @@ A tap is a zero tensor with ``requires_grad=True`` added to a linear's
 output: the gradient of the loss with respect to it is dL/dY, and the
 tape records the linear's input X.  With both, ``core/scorer.py`` gets
 exact per-example gradient norms without per-example gradients.
+
+``specs_*`` give each parameter's logical axes (``dist/sharding.py``).
+With a ``model_group`` (the reference's ``model_axes``) ``mlp``, ``embed``
+and ``unembed`` run on this rank's shards, each detecting shardedness
+from its local shapes, so a dim that fell back to replication keeps the
+plain path.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import (all_gather_replicated,
+                                          psum_backward, psum_forward)
+from repro_torch.dist import DataGroup
 from repro_torch.models.config import ModelConfig
 
 Params = Any   # nested dicts of tensors
@@ -95,6 +104,10 @@ def init_rmsnorm(d: int, dtype: torch.dtype, device) -> Params:
     return {"scale": torch.ones(d, dtype=dtype, device=device)}
 
 
+def specs_rmsnorm() -> Params:
+    return {"scale": ("embed",)}
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
@@ -139,14 +152,28 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def specs_mlp() -> Params:
+    return {"w_in": ("embed", "ffn"), "w_gate": ("embed", "ffn"),
+            "w_out": ("ffn", "embed")}
+
+
 def mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
-        tape: Optional[Tape] = None, prefix: str = "mlp") -> torch.Tensor:
-    """SwiGLU feed-forward: w_out(act(h_gate) * h_in)."""
+        tape: Optional[Tape] = None, prefix: str = "mlp",
+        model_group: Optional[DataGroup] = None) -> torch.Tensor:
+    """SwiGLU feed-forward: w_out(act(h_gate) * h_in).  With ffn-sharded
+    weights and a ``model_group``, the Megatron column/row pair:
+    ``psum_backward`` on the replicated input, w_in/w_gate on the local
+    ffn columns, w_out on the matching rows, ``psum_forward`` of the
+    partial output.  The taps see the local slices: partial terms."""
+    sharded = model_group is not None and params["w_in"].shape[-1] != \
+        cfg.d_ff
     act = activation(cfg.act)
-    h_in = tapped_linear(x, params["w_in"], f"{prefix}.w_in", tape)
-    h_gate = tapped_linear(x, params["w_gate"], f"{prefix}.w_gate", tape)
+    xi = psum_backward(x, model_group) if sharded else x
+    h_in = tapped_linear(xi, params["w_in"], f"{prefix}.w_in", tape)
+    h_gate = tapped_linear(xi, params["w_gate"], f"{prefix}.w_gate", tape)
     h = act(h_gate) * h_in
-    return tapped_linear(h, params["w_out"], f"{prefix}.w_out", tape)
+    y = tapped_linear(h, params["w_out"], f"{prefix}.w_out", tape)
+    return psum_forward(y, model_group) if sharded else y
 
 
 # --------------------------------------------------------------- embeddings
@@ -162,22 +189,54 @@ def init_embed(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def embed(params: Params, tokens: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding lookup: (B, S) ints → (B, S, D)."""
-    return params["tokens"][tokens.long()]
+def specs_embed(cfg: ModelConfig) -> Params:
+    p = {"tokens": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
+    return p
+
+
+def embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+          model_group: Optional[DataGroup] = None) -> torch.Tensor:
+    """Token embedding lookup: (B, S) ints → (B, S, D).  A vocab-sharded
+    table (rows of (V, D) on each model rank) looks up the ids this rank
+    owns, zeroes the others, and ``psum_forward`` sums the one-owner
+    rows: exact, and replicated; the backward's replicated cotangent
+    reaches this rank's rows only."""
+    table = params["tokens"]
+    tokens = tokens.long()
+    if model_group is not None and table.shape[0] != cfg.vocab_size:
+        v_local = table.shape[0]
+        lidx = tokens - model_group.rank * v_local
+        mine = (lidx >= 0) & (lidx < v_local)
+        rows = table[torch.clamp(lidx, 0, v_local - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return psum_forward(rows, model_group)
+    return table[tokens]
 
 
 def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig,
-            tape: Optional[Tape] = None) -> torch.Tensor:
+            tape: Optional[Tape] = None,
+            model_group: Optional[DataGroup] = None) -> torch.Tensor:
     """Hidden states → vocab logits (tied or untied head), soft-capped
-    when ``cfg.logits_softcap`` > 0.  The ghost tap sits on the logits."""
-    if cfg.tie_embeddings:
-        logits = torch.matmul(h, params["tokens"].t())
+    when ``cfg.logits_softcap`` > 0.  The ghost tap sits on the logits.
+    A vocab-sharded head is column-parallel: ``psum_backward`` on the
+    replicated input, the local vocab slice's matmul, and
+    ``all_gather_replicated`` over the vocab; the tap sits on the
+    gathered logits, so its term is whole on every rank (counted once by
+    the scorer)."""
+    w = params["tokens"].t() if cfg.tie_embeddings else params["unembed"]
+    if model_group is not None and w.shape[-1] != cfg.vocab_size:
+        logits = torch.matmul(psum_backward(h, model_group), w)
+        logits = all_gather_replicated(logits, model_group, dim=-1)
+        if tape is not None:
+            logits = tape.linear("unembed", h, logits)
+    elif cfg.tie_embeddings:
+        logits = torch.matmul(h, w)
         if tape is not None:
             logits = tape.linear("unembed", h, logits)
     else:
-        logits = tapped_linear(h, params["unembed"], "unembed", tape)
+        logits = tapped_linear(h, w, "unembed", tape)
     if cfg.logits_softcap > 0:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c

@@ -4,6 +4,13 @@
 Parameters are a dict ``{"fc{i}": {"w": (din, dout), "b": (dout,)}}`` in
 the JAX reference's layout, so ``layers.params_from_jax`` is a plain
 copy and parity tests compare like with like.
+
+Model parallelism (``model_group``, the reference's ``model_axes``):
+each layer whose width the model group divides is column-sharded
+(``mlp_specs``: w ("embed", "ffn"), b ("ffn",)); a layer whose width it
+does not divide stays replicated (``dist/sharding.py``'s fallback), so
+shardedness is a layer's, read from its weight's width
+(``layer_is_sharded``).
 """
 from __future__ import annotations
 
@@ -12,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.collectives import all_gather_replicated, psum_backward
+from repro_torch.dist import DataGroup
 from repro_torch.models.layers import Params, Tape
 
 
@@ -27,6 +36,19 @@ class MLPConfig:
 
 def mlp_dims(cfg: MLPConfig) -> tuple:
     return (cfg.input_dim, *cfg.hidden, cfg.num_classes)
+
+
+def mlp_specs(cfg: MLPConfig) -> Params:
+    """The logical axes of every parameter (``dist/sharding.py``)."""
+    n = len(cfg.hidden) + 1
+    return {f"fc{i}": {"w": ("embed", "ffn"), "b": ("ffn",)}
+            for i in range(n)}
+
+
+def layer_is_sharded(params: Params, cfg: MLPConfig, i: int) -> bool:
+    """Whether layer i's weight is a column shard: its width is narrower
+    than the config's."""
+    return params[f"fc{i}"]["w"].shape[-1] != mlp_dims(cfg)[i + 1]
 
 
 def init_mlp_classifier(generator: torch.Generator, cfg: MLPConfig,
@@ -59,35 +81,52 @@ def _matmul_rows(h: torch.Tensor, w: torch.Tensor,
 
 
 def mlp_forward(params: Params, x: torch.Tensor, cfg: MLPConfig,
-                tape: Optional[Tape] = None,
-                row_block: int = 0) -> torch.Tensor:
+                tape: Optional[Tape] = None, row_block: int = 0,
+                model_group: Optional[DataGroup] = None) -> torch.Tensor:
     """x: (B, input_dim) → logits (B, num_classes); with ``row_block``
-    each linear multiplies that many rows at a time."""
+    each linear multiplies that many rows at a time.
+
+    With a ``model_group`` each column-sharded layer runs Megatron-style:
+    ``psum_backward`` on the replicated input, the local columns'
+    matmul, ``all_gather_replicated`` of the local output slice.  The
+    tap sits on the local slice, so a layer's ghost term is a partial
+    sum over the group that the scorer sums.  A replicated layer takes
+    none of the three."""
     n = len(cfg.hidden) + 1
     h = x
     for i in range(n):
         p = params[f"fc{i}"]
+        sharded = model_group is not None and layer_is_sharded(params, cfg,
+                                                               i)
+        if sharded:
+            h = psum_backward(h, model_group)
         y = _matmul_rows(h, p["w"], row_block) + p["b"]
         if tape is not None:
             y = tape.linear(f"fc{i}", h, y)
+        if sharded:
+            y = all_gather_replicated(y, model_group, dim=-1)
         h = torch.relu(y) if i < n - 1 else y
     return h
 
 
 def per_example_loss(params: Params, batch: dict, cfg: MLPConfig,
-                     tape: Optional[Tape] = None,
-                     row_block: int = 0) -> torch.Tensor:
+                     tape: Optional[Tape] = None, row_block: int = 0,
+                     model_group: Optional[DataGroup] = None
+                     ) -> torch.Tensor:
     """Cross-entropy per example. batch: {x (B,D), y (B,)}."""
-    logits = mlp_forward(params, batch["x"], cfg, tape, row_block)
+    logits = mlp_forward(params, batch["x"], cfg, tape, row_block,
+                         model_group=model_group)
     lp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(lp, 1, batch["y"].long()[:, None])[:, 0]
 
 
-def per_example_loss_and_score(params: Params, batch: dict, cfg: MLPConfig
+def per_example_loss_and_score(params: Params, batch: dict, cfg: MLPConfig,
+                               model_group: Optional[DataGroup] = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused-mode objective: (CE losses, logit-grad norms) from one
-    forward; the score ||p − onehot||₂ is closed-form from the logits."""
-    logits = mlp_forward(params, batch["x"], cfg)
+    forward; the score ||p − onehot||₂ is closed-form from the gathered
+    logits, the same on every rank of a model group."""
+    logits = mlp_forward(params, batch["x"], cfg, model_group=model_group)
     lp = torch.log_softmax(logits.float(), dim=-1)
     y = batch["y"].long()[:, None]
     nll = -torch.gather(lp, 1, y)[:, 0]

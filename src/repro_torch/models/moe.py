@@ -18,6 +18,13 @@ atomics:
     or an empty buffer slot), whose gradient is thrown away;
   * the inverse permutation is a gather too (by ``argsort(order)``).
 No index ever falls outside its source, and no two writes share a row.
+
+With ffn-sharded experts and a ``model_group`` (``specs_moe``: the
+router replicated, each expert's ffn dim sharded), every rank routes
+identically and runs the Megatron column/row pair on its local ffn
+slice: ``psum_backward`` on the dispatched buffer, ``psum_forward`` on
+the partial outputs before the gate multiply, which keeps the router's
+gradient replicated.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.collectives import psum_backward, psum_forward
+from repro_torch.dist import DataGroup
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, Tape, _dense_init, activation,
                                        dtype_of, tapped_linear)
@@ -52,6 +61,13 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig,
         "w_gate": normal((e, d, f), d ** -0.5),
         "w_out": normal((e, f, d), f ** -0.5),
     }
+
+
+def specs_moe() -> Params:
+    return {"router": ("embed", None),
+            "w_in": ("expert", "embed", "ffn"),
+            "w_gate": ("expert", "embed", "ffn"),
+            "w_out": ("expert", "ffn", "embed")}
 
 
 def capacity(cfg: ModelConfig, tokens: int, dropless: bool = False) -> int:
@@ -100,12 +116,17 @@ def route(logits: torch.Tensor, cfg: ModelConfig,
 
 def moe(params: Params, x: torch.Tensor, cfg: ModelConfig,
         tape: Optional[Tape] = None, prefix: str = "moe",
-        dropless: bool = False) -> MoEOut:
+        dropless: bool = False,
+        model_group: Optional[DataGroup] = None) -> MoEOut:
     """x: (B, S, D) → MoEOut with y: (B, S, D).
 
     ``dropless`` gives every expert room for all T·k replicas (exact);
     training uses the capacity factor, and replicas past an expert's
-    capacity are dropped."""
+    capacity are dropped.  With ffn-sharded experts and a
+    ``model_group`` the expert SwiGLU runs on the local ffn slice (see
+    the module docstring); only the replicated router is tapped."""
+    sharded = model_group is not None and params["w_in"].shape[-1] != \
+        cfg.d_ff
     bsz, s, d = x.shape
     t = bsz * s
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -135,6 +156,8 @@ def moe(params: Params, x: torch.Tensor, cfg: ModelConfig,
                       torch.full_like(r.start[:, None], tk))
     buf = torch.cat([x_sorted, zero])[src.reshape(e * cap)]
     buf = buf.reshape(e, cap, d)
+    if sharded:
+        buf = psum_backward(buf, model_group)
 
     h_in = torch.bmm(buf, params["w_in"])
     h_gate = torch.bmm(buf, params["w_gate"])
@@ -143,6 +166,8 @@ def moe(params: Params, x: torch.Tensor, cfg: ModelConfig,
     y_sorted = torch.cat([y_buf.reshape(e * cap, d), zero])[r.dst]
     inv = torch.argsort(r.order)         # a permutation's inverse
     y_flat = y_sorted[inv].reshape(t, k, d)
+    if sharded:
+        y_flat = psum_forward(y_flat, model_group)
     y = torch.sum(y_flat * r.gates[..., None].to(x.dtype), dim=1)
 
     dropped = 1.0 - torch.mean(r.keep.float())

@@ -10,9 +10,14 @@ the hand-written selective-scan kernel through ``kernels/ops.py``
 prefill (a ``collector``) always scans with the oracle, which returns the
 final state, as the reference's does; ``pad_mask`` makes a right-padded
 prefill leave the state of the unpadded one.  ``mamba_decode`` is the
-one-token step over the conv window and the f32 state.  The
-channel-parallel paths (``mamba_shard_info``, ``model_axes``) come with
-the multi-device part of the port.
+one-token step over the conv window and the f32 state.
+
+With channel-sharded weights and a ``model_group`` (``specs_mamba``;
+``mamba_shard_info``) the training mixer is channel-parallel: the
+replicated [x | z] projection is sliced to this rank's channels, the
+conv, Δ, A, D and the scan (either mode) run on them, and the
+row-sharded x_proj and out_proj give partial outputs that
+``psum_forward`` sums.  The decode step takes no model group.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import psum_backward, psum_forward
+from repro_torch.dist import DataGroup
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
@@ -73,6 +80,39 @@ def init_mamba(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def specs_mamba() -> Params:
+    """in_proj projects to the concatenated [x | z] pair (d, 2·d_inner): a
+    contiguous column shard of it would not follow the channel split, so
+    it stays replicated and ``mamba`` slices its output instead."""
+    return {"in_proj": ("embed", None), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "a_log": ("inner", None), "d_skip": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
+def mamba_shard_info(params: Params, cfg: ModelConfig) -> tuple[bool, int]:
+    """(sharded, local d_inner) of a mamba parameter tree.  Every
+    channel-indexed parameter shards the same d_inner, so the fallback
+    takes all of them or none; a mix raises naming ``d_inner``."""
+    di = cfg.resolved_d_inner
+    di_l = params["a_log"].shape[0]
+    if di_l == di and params["out_proj"].shape[0] == di:
+        return False, di
+    consistent = (params["out_proj"].shape[0] == di_l
+                  and params["x_proj"].shape[0] == di_l
+                  and params["conv_w"].shape[1] == di_l
+                  and params["dt_proj"].shape[1] == di_l
+                  and params["in_proj"].shape[-1] == 2 * di)
+    if not consistent or di % di_l:
+        raise ValueError(
+            f"mamba is inconsistently model-sharded (a_log rows={di_l}, "
+            f"out_proj rows={params['out_proj'].shape[0]}, d_inner={di}): "
+            f"the model-parallel degree must divide d_inner "
+            f"({di}; config field d_inner, default 2*d_model)")
+    return True, di_l
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over the sequence. x: (B, S, di), w: (W, di);
@@ -110,7 +150,8 @@ def _conv_tail(x_in: torch.Tensor, w: int,
 def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
           tape: Optional[Tape] = None, prefix: str = "mamba",
           mode: str = "ref", collector: Optional[dict] = None,
-          pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+          pad_mask: Optional[torch.Tensor] = None,
+          model_group: Optional[DataGroup] = None) -> torch.Tensor:
     """Full-sequence mamba mixer. x: (B, S, D) → (B, S, D).
 
     ``mode="ref"`` scans with ``ref.selective_scan_ref`` at the config's
@@ -125,15 +166,29 @@ def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
     ``{prefix}.h``.  ``pad_mask`` (B, S) bool marks the real positions of
     a right-padded batch: Δ is zeroed at pad positions, which makes each
     pad step the identity on the state (h = exp(0·A)·h + 0·B·x), and the
-    conv window is gathered from each row's real tail."""
+    conv window is gathered from each row's real tail.
+
+    With channel-sharded weights and a ``model_group`` the mixer runs on
+    this rank's channel block (module docstring); x_proj's summed output
+    feeds every rank's own channels, so it takes ``psum_backward`` after
+    ``psum_forward``, and the local taps (x_proj, out_proj) are partial
+    terms."""
     check_ssm_mode(mode)
     di, ds, dtr = cfg.resolved_d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+    sharded, di_l = (mamba_shard_info(params, cfg) if model_group
+                     is not None else (False, di))
+    mg = model_group if sharded else None
 
     xz = tapped_linear(x, params["in_proj"], f"{prefix}.in_proj", tape)
+    xz = psum_backward(xz, mg)
     x_in, z = xz[..., :di], xz[..., di:]
+    if sharded:
+        lo = mg.rank * di_l
+        x_in, z = x_in[..., lo:lo + di_l], z[..., lo:lo + di_l]
     x_c = F.silu(_causal_conv(x_in, params["conv_w"], params["conv_b"]))
 
     proj = tapped_linear(x_c, params["x_proj"], f"{prefix}.x_proj", tape)
+    proj = psum_backward(psum_forward(proj, mg), mg)
     dt_r = proj[..., :dtr]
     b_mat = proj[..., dtr:dtr + ds]
     c_mat = proj[..., dtr + ds:]
@@ -160,7 +215,8 @@ def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
                                                       cfg.ssm_scan_dtype))
 
     y = y * F.silu(z)
-    return tapped_linear(y, params["out_proj"], f"{prefix}.out_proj", tape)
+    out = tapped_linear(y, params["out_proj"], f"{prefix}.out_proj", tape)
+    return psum_forward(out, mg)
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,

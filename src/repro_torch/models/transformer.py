@@ -23,6 +23,16 @@ each mamba layer's decode state (its conv window and f32 h).
 ``ssm_mode`` picks the mamba scan: "ref" (the plain oracle, which autograd
 differentiates) or "pallas" (the forward-only selective-scan kernel).
 ``remat`` has no numeric effect and is not ported.
+
+With a ``model_group`` (the reference's ``model_axes``) the whole stack
+runs tensor-parallel on this rank's shards (``transformer_specs``):
+head-sharded attention, ffn-sharded MLP and MoE experts,
+channel-sharded mamba, a vocab-parallel embed and unembed, each
+sub-layer reading its shardedness from its local shapes.
+``seq_shard=True`` makes the RMSNorm segments sequence-parallel
+(``_norm_segment``).  ``tap_structure_from_params`` gives the taps of
+the local shards and ``sharded_tap_names`` which of them are partial
+terms of the ghost norm.
 """
 from __future__ import annotations
 
@@ -33,10 +43,14 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.core.collectives import (all_gather_replicated,
+                                          psum_backward, scatter_seq)
+from repro_torch.dist import DataGroup
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
                                        init_embed, init_mlp, init_rmsnorm,
-                                       mlp, rmsnorm, unembed)
+                                       mlp, rmsnorm, specs_embed, specs_mlp,
+                                       specs_rmsnorm, unembed)
 
 
 class Aux(NamedTuple):
@@ -78,6 +92,30 @@ def _init_layer(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _layer_specs_tree(cfg: ModelConfig, spec: LayerSpec) -> Params:
+    p = {"ln1": specs_rmsnorm()}
+    if spec.mixer == "attn":
+        p["mixer"] = (attn_mod.specs_mla(cfg) if cfg.attention == "mla"
+                      else attn_mod.specs_attn())
+    else:
+        p["mixer"] = ssm_mod.specs_mamba()
+    if cfg.d_ff > 0:
+        p["ln2"] = specs_rmsnorm()
+        p["ff"] = moe_mod.specs_moe() if spec.ff == "moe" else specs_mlp()
+    return p
+
+
+def transformer_specs(cfg: ModelConfig) -> Params:
+    """The logical axes of every parameter, beside ``init_transformer``'s
+    tree (the stacked period axis is a leading dim no spec names)."""
+    return {
+        "embed": specs_embed(cfg),
+        "layers": {f"l{i}": _layer_specs_tree(cfg, s)
+                   for i, s in enumerate(cfg.layer_specs())},
+        "final_norm": specs_rmsnorm(),
+    }
+
+
 def _stack(trees: list) -> Params:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -102,19 +140,49 @@ def init_transformer(generator: torch.Generator, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------- forward
+def _sp_active(h: torch.Tensor, model_group: Optional[DataGroup],
+               seq_shard: bool) -> bool:
+    """Whether the sequence-parallel norm segment applies: asked for, a
+    model group, and a sequence length the group divides."""
+    return seq_shard and model_group is not None and \
+        h.shape[1] % model_group.size == 0
+
+
+def _norm_segment(ln: Params, h: torch.Tensor, cfg: ModelConfig,
+                  model_group: Optional[DataGroup],
+                  seq_shard: bool) -> torch.Tensor:
+    """RMSNorm, as a sequence-parallel segment when ``_sp_active``: the
+    replicated residual is ``scatter_seq``-sliced so each rank normalises
+    1/M of the positions, the norm's scale takes ``psum_backward`` (its
+    per-slice gradients sum to the replicated one), and
+    ``all_gather_replicated`` over the sequence rebuilds the replicated
+    input of the sharded mixer or FFN.  A position's norm is the same
+    arithmetic either way, so the forward is bitwise the plain one."""
+    if not _sp_active(h, model_group, seq_shard):
+        return rmsnorm(ln, h, cfg.norm_eps)
+    hs = scatter_seq(h, model_group, dim=1)
+    sc = {"scale": psum_backward(ln["scale"], model_group)}
+    return all_gather_replicated(rmsnorm(sc, hs, cfg.norm_eps), model_group,
+                                 dim=1)
+
+
 def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                  spec: LayerSpec, positions: torch.Tensor,
                  tape: Optional[Tape], prefix: str,
                  collector: Optional[dict] = None, attn_impl: str = "ref",
                  attn_scores: Optional[str] = None,
                  ssm_mode: str = "ref",
-                 pad_mask: Optional[torch.Tensor] = None
+                 pad_mask: Optional[torch.Tensor] = None,
+                 model_group: Optional[DataGroup] = None,
+                 seq_shard: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer: (h, its MoE load-balance loss, a 0-d f32 tensor).
     ``pad_mask`` reaches the mamba mixers only: causal attention is exact
-    for the real rows of a right-padded batch by construction."""
+    for the real rows of a right-padded batch by construction.
+    ``model_group`` and ``seq_shard``: see the module docstring."""
+    mg = model_group
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    hn = _norm_segment(lp["ln1"], h, cfg, mg, seq_shard)
     if spec.mixer == "attn" and cfg.attention == "mla":
         if attn_impl != "ref" or attn_scores is not None:
             raise ValueError(
@@ -123,23 +191,28 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                 f"(attn_impl={attn_impl!r}, attn_scores={attn_scores!r}); "
                 f"use the default ghost taps")
         h = h + attn_mod.mla(lp["mixer"], hn, cfg, positions, tape,
-                             prefix=f"{prefix}.attn", collector=collector)
+                             prefix=f"{prefix}.attn", collector=collector,
+                             model_group=mg)
     elif spec.mixer == "attn":
         h = h + attn_mod.attn(lp["mixer"], hn, cfg, positions, tape,
                               prefix=f"{prefix}.attn",
                               q_chunk=cfg.attn_chunk, collector=collector,
-                              impl=attn_impl, attn_scores=attn_scores)
+                              impl=attn_impl, attn_scores=attn_scores,
+                              model_group=mg)
     else:
         h = h + ssm_mod.mamba(lp["mixer"], hn, cfg, tape,
                               prefix=f"{prefix}.mamba", mode=ssm_mode,
-                              collector=collector, pad_mask=pad_mask)
+                              collector=collector, pad_mask=pad_mask,
+                              model_group=mg)
     if cfg.d_ff == 0:
         return h, aux
-    hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    hn = _norm_segment(lp["ln2"], h, cfg, mg, seq_shard)
     if spec.ff == "moe":
-        out = moe_mod.moe(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.moe")
+        out = moe_mod.moe(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.moe",
+                          model_group=mg)
         return h + out.y, out.aux_loss
-    return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp"), aux
+    return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp",
+                   model_group=mg), aux
 
 
 def _period(tree: Params, p: int) -> Params:
@@ -154,7 +227,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             collect_cache: bool = False, attn_impl: str = "ref",
             attn_scores: Optional[str] = None, ssm_mode: str = "ref",
             return_hidden: bool = False,
-            pad_mask: Optional[torch.Tensor] = None
+            pad_mask: Optional[torch.Tensor] = None,
+            model_group: Optional[DataGroup] = None,
+            seq_shard: bool = False
             ) -> tuple[torch.Tensor, Aux]:
     """tokens (B, S_text) → logits (B, S, vocab) (or the final hidden
     states with ``return_hidden``) and Aux, S = N_front + S_text.
@@ -177,10 +252,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``models/ssm.mamba``).  ``pad_mask`` (B, S) bool marks the real
     positions of a right-padded batch (the bucketed prefill); only the
     mamba layers read it.  ``Aux.aux_loss`` is the sum of the MoE
-    layers' load-balance losses."""
+    layers' load-balance losses.  ``model_group``/``seq_shard`` run the
+    stack on this rank's shards (module docstring); the logits are the
+    gathered, replicated ones."""
     check_supported(cfg)
     specs = cfg.layer_specs()
-    h = embed(params["embed"], tokens, cfg)
+    h = embed(params["embed"], tokens, cfg, model_group=model_group)
     if embeds is not None:
         h = torch.cat([embeds.to(h.dtype), h], dim=1)
     bsz, s, _ = h.shape
@@ -200,7 +277,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                   tape, f"l{i}", collector=cache,
                                   attn_impl=attn_impl,
                                   attn_scores=attn_scores, ssm_mode=ssm_mode,
-                                  pad_mask=pad_mask)
+                                  pad_mask=pad_mask, model_group=model_group,
+                                  seq_shard=seq_shard)
             aux_loss = aux_loss + aux
         per_period.append(tape.records)
         per_cache.append(cache)
@@ -212,7 +290,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         return h, Aux(aux_loss, records, caches)
     head_tape = Tape(taps={"unembed": head_tap} if head_tap is not None
                      else None, records={} if collect else None)
-    logits = unembed(params["embed"], h, cfg, tape=head_tape)
+    logits = unembed(params["embed"], h, cfg, tape=head_tape,
+                     model_group=model_group)
     if collect:
         records.update(head_tape.records)
     return logits, Aux(aux_loss, records, caches)
@@ -289,10 +368,66 @@ def tap_structure(cfg: ModelConfig, batch: int, seq: int,
     return out
 
 
+def tap_structure_from_params(params: Params, cfg: ModelConfig, batch: int,
+                              seq: int, attn_impl: str = "ref",
+                              attn_scores: Optional[str] = None) -> dict:
+    """``tap_structure`` for the parameters at hand: under model
+    parallelism a column-sharded linear's tap carries only this rank's
+    dY columns, so each linear tap is as wide as its local weight's last
+    dim; the router's and the score taps keep their shapes, and the
+    unembed tap is the gathered full-vocab logits."""
+    out = tap_structure(cfg, batch, seq, attn_impl=attn_impl,
+                        attn_scores=attn_scores)
+    for name, shape in out.items():
+        parts = name.split(".")
+        if len(parts) != 3 or parts[2] in ("qkv_scores", "router"):
+            continue
+        layer, kind, w = parts
+        sub = "mixer" if kind in ("attn", "mamba") else "ff"
+        out[name] = shape[:-1] + (params["layers"][layer][sub][w].shape[-1],)
+    return out
+
+
+def sharded_tap_names(params: Params, cfg: ModelConfig,
+                      attn_scores: Optional[str] = None) -> set:
+    """The taps whose ghost terms are partial sums over the model group:
+    a column-sharded linear taps this rank's dY columns, a row-sharded
+    one records this rank's input columns.  The replicated ones (the
+    router, MLA's latent projections, mamba's in_proj, the unembed) are
+    whole on every rank and counted once by the scorer.  Detection
+    follows the forward's own shape checks, so a layer that fell back to
+    replication classifies as replicated."""
+    layers0 = _period(params["layers"], 0)
+    names: set = set()
+    for i, spec in enumerate(cfg.layer_specs()):
+        lp = layers0[f"l{i}"]
+        if spec.mixer == "attn" and cfg.attention == "mla":
+            if attn_mod.mla_shard_info(lp["mixer"], cfg)[0]:
+                names |= {f"l{i}.attn.wkv_b", f"l{i}.attn.wo",
+                          (f"l{i}.attn.wq_b" if cfg.q_lora_rank
+                           else f"l{i}.attn.wq")}
+        elif spec.mixer == "attn":
+            if attn_mod.attn_shard_info(lp["mixer"], cfg)[0]:
+                # the score tap's (B,) score comes from the local heads'
+                # gradients: a partial term too
+                names |= ({f"l{i}.attn.qkv_scores", f"l{i}.attn.wo"}
+                          if attn_scores is not None else
+                          {f"l{i}.attn.wq", f"l{i}.attn.wk",
+                           f"l{i}.attn.wv", f"l{i}.attn.wo"})
+        elif ssm_mod.mamba_shard_info(lp["mixer"], cfg)[0]:
+            names |= {f"l{i}.mamba.x_proj", f"l{i}.mamba.out_proj"}
+        if cfg.d_ff > 0 and spec.ff == "mlp" \
+                and lp["ff"]["w_in"].shape[-1] != cfg.d_ff:
+            names |= {f"l{i}.mlp.w_in", f"l{i}.mlp.w_gate",
+                      f"l{i}.mlp.w_out"}
+    return names
+
+
 # ------------------------------------------------------------------- loss
 def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
                     targets: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None
+                    mask: Optional[torch.Tensor] = None,
+                    model_group: Optional[DataGroup] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked unembed + CE: per-example (mean_nll, logit_grad_norm).
 
@@ -310,7 +445,8 @@ def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
         h_c = h[:, lo:lo + chunk]
         t_c = targets[:, lo:lo + chunk].long()
         m_c = mask[:, lo:lo + chunk]
-        logits = unembed(params["embed"], h_c, cfg).float()
+        logits = unembed(params["embed"], h_c, cfg,
+                         model_group=model_group).float()
         lp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(lp, -1, t_c[..., None])[..., 0]
         pr = torch.exp(lp)
@@ -326,11 +462,14 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
                      taps: Optional[dict] = None, collect: bool = False,
                      attn_impl: str = "ref",
                      attn_scores: Optional[str] = None,
-                     ssm_mode: str = "ref") -> tuple[torch.Tensor, Aux]:
+                     ssm_mode: str = "ref",
+                     model_group: Optional[DataGroup] = None,
+                     seq_shard: bool = False) -> tuple[torch.Tensor, Aux]:
     """Mean next-token CE per example. batch: {tokens (B, S+1), [embeds
     (B, N_front, D)], [mask]}.  The embeds are prepended and the loss
     covers the token positions only.  ``attn_impl``/``attn_scores``/
-    ``ssm_mode`` go to ``forward``."""
+    ``ssm_mode``/``model_group``/``seq_shard`` go to ``forward``."""
+    mp = dict(model_group=model_group, seq_shard=seq_shard)
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
     n_front = embeds.shape[1] if embeds is not None else 0
@@ -340,14 +479,15 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
         h, aux = forward(params, cfg, tokens[:, :-1], embeds=embeds,
                          collect=collect, attn_impl=attn_impl,
                          attn_scores=attn_scores, ssm_mode=ssm_mode,
-                         return_hidden=True)
+                         return_hidden=True, **mp)
         mean_nll, _ = lm_head_metrics(
             params, cfg, h[:, n_front:], targets,
-            None if mask is None else mask[:, 1:].float())
+            None if mask is None else mask[:, 1:].float(),
+            model_group=model_group)
         return mean_nll, aux
     logits, aux = forward(params, cfg, tokens[:, :-1], embeds=embeds,
                           taps=taps, collect=collect, attn_impl=attn_impl,
-                          attn_scores=attn_scores, ssm_mode=ssm_mode)
+                          attn_scores=attn_scores, ssm_mode=ssm_mode, **mp)
     lp = torch.log_softmax(logits[:, n_front:].float(), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     if mask is not None:
@@ -360,17 +500,23 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
 
 
 def per_example_loss_and_score(params: Params, cfg: ModelConfig,
-                               batch: dict, ssm_mode: str = "ref"
+                               batch: dict, ssm_mode: str = "ref",
+                               model_group: Optional[DataGroup] = None,
+                               seq_shard: bool = False
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused-mode objective: (mean NLL (B,), logit-grad scores (B,)) from
     ONE forward: the score the workers' pass would compute falls out of
     the chunked head (``lm_head_metrics``), over the token positions.  The
-    attention is the ref path, as in the reference."""
+    attention is the ref path, as in the reference.  Under a
+    ``model_group`` the score comes from the gathered logits: replicated,
+    no sum needed."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
     n_front = embeds.shape[1] if embeds is not None else 0
     h, _ = forward(params, cfg, tokens[:, :-1], embeds=embeds,
-                   ssm_mode=ssm_mode, return_hidden=True)
+                   ssm_mode=ssm_mode, return_hidden=True,
+                   model_group=model_group, seq_shard=seq_shard)
     mask = batch.get("mask")
     return lm_head_metrics(params, cfg, h[:, n_front:], tokens[:, 1:].long(),
-                           None if mask is None else mask[:, 1:].float())
+                           None if mask is None else mask[:, 1:].float(),
+                           model_group=model_group)

@@ -231,15 +231,22 @@ def test_launcher_flags_have_reference_defaults():
         if flag == "--device":
             continue
         assert flag in ref, flag
-        assert value == (ref[flag] if ref[flag] is not None else False), flag
+        # an absent default is a store_true flag's False, but for the
+        # reference's one tri-state flag: --(no-)sequence-parallel, whose
+        # None means on when M > 1
+        want = ref[flag] if ref[flag] is not None else (
+            None if flag == "--sequence-parallel" else False)
+        assert value == want, flag
     # every other reference flag is refused by name
     assert set(ref) - {"--" + n.replace("_", "-") for n in ours} <= \
         set(ttrain.LATER_FLAGS)
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model-parallel", "2", "--device", "cpu"], "PyTorch port"),
-    (["--sequence-parallel", "--device", "cpu"], "PyTorch port"),
+    (["--model-parallel", "2", "--strategy", "full", "--device", "cpu"],
+     "--strategy full"),
+    (["--arch", "glm4-9b", "--model-parallel", "3", "--device", "cpu"],
+     "num_heads"),
     (["--bogus", "--device", "cpu"], "unrecognized"),
 ])
 def test_launcher_refuses_what_the_slice_lacks(argv, match, capsys):

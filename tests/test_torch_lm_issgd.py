@@ -250,16 +250,16 @@ def test_launcher_takes_a_config_override():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "dbrx-132b", "--sequence-parallel", "--device", "cpu"],
-     "does not carry yet"),
-    (["--arch", "jamba-v0.1-52b", "--model-parallel", "2", "--device",
-      "cpu"], "does not carry yet"),
+    (["--arch", "dbrx-132b", "--model-parallel", "5", "--device", "cpu"],
+     "does not divide num_heads"),
+    (["--arch", "jamba-v0.1-52b", "--model-parallel", "16", "--device",
+      "cpu"], "does not divide num_kv_heads"),
     (["--arch", "no-such-arch", "--device", "cpu"], "unknown arch"),
 ])
 def test_launcher_refuses_unported_archs(argv, match, capsys):
-    """Every arch of the reference is ported; an unknown one, and the
-    multi-device flags the port does not carry yet, are refused by
-    name."""
+    """Every arch of the reference is ported; an unknown one is refused
+    by name, and so is a model-parallel degree that does not divide an
+    arch's heads or kv heads (the reference's refusals)."""
     with pytest.raises(SystemExit) as e:
         ttrain.parse_args(argv)
     assert e.value.code == 2

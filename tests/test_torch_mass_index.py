@@ -482,7 +482,9 @@ def test_launcher_carries_the_slice_flags():
                  "--adaptive-is", "--adapt-every", "--index",
                  "--index-chunk-size", "--table-dtype", "--score-ttl"):
         assert flag not in ttrain.LATER_FLAGS
-    assert "--model-parallel" in ttrain.LATER_FLAGS
+    assert ttrain.LATER_FLAGS == ()          # model parallelism: ported
+    assert ttrain.parse_args(["--device", "cpu", "--model-parallel",
+                              "2"]).model_parallel == 2
     args = ttrain.parse_args(["--device", "cpu", "--index", "tree",
                               "--table-dtype", "int8", "--index-chunk-size",
                               "64", "--score-ttl", "9"])

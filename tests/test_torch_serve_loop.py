@@ -398,7 +398,8 @@ def test_launcher_serve_loop_and_adaptive_swap(tmp_path, capsys):
     (["--stream", "--table-dtype", "int8", "--index-chunk-size", "64"],
      "does not compose with --stream"),
     (["--async-scoring", "--swap-every", "0"], "must be >= 1"),
-    (["--model-parallel", "2"], "does not carry yet"),
+    (["--arch", "falcon-mamba-7b", "--model-parallel", "3"],
+     "does not divide d_inner"),
 ])
 def test_launcher_refuses_bad_combinations(argv, match, capsys):
     with pytest.raises(SystemExit) as e:

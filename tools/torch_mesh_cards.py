@@ -3,7 +3,7 @@
 rank a card, against the one-device runs of the same flags.
 
 Usage:  python3 tools/torch_mesh_cards.py [--worlds 2,4] [--steps 30]
-            [--examples 131072]
+            [--examples 131072] [--model-parallel M]
 
 Needs as many CUDA cards as the largest world.  mlp_svhn at the paper's
 width (3072→2048×4→10) with ``--score-shards 4`` runs as one device and
@@ -21,6 +21,20 @@ as ``--mesh N`` for each N of ``--worlds``:
     every decision; the cadence follows measured times, so no loss is
     compared).
 
+With ``--model-parallel M`` (M > 1) it runs the model-parallel legs
+instead: the relaxed trainer, ``--async-scoring --swap-every 4`` and
+``--stream --async-scoring`` as ``--model-parallel M`` (M cards) and as
+``--mesh N --model-parallel M`` for each N of ``--worlds`` whose N·M
+cards the machine has, one rank a card over NCCL.  Sums of M partials
+differ from one device's in the last bits (a near-zero gradient's score,
+whose p − onehot cancels, by more), one row's CDF boundary moving is
+enough to flip a draw, and a diverging run amplifies what differs.  So
+only the steps whose draws cannot differ are held to the one-device
+run's losses at rtol 1e-4: an async leg's first ``SWAP - 1`` steps,
+drawn from the store before its first publish (the relaxed leg draws
+from scores at once); every leg's count of steps within that bound and
+its step times are reported beside the one-device run's.
+
 Each run is a fresh launcher process.  It prints each run's median step
 and quartiles (CUDA events, the launcher's own) and the card line, and
 as its last line one JSON object; it exits 1 if any comparison fails.
@@ -36,6 +50,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "build", "mesh_cards")
+SWAP = 4                  # the async legs' publish cadence
 
 
 def launch(tag: str, argv: list) -> dict:
@@ -63,19 +78,68 @@ def launch(tag: str, argv: list) -> dict:
     return out
 
 
+def close_losses(got: list, want: list, rtol: float = 1e-4) -> int:
+    """The steps, from the first, whose losses agree within ``rtol``."""
+    n = 0
+    for a, b in zip(got, want):
+        if abs(a - b) > rtol * abs(b):
+            break
+        n += 1
+    return n
+
+
+def model_parallel_legs(args, base, planes, steps, card) -> int:
+    """The ``--model-parallel M`` legs (see the module docstring)."""
+    import torch
+    m = args.model_parallel
+    meshes = [0] + [w for w in (int(x) for x in args.worlds.split(","))
+                    if w * m <= torch.cuda.device_count()]
+    res, bad = {}, []
+    for name, flags in {"relaxed": [], **planes}.items():
+        one = launch(f"{name}_one_device", base + flags + steps)
+        res[f"{name}_one_device"] = one
+        for w in meshes:
+            tag = f"{name}_mesh{w}_mp{m}" if w else f"{name}_mp{m}"
+            got = launch(tag, base + flags + steps + [
+                "--model-parallel", str(m)] + (["--mesh", str(w)] if w
+                                               else []))
+            got["steps_close"] = close_losses(got["losses"], one["losses"])
+            res[tag] = got
+            print(f"{tag}: losses within 1e-4 of one device's for "
+                  f"{got['steps_close']} of {args.steps} steps", flush=True)
+            held = SWAP - 1 if flags else 0
+            if got["steps_close"] < min(held, args.steps):
+                bad.append(f"{tag}: losses leave one device's after "
+                           f"{got['steps_close']} steps, before its "
+                           f"first publish")
+    for b in bad:
+        print(f"FAIL: {b}", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": not bad, "card": card, "model_parallel": m,
+                      "meshes": meshes,
+                      "runs": {k: {kk: v.get(kk) for kk in (
+                          "median_ms", "quartiles_ms", "steps_close")}
+                          for k, v in res.items()}}))
+    return 1 if bad else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--worlds", default="2,4")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--examples", type=int, default=131072)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="run the model-parallel legs at this M instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     worlds = [int(w) for w in args.worlds.split(",")]
-    if max(worlds) > torch.cuda.device_count():
-        sys.exit(f"--worlds {args.worlds} needs {max(worlds)} cards, this "
-                 f"machine has {torch.cuda.device_count()}")
+    need = max(worlds) if args.model_parallel == 1 else args.model_parallel
+    if need > torch.cuda.device_count():
+        sys.exit(f"--worlds {args.worlds} --model-parallel "
+                 f"{args.model_parallel} needs {need} cards, this machine "
+                 f"has {torch.cuda.device_count()}")
     os.makedirs(OUT, exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -83,11 +147,13 @@ def main() -> int:
         text=True).stdout.strip()
     base = ["--examples", str(args.examples), "--score-shards", "4",
             "--score-batch", "4096", "--device", "cuda"]
-    planes = {"async": ["--async-scoring", "--swap-every", "4"],
+    planes = {"async": ["--async-scoring", "--swap-every", str(SWAP)],
               "stream_async": ["--stream", "--async-scoring",
-                               "--swap-every", "4", "--chunk-size", "1024",
-                               "--window-chunks", "32"]}
+                               "--swap-every", str(SWAP), "--chunk-size",
+                               "1024", "--window-chunks", "32"]}
     steps = ["--steps", str(args.steps)]
+    if args.model_parallel > 1:
+        return model_parallel_legs(args, base, planes, steps, card)
     res, bad = {}, []
     for name, flags in planes.items():
         one = launch(f"{name}_one_device", base + flags + steps)

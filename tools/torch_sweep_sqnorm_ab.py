@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Time the score sweep and the multi-tap sq-norm kernel of two checkouts
-in turns on one CUDA card.
+"""Time the score sweep and the sq-norm kernels of two checkouts in turns
+on one CUDA card.
 
 Usage:  python3 tools/torch_sweep_sqnorm_ab.py OTHER_ROOT [--rounds 20]
 
@@ -14,7 +14,10 @@ libraries under its own ``build/``.  Each side times, with input sets
 rotated past the L2 cache (``chip_smoke.time_cold``: device time from the
 profiler, split by kernel name, and wall time from CUDA events):
 ``per_example_sqnorm_multi`` at ``chip_smoke.py`` phase 5's shape (B = 256,
-the five mlp_svhn taps, f32), and ``attn_score_sweep`` at phase 18's
+the five mlp_svhn taps, f32), the single-tap ``per_example_sqnorm`` at
+(256, 3072 | 2048) and at the replicated ``fc4`` tap of a
+``--model-parallel 4`` MLP step (256, 2048 | 10), and ``attn_score_sweep``
+at phase 18's
 (dq (16, 512, 32, 128), dk and dv (16, 512, 2, 128), bf16).  Each holds
 its results to the plain versions (rtol 1e-5) and two launches to each
 other (bitwise).  It prints, per kernel, the faster of each side's two
@@ -34,6 +37,9 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWEEP_SHAPE = (16, 512, 32, 2, 128)      # B, S, H, Hkv, hd: phase 18
 RTOL = 1e-5
+# the single-tap kernel's shapes: its old timing shape, and the replicated
+# fc4 tap of an mlp_svhn step at --model-parallel 4 (its main-path launch)
+SINGLE_SHAPES = {"single": (3072, 2048), "single_fc4": (2048, 10)}
 
 
 def worker(root: str, rounds: int) -> None:
@@ -63,6 +69,23 @@ def worker(root: str, rounds: int) -> None:
     out["sqnorm_ok"] = bool(torch.equal(got, again) and torch.allclose(
         got, want, rtol=RTOL, atol=0.0))
     del inputs
+    for name, widths in SINGLE_SHAPES.items():
+        per_set = 4 * smoke.MAIN_B * sum(widths)
+        inputs = [smoke.make_taps(smoke.MAIN_B, (widths,), f32[:1],
+                                  seed=700 + i)
+                  for i in range(max(2, math.ceil(4 * smoke.L2_BYTES
+                                                  / per_set)))]
+        kern = lambda xs, ds: pes.per_example_sqnorm(xs[0], ds[0])
+        out[name], out[f"{name}_wall"], out[f"{name}_split"] = \
+            smoke.time_cold(kern, inputs, rounds, split=True)
+        got, again = kern(*inputs[0]), kern(*inputs[0])
+        want = ref.per_example_sqnorm_ref(inputs[0][0][0], inputs[0][1][0])
+        emu = ref.per_example_sqnorm_blocked(inputs[0][0][0],
+                                             inputs[0][1][0])
+        out[f"{name}_ok"] = bool(
+            torch.equal(got, again) and torch.equal(got, emu)
+            and torch.allclose(got, want, rtol=RTOL, atol=0.0))
+        del inputs
     b, s, h, hkv, hd = SWEEP_SHAPE
     g = torch.Generator(device="cuda").manual_seed(1200)
     sets = [tuple((torch.randn(sh, generator=g, device="cuda") * 1e-2)
@@ -107,10 +130,12 @@ def main() -> int:
             raise SystemExit(f"torch_sweep_sqnorm_ab: the {side} side failed")
         runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     bounds = {"sqnorm": smoke.bound_ms(smoke.MAIN_B, smoke.MAIN_TAPS),
-              "sweep": smoke.sweep_bound(*SWEEP_SHAPE, 2)}
+              "sweep": smoke.sweep_bound(*SWEEP_SHAPE, 2),
+              **{name: smoke.bound_ms(smoke.MAIN_B, (widths,))
+                 for name, widths in SINGLE_SHAPES.items()}}
     bounds["sweep"] = (bounds["sweep"]["bound_ms"], bounds["sweep"]["bound_by"])
     per_kernel = {}
-    for name in ("sqnorm", "sweep"):
+    for name in ("sqnorm", *SINGLE_SHAPES, "sweep"):
         row = {"bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
         for side in sides:
             rs = runs[side]
