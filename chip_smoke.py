@@ -382,6 +382,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 of the rows beyond 5e-2: top-k routing flips near ties
                 under bf16 reassociation); (d) the M = 2 mlp_svhn run's gather-free file
                 restored on one device, bit for bit its shards.
+ 45. serving groups — serving on the (data, model) groups, ranks sharing
+                the one card over gloo, every plain version forbidden: (a)
+                glm4-9b at full width cut to 4 layers, bf16, 16 requests of
+                seeded lengths through 8 slots of the model-group batcher
+                at (data, model) = (1, 2) and (2, 2) against the
+                one-device batcher: teacher-forced logits within 2e-2, the
+                share of greedy tokens that agree, data world 2 bitwise
+                data world 1, a model group's ranks alike, 4
+                flash_attention launches a prefill and 4 decode_attention
+                a token step a rank (16/1 local heads), all tensor-core;
+                (b) glm4-9b's cut streamed async with and without the
+                serve loop through --mesh 1 over NCCL and --mesh 1
+                --model-parallel 2 over gloo: rows ingested and live, step
+                ms; (c) sharded_decode_attention over 2 and 4 ranks at
+                glm4-9b's decode shape (8 × 32,768 slots) and one
+                524,288-slot sequence against the plain f32 oracle (rtol
+                2e-5, atol 2e-6), the decode kernel's error beside it; (d)
+                minicpm3-4b × 2, falcon-mamba-7b × 2, jamba in phase 31's
+                layout and dbrx-132b × 1 through the (1, 2) batcher,
+                teacher-forced logits against one device's (the MoE archs
+                at the median row).
+ 46. dry run on the card — rank 0 of launch/dryrun.py's 16×16 layout run
+                for real on the card (the fake backend on CUDA tensors):
+                glm4-9b decode_32k and deepseek-7b at seq 512, batch 32;
+                the fake run's argument bytes equal to the real tensors',
+                its peak beside torch.cuda.max_memory_allocated.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -6325,6 +6351,445 @@ def phase_model_parallel(train_mod, ref):
     return out
 
 
+# --- slice 19: serving on the (data, model) groups; the dry run on the card
+SG_SLOTS, SG_REQUESTS, SG_MAX_LEN = 8, 16, 256
+SG_PROMPT, SG_NEW = (17, 128), (8, 24)
+SG_TF_B, SG_TF_S, SG_TF_STEPS = 8, 64, 4   # teacher-forced prefill, steps
+SG_BF16 = 2e-2           # bf16 logits of M partial sums vs one device's
+SG_ATTN = dict(rtol=2e-5, atol=2e-6)       # f32 merge vs the f32 oracle
+# sharded_decode_attention: glm4-9b's decode shape and one long sequence,
+# (B, W) with 32/2 heads of 128
+SG_ATTN_CASES = {"decode_32k": (8, 32768), "long_500k": (1, 524288)}
+SG_LOOP_STEPS = 4
+SG_LOOP_ARGV = ["--arch", "glm4-9b", "--mode", "relaxed", "--strategy",
+                "ghost", "--seq", "64", "--batch", "8", "--score-batch", "8",
+                "--examples", "1024", "--lr", "0.01", "--device", "cuda",
+                "--stream", "--async-scoring", "--swap-every", "2",
+                "--steps", str(SG_LOOP_STEPS)]
+SG_LOOP_SERVE = ["--serve-loop", "--serve-slots", "4", "--serve-prompt-len",
+                 "16", "--serve-max-new", "4", "--serve-decode-steps", "2"]
+# (d): the other families, cut as in phase 44, through the (1, 2) batcher
+SG_ZOO_REQUESTS, SG_ZOO_PROMPT, SG_ZOO_NEW = 4, 32, 4
+SG_ZOO_TF = (4, 32, 3)                     # teacher-forced B, S, steps
+SG_MOE = ("dbrx", "jamba")
+
+
+def sg_zoo() -> dict:
+    return {"minicpm3": zoo_config("minicpm3-4b", num_layers=2),
+            "falcon_mamba": mamba_config(2),
+            "jamba": zoo_config("jamba-v0.1-52b", num_layers=2, attn_every=2,
+                                attn_offset=1, moe_every=2, moe_offset=1),
+            "dbrx": zoo_config("dbrx-132b", num_layers=1)}
+
+
+def sg_params(cfg, seed, mg, n_data):
+    """The whole params from ``seed`` on the card, this model rank's shards
+    kept (all of them for one device)."""
+    from repro_torch.dist.sharding import mesh_shape, param_pspecs, shard_tree
+    from repro_torch.models.transformer import (init_transformer,
+                                                transformer_specs)
+    params = init_transformer(torch.Generator(device="cuda").manual_seed(seed),
+                              cfg, "cuda")
+    if mg is not None:
+        specs = param_pspecs(transformer_specs(cfg), params,
+                             mesh_shape(n_data, mg.size))
+        params = shard_tree(params, specs, mg.rank, mg.size)
+    torch.cuda.empty_cache()
+    return params
+
+
+def sg_requests(cfg, n, prompt, new, seed):
+    """``n`` requests of seeded prompt lengths in ``prompt`` (or all of
+    that one length) and budgets in ``new``, tokens drawn on the host."""
+    from repro_torch.serving import Request
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = prompt if isinstance(prompt, tuple) else (prompt, prompt)
+    lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+    a, b = new if isinstance(new, tuple) else (new, new)
+    news = torch.randint(a, b + 1, (n,), generator=g).tolist()
+    return [Request(uid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (k,), generator=g).to("cuda", torch.int32),
+        max_new_tokens=m) for i, (k, m) in enumerate(zip(lens, news))]
+
+
+def sg_serve(cfg, seed, mg, n_data, ref, reqs, tf):
+    """The batcher (the kernels' route, every plain version forbidden)
+    over ``reqs``, then a teacher-forced prefill of ``tf`` = (B, S, steps)
+    and its decode steps, on this rank's shards (one device when ``mg`` is
+    None): tokens, launches, tensor-core launches, logits, wall s."""
+    from repro_torch.serving import ContinuousBatcher, make_mesh_serving
+    params = sg_params(cfg, seed, mg, n_data)
+    b, s, steps = tf
+    g = torch.Generator().manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    teacher = torch.randint(0, cfg.vocab_size, (steps, b), generator=g)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batcher = ContinuousBatcher(params, cfg, num_slots=SG_SLOTS,
+                                    max_len=SG_MAX_LEN, decode_kernel="pallas",
+                                    attn_impl="pallas", model_group=mg)
+        finished = run_forbidding_plain(ref, lambda: batcher.run(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    wrappers = kernel_wrappers()
+    tc = {k: wrappers[k].tc_launches for k in TC_KERNELS}
+    pre, dec = make_mesh_serving(cfg, s + steps, mg, decode_kernel="pallas",
+                                 attn_impl="pallas")
+
+    def forced():
+        logits, st = pre(params, prompts.to("cuda", torch.int32), s)
+        out = [logits.float()]
+        for tok in teacher:
+            logits, st = dec(params, tok.to("cuda", torch.int32), st, None)
+            out.append(logits.float())
+        return torch.stack(out)
+    with torch.no_grad():
+        logits = run_forbidding_plain(ref, forced).cpu()
+    del batcher, params
+    torch.cuda.empty_cache()
+    return {"tokens": {u: list(t) for u, t in finished.items()},
+            "launches": launches, "tc": tc, "wall_s": wall,
+            "logits": logits}
+
+
+def sg_attention(group) -> dict:
+    """sharded_decode_attention over ``group`` (this rank's slots of the
+    whole seeded cache) on SG_ATTN_CASES: bf16 K and V, the query's bf16
+    values in f32, one sequence whose valid slots lie on rank 0 alone;
+    rank 0 also gives the plain f32 oracle and the decode kernel (bf16)
+    on the whole cache."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import sharded_decode_attention
+    out = {}
+    for name, (b, w) in SG_ATTN_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(4500 + b)
+        q = torch.randn(b, 32, 128, generator=g, device="cuda").to(
+            torch.bfloat16)
+        k = torch.randn(b, w, 2, 128, generator=g, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn(b, w, 2, 128, generator=g, device="cuda").to(
+            torch.bfloat16)
+        lengths = torch.randint(w // 2, w + 1, (b,), generator=g,
+                                device="cuda", dtype=torch.int32)
+        lengths[0] = w // (2 * group.size)
+        w_loc = w // group.size
+        sl = slice(group.rank * w_loc, (group.rank + 1) * w_loc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded_decode_attention(q.float(), k[:, sl], v[:, sl],
+                                       lengths, group)
+        torch.cuda.synchronize()
+        res = {"out": got.cpu(), "ms": (time.perf_counter() - t0) * 1e3}
+        if group.rank == 0:
+            res["oracle"] = ref.decode_attention_ref(
+                q.float(), k.float(), v.float(), lengths).cpu()
+            res["kernel"] = ops.decode_attention(q, k, v, lengths).float().cpu()
+        out[name] = res
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def sg_loop(train_mod, ref, group, mg, device) -> dict:
+    """(b): SG_LOOP_ARGV on this rank's groups through the launcher's
+    build, without and then with the serve loop, every plain version
+    forbidden: step ms (CUDA events, time-shared), launches, rows ingested
+    and live."""
+    from repro_torch.core.distributed import shard_train_state
+    from repro_torch.core.weight_store import EMPTY
+    out = {}
+    for name, extra in (("no_serve", []), ("serve", SG_LOOP_SERVE)):
+        args = train_mod.parse_args(SG_LOOP_ARGV + extra)
+        args.device = device
+        torch.cuda.empty_cache()
+        built = train_mod.build(args, lm_config(), group=group,
+                                model_group=mg)
+        built = built._replace(state=shard_train_state(
+            built.state, group, torch.device(device),
+            param_specs=built.param_specs, model_group=mg))
+        reset_counts()
+        state, mets, ms, wall = run_forbidding_plain(
+            ref, lambda: drive(built, SG_LOOP_STEPS))
+        r = {"step_ms": ms, "launches": read_counts(),
+             "losses": [float(m.loss) for m in mets]}
+        if built.serve is not None:
+            store = state.store.write_buf if hasattr(state.store,
+                                                     "write_buf") \
+                else state.store
+            n_live = args.examples
+            r["ingested"] = built.serve.ingest.ingested
+            r["live"] = int((store.scored_at[n_live:] != EMPTY).sum())
+            r["finished"] = len(built.serve.batcher.finished)
+        out[name] = r
+        del built, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sg_rank(group, device, out_dir, model_group=None):
+    """One spawned rank of phase 45."""
+    import os
+    from repro_torch.dist import DataGroup
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_mod
+    world_rank = group.rank * model_group.size + model_group.rank
+    world = group.size * model_group.size
+    if world_rank:
+        sys.stdout = open(os.devnull, "w")
+    train_mod.use_full_f32()
+    cfg = lm_config()
+    out = {"glm4": sg_serve(cfg, 45, model_group, group.size, ref,
+                            sg_requests(cfg, SG_REQUESTS, SG_PROMPT, SG_NEW,
+                                        46),
+                            (SG_TF_B, SG_TF_S, SG_TF_STEPS)),
+           "attention": sg_attention(DataGroup(None, world_rank, world))}
+    if (group.size, model_group.size) == (1, 2):
+        out["loop"] = sg_loop(train_mod, ref, group, model_group, device)
+        for i, (name, zcfg) in enumerate(sg_zoo().items()):
+            out[name] = sg_serve(zcfg, 50 + i, model_group, 1, ref,
+                                 sg_requests(zcfg, SG_ZOO_REQUESTS,
+                                             SG_ZOO_PROMPT, SG_ZOO_NEW,
+                                             60 + i), SG_ZOO_TF)
+    torch.save(out, f"{out_dir}/rank{world_rank}.pt")
+
+
+def sg_world(n_data, m_size, name):
+    """Phase 45's world of ``n_data`` × ``m_size`` ranks sharing the card
+    (gloo on CUDA tensors): each rank's results, world-rank order."""
+    from repro_torch.launch import mesh
+    d = scratch_dir(name)
+    t0 = time.perf_counter()
+    mesh.run_world(_sg_rank, n_data * m_size, "cuda", backend="gloo",
+                   args=(str(d),), model_parallel=m_size)
+    wall = time.perf_counter() - t0
+    return [torch.load(d / f"rank{r}.pt", weights_only=False)
+            for r in range(n_data * m_size)], wall
+
+
+def _row_rel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Each row's largest |a − b| over its largest |b| (last axis)."""
+    return ((a - b).abs().amax(-1) / b.abs().amax(-1)).flatten()
+
+
+def _token_share(got: dict, want: dict) -> float:
+    same = total = 0
+    for uid, toks in want.items():
+        same += sum(int(x == y) for x, y in zip(got[uid], toks))
+        total += len(toks)
+    return same / total
+
+
+def phase_serving_groups(train_mod, ref):
+    """45: serving on the (data, model) groups, ranks sharing the card over
+    gloo (no speed figure: launches, agreement, bitwise contracts).  (a)
+    glm4-9b at full width, 4 layers, bf16: 16 requests of seeded lengths
+    through 8 slots of the model-group batcher at (data, model) = (1, 2)
+    and (2, 2) against the one-device batcher of the same call, every
+    plain version forbidden: teacher-forced logits (a (8, 64) prefill, 4
+    steps) within SG_BF16, the share of greedy tokens that agree, each
+    data world bitwise data world 1, the ranks of a model group alike, 4
+    flash_attention launches a prefill and 4 decode_attention a token step
+    a rank (16/1 local heads), all tensor-core.  (b) SG_LOOP_ARGV with
+    --mesh 1 over NCCL in this process, and with --mesh 1
+    --model-parallel 2 on the (1, 2) world, without and with the serve
+    loop: rows ingested and live, step ms.  (c) sharded_decode_attention
+    over the worlds' 2 and 4 ranks at SG_ATTN_CASES against the plain f32
+    oracle on the whole cache (SG_ATTN), beside the decode kernel's
+    result.  (d) minicpm3-4b × 2, falcon-mamba-7b × 2, jamba in phase
+    31's layout and dbrx-132b × 1 through the (1, 2) batcher: teacher-
+    forced logits against one device's (the MoE archs at the median
+    row)."""
+    t_phase = time.perf_counter()
+    out = {}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        w12 = pool.submit(sg_world, 1, 2, "chip_smoke_sg12")
+        w22 = pool.submit(sg_world, 2, 2, "chip_smoke_sg22")
+        # one device, the same call, while the worlds run
+        cfg = lm_config()
+        one = {"glm4": sg_serve(cfg, 45, None, 1, ref,
+                                sg_requests(cfg, SG_REQUESTS, SG_PROMPT,
+                                            SG_NEW, 46),
+                                (SG_TF_B, SG_TF_S, SG_TF_STEPS))}
+        for i, (name, zcfg) in enumerate(sg_zoo().items()):
+            one[name] = sg_serve(zcfg, 50 + i, None, 1, ref,
+                                 sg_requests(zcfg, SG_ZOO_REQUESTS,
+                                             SG_ZOO_PROMPT, SG_ZOO_NEW,
+                                             60 + i), SG_ZOO_TF)
+        # (b) --mesh 1 over NCCL, in this process
+        nccl = {}
+        for name, extra in (("no_serve", []), ("serve", SG_LOOP_SERVE)):
+            reset_counts()
+            res = run_forbidding_plain(ref, lambda: train_mod.main(
+                SG_LOOP_ARGV + ["--mesh", "1"] + extra, lm_config()))
+            nccl[name] = {"step_ms": res.step_ms, "launches": read_counts()}
+            if name == "serve":
+                built = res.built
+                from repro_torch.core.weight_store import EMPTY
+                store = built.state.store.write_buf
+                nccl[name]["ingested"] = built.serve.ingest.ingested
+                nccl[name]["live"] = int(
+                    (store.scored_at[1024:] != EMPTY).sum())
+            del res
+            torch.cuda.empty_cache()
+        worlds = {(1, 2): w12.result(), (2, 2): w22.result()}
+
+    # (a)
+    a = out["a_glm4"] = {"one_device_wall_s": one["glm4"]["wall_s"]}
+    layers = LM_LAYERS
+    for (n, m), (ranks, wall) in worlds.items():
+        tag = f"{n}x{m}"
+        for r, got in enumerate(ranks):
+            g = got["glm4"]
+            what = f"serving groups (a) ({n}, {m}) rank {r}"
+            prefills = g["launches"]["flash_attention"]
+            if prefills != layers * SG_REQUESTS or \
+                    g["launches"]["decode_attention"] % layers:
+                fail(f"{what}: launches {g['launches']}")
+            for k in ("flash_attention", "decode_attention"):
+                if g["tc"][k] != g["launches"][k]:
+                    fail(f"{what}: {k} launched {g['launches'][k]} times, "
+                         f"{g['tc'][k]} of them tensor-core")
+            if sorted(g["tokens"]) != list(range(SG_REQUESTS)):
+                fail(f"{what}: finished {sorted(g['tokens'])}")
+            if not torch.isfinite(g["logits"]).all():
+                fail(f"{what}: non-finite logits")
+            if not torch.equal(g["logits"], ranks[0]["glm4"]["logits"]) or \
+                    g["tokens"] != ranks[0]["glm4"]["tokens"]:
+                fail(f"{what}: logits or tokens differ from rank 0's")
+        g = ranks[0]["glm4"]
+        err = rel_err(g["logits"], one["glm4"]["logits"])
+        if err > SG_BF16:
+            fail(f"serving groups (a) ({n}, {m}): teacher-forced logits "
+                 f"{err:.2e} from one device's")
+        a[tag] = {"logits_rel_err": err,
+                  "token_agreement": _token_share(g["tokens"],
+                                                  one["glm4"]["tokens"]),
+                  "flash_attention_a_prefill":
+                      g["launches"]["flash_attention"] / SG_REQUESTS,
+                  "decode_attention_a_step": layers,
+                  "decode_steps": g["launches"]["decode_attention"] // layers,
+                  "launches_rank0": g["launches"],
+                  "batcher_wall_s_time_shared": g["wall_s"],
+                  "wall_s_with_spawn": wall}
+        print(f"serving groups (a) glm4-9b × {layers} ({n}, {m}): logits "
+              f"within {err:.2e} of one device's, {a[tag]['token_agreement']:.3f}"
+              f" of the greedy tokens agree; a rank: {layers} flash_attention"
+              f" a prefill, {layers} decode_attention a step "
+              f"({a[tag]['decode_steps']} steps), all tensor-core; "
+              f"{wall:.1f} s with the spawn",
+              flush=True)
+    r12, r22 = worlds[(1, 2)][0], worlds[(2, 2)][0]
+    for d in range(2):
+        for mr in range(2):
+            x, y = r22[d * 2 + mr]["glm4"], r12[mr]["glm4"]
+            if not (torch.equal(x["logits"], y["logits"])
+                    and x["tokens"] == y["tokens"]):
+                fail(f"serving groups (a): the (2, 2) world's rank ({d}, "
+                     f"{mr}) is not bitwise the (1, 2) world's")
+    a["data_world_2_is_data_world_1"] = "bitwise"
+
+    # (b)
+    loop = r12[0]["loop"]
+    for name, res in (("mesh 1 (NCCL)", nccl), ("(1, 2) gloo", loop)):
+        s = res["serve"]
+        if s["ingested"] < 1 or s["live"] < 1:
+            fail(f"serving groups (b) {name}: {s['ingested']} rows ingested, "
+                 f"{s['live']} live")
+        if s["launches"]["ghost_norm"] != len(GHOST_MAIN) * SG_LOOP_STEPS:
+            fail(f"serving groups (b) {name}: launches {s['launches']}")
+    out["b_loop"] = {
+        tag: {"ingested": res["serve"]["ingested"],
+              "live": res["serve"]["live"],
+              "step_ms_no_tick": statistics.median(res["no_serve"]["step_ms"][1:]),
+              "step_ms_with_tick": statistics.median(res["serve"]["step_ms"][1:]),
+              "launches_with_tick": res["serve"]["launches"]}
+        for tag, res in (("mesh1_nccl", nccl), ("mesh1_mp2_gloo_rank0", loop))}
+    print(f"serving groups (b): {json.dumps(out['b_loop'])}", flush=True)
+
+    # (c)
+    c = out["c_attention"] = {}
+    for (n, m), (ranks, _) in worlds.items():
+        size = n * m
+        for name in SG_ATTN_CASES:
+            r0 = ranks[0]["attention"][name]
+            oracle = r0["oracle"]
+            for r, got in enumerate(ranks):
+                x = got["attention"][name]["out"]
+                if not torch.allclose(x, oracle, **SG_ATTN):
+                    fail(f"serving groups (c) {name} over {size} ranks, rank "
+                         f"{r}: {rel_err(x, oracle):.2e} from the oracle")
+            c[f"{name}_world{size}"] = {
+                "rel_err": rel_err(r0["out"], oracle),
+                "kernel_bf16_rel_err": rel_err(r0["kernel"], oracle),
+                "ms_rank0_time_shared": r0["ms"]}
+    print(f"serving groups (c): {json.dumps(c)}", flush=True)
+
+    # (d)
+    dz = out["d_zoo"] = {}
+    for name in sg_zoo():
+        ranks = worlds[(1, 2)][0]
+        g, want = ranks[0][name], one[name]
+        if not torch.equal(g["logits"], ranks[1][name]["logits"]):
+            fail(f"serving groups (d) {name}: the model ranks' logits differ")
+        rows = _row_rel(g["logits"], want["logits"])
+        bad = rows.median().item() if name in SG_MOE else rows.max().item()
+        if not math.isfinite(bad) or bad > SG_BF16:
+            fail(f"serving groups (d) {name}: teacher-forced logits {bad:.2e}"
+                 f" from one device's")
+        dz[name] = {"row_rel_err_max": rows.max().item(),
+                    "row_rel_err_median": rows.median().item(),
+                    "token_agreement": _token_share(g["tokens"],
+                                                    want["tokens"]),
+                    "launches_rank0": g["launches"]}
+    print(f"serving groups (d): {json.dumps(dz)}", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"serving groups: phase 45 {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# phase 46: a train shape one rank's share fits at 16×16 (launch/dryrun.py
+# over the CPU: peak 43.35 GiB a rank), beside decode_32k
+DRY_TRAIN_ARCH = "deepseek-7b"
+
+
+def phase_dryrun_card():
+    """46: one rank (rank 0 of 16×16) of the dry run's layout run for real
+    on the card, the fake backend on real CUDA tensors (collectives do
+    nothing: only the bytes mean anything): glm4-9b decode_32k and
+    deepseek-7b at a train shape of seq 512, batch 32.  The fake run's
+    argument bytes against the real tensors' (exactly) and the
+    allocator's; its peak beside torch.cuda.max_memory_allocated."""
+    from repro_torch.launch import dryrun, shapes
+    t_phase = time.perf_counter()
+    out = {}
+    train = shapes.InputShape("train_512x32", "train", 512, 32)
+    for tag, arch, shape in (("decode_32k", "glm4-9b",
+                              shapes.SHAPES["decode_32k"]),
+                             ("train_512x32", DRY_TRAIN_ARCH, train)):
+        r = dryrun.run_real(arch, shape, False, device="cuda")
+        pred = r["predicted"]
+        if r["real_argument_bytes"] != pred["argument_bytes"]:
+            fail(f"dry run {tag}: the real arguments hold "
+                 f"{r['real_argument_bytes']} bytes, the fake run "
+                 f"{pred['argument_bytes']}")
+        gap = r["max_memory_allocated"] - pred["peak_bytes"]
+        r["peak_gap_bytes"] = gap
+        r["peak_gap_share"] = gap / pred["peak_bytes"]
+        out[tag] = r
+        print(f"dry run on the card ({arch} {tag}, rank 0 of 16×16): "
+              f"argument bytes {pred['argument_bytes']} predicted = "
+              f"{r['real_argument_bytes']} real ({r['allocated_argument_bytes']}"
+              f" allocated); peak {pred['peak_bytes'] / 2**30:.3f} GiB "
+              f"predicted, {r['max_memory_allocated'] / 2**30:.3f} GiB "
+              f"max_memory_allocated ({gap / 2**30:+.3f} GiB); the step "
+              f"{r['step_s']:.2f} s", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
@@ -6427,6 +6892,8 @@ def main() -> int:
     sharded = phase_sharded(train_mod, ref)
     planes = phase_sharded_planes(train_mod, ref)
     model_par = phase_model_parallel(train_mod, ref)
+    serving_groups = phase_serving_groups(train_mod, ref)
+    dry_card = phase_dryrun_card()
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -6498,6 +6965,10 @@ def main() -> int:
         "wall_s": time.perf_counter() - t_start}), flush=True)
     print("slice 18 times " + json.dumps({
         "card": card, "model_parallel": model_par,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 19 times " + json.dumps({
+        "card": card, "serving_groups": serving_groups,
+        "dryrun_on_card": dry_card,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     mp4 = model_par["a_mlp"]["1x4"]["ranks"][0]["launches_a_step"]
     main_counts = {"per_example_sqnorm_multi": launches,
@@ -6667,7 +7138,19 @@ def main() -> int:
                               name, 0)
                           for t in ("glm4_sp", "glm4_no_sp", "flash",
                                     "falcon_mamba", "dbrx", "minicpm3",
-                                    "jamba")}},
+                                    "jamba")},
+                       **{f"serving_groups_glm4_{w}_rank0":
+                          serving_groups["a_glm4"][w]["launches_rank0"][name]
+                          for w in ("1x2", "2x2")},
+                       "serving_groups_loop_mesh1_nccl":
+                           serving_groups["b_loop"]["mesh1_nccl"][
+                               "launches_with_tick"][name],
+                       "serving_groups_loop_mp2_rank0":
+                           serving_groups["b_loop"]["mesh1_mp2_gloo_rank0"][
+                               "launches_with_tick"][name],
+                       **{f"serving_groups_{z}_rank0":
+                          serving_groups["d_zoo"][z]["launches_rank0"][name]
+                          for z in serving_groups["d_zoo"]}},
         })
         if name in ("per_example_sqnorm_multi", "ghost_norm"):
             kernels[-1]["side_stream_launches"] = {

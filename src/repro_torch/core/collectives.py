@@ -21,11 +21,12 @@ the gather writes this rank's chunk at its offset in zeros and sums,
 which is exact (one owner a position) and runs on every backend (gloo
 takes all-reduce on the CUDA tensors of ranks that share one card).
 
-``COUNTS`` counts the all-reduces made and the elements they carried,
-the data axis's (``all_reduce``, ``elements``) apart from the model
-axis's (``model_all_reduce``, ``model_elements`` and the largest
-message, ``model_max_elements``); ``chip_smoke.py`` reads it to report a
-step's traffic.
+``COUNTS`` counts the all-reduces made and the elements and bytes they
+carried, the data axis's (``all_reduce``, ``elements``, ``bytes``) apart
+from the model axis's (``model_all_reduce``, ``model_elements``,
+``model_bytes`` and the largest message, ``model_max_elements``);
+``chip_smoke.py`` reads it to report a step's traffic, and
+``launch/op_cost.py`` a dry run's.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ import torch
 
 from repro_torch.dist import DataGroup, axis_info
 
-COUNTS = {"all_reduce": 0, "elements": 0, "model_all_reduce": 0,
-          "model_elements": 0, "model_max_elements": 0}
+COUNTS = {"all_reduce": 0, "elements": 0, "bytes": 0,
+          "model_all_reduce": 0, "model_elements": 0, "model_bytes": 0,
+          "model_max_elements": 0}
 
 
 def reset_counts() -> None:
@@ -50,14 +52,17 @@ def _all_reduce(x: torch.Tensor, group: DataGroup, op,
     import torch.distributed as dist
     out = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group.pg)
+    nbytes = out.numel() * out.element_size()
     if model:
         COUNTS["model_all_reduce"] += 1
         COUNTS["model_elements"] += out.numel()
+        COUNTS["model_bytes"] += nbytes
         COUNTS["model_max_elements"] = max(COUNTS["model_max_elements"],
                                            out.numel())
     else:
         COUNTS["all_reduce"] += 1
         COUNTS["elements"] += out.numel()
+        COUNTS["bytes"] += nbytes
     return out
 
 

@@ -88,12 +88,15 @@ class ChunkedExampleStore:
     @classmethod
     def from_arrays(cls, arrays: Mapping, chunk_size: int,
                     pin_memory: bool = False,
-                    shard: tuple[int, int] = (0, 1)
-                    ) -> "ChunkedExampleStore":
+                    shard: tuple[int, int] = (0, 1),
+                    reserve_chunks: int = 0) -> "ChunkedExampleStore":
         """Chunk a dict of tensors (on any device) or numpy arrays into
         host memory, each chunk its own allocation (pinned with
-        ``pin_memory``); nothing references the inputs afterwards.  With
-        ``shard=(rank, world)`` only that rank's chunk range is copied."""
+        ``pin_memory``); nothing references the inputs afterwards.
+        ``reserve_chunks`` zero chunks follow the data in the global index
+        space (the serving loop's traffic capacity), laid out before the
+        split.  With ``shard=(rank, world)`` only that rank's chunk range
+        is copied."""
         n = next(iter(arrays.values())).shape[0]
         for k, v in arrays.items():
             if v.shape[0] != n:
@@ -103,7 +106,8 @@ class ChunkedExampleStore:
             raise ValueError(f"chunk_size={chunk_size} must divide the "
                              f"example count {n}")
         rank, world = shard
-        total = n // chunk_size
+        n_data = n // chunk_size
+        total = n_data + reserve_chunks
         if total % world:
             raise ValueError(f"{total} chunks of {chunk_size} rows do not "
                              f"split over {world} ranks: a chunk may not "
@@ -114,6 +118,11 @@ class ChunkedExampleStore:
             rows = slice(c * chunk_size, (c + 1) * chunk_size)
             chunk = {}
             for k, v in arrays.items():
+                if c >= n_data:
+                    chunk[k] = torch.zeros(
+                        (chunk_size,) + tuple(v.shape[1:]),
+                        dtype=_host(v[:1]).dtype, pin_memory=pin_memory)
+                    continue
                 part = v[rows]
                 if not isinstance(part, torch.Tensor):
                     part = torch.from_numpy(np.ascontiguousarray(part))

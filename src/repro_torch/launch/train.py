@@ -83,8 +83,18 @@ over both axes):
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
       --smoke --device cpu --model-parallel 2 --steps 4 --seq 16
 
-``--mesh`` and ``--model-parallel`` do not compose with ``--serve-loop``
-yet (the sharded batcher).  As in the reference, the attention path of an LM
+Both compose with ``--serve-loop``: every data rank serves the same
+seeded traffic through its model group's batcher
+(``serving/sharded_decode.py``), and a rank ingests the served rows of
+its own chunks, the reserved chunks laid out before the store is split
+(an M that a present layer type cannot split exits 1 up front, naming
+the config field):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+      --smoke --device cpu --mesh 2 --model-parallel 2 --stream \
+      --serve-loop
+
+As in the reference, the attention path of an LM
 (``attn_impl``, ``attn_scores``) and the scorer's mamba scan
 (``ssm_mode``) are no flags: ``build`` and ``run`` take them as keyword
 arguments, e.g. ``run(args, attn_impl="flash", attn_scores="fused")`` or
@@ -126,22 +136,20 @@ from repro_torch.core.strategies import PROPOSALS, make_proposal
 from repro_torch.data import (ChunkedExampleStore, make_svhn_like,
                               make_token_dataset)
 from repro_torch.data.streaming import StreamedISSGD, StreamingDataPlane
-from repro_torch.dist import axis_info
+from repro_torch.dist import DataGroup, axis_info
+from repro_torch.dist.sharding import shard_tree
 from repro_torch.launch import mesh
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import transformer
 from repro_torch.optim import sgd
 from repro_torch.serving import (ContinuousBatcher, ServeLoop, TrafficIngest,
-                                 make_synthetic_traffic)
+                                 decode_cache_specs, make_synthetic_traffic)
 from repro_torch.telemetry import EventSink, MonitorSet, NullSink, Telemetry
 
 PORT = "the PyTorch port"
 
 # flags of src/repro/launch/train.py the port does not carry yet: none
 LATER_FLAGS = ()
-# what --mesh and --model-parallel do not compose with yet, by flag: the
-# sharded batcher
-MESH_LATER = ("--serve-loop",)
 
 # the StepMetrics fields a logged step records, in the reference's order
 METRIC_KEYS = ("loss", "grad_norm", "trace_ideal", "trace_stale",
@@ -403,7 +411,9 @@ def validate_model_parallel(ap: argparse.ArgumentParser,
                             args: argparse.Namespace) -> None:
     """The reference's refusals of ``--model-parallel``: the ``full``
     oracle, and an LM whose heads, kv heads or d_inner M does not divide
-    (mlp_svhn's uneven widths replicate with a warning instead)."""
+    (mlp_svhn's uneven widths replicate with a warning instead).  With
+    ``--serve-loop`` the split is refused by ``check_mesh`` instead, with
+    the decode caches' message (``decode_cache_specs``)."""
     mp = args.model_parallel
     if mp < 1:
         ap.error(f"--model-parallel must be >= 1, got {mp}")
@@ -413,7 +423,7 @@ def validate_model_parallel(ap: argparse.ArgumentParser,
         ap.error("--strategy full is the per-example-gradient test oracle "
                  "and does not support --model-parallel; use ghost or "
                  "ghost_rev")
-    if args.arch == "mlp_svhn":
+    if args.arch == "mlp_svhn" or args.serve_loop:
         return
     try:
         cfg = resolve_config(args)
@@ -439,16 +449,6 @@ def validate_model_parallel(ap: argparse.ArgumentParser,
                  f"d_inner (config field d_inner, default 2*d_model)")
 
 
-def refuse_mesh_later(args: argparse.Namespace) -> None:
-    """ValueError naming the first flag of ``MESH_LATER`` that is set."""
-    which = "--model-parallel" if args.model_parallel > 1 and \
-        not args.mesh else "--mesh"
-    for flag in MESH_LATER:
-        if getattr(args, flag[2:].replace("-", "_")):
-            raise ValueError(f"{which} does not compose with {flag} in "
-                             f"{PORT} yet")
-
-
 def data_ranks(args: argparse.Namespace) -> int:
     """N, the data ranks of the world (``--mesh``, 1 when unset)."""
     return max(args.mesh, 1)
@@ -456,10 +456,10 @@ def data_ranks(args: argparse.Namespace) -> int:
 
 def check_mesh(args: argparse.Namespace) -> None:
     """``--mesh``'s and ``--model-parallel``'s refusals, as ValueErrors
-    naming the flag or the count: what they do not compose with yet, a
-    world the cards cannot hold, rows or shards that do not split over
-    the data ranks."""
-    refuse_mesh_later(args)
+    naming the flag, the count or the config field: a world the cards
+    cannot hold, rows, shards or served chunks that do not split over the
+    data ranks, and with ``--serve-loop`` a model-parallel degree that a
+    present layer type's decode caches cannot split."""
     n = data_ranks(args)
     if args.examples % n:
         raise ValueError(f"--examples {args.examples} not divisible by "
@@ -467,6 +467,15 @@ def check_mesh(args: argparse.Namespace) -> None:
     if args.score_shards > 1 and args.score_shards % n:
         raise ValueError(f"--score-shards {args.score_shards} must be a "
                          f"multiple of --mesh {args.mesh}")
+    if args.serve_loop:
+        decode_cache_specs(resolve_config(args),
+                           DataGroup(None, 0, args.model_parallel))
+        chunks = args.examples // stream_chunk_size(args) + \
+            serve_reserve_chunks(args)
+        if chunks % n:
+            raise ValueError(
+                f"--serve-reserve-chunks {args.serve_reserve_chunks} leaves "
+                f"{chunks} chunks, not divisible by --mesh {args.mesh}")
     mesh.check_world(n * args.model_parallel, args.device,
                      mesh.default_backend(args.device))
 
@@ -594,6 +603,18 @@ def auto_chunk_size(n: int) -> int:
     return next(c for c in range(max(n // 8, 1), 0, -1) if n % c == 0)
 
 
+def stream_chunk_size(args: argparse.Namespace) -> int:
+    """The host chunk's rows: ``--chunk-size``, or the auto rule over one
+    data rank's rows."""
+    return args.chunk_size or auto_chunk_size(args.examples
+                                              // data_ranks(args))
+
+
+def serve_reserve_chunks(args: argparse.Namespace) -> int:
+    """The zero chunks the serve loop reserves as traffic capacity."""
+    return max(args.serve_reserve_chunks, 1) if args.serve_loop else 0
+
+
 def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
           attn_scores=None, ssm_mode: str = "ref", telemetry=None,
           controller=None, group=None, model_group=None) -> Built:
@@ -648,8 +669,6 @@ def build(args: argparse.Namespace, cfg=None, attn_impl: str = "ref",
                              table_dtype=args.table_dtype,
                              index_chunk_size=args.index_chunk_size,
                              store_device=device if group is None else "cpu")
-    if group is not None:
-        refuse_mesh_later(args)
     if args.stream:
         return _build_streamed(args, cfg, state, train, pel, scorer, opt,
                                tcfg, fused, monitors, telemetry, controller,
@@ -706,19 +725,18 @@ def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
                     mp=None) -> Built:
     """The ``--stream`` half of ``build``: the host chunk store (pinned on
     the card; over a data group the rank's chunk range alone), the serve
-    loop's reserved capacity, the plane and the StreamedISSGD driver."""
+    loop's reserved capacity, the plane and the StreamedISSGD driver.  The
+    serve loop's batcher holds this rank's shards on a model group."""
     device = torch.device(args.device)
     n_live = train.size
     rank, world = axis_info(group)
-    csize = args.chunk_size or auto_chunk_size(n_live // world)
+    csize = stream_chunk_size(args)
+    # the traffic capacity is laid out before the store is split
     store = ChunkedExampleStore.from_arrays(
         train.arrays, csize, pin_memory=device.type == "cuda",
-        shard=(rank, world))
+        shard=(rank, world), reserve_chunks=serve_reserve_chunks(args))
     n_examples = n_live
     if args.serve_loop:
-        # reserve traffic capacity before the plane lays out its chunks
-        for _ in range(max(args.serve_reserve_chunks, 1)):
-            store.append_chunk()
         n_examples = store.num_examples
         state = state._replace(store=reserve_tail(
             init_store(n_examples, device, table_dtype=args.table_dtype,
@@ -741,11 +759,14 @@ def _build_streamed(args, cfg, state, train, pel, scorer, opt, tcfg, fused,
     if args.serve_loop:
         scfg = resolve_config(args, cfg)
         serve_max_len = args.serve_prompt_len + args.serve_max_new
-        batcher = ContinuousBatcher(state.params, scfg,
+        mg = (mp or {}).get("model_group")
+        params = state.params if mg is None else shard_tree(
+            state.params, mp["param_specs"], mg.rank, mg.size)
+        batcher = ContinuousBatcher(params, scfg,
                                     num_slots=args.serve_slots,
                                     max_len=serve_max_len,
                                     decode_kernel="pallas",
-                                    attn_impl="pallas")
+                                    attn_impl="pallas", model_group=mg)
         serve = ServeLoop(
             batcher,
             TrafficIngest(store, seq_len=args.seq + 1, start_row=n_live,

@@ -21,8 +21,11 @@ With a ``model_group`` (the reference's ``model_axes``) the training
 paths shard whole heads: ``attn_shard_info``/``mla_shard_info`` read the
 local head counts from the local weights, the replicated input enters
 through ``psum_backward``, the per-head math is local and the row-sharded
-wo's partial output leaves through ``psum_forward``.  The decode paths
-take no model group (sharded decode is not ported).
+wo's partial output leaves through ``psum_forward``.  ``mla_decode``
+takes the same group: its per-head expansions run on the local heads
+and its partial wo output is summed; the latent and rope rows it writes
+are head-independent, hence replicated.  (The engine's GQA decode,
+``serving/engine.py::_gqa_decode``, does the same on local KV heads.)
 """
 from __future__ import annotations
 
@@ -389,7 +392,8 @@ def mla_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
                latent_cache: torch.Tensor, rope_cache: torch.Tensor,
                position: torch.Tensor, lengths: torch.Tensor,
                slot: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None
+               active: Optional[torch.Tensor] = None,
+               model_group: Optional[DataGroup] = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Absorbed one-token MLA decode over the *compressed* cache.
 
@@ -404,14 +408,20 @@ def mla_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
     leaves the write to its caller, the port writes the caches IN PLACE
     first (each row cast to its buffer's dtype) and then attends: rows
     where ``active`` (B,) bool is False keep their old slot, so only
-    their discarded outputs can differ from the reference's.
+    their discarded outputs can differ from the reference's.  With
+    head-sharded expansions and a ``model_group`` the per-head math runs
+    on the local heads and the partial wo output is summed over the
+    group (forward only); the caches are whole on every rank.
     Returns (out (B, D), latent_new (B, kv_lora), rope_new (B, r))."""
     bsz = x.shape[0]
-    h = cfg.num_heads
+    sharded, h = (mla_shard_info(params, cfg) if model_group is not None
+                  else (False, cfg.num_heads))
+    mg = model_group if sharded else None
     nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     scale = (nope + rdim) ** -0.5
     q_nope, q_rope, _, k_rope_new, _, latent_new = _mla_qkv(
-        params, x[:, None], cfg, position[:, None], None, "decode")
+        params, x[:, None], cfg, position[:, None], None, "decode",
+        model_group=mg, h=h)
     wkv_b = params["wkv_b"].reshape(cfg.kv_lora_rank, h, nope + vdim)
     w_k = wkv_b[..., :nope].float()                  # (r, h, nope)
     w_v = wkv_b[..., nope:].float()                  # (r, h, vdim)
@@ -439,4 +449,4 @@ def mla_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
     ctx = torch.einsum("bhk,bkr->bhr", p, lc)                    # (B, h, r)
     out_h = torch.einsum("bhr,rhd->bhd", ctx, w_v)               # (B, h, v)
     out = out_h.reshape(bsz, h * vdim).to(x.dtype) @ params["wo"]
-    return out, latent_new[:, 0], k_rope_new[:, 0, 0]
+    return psum_forward(out, mg), latent_new[:, 0], k_rope_new[:, 0, 0]

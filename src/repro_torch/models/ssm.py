@@ -17,7 +17,8 @@ With channel-sharded weights and a ``model_group`` (``specs_mamba``;
 replicated [x | z] projection is sliced to this rank's channels, the
 conv, Δ, A, D and the scan (either mode) run on them, and the
 row-sharded x_proj and out_proj give partial outputs that
-``psum_forward`` sums.  The decode step takes no model group.
+``psum_forward`` sums.  ``mamba_decode`` takes the same group: its state
+buffers are the rank's channel block.
 """
 from __future__ import annotations
 
@@ -231,17 +232,31 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def mamba_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                 state: MambaState) -> tuple[torch.Tensor, MambaState]:
+                 state: MambaState,
+                 model_group: Optional[DataGroup] = None
+                 ) -> tuple[torch.Tensor, MambaState]:
     """One-token decode. x: (B, D) → ((B, D), the new state).  The state
-    given is only read: the caller persists the new one."""
+    given is only read: the caller persists the new one.
+
+    With channel-sharded weights and a ``model_group`` the state buffers
+    are this rank's channel block: the replicated in_proj output is
+    sliced to it, and the row-sharded x_proj and out_proj partial outputs
+    are summed over the group (``psum_forward``; decode is forward-only,
+    so no backward collective is needed)."""
     di, ds, dtr = cfg.resolved_d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+    sharded, di_l = (mamba_shard_info(params, cfg) if model_group
+                     is not None else (False, di))
+    mg = model_group if sharded else None
     xz = x @ params["in_proj"]
     x_in, z = xz[..., :di], xz[..., di:]                     # (B, di)
+    if sharded:
+        lo = mg.rank * di_l
+        x_in, z = x_in[..., lo:lo + di_l], z[..., lo:lo + di_l]
     window = torch.cat([state.conv, x_in[:, None]], dim=1)   # (B, W, di)
     x_c = torch.sum(window * params["conv_w"][None], dim=1) + params["conv_b"]
     x_c = F.silu(x_c)
 
-    proj = x_c @ params["x_proj"]
+    proj = psum_forward(x_c @ params["x_proj"], mg)
     dt_r, b_t, c_t = (proj[..., :dtr], proj[..., dtr:dtr + ds],
                       proj[..., dtr + ds:])
     delta = _softplus(torch.matmul(dt_r.float(), params["dt_proj"])
@@ -250,4 +265,5 @@ def mamba_decode(params: Params, x: torch.Tensor, cfg: ModelConfig,
     h, y = ref.selective_scan_step_ref(state.h, x_c, delta, a, b_t, c_t,
                                        params["d_skip"])
     y = y * F.silu(z)
-    return y @ params["out_proj"], MambaState(conv=window[:, 1:], h=h)
+    return (psum_forward(y @ params["out_proj"], mg),
+            MambaState(conv=window[:, 1:], h=h))

@@ -25,8 +25,16 @@ sliding window, as the reference applies it (a pure-mamba stack too).
 is asked, ``engine.prefill_attn_impl``); ``decode_kernel`` the decode
 attention.  ``sample`` maps logits to tokens (greedy argmax by default);
 finished requests also queue on ``completed`` until ``drain_completed``
-(the serving loop's ingest, ``serving/loop.py``).  ``mesh=`` (the
-model-parallel batcher) is not ported.
+(the serving loop's ingest, ``serving/loop.py``).
+
+With ``model_group=`` (the reference's ``mesh=``, in the port's group
+convention) the batcher drives ``sharded_decode.make_mesh_serving``:
+``params`` are the rank's shards (``dist/sharding.py::shard_tree``), the
+caches live at the rank's local shapes (``decode_cache_specs``) and the
+splice copies local cache rows.  Every rank of the group, and every data
+rank serving the same requests, computes the same logits and tokens.
+Decode stays eager on every device: a step that issues collectives is
+not captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -35,9 +43,10 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.dist import DataGroup
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.engine import (decode_step, init_serve_state,
-                                       prefill, prefill_attn_impl)
+from repro_torch.serving.engine import init_serve_state, prefill_attn_impl
+from repro_torch.serving.sharded_decode import make_mesh_serving
 
 
 @dataclasses.dataclass
@@ -72,26 +81,28 @@ def _bucket(n: int, min_bucket: int) -> int:
 
 class ContinuousBatcher:
     """Drive a params+config pair as a multi-tenant decode server on the
-    device that holds the params."""
+    device that holds the params (this rank's shards on a
+    ``model_group``)."""
 
     def __init__(self, params, cfg: ModelConfig, num_slots: int,
                  max_len: int, decode_kernel: str = "ref",
                  sample: Optional[Callable] = None,
                  prefill_buckets: bool = True, min_bucket: int = 8,
-                 attn_impl: str = "ref", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the sharded batcher) is not ported yet: it is "
-                "step 4 of the multi-device port (ROADMAP Queue 1, item "
-                "12)")
+                 attn_impl: str = "ref",
+                 model_group: Optional[DataGroup] = None):
         self.params = params
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
         self.decode_kernel = decode_kernel
         self.attn_impl = prefill_attn_impl(cfg, attn_impl)
+        self.model_group = model_group
+        self._prefill, self._decode = make_mesh_serving(
+            cfg, max_len, model_group, decode_kernel=decode_kernel,
+            attn_impl=self.attn_impl)
         self.device = params["embed"]["tokens"].device
-        self.state = init_serve_state(cfg, num_slots, max_len, self.device)
+        self.state = init_serve_state(cfg, num_slots, max_len, self.device,
+                                      model_group)
         self.slots = [_Slot() for _ in range(num_slots)]
         self._next_tok = torch.zeros(num_slots, dtype=torch.int32,
                                      device=self.device)
@@ -123,9 +134,9 @@ class ContinuousBatcher:
         b = _bucket(s, self.min_bucket) if self.prefill_buckets else s
         padded = torch.nn.functional.pad(prompt, (0, b - s))[None]
         self._prefill_shapes.add(tuple(padded.shape))
-        logits, st1 = prefill(self.params, self.cfg, padded, self.max_len,
-                              attn_impl=self.attn_impl, true_len=s)
-        # splice the single-sequence caches and length into the batch state
+        logits, st1 = self._prefill(self.params, padded, s)
+        # splice the single-sequence caches (this rank's local rows) and
+        # the length into the batch state
         for name, buf in self.state.caches.items():
             buf[:, slot_id] = st1.caches[name][:, 0].to(buf.dtype)
         self.state.lengths[slot_id] = st1.lengths[0]
@@ -141,9 +152,8 @@ class ContinuousBatcher:
         active = [i for i, s in enumerate(self.slots) if not s.free]
         if not active:
             return 0
-        logits, self.state = decode_step(
-            self.params, self.cfg, self._next_tok, self.state,
-            decode_kernel=self.decode_kernel, active=self._active_mask())
+        logits, self.state = self._decode(self.params, self._next_tok,
+                                          self.state, self._active_mask())
         toks = self.sample(logits).to(torch.int32)
         self._next_tok = toks
         host = toks.tolist()

@@ -32,8 +32,19 @@ card (the reference jits the step), eagerly on the CPU.
 Where the reference returns new arrays (``.at[].set``), the port writes
 the preallocated caches IN PLACE: ``decode_step`` updates the cache
 tensors of the state it is given and returns a state that shares them.
-A caller that needs the old caches clones them first.  The model-axis
-(``model_axes``) paths come with the multi-device part of the port.
+A caller that needs the old caches clones them first.
+
+On a model group (``model_group``, the reference's ``model_axes``) the
+params are the rank's shards and each sub-layer reads its shardedness
+from its local shapes (``attn_shard_info``, ``mla_shard_info``,
+``mamba_shard_info``), as in training: GQA decode runs on the local KV
+heads, MLA on the local heads over the whole latent cache, mamba on the
+rank's channel block, the feed-forwards on their ffn slices and the
+vocab-parallel embed and unembed over the vocabulary, each row-parallel
+output summed over the group.  The caches are allocated at the rank's
+local shapes (``cache_shapes(..., model_group)``, by
+``sharded_decode.decode_cache_specs``); ``sharded_decode.make_mesh_serving``
+binds prefill and decode to a group.
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.collectives import psum_forward
+from repro_torch.dist import DataGroup
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -49,13 +62,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dtype_of, embed, mlp, rmsnorm, rope,
                                        unembed)
 from repro_torch.models.transformer import _period, check_supported, forward
+from repro_torch.serving.sharded_decode import decode_cache_specs, local_shape
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Raise unless the engine serves ``cfg``.  On one device it serves
-    every stack the model code builds (GQA, MLA and mamba mixers, MLP and
-    MoE feed-forwards, the frontends' embeds); the model-axis serving of
-    the multi-device part of the port will be refused here."""
+    """Raise unless the engine serves ``cfg``: every stack the model code
+    builds (GQA, MLA and mamba mixers, MLP and MoE feed-forwards, the
+    frontends' embeds).  On a model group the degree must also split
+    every present layer type, which ``decode_cache_specs`` checks."""
     check_supported(cfg)
 
 
@@ -79,8 +93,11 @@ def _window(cfg: ModelConfig, max_len: int) -> int:
             else max_len)
 
 
-def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """name → (shape, dtype) of every cache buffer."""
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 model_group: Optional[DataGroup] = None) -> dict:
+    """name → (shape, dtype) of every cache buffer; with a
+    ``model_group``, of this rank's local buffer (``decode_cache_specs``,
+    which raises for a degree a present layer type cannot split)."""
     check_servable(cfg)
     p = cfg.num_periods
     w = _window(cfg, max_len)
@@ -103,14 +120,21 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
                                        dtype)
             out[f"l{i}.mamba.h"] = ((p, batch, di, cfg.ssm_state),
                                     torch.float32)
+    if model_group is not None:
+        specs = decode_cache_specs(cfg, model_group)
+        out = {k: (local_shape(shape, specs[k], model_group.size), dt)
+               for k, (shape, dt) in out.items()}
     return out
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
-                     device) -> ServeState:
-    """Zeroed caches (see ``cache_shapes``) and zero lengths on ``device``."""
+                     device, model_group: Optional[DataGroup] = None
+                     ) -> ServeState:
+    """Zeroed caches (see ``cache_shapes``; a ``model_group`` rank's local
+    ones) and zero lengths on ``device``."""
     caches = {k: torch.zeros(shape, dtype=dt, device=device)
-              for k, (shape, dt) in cache_shapes(cfg, batch, max_len).items()}
+              for k, (shape, dt) in cache_shapes(cfg, batch, max_len,
+                                                 model_group).items()}
     return ServeState(caches=caches,
                       lengths=torch.zeros(batch, dtype=torch.int32,
                                           device=device))
@@ -120,13 +144,19 @@ def init_serve_state(cfg: ModelConfig, batch: int, max_len: int,
 def _gqa_decode(lp, hn: torch.Tensor, cfg: ModelConfig,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 pos: torch.Tensor, window: int, decode_kernel: str,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                active: Optional[torch.Tensor] = None,
+                model_group: Optional[DataGroup] = None) -> torch.Tensor:
     """hn: (B,D); caches (B,W,Hkv,hd), written in place; pos: (B,)
     absolute position.  ``active`` (B,) bool leaves the cache rows of
-    evicted batcher slots as they were (None = all rows live)."""
+    evicted batcher slots as they were (None = all rows live).  With
+    head-sharded weights and a ``model_group`` the caches hold the local
+    KV heads, the kernel sees local heads and the row-sharded wo's
+    partial output is summed over the group."""
     bsz = hn.shape[0]
     hd = cfg.resolved_head_dim
-    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    sharded, h, hkv = (attn_mod.attn_shard_info(lp, cfg)
+                       if model_group is not None
+                       else (False, cfg.num_heads, cfg.num_kv_heads))
     q = (hn @ lp["wq"]).reshape(bsz, h, hd)
     k_new = (hn @ lp["wk"]).reshape(bsz, hkv, hd)
     v_new = (hn @ lp["wv"]).reshape(bsz, hkv, hd)
@@ -149,7 +179,8 @@ def _gqa_decode(lp, hn: torch.Tensor, cfg: ModelConfig,
         o = ops.decode_attention(q, k_cache, v_cache, lengths)
     else:
         o = ref.decode_attention_ref(q, k_cache, v_cache, lengths)
-    return o.reshape(bsz, h * hd) @ lp["wo"]
+    out = o.reshape(bsz, h * hd) @ lp["wo"]
+    return psum_forward(out, model_group) if sharded else out
 
 
 def _persist(buf: torch.Tensor, new: torch.Tensor,
@@ -166,7 +197,8 @@ def _persist(buf: torch.Tensor, new: torch.Tensor,
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 state: ServeState, decode_kernel: str = "ref",
-                active: Optional[torch.Tensor] = None
+                active: Optional[torch.Tensor] = None,
+                model_group: Optional[DataGroup] = None
                 ) -> tuple[torch.Tensor, ServeState]:
     """One new token per sequence. tokens: (B,) → (logits (B,V), state).
 
@@ -176,7 +208,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     buffer whatever the dict's order.  ``active`` (B,) bool gates rows
     the batcher has evicted: inactive rows advance neither their length
     nor any cache buffer (their logits are garbage and discarded by the
-    caller)."""
+    caller).  With a ``model_group`` the params are the rank's shards and
+    the caches its local buffers (module docstring); the logits are the
+    gathered, replicated ones."""
     if decode_kernel not in ("ref", "pallas"):
         raise ValueError(f"decode_kernel must be 'ref' or 'pallas', got "
                          f"{decode_kernel!r}")
@@ -184,7 +218,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     specs = cfg.layer_specs()
     caches = state.caches
     pos = state.lengths                                   # (B,)
-    h = embed(params["embed"], tokens[:, None], cfg)[:, 0]
+    mg = model_group
+    h = embed(params["embed"], tokens[:, None], cfg, model_group=mg)[:, 0]
     for p in range(cfg.num_periods):
         pp = _period(params["layers"], p)
         for i, spec in enumerate(specs):
@@ -196,17 +231,19 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 out, _, _ = attn_mod.mla_decode(
                     lp["mixer"], hn, cfg, lat, caches[f"l{i}.attn.rope"][p],
                     pos, torch.clamp(pos + 1, max=w).to(torch.int32),
-                    slot=pos % w, active=active)
+                    slot=pos % w, active=active, model_group=mg)
             elif spec.mixer == "attn":
                 k_cache = caches[f"l{i}.attn.k"][p]
                 out = _gqa_decode(lp["mixer"], hn, cfg, k_cache,
                                   caches[f"l{i}.attn.v"][p], pos,
-                                  k_cache.shape[1], decode_kernel, active)
+                                  k_cache.shape[1], decode_kernel, active,
+                                  model_group=mg)
             else:
                 conv = caches[f"l{i}.mamba.conv"][p]
                 hs = caches[f"l{i}.mamba.h"][p]
                 out, new = ssm_mod.mamba_decode(
-                    lp["mixer"], hn, cfg, ssm_mod.MambaState(conv, hs))
+                    lp["mixer"], hn, cfg, ssm_mod.MambaState(conv, hs),
+                    model_group=mg)
                 _persist(conv, new.conv, active)
                 _persist(hs, new.h, active)
             h = h + out
@@ -214,12 +251,13 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
                 if spec.ff == "moe":
                     ff = moe_mod.moe(lp["ff"], hn[:, None], cfg,
-                                     dropless=True).y[:, 0]
+                                     dropless=True, model_group=mg).y[:, 0]
                 else:
-                    ff = mlp(lp["ff"], hn[:, None], cfg)[:, 0]
+                    ff = mlp(lp["ff"], hn[:, None], cfg,
+                             model_group=mg)[:, 0]
                 h = h + ff
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = unembed(params["embed"], h, cfg)
+    logits = unembed(params["embed"], h, cfg, model_group=mg)
     lengths = (state.lengths + 1 if active is None
                else torch.where(active, state.lengths + 1, state.lengths))
     return logits, ServeState(caches=caches,
@@ -326,7 +364,8 @@ def make_decode_runner(params, cfg: ModelConfig, state: ServeState,
 # ----------------------------------------------------------------- prefill
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
             embeds: Optional[torch.Tensor] = None, attn_impl: str = "ref",
-            true_len: Optional[int] = None
+            true_len: Optional[int] = None,
+            model_group: Optional[DataGroup] = None
             ) -> tuple[torch.Tensor, ServeState]:
     """Process the prompt and build decode caches.
 
@@ -348,7 +387,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     lets the pad tokens compete for expert capacity, as the reference's
     does, so its routing can differ from the unpadded run's (decode
     routes dropless).  ``true_len`` with ``embeds`` raises, as in the
-    reference."""
+    reference.
+
+    With a ``model_group`` the forward runs on the rank's shards (no
+    sequence parallelism: serving passes only the model group, as the
+    reference passes only ``model_axes``) and collects the rank's local
+    caches: the K and V of its KV heads, its mamba channel block, the
+    whole MLA latents; each buffer takes its trailing dims from what the
+    forward collected."""
     bsz, s = tokens.shape
     pad_mask = None
     if true_len is not None:
@@ -362,7 +408,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
                     < true_len).expand(bsz, s)
     logits, aux = forward(params, cfg, tokens, embeds=embeds,
                           collect_cache=True, attn_impl=attn_impl,
-                          pad_mask=pad_mask)
+                          pad_mask=pad_mask, model_group=model_group)
     s_total = s + (embeds.shape[1] if embeds is not None else 0)
     caches = {}
     for name, (shape, dt) in cache_shapes(cfg, bsz, max_len).items():
@@ -371,7 +417,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
             caches[name] = got.to(dt)
             continue
         cap = shape[2]
-        buf = torch.zeros(shape, dtype=dt, device=got.device)
+        # the trailing dims come from the collected cache: the local heads
+        # of a model rank's shards, as the reference takes them
+        buf = torch.zeros(shape[:3] + tuple(got.shape[3:]), dtype=dt,
+                          device=got.device)
         if true_len is None:
             if s_total <= cap:
                 buf[:, :, :s_total] = got

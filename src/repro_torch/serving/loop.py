@@ -1,5 +1,5 @@
 """The train/serve loop: decode beside training, traffic back into the
-store (the port of ``src/repro/serving/loop.py``, one device).
+store (the port of ``src/repro/serving/loop.py``).
 
   * **ServeLoop**: a serve tick hooked between the scoring and master
     dispatches of each train step (the ``serve_tick`` of
@@ -16,6 +16,14 @@ store (the port of ``src/repro/serving/loop.py``, one device).
     other row, and they enter the proposal.
   * **make_synthetic_traffic**: a seeded request source (numpy's
     generator, the reference's stream) for smokes and tests.
+
+Over a data group every rank serves the same seeded traffic through its
+model group's batcher (``ContinuousBatcher(model_group=)``), so every
+rank finishes the same requests at the same watermark.  The store is
+the rank's ``ChunkedExampleStore`` (its chunk range, the reserved
+chunks laid out before the store was split), and the weight store the
+rank's rows: a rank writes and marks live only the ingested rows it
+holds.
 """
 from __future__ import annotations
 
@@ -38,8 +46,11 @@ class TrafficIngest:
     A row is ``prompt + generated`` zero-padded (or truncated) to
     ``seq_len``, written through ``ChunkedExampleStore.write_rows`` into
     ``[start_row, start_row + capacity_rows)``.  ``flush`` returns the
-    global indices it wrote, for ``mark_live``; traffic past the capacity
-    counts in ``dropped``."""
+    global indices of the new rows, for ``mark_live``; traffic past the
+    capacity counts in ``dropped``.  A store that holds one rank's chunk
+    range (``ChunkedExampleStore(shard=)``) gets only the rows of its
+    chunks; ``local_rows`` gives them as indices into the rank's shard of
+    the weight store."""
 
     def __init__(self, store, seq_len: int, start_row: int,
                  capacity_rows: int, label_key: Optional[str] = None):
@@ -73,10 +84,23 @@ class TrafficIngest:
         row[:toks.numel()] = toks.to(row.dtype)
         self._pending.append(row)
 
+    def _held(self, idx: np.ndarray) -> np.ndarray:
+        """Which of the global indices ``idx`` lie in the store's chunks."""
+        held = self.store.held_chunks
+        c = idx // self.store.chunk_size
+        return (c >= held.start) & (c < held.stop)
+
+    def local_rows(self, idx: np.ndarray) -> np.ndarray:
+        """The global indices ``idx`` of the rows this store holds, as
+        offsets into the rank's rows (its chunk range's first row is 0)."""
+        first = self.store.held_chunks.start * self.store.chunk_size
+        return idx[self._held(idx)] - first
+
     def flush(self) -> np.ndarray:
-        """Write the queued rows at the watermark; return their global
-        indices (empty when nothing fit).  A ``label_key`` array gets the
-        row shifted by one (next-token labels)."""
+        """Write the queued rows at the watermark (those of the chunks the
+        store holds); return the global indices of all of them (empty when
+        nothing fit).  A ``label_key`` array gets the row shifted by one
+        (next-token labels)."""
         if not self._pending:
             return np.zeros((0,), np.int64)
         room = max(0, self.capacity_rows - self.ingested)
@@ -97,7 +121,11 @@ class TrafficIngest:
                 payload[k] = torch.zeros(
                     (tok.shape[0],) + self.store.row_shape(k),
                     dtype=self.store.dtype(k))
-        self.store.write_rows(idx, payload)
+        own = self._held(idx)
+        if own.any():
+            sel = torch.from_numpy(np.flatnonzero(own))
+            self.store.write_rows(idx[own],
+                                  {k: v[sel] for k, v in payload.items()})
         self.ingested += len(rows)
         return idx
 
@@ -136,7 +164,9 @@ class ServeLoop:
 
     ``telemetry`` emits serve.ingested, serve.dropped, serve.finished,
     serve.publishes and serve.pending at its cadence in ticks, and
-    serve.ingest_watermark on every flush that wrote rows."""
+    serve.ingest_watermark on every flush that wrote rows.  Over a data
+    group the state's weight store is the rank's rows, and the rank marks
+    live the ingested rows it holds (``TrafficIngest.local_rows``)."""
 
     def __init__(self, batcher: ContinuousBatcher, ingest: TrafficIngest,
                  traffic: Callable, publish_every: int = 1,
@@ -188,7 +218,8 @@ class ServeLoop:
     def ingest_into(self, state):
         """Drain finished requests into the example store and the
         WeightStore; the state with the new rows live (the same state
-        when no traffic finished)."""
+        when no traffic finished or none of the new rows is this
+        rank's)."""
         for req, generated in self.batcher.drain_completed():
             self.ingest.add(req.prompt, generated)
             self.finished += 1
@@ -197,6 +228,9 @@ class ServeLoop:
             return state
         self.telemetry.counter("serve.ingest_watermark",
                                self.ingest.ingested, step=self._tick)
+        idx = self.ingest.local_rows(idx)
+        if idx.size == 0:
+            return state
         if self.join is not None:
             self.join()
         store = state.store

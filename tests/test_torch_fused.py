@@ -361,15 +361,16 @@ def test_sample_indices_replays_reference():
     (["--arch", "glm4-9b", "--model-parallel", "3"], "num_heads"),
     (["--strategy", "full", "--model-parallel", "2"], "--strategy full"),
     (["--arch", "glm4-9b", "--smoke", "--stream", "--serve-loop",
-      "--model-parallel", "2"], "does not compose with --serve-loop"),
+      "--model-parallel", "4"], "num_kv_heads \\(2\\) for GQA decode"),
 ])
 def test_flags_still_later_are_refused_by_name(argv, match, capsys):
     """The launcher carries every flag of the reference's; what
     ``--model-parallel`` still refuses is refused by name: the
     reference's refusals (a degree that does not divide num_heads, the
-    ``full`` oracle) exit 2 from the parser, the serve loop (the sharded
-    batcher, not ported) raises from ``main`` as ``--mesh``'s refusals
-    do."""
+    ``full`` oracle) exit 2 from the parser; under the serve loop a
+    degree the decode caches cannot split (glm4-9b smoke's 2 KV heads at
+    M = 4) raises from ``main`` before any rank starts, as ``--mesh``'s
+    refusals do, with ``decode_cache_specs``'s message."""
     assert ttrain.LATER_FLAGS == ()
     if "--serve-loop" in argv:
         with pytest.raises(ValueError, match=match):

@@ -1,7 +1,8 @@
 """The port's train/serve loop (``serving/loop.py``), the reserved-row
 discipline of the WeightStore, the batcher's hooks and the launcher's
 async, streamed and serve-loop paths, against the single-device JAX
-reference (its mesh serve loop is red there and is not ported).
+reference (its mesh serve loop is red there: the port's is held to the
+reference's single-device engine in ``tests/test_torch_mesh_serving.py``).
 
 Against the reference, exactly: ``reserve_tail``/``mark_live`` and the
 inert reserved rows under a scoring pass; ``TrafficIngest``'s watermark,
@@ -136,6 +137,41 @@ def test_traffic_ingest_matches_reference():
     for k in base:
         np.testing.assert_array_equal(_np(stores[1].fetch_rows(every)[k]),
                                       stores[0].fetch_rows(every)[k])
+
+
+@pytest.mark.parametrize("world", [2, 5])
+def test_sharded_ingest_writes_each_ranks_rows(world):
+    """The reserved chunks laid out before the split (``reserve_chunks``):
+    each rank's store writes the served rows of its chunks, and together
+    the ranks hold the reference's whole store after the same ingest;
+    ``local_rows`` maps them into each rank's rows."""
+    base = {"tokens": np.arange(320, dtype=np.int32).reshape(32, 10)}
+    ref = JStore.from_arrays(base, 4)
+    ref.append_chunk()
+    ref.append_chunk()
+    ring = JIngest(ref, seq_len=10, start_row=32, capacity_rows=8)
+    ranks = [ChunkedExampleStore.from_arrays(
+        {"tokens": torch.from_numpy(base["tokens"])}, 4, shard=(r, world),
+        reserve_chunks=2) for r in range(world)]
+    ings = [TrafficIngest(st, seq_len=10, start_row=32, capacity_rows=8)
+            for st in ranks]
+    for prompt, gen in [(np.asarray([5, 6]), [7]), (np.arange(4), [1, 2]),
+                        (np.asarray([9]), [3, 4, 5])]:
+        for ing in [ring] + ings:
+            ing.add(prompt, gen)
+    want = ring.flush()
+    per = 40 // world
+    for r, (st, ing) in enumerate(zip(ranks, ings)):
+        idx = _np(ing.flush())
+        np.testing.assert_array_equal(idx, want)
+        np.testing.assert_array_equal(
+            ing.local_rows(idx), want[(want >= r * per)
+                                      & (want < (r + 1) * per)] - r * per)
+        held = np.arange(r * per, (r + 1) * per)
+        np.testing.assert_array_equal(_np(st.fetch_rows(held)["tokens"]),
+                                      ref.fetch_rows(held)["tokens"])
+    with pytest.raises(ValueError, match="reserve chunks before"):
+        ranks[0].append_chunk()
 
 
 def test_synthetic_traffic_matches_reference():

@@ -276,7 +276,8 @@ def test_prefill_traces_count_buckets(glm):
                 uid=i, prompt=torch.from_numpy(_tokens((n,), seed=40 + i)),
                 max_new_tokens=2))
         assert b.prefill_traces == want
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the reference's mesh= is the port's model_group=
+    with pytest.raises(TypeError, match="mesh"):
         tbatcher.ContinuousBatcher(tparams, cfg, 2, 32, mesh=object())
 
 

@@ -417,18 +417,44 @@ def test_launcher_mesh_restores_a_checkpoint(tmp_path, capsys):
     assert len(want) == 4 and _loss_lines(r.stdout) == want
 
 
+SERVE_LOOP_ARGV = ["--arch", "glm4-9b", "--smoke", "--device", "cpu",
+                   "--mesh", "2", "--stream", "--serve-loop", "--steps", "3",
+                   "--examples", "256", "--seq", "16", "--batch", "8",
+                   "--score-batch", "32", "--log-every", "100"]
+
+
+def _launch(argv, timeout=300):
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *argv], capture_output=True, text=True, cwd=REPO,
+                          timeout=timeout,
+                          env=dict(os.environ,
+                                   PYTHONPATH=os.path.join(REPO, "src")))
+
+
 @pytest.mark.parametrize("flag", ["--stream", "--async-scoring",
                                   "--save-checkpoint"])
-def test_launcher_mesh_refuses_by_name(flag):
-    """``--mesh`` composes with ``flag`` and still refuses the serve loop
-    (the sharded batcher) by name, whatever it is combined with."""
-    assert ttrain.MESH_LATER == ("--serve-loop",)
-    argv = ["--arch", "glm4-9b", "--smoke", "--device", "cpu", "--mesh",
-            "2", "--stream", "--serve-loop", flag]
+def test_launcher_mesh_runs_the_serve_loop(flag, tmp_path):
+    """``--mesh 2 --stream --serve-loop`` composes with ``flag``: each
+    data rank serves the same traffic and ingests the rows of its chunks;
+    the launcher exits 0 with rows ingested."""
+    argv = SERVE_LOOP_ARGV + [flag]
     if flag == "--save-checkpoint":
-        argv.append("ck.npz")
-    with pytest.raises(ValueError, match="--serve-loop"):
-        ttrain.main(argv)
+        argv.append(str(tmp_path / "ck.npz"))
+    r = _launch(argv)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = [int(line.split()[2]) for line in r.stdout.splitlines()
+           if line.startswith("serve-loop: ingested")]
+    assert got and got[0] >= 1
+    if flag == "--save-checkpoint":
+        assert (tmp_path / "ck.npz").exists()
+
+
+def test_launcher_serve_loop_refuses_an_unsplit_kv_head():
+    """An M that does not divide num_kv_heads (glm4-9b smoke: 2) cannot
+    split the GQA decode caches: exit 1 up front, naming the field."""
+    r = _launch(SERVE_LOOP_ARGV + ["--model-parallel", "4"], timeout=120)
+    assert r.returncode == 1
+    assert "num_kv_heads (2) for GQA decode" in r.stderr
 
 
 def test_launcher_mesh_refusal_exits_1():

@@ -393,12 +393,20 @@ def test_launcher_mesh_streams_async_with_the_one_device_losses(capsys):
     assert _loss_lines(r.stdout) == want
 
 
-def test_launcher_mesh_refuses_the_serve_loop_by_name():
+def test_launcher_mesh_runs_the_serve_loop():
+    """``--mesh 2 --stream --serve-loop``: the reserved chunks are laid
+    out before the store is split (the last rank holds them), and the
+    launcher exits 0 with rows ingested."""
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                         "--arch", "glm4-9b", "--smoke", "--device", "cpu",
-                        "--mesh", "2", "--stream", "--serve-loop"],
-                       capture_output=True, text=True, cwd=REPO, timeout=120,
+                        "--mesh", "2", "--stream", "--serve-loop",
+                        "--steps", "3", "--examples", "256", "--seq", "16",
+                        "--batch", "8", "--score-batch", "32"],
+                       capture_output=True, text=True, cwd=REPO, timeout=300,
                        env=dict(os.environ,
                                 PYTHONPATH=os.path.join(REPO, "src")))
-    assert r.returncode == 1
-    assert "--mesh does not compose with --serve-loop" in r.stderr
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "32 reserved rows" in r.stdout
+    got = [int(line.split()[2]) for line in r.stdout.splitlines()
+           if line.startswith("serve-loop: ingested")]
+    assert got and got[0] >= 1

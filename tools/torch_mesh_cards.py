@@ -3,7 +3,7 @@
 rank a card, against the one-device runs of the same flags.
 
 Usage:  python3 tools/torch_mesh_cards.py [--worlds 2,4] [--steps 30]
-            [--examples 131072] [--model-parallel M]
+            [--examples 131072] [--model-parallel M] [--serve-loop]
 
 Needs as many CUDA cards as the largest world.  mlp_svhn at the paper's
 width (3072→2048×4→10) with ``--score-shards 4`` runs as one device and
@@ -34,6 +34,14 @@ run's losses at rtol 1e-4: an async leg's first ``SWAP - 1`` steps,
 drawn from the store before its first publish (the relaxed leg draws
 from scores at once); every leg's count of steps within that bound and
 its step times are reported beside the one-device run's.
+
+With ``--serve-loop`` it runs the serve-loop legs instead: glm4-9b's
+smoke config (the launcher has no depth flag), streamed, with the train/
+serve loop (``--stream --serve-loop``), as one device, as ``--mesh N``
+for each N of ``--worlds`` and, with ``--model-parallel M``, as
+``--mesh N --model-parallel M`` where the machine has the N·M cards.
+Every data rank serves the same seeded traffic, so each leg must ingest
+the one-device run's count of rows; its step times are reported.
 
 Each run is a fresh launcher process.  It prints each run's median step
 and quartiles (CUDA events, the launcher's own) and the card line, and
@@ -67,11 +75,13 @@ def launch(tag: str, argv: list) -> dict:
     with open(metrics) as f:
         losses = [h["loss"] for h in json.load(f)]
     done = re.search(r"median step ([\d.]+) ms", r.stdout)
+    served = re.search(r"serve-loop: ingested (\d+) rows", r.stdout)
     quart = re.search(r"quartiles ([\d.]+)[–-]([\d.]+)", r.stdout)
     out = {"losses": losses, "median_ms": float(done.group(1)),
            "quartiles_ms": ([float(quart.group(1)), float(quart.group(2))]
                             if quart else None),
-           "decisions": len(re.findall(r"^controller: ", r.stdout, re.M))}
+           "decisions": len(re.findall(r"^controller: ", r.stdout, re.M)),
+           "ingested": int(served.group(1)) if served else None}
     print(f"{tag}: {len(losses)} steps, median step {out['median_ms']} ms"
           + (f" (quartiles {out['quartiles_ms']})" if quart else ""),
           flush=True)
@@ -123,6 +133,39 @@ def model_parallel_legs(args, base, planes, steps, card) -> int:
     return 1 if bad else 0
 
 
+def serve_loop_legs(args, steps, card) -> int:
+    """The ``--serve-loop`` legs (see the module docstring)."""
+    import torch
+    m = args.model_parallel
+    base = ["--arch", "glm4-9b", "--smoke", "--seq", "16", "--batch", "8",
+            "--score-batch", "32", "--examples", "1024", "--device", "cuda",
+            "--stream", "--serve-loop"]
+    one = launch("serve_loop_one_device", base + steps)
+    res, bad = {"serve_loop_one_device": one}, []
+    worlds = [int(w) for w in args.worlds.split(",")]
+    legs = [(f"serve_loop_mesh{w}", ["--mesh", str(w)]) for w in worlds
+            if w <= torch.cuda.device_count()]
+    if m > 1:
+        legs += [(f"serve_loop_mesh{w}_mp{m}", ["--mesh", str(w),
+                                                "--model-parallel", str(m)])
+                 for w in worlds if w * m <= torch.cuda.device_count()]
+    for tag, flags in legs:
+        got = res[tag] = launch(tag, base + steps + flags)
+        print(f"{tag}: {got['ingested']} rows ingested (one device "
+              f"{one['ingested']})", flush=True)
+        if not got["ingested"] or got["ingested"] != one["ingested"]:
+            bad.append(f"{tag}: {got['ingested']} rows ingested, one device "
+                       f"{one['ingested']}")
+    for b in bad:
+        print(f"FAIL: {b}", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": not bad, "card": card, "serve_loop": True,
+                      "runs": {k: {kk: v.get(kk) for kk in (
+                          "median_ms", "quartiles_ms", "ingested")}
+                          for k, v in res.items()}}))
+    return 1 if bad else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--worlds", default="2,4")
@@ -130,12 +173,16 @@ def main() -> int:
     ap.add_argument("--examples", type=int, default=131072)
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="run the model-parallel legs at this M instead")
+    ap.add_argument("--serve-loop", action="store_true",
+                    help="run the serve-loop legs instead (with "
+                    "--model-parallel: also at that M)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     worlds = [int(w) for w in args.worlds.split(",")]
-    need = max(worlds) if args.model_parallel == 1 else args.model_parallel
+    need = (max(worlds) if args.model_parallel == 1 or args.serve_loop
+            else args.model_parallel)
     if need > torch.cuda.device_count():
         sys.exit(f"--worlds {args.worlds} --model-parallel "
                  f"{args.model_parallel} needs {need} cards, this machine "
@@ -152,6 +199,8 @@ def main() -> int:
                                "--swap-every", str(SWAP), "--chunk-size",
                                "1024", "--window-chunks", "32"]}
     steps = ["--steps", str(args.steps)]
+    if args.serve_loop:
+        return serve_loop_legs(args, steps, card)
     if args.model_parallel > 1:
         return model_parallel_legs(args, base, planes, steps, card)
     res, bad = {}, []
