@@ -157,8 +157,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  22. mamba times — the scan kernel at the full-depth pass's shape and at
                 the trainer's (16, 256, 8192, 16), with its L, L2 cold, CUDA
                 events, beside its plain version and its bound (exponentials
-                over the SFU rate vs bytes); a profiler window over steps of
-                20a.
+                over the SFU rate vs bytes); a profiler window over a step
+                of 20a.
  23. fused    — mlp_svhn at full width (65,536 examples) through the train
                 entry point with --mode fused --probe-every 8, 40 steps,
                 every plain version forbidden: losses and √TrΣ finite, the
@@ -408,6 +408,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 glm4-9b decode_32k and deepseek-7b at seq 512, batch 32;
                 the fake run's argument bytes equal to the real tensors',
                 its peak beside torch.cuda.max_memory_allocated.
+ 47. remat    — ModelConfig.remat (on by default since this phase, so
+                every earlier training phase remats, each trained flash
+                forward launched once more in its backward): (a) one
+                trainer step with remat off and on from the same state
+                and draws, after a warm-up step, at the cuts of phases 7
+                (glm4-9b × 4, ghost), 16 (the flash trainer, fused and
+                separate), 20 (falcon-mamba-7b × 2, ghost on the ref
+                scan), 30 (minicpm3-4b × 2, ghost) and 31 (dbrx-132b × 1,
+                flash): loss, scores and new params bitwise equal, every
+                kernel's launches equal but flash_attention's, doubled;
+                peak GiB, step ms; (b) the depths remat opens, a warm-up
+                and a timed step each: glm4-9b at its full 40 layers at
+                the flash trainer's shape with ghost_rev, falcon-mamba-7b
+                at its full 64 with the logit_grad scorer on the scan
+                kernel and the master on the ref scan; peak GiB, a finite
+                loss, every weight moved; (c) phase
+                46's train shape, which now remats: the dry run's peak
+                within 0.1 GiB of the allocator's.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -545,11 +563,11 @@ SWEEP_RTOL = 1e-5
 
 # --- the mamba path: falcon-mamba-7b at full width (d_model 4096, d_inner
 # 8192, d_state 16, dt_rank 256, vocab 65024, bf16), depth cut to
-# MAMBA_LAYERS for the trainer: the deepest whose ghost leg stays under 70
-# GiB, as autograd keeps each layer's ref-scan graph, ~5.9 GiB a layer at
-# these sizes (tools/torch_mamba_depth_probe.py; 12 layers do not fit in
-# 80 GB); seq 256 keeps every ghost tap on the Gram path (x_proj:
-# S·(8192 + 288) ≤ 8192·288 needs S ≤ 278)
+# MAMBA_LAYERS for the trainer: without remat the deepest whose ghost leg
+# stayed under 70 GiB, as autograd kept each layer's ref-scan graph, ~5.9
+# GiB a layer at these sizes (tools/torch_mamba_depth_probe.py); with
+# remat phase 47 trains all 64; seq 256 keeps every ghost tap on the Gram
+# path (x_proj: S·(8192 + 288) ≤ 8192·288 needs S ≤ 278)
 MAMBA_LAYERS = 10
 MAMBA_S, MAMBA_B, MAMBA_SB = 256, 8, 16
 MAMBA_STEPS, MAMBA_GHOST_STEPS, MAMBA_WARMUP = 6, 4, 1
@@ -1829,7 +1847,9 @@ def phase_flash_main(train_mod, ref):
         launches = read_counts()
         scored = fab.scored
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        per_step = {"flash_attention": 2 * LM_LAYERS,
+        # the scorer's and the master's forwards, each run again in its
+        # backward (remat): 4 forward launches a layer a step
+        per_step = {"flash_attention": 4 * LM_LAYERS,
                     "flash_attention_bwd": 2 * LM_LAYERS,
                     "attn_score_sweep": LM_LAYERS if variant == "separate"
                     else 0, "ghost_norm": len(FLASH_GHOST),
@@ -2801,8 +2821,8 @@ def phase_mamba_times(train_mod, ss, ref, rounds=5):
     """The scan kernel at both main-path shapes, the full-depth pass's
     (u, Δ and y 268 MB each in bf16: every call finds them outside the 50
     MB L2) and the trainer's (67 MB each; two input sets rotated), against
-    its plain version, CUDA events, in turns; a profiler window over steps
-    of phase 20a.  Returns the full-depth pass's row with the trainer's
+    its plain version, CUDA events, in turns; a profiler window over a
+    step of phase 20a.  Returns the full-depth pass's row with the trainer's
     under "shapes"."""
     rows = {}
     for tag, (b, s, di, ds), sets in (
@@ -2833,9 +2853,12 @@ def phase_mamba_times(train_mod, ss, ref, rounds=5):
         rows[tag] = row
         del args
         torch.cuda.empty_cache()
+    # one profiled step: with remat the master's ref scan dispatches each
+    # layer's ~23k ops twice, and reading three steps' events back took
+    # ~3.5 minutes
     prof = phase_profile(train_mod, MAMBA_ARGV + ["--strategy",
                                                   "logit_grad"],
-                         mamba_config(), steps=3, warm=1,
+                         mamba_config(), steps=1, warm=1,
                          tag="mamba profile", ssm_mode="pallas")
     row = dict(rows["full-depth pass"])
     row["shapes"] = rows
@@ -3904,14 +3927,18 @@ def check_flash_shape(fa, fab, ref, b, s, h, hkv, hd, seed, name):
 
 def moe_spy():
     """Patch ``models.moe.moe`` with a pass-through that keeps each call's
-    dropped share (a device scalar); returns (shares, restore)."""
+    dropped share (a device scalar), a forward's once: the backward's
+    re-run of a rematerialised period is not kept; returns (shares,
+    restore)."""
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import remat
     orig = moe_mod.moe
     shares = []
 
     def spy(*a, **kw):
         out = orig(*a, **kw)
-        shares.append(out.dropped_frac.detach())
+        if not remat.recomputing():
+            shares.append(out.dropped_frac.detach())
         return out
 
     moe_mod.moe = spy
@@ -3942,7 +3969,7 @@ def phase_dbrx(train_mod, fa, fab, ref):
     finally:
         restore()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    per_step = {"flash_attention": 2 * DBRX_LAYERS,
+    per_step = {"flash_attention": 4 * DBRX_LAYERS,       # remat: 2 × 2
                 "flash_attention_bwd": 2 * DBRX_LAYERS, "ghost_norm": 2}
     expect_launches(launches, {k: n * DBRX_STEPS for k, n in
                                per_step.items()}, "dbrx trainer")
@@ -4066,7 +4093,7 @@ def phase_jamba(train_mod, ref):
     for leg, mode, impl, per_step in (
             ("logit_grad", "pallas", "ref", {"selective_scan": 1}),
             ("ghost", "ref", "flash",
-             {"flash_attention": 2, "flash_attention_bwd": 2,
+             {"flash_attention": 4, "flash_attention_bwd": 2,   # remat
               "ghost_norm": 11})):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4120,7 +4147,8 @@ def phase_musicgen(train_mod, ref):
                         * 0.02).to(torch.bfloat16)}
     layers = cfg.num_layers
     want = {"logit_grad": {},
-            "ghost": {"ghost_norm": 8, "flash_attention": layers,
+            # remat: the forward runs again in the backward to the taps
+            "ghost": {"ghost_norm": 8, "flash_attention": 2 * layers,
                       "flash_attention_bwd": layers},
             "ghost_rev": {"ghost_norm": 7 * layers + 1,
                           "flash_attention": 2 * layers,
@@ -6273,7 +6301,7 @@ def phase_model_parallel(train_mod, ref):
     # (b) and (c)
     for tag, per_step in (("glm4_sp", {"ghost_norm": len(GHOST_MAIN)}),
                           ("glm4_no_sp", {"ghost_norm": len(GHOST_MAIN)}),
-                          ("flash", {"flash_attention": 2 * LM_LAYERS,
+                          ("flash", {"flash_attention": 4 * LM_LAYERS,
                                      "flash_attention_bwd": 2 * LM_LAYERS,
                                      "ghost_norm": len(FLASH_GHOST)}),
                           *((name, None) for name in zoo)):
@@ -6790,6 +6818,171 @@ def phase_dryrun_card():
     return out
 
 
+# phase 47: ModelConfig.remat on against off at the earlier phases' cuts
+# (a), the depths remat opens (b) and phase 46's train shape (c)
+REMAT_FALCON_LAYERS, REMAT_MINI_LAYERS, REMAT_DBRX_LAYERS = 2, 2, 1
+REMAT_GLM_FULL, REMAT_FALCON_FULL = 40, 64
+REMAT_PEAK_GAP_GIB = 0.1     # (c): the dry run's peak vs the allocator's
+
+
+def remat_step(train_mod, ref, argv, cfg, allow=(), keep=True, **run_kw):
+    """The build's state through one trainer step on fixed draws, after a
+    warm-up step from the same state: the timed step's loss, store (the
+    scores it wrote) and new params (on the host, with ``keep``), its ms
+    (CUDA events) and wall s, peak GiB (``max_memory_allocated``, beside
+    the GiB earlier phases left allocated before the build) and
+    launches, and whether every weight but the norm scales moved (a bf16
+    scale may round back to 1)."""
+    from repro_torch.optim import tree_leaves
+    base = torch.cuda.memory_allocated() / 2**30
+    args = train_mod.parse_args(argv + ["--steps", "1"])
+    built = train_mod.build(args, cfg, **run_kw)
+    idx = torch.randint(0, args.examples, (args.batch,), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(47))
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        st, m = run_forbidding_plain(ref, lambda: built.step(
+            built.state, built.data, sample_indices=idx), allow=allow)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        launches = read_counts()
+        scored = kernel_wrappers()["flash_attention_bwd"].scored
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if i == 0:
+            del st, m
+    check_tc(launches, f"remat {cfg.name} × {cfg.num_layers}")
+    moved = all(not torch.equal(a, b) for a, b in
+                zip(_weights(st.params), _weights(built.state.params)))
+    out = {"ms": e0.elapsed_time(e1), "wall_s": wall, "peak_gib": peak,
+           "base_gib": base, "launches": launches, "scored_bwd_calls": scored,
+           "loss": m.loss.item(), "moved": moved}
+    if keep:
+        out["results"] = [t.cpu() for t in (m.loss, st.store.weights,
+                                            *tree_leaves(st.params))]
+    del built, st, m
+    return out
+
+
+def _weights(tree):
+    """The leaves of a parameter tree but its norm scales."""
+    return [w for k, v in tree.items() if k != "scale"
+            for w in (_weights(v) if isinstance(v, dict) else [v])]
+
+
+def remat_pair(train_mod, ref, tag, argv, cfg, allow=(), **run_kw):
+    """``remat_step`` with remat off, then on: bitwise equal losses,
+    scores and new params, or fail.  The results wait on the host, so
+    that neither run's peak holds the other's."""
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        runs[remat] = remat_step(train_mod, ref, argv, dataclasses.replace(
+            cfg, remat=remat), allow, **run_kw)
+    off, on = runs[False].pop("results"), runs[True].pop("results")
+    same = len(on) == len(off) and all(torch.equal(a, b)
+                                       for a, b in zip(on, off))
+    del off, on
+    torch.cuda.empty_cache()
+    if not same:
+        fail(f"remat (a) {tag}: the step's loss, scores or params differ "
+             f"with remat on and off")
+    for remat, r in runs.items():
+        if not (math.isfinite(r["loss"]) and r["moved"]):
+            fail(f"remat (a) {tag} remat={remat}: loss {r['loss']}, params "
+                 f"moved {r['moved']}")
+    # the recompute runs each trained forward's flash kernel once more;
+    # no other kernel is in a forward that runs under grad
+    want = {k: n * (2 if k == "flash_attention" else 1)
+            for k, n in runs[False]["launches"].items()}
+    if runs[True]["launches"] != want or runs[True]["scored_bwd_calls"] != \
+            runs[False]["scored_bwd_calls"]:
+        fail(f"remat (a) {tag}: launches {runs[True]['launches']} with "
+             f"remat; expected {want}")
+    res = {"bitwise": same, "off": runs[False], "on": runs[True]}
+    flash = {k: [runs[x]["launches"][k] for x in (False, True)]
+             for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"remat (a) {tag}: {cfg.name} × {cfg.num_layers}, loss, scores "
+          f"and params bitwise equal on and off; step "
+          f"{runs[False]['ms']:.1f} / {runs[True]['ms']:.1f} ms, peak "
+          f"{runs[False]['peak_gib']:.2f} / {runs[True]['peak_gib']:.2f} GiB "
+          f"(off / on; {runs[True]['base_gib']:.2f} GiB allocated before "
+          f"each build); flash launches a step {flash}", flush=True)
+    return res
+
+
+def phase_remat(train_mod, ref, dry_card):
+    """47: ``ModelConfig.remat``.  (a) one trainer step with remat off and
+    on at the cut depths of phases 7, 16, 20, 30 and 31, bitwise; (b) the
+    depths remat opens: glm4-9b × 40 at the flash trainer's shape with
+    ghost_rev, falcon-mamba-7b × 64 with the scan-kernel scorer and the
+    master on the ref scan; (c) phase 46's train shape, which now remats:
+    its predicted peak against the allocator's."""
+    t_phase = time.perf_counter()
+    out = {"a": {}}
+    flash = ("flash", "fused"), ("flash", "separate")
+    for tag, argv, cfg, allow, kw in (
+            ("glm4_ghost", LM_ARGV, lm_config(), (), {}),
+            *((f"flash_{v}", FLASH_ARGV, lm_config(), (),
+               dict(attn_impl=i, attn_scores=v)) for i, v in flash),
+            ("falcon_ghost", MAMBA_ARGV + ["--strategy", "ghost"],
+             mamba_config(REMAT_FALCON_LAYERS), (), {}),
+            ("minicpm3_ghost", [a if a != "ghost_rev" else "ghost"
+                                for a in MINI_ARGV],
+             zoo_config("minicpm3-4b", num_layers=REMAT_MINI_LAYERS), (),
+             {}),
+            ("dbrx_flash", DBRX_ARGV, zoo_config(
+                "dbrx-132b", num_layers=REMAT_DBRX_LAYERS),
+             ("ghost_norm_direct_ref",),
+             dict(attn_impl="flash", attn_scores="fused"))):
+        out["a"][tag] = remat_pair(train_mod, ref, tag, argv, cfg, allow,
+                                   **kw)
+
+    out["b"] = {}
+    rev = [a if a != "ghost" else "ghost_rev" for a in FLASH_ARGV]
+    for tag, argv, cfg, kw in (
+            ("glm4_full", rev, lm_config(REMAT_GLM_FULL),
+             dict(attn_impl="flash", attn_scores="fused")),
+            ("falcon_full", MAMBA_ARGV + ["--strategy", "logit_grad"],
+             mamba_config(REMAT_FALCON_FULL), dict(ssm_mode="pallas"))):
+        torch.cuda.empty_cache()
+        r = remat_step(train_mod, ref, argv, cfg, keep=False, **kw)
+        torch.cuda.empty_cache()
+        if not (math.isfinite(r["loss"]) and r["moved"]):
+            fail(f"remat (b) {tag}: loss {r['loss']}, params moved "
+                 f"{r['moved']}")
+        r["layers"] = cfg.num_layers
+        out["b"][tag] = r
+        print(f"remat (b) {tag}: {cfg.name} × {cfg.num_layers} with remat, "
+              f"{' '.join(argv[argv.index('--strategy'):][:2])}, after one "
+              f"warm-up step: {r['ms']:.1f} ms ({r['wall_s']:.1f} s wall), "
+              f"peak {r['peak_gib']:.2f} GiB ({r['base_gib']:.2f} before the "
+              f"build), loss {r['loss']:.4f}, every weight moved; "
+              f"launches {r['launches']}", flush=True)
+
+    t = dry_card["train_512x32"]
+    gap = t["peak_gap_bytes"] / 2**30
+    if abs(gap) > REMAT_PEAK_GAP_GIB:
+        fail(f"remat (c): the dry run's remat peak "
+             f"{t['predicted']['peak_bytes'] / 2**30:.3f} GiB is {gap:+.3f} "
+             f"GiB from the allocator's")
+    out["c"] = {"predicted_gib": t["predicted"]["peak_bytes"] / 2**30,
+                "allocator_gib": t["max_memory_allocated"] / 2**30,
+                "gap_gib": gap}
+    print(f"remat (c): {DRY_TRAIN_ARCH} train_512x32 with remat: peak "
+          f"{out['c']['predicted_gib']:.3f} GiB predicted, "
+          f"{out['c']['allocator_gib']:.3f} GiB allocated ({gap:+.3f})",
+          flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"remat: phase 47 {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
@@ -6894,6 +7087,7 @@ def main() -> int:
     model_par = phase_model_parallel(train_mod, ref)
     serving_groups = phase_serving_groups(train_mod, ref)
     dry_card = phase_dryrun_card()
+    remat_res = phase_remat(train_mod, ref, dry_card)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -6969,6 +7163,9 @@ def main() -> int:
     print("slice 19 times " + json.dumps({
         "card": card, "serving_groups": serving_groups,
         "dryrun_on_card": dry_card,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 20 times " + json.dumps({
+        "card": card, "remat": remat_res,
         "wall_s": time.perf_counter() - t_start}), flush=True)
     mp4 = model_par["a_mlp"]["1x4"]["ranks"][0]["launches_a_step"]
     main_counts = {"per_example_sqnorm_multi": launches,
@@ -7150,7 +7347,12 @@ def main() -> int:
                                "launches_with_tick"][name],
                        **{f"serving_groups_{z}_rank0":
                           serving_groups["d_zoo"][z]["launches_rank0"][name]
-                          for z in serving_groups["d_zoo"]}},
+                          for z in serving_groups["d_zoo"]},
+                       **{f"remat_{t}_{w}": remat_res["a"][t][w][
+                           "launches"][name]
+                          for t in remat_res["a"] for w in ("off", "on")},
+                       **{f"remat_{t}": remat_res["b"][t]["launches"][name]
+                          for t in remat_res["b"]}},
         })
         if name in ("per_example_sqnorm_multi", "ghost_norm"):
             kernels[-1]["side_stream_launches"] = {

@@ -30,8 +30,11 @@ in a host read of the drawn indices, which a fake tensor cannot give,
 so the master trains on injected indices (``sample_indices``, which the
 port's step takes); everything else of the step runs: the scoring pass on
 the rank's score slice, the proposal read, the one-owner gathers of the
-proposal and the minibatch, the master's IS-scaled loss, its backward,
-the global grad norm, the update and the trace monitors.  The port's
+proposal and the minibatch, the master's IS-scaled loss, its backward
+(rematerialised: the configs keep ``remat=True``, the reference's
+default, and a train shape's ``loss_chunk`` of 512 checkpoints each
+chunk of the loss head), the global grad norm, the update and the trace
+monitors.  The port's
 master computes the whole minibatch on every data rank
 (``core/distributed.py``: the update is the same on every rank), where
 the reference's dry run lets XLA split it over the data axes.  The stale

@@ -28,6 +28,11 @@ the run dispatched:
                     when they appear and taken off when the last tensor
                     that holds them dies.
 
+A step that remats (``ModelConfig.remat``, ``models/remat.py``) re-runs
+each checkpointed region inside its backward, under the same modes, so
+the recompute's FLOPs, written bytes and allocations are counted, as
+XLA's analyses count the recompute of the reference's ``jax.checkpoint``.
+
 The HLO-text parser (the symbol table, the loop-condition trip counts)
 has no counterpart here: nothing is parsed.
 """

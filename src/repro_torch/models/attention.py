@@ -15,7 +15,9 @@ MLA (multi-head latent attention, minicpm3-4b) mirrors the reference's
 train and prefill path (``init_mla``, ``_mla_qkv``, ``mla``): low-rank
 query and key-value projections, a rope key shared by every head, and
 materialised f32 logits chunked over queries; and its absorbed one-token
-decode over the compressed cache (``mla_decode``).
+decode over the compressed cache (``mla_decode``).  Both materialised
+paths recompute their query chunks in the backward above
+``KEEP_LOGITS_S`` (the reference always does).
 
 With a ``model_group`` (the reference's ``model_axes``) the training
 paths shard whole heads: ``attn_shard_info``/``mla_shard_info`` read the
@@ -36,6 +38,7 @@ import torch
 from repro_torch.core.collectives import psum_backward, psum_forward
 from repro_torch.dist import DataGroup
 from repro_torch.kernels import ops
+from repro_torch.models import remat as remat_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, Tape, _dense_init, dtype_of,
                                        init_rmsnorm, rmsnorm, rope,
@@ -110,26 +113,44 @@ def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
+# the query chunks of the materialised attention (GQA's and MLA's) are
+# recomputed in the backward once the sequence is longer than this; at or
+# below it autograd keeps their f32 logits and softmax ((B, H, chunk, S) a
+# chunk).  The reference recomputes every chunk (jax.checkpoint).
+KEEP_LOGITS_S = 64
+
+
+def _run_chunks(one, s: int, q_chunk: int, args) -> torch.Tensor:
+    """``one(lo, *args)`` over the query chunks starting at ``lo``,
+    concatenated on dim 1; each chunk is checkpointed (``models/remat``)
+    when ``s`` exceeds ``KEEP_LOGITS_S``."""
+    recompute = s > KEEP_LOGITS_S
+    outs = [remat_mod.checkpointed(one, lo, *args) if recompute
+            else one(lo, *args) for lo in range(0, s, q_chunk)]
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
 def _chunked_attention(q, k, v, q_pos, k_pos, window: int,
                        q_chunk: int) -> torch.Tensor:
     """q:(B,Sq,Hkv,rep,hd) k,v:(B,Sk,Hkv,hd) → (B,Sq,Hkv,rep,hd).
 
     Each query row is independent of the others, so a short last chunk
-    equals the reference's zero-padded one."""
+    equals the reference's zero-padded one.  Above ``KEEP_LOGITS_S``
+    the chunks are recomputed in the backward."""
     sq, hd = q.shape[1], q.shape[-1]
     scale = hd ** -0.5
     q_chunk = min(q_chunk, sq)
-    kf, vf = k.float(), v.float()
-    outs = []
-    for lo in range(0, sq, q_chunk):
+
+    def one(lo, q, kf, vf, q_pos, k_pos):
         qc, qp = q[:, lo:lo + q_chunk], q_pos[:, lo:lo + q_chunk]
         logits = torch.einsum("bqgrd,bkgd->bgrqk", qc.float() * scale, kf)
         mask = _causal_window_mask(qp, k_pos, window)        # (B,qc,Sk)
         logits = torch.where(mask[:, None, None], logits, _NEG)
         p = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
-        outs.append(out.to(q.dtype))
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        return torch.einsum("bgrqk,bkgd->bqgrd", p, vf).to(q.dtype)
+
+    return _run_chunks(one, sq, q_chunk,
+                       (q, k.float(), v.float(), q_pos, k_pos))
 
 
 IMPLS = ("ref", "pallas", "flash")
@@ -329,12 +350,6 @@ def _mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return q_nope, q_rope, kv[..., :nope], k_rope, kv[..., nope:], latent
 
 
-# query chunks of MLA's materialised logits are recomputed in the backward
-# (as the reference's jax.checkpoint) once the sequence is longer than this;
-# at or below it autograd keeps them: (B, H, S, S) f32 a chunk
-MLA_KEEP_LOGITS_S = 64
-
-
 def _mla_chunk(qn, qr, qp, k_nope, k_rope, v, positions, scale: float,
                window: int, dtype: torch.dtype) -> torch.Tensor:
     lg = torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope.float())
@@ -370,19 +385,16 @@ def mla(params: Params, x: torch.Tensor, cfg: ModelConfig,
         collector[f"{prefix}.latent"] = latent
         collector[f"{prefix}.rope"] = k_rope[:, :, 0, :]
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    recompute = torch.is_grad_enabled() and s > MLA_KEEP_LOGITS_S
     q_chunk = min(q_chunk, s)
-    outs = []
-    for lo in range(0, s, q_chunk):
-        args = (q_nope[:, lo:lo + q_chunk], q_rope[:, lo:lo + q_chunk],
-                positions[:, lo:lo + q_chunk], k_nope, k_rope, v, positions,
-                scale, cfg.sliding_window, x.dtype)
-        if recompute:
-            from torch.utils.checkpoint import checkpoint
-            outs.append(checkpoint(_mla_chunk, *args, use_reentrant=False))
-        else:
-            outs.append(_mla_chunk(*args))
-    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+    def one(lo, q_nope, q_rope, k_nope, k_rope, v, positions):
+        return _mla_chunk(q_nope[:, lo:lo + q_chunk],
+                          q_rope[:, lo:lo + q_chunk],
+                          positions[:, lo:lo + q_chunk], k_nope, k_rope, v,
+                          positions, scale, cfg.sliding_window, x.dtype)
+
+    out = _run_chunks(one, s, q_chunk,
+                      (q_nope, q_rope, k_nope, k_rope, v, positions))
     out = out.reshape(bsz, s, h * cfg.v_head_dim)
     y = tapped_linear(out, params["wo"], f"{prefix}.wo", tape)
     return psum_forward(y, mg)

@@ -22,7 +22,18 @@ each mamba layer's decode state (its conv window and f32 h).
 
 ``ssm_mode`` picks the mamba scan: "ref" (the plain oracle, which autograd
 differentiates) or "pallas" (the forward-only selective-scan kernel).
-``remat`` has no numeric effect and is not ported.
+
+``ModelConfig.remat`` (default True, as in the reference) checkpoints
+each layer period of a forward that runs under grad
+(``models/remat.checkpointed``, the reference's ``jax.checkpoint`` of
+its scan body): only the period boundaries, the records and the taps'
+slices stay live until the backward, which re-runs one period at a
+time.  ``collect_cache`` (the serving prefill) and ``no_grad`` passes
+take the plain loop; ``remat=False`` keeps every layer's activations.
+Either way the results are bitwise the same.  Whatever ``remat`` says,
+``lm_head_metrics`` checkpoints each chunk of its loss head and the
+attention its query chunks above ``attention.KEEP_LOGITS_S``, as the
+reference always does.
 
 With a ``model_group`` (the reference's ``model_axes``) the whole stack
 runs tensor-parallel on this rank's shards (``transformer_specs``):
@@ -42,6 +53,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.core.collectives import (all_gather_replicated,
                                           psum_backward, scatter_seq)
@@ -266,12 +278,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     layer_taps = dict(taps) if taps is not None else {}
     head_tap = layer_taps.pop("unembed", None)
     aux_loss = torch.zeros((), dtype=torch.float32, device=h.device)
-    per_period, per_cache = [], []
-    for p in range(cfg.num_periods):
-        pp = _period(params["layers"], p)
-        tape = Tape(taps={k: v[p] for k, v in layer_taps.items()} or None,
-                    records={} if collect else None)
-        cache = {} if collect_cache else None
+
+    def run_period(carry: list, pp, ptaps, positions, pad_mask,
+                   cache=None):
+        # one period's layers on carry = [h, aux_loss], which it empties so
+        # that a pass without autograd frees the period's input after its
+        # first layer; it returns the records and writes nothing but the
+        # prefill's cache, so that a recompute can run it again
+        h, aux_loss = carry
+        carry.clear()
+        tape = Tape(taps=ptaps or None, records={} if collect else None)
         for i, spec in enumerate(specs):
             h, aux = _apply_layer(pp[f"l{i}"], h, cfg, spec, positions,
                                   tape, f"l{i}", collector=cache,
@@ -280,7 +296,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                   pad_mask=pad_mask, model_group=model_group,
                                   seq_shard=seq_shard)
             aux_loss = aux_loss + aux
-        per_period.append(tape.records)
+        return h, aux_loss, tape.records
+
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    per_period, per_cache = [], []
+    for p in range(cfg.num_periods):
+        pp = _period(params["layers"], p)
+        ptaps = {k: v[p] for k, v in layer_taps.items()}
+        cache = {} if collect_cache else None
+        if remat:
+            h, aux_loss, records = remat_mod.checkpointed(
+                lambda h, a, *rest: run_period([h, a], *rest), h, aux_loss,
+                pp, ptaps, positions, pad_mask)
+        else:
+            carry = [h, aux_loss]
+            del h
+            h, aux_loss, records = run_period(carry, pp, ptaps, positions,
+                                              pad_mask, cache)
+        per_period.append(records)
         per_cache.append(cache)
 
     records = _stack_periods(per_period) if collect else None
@@ -431,20 +464,20 @@ def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked unembed + CE: per-example (mean_nll, logit_grad_norm).
 
-    Projects ``cfg.loss_chunk`` positions at a time (all of them when 0),
-    so the (B, S, V) logits never exist at once.  logit_grad_norm is
+    Projects ``cfg.loss_chunk`` positions at a time (all of them when 0).
+    Each chunk's unembed, log-softmax and squared logit gradient run
+    inside ``remat.checkpointed``, whatever ``cfg.remat`` says (the
+    reference's ``jax.checkpoint`` of ``one``): under grad the backward
+    recomputes them a chunk at a time, so neither pass holds more than
+    one chunk's (B, chunk, V) f32 logits.  logit_grad_norm is
     ||∂L_n/∂logits||₂ of the mean per-example loss."""
     bsz, s, _ = h.shape
     chunk = cfg.loss_chunk if cfg.loss_chunk > 0 else s
     chunk = min(chunk, s)
     if mask is None:
         mask = torch.ones(bsz, s, dtype=torch.float32, device=h.device)
-    nll_sum = torch.zeros(bsz, dtype=torch.float32, device=h.device)
-    gsq_sum = torch.zeros(bsz, dtype=torch.float32, device=h.device)
-    for lo in range(0, s, chunk):
-        h_c = h[:, lo:lo + chunk]
-        t_c = targets[:, lo:lo + chunk].long()
-        m_c = mask[:, lo:lo + chunk]
+
+    def one(h_c, t_c, m_c):
         logits = unembed(params["embed"], h_c, cfg,
                          model_group=model_group).float()
         lp = torch.log_softmax(logits, dim=-1)
@@ -452,8 +485,16 @@ def lm_head_metrics(params: Params, cfg: ModelConfig, h: torch.Tensor,
         pr = torch.exp(lp)
         p_y = torch.gather(pr, -1, t_c[..., None])[..., 0]
         gsq = torch.sum(torch.square(pr), -1) - 2.0 * p_y + 1.0
-        nll_sum = nll_sum + torch.sum(nll * m_c, -1)
-        gsq_sum = gsq_sum + torch.sum(gsq * m_c, -1)
+        return torch.sum(nll * m_c, -1), torch.sum(gsq * m_c, -1)
+
+    nll_sum = torch.zeros(bsz, dtype=torch.float32, device=h.device)
+    gsq_sum = torch.zeros(bsz, dtype=torch.float32, device=h.device)
+    for lo in range(0, s, chunk):
+        nll_c, gsq_c = remat_mod.checkpointed(
+            one, h[:, lo:lo + chunk], targets[:, lo:lo + chunk].long(),
+            mask[:, lo:lo + chunk])
+        nll_sum = nll_sum + nll_c
+        gsq_sum = gsq_sum + gsq_c
     count = torch.clamp(torch.sum(mask, -1), min=1.0)
     return nll_sum / count, torch.sqrt(gsq_sum) / count
 

@@ -10,8 +10,9 @@ and its model group), scores the plan's batches with the model-parallel
 scorers, runs every step case of the plan on its shards of the
 parameters with the master's draws injected (the reference's, or the
 one-device run's), records one step's
-model-axis messages and scorer calls, and (the world of the plan's
-``checkpoint_world``) saves its relaxed MLP state gather-free.  With RANK
+model-axis messages and scorer calls, at (1, 2) a pass of two LMs with
+remat off and on, and (the world of the plan's ``checkpoint_world``)
+saves its relaxed MLP state gather-free.  With RANK
 ``one`` (and N, M, PORT ignored) it runs the same cases on one device,
 the runs the worlds are held to within the port, and writes the draws of
 the cases the reference does not run to ``OUT_DIR/../one_draws.pt``.
@@ -19,6 +20,7 @@ The reference's draws come from ``OUT_DIR/../reference.pt``, which the
 test writes while the ranks run.  What a rank saw goes to ``OUT_DIR/rank<RANK>.pt``.  It
 imports only the port.
 """
+import dataclasses
 import os
 import sys
 import time
@@ -42,7 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttf
-from repro_torch.optim import sgd
+from repro_torch.optim import sgd, tree_leaves, tree_map
 
 # step cases: name → (model, ISSGDConfig overrides, driver, sequence
 # parallel); the MLP and the dense LM in every mode, the other families
@@ -65,6 +67,9 @@ CASES = {
 # one-device run's own (``OUT_DIR/../one_draws.pt``)
 REFERENCE_CASES = ("mlp/relaxed", "mlp/fused", "mlp/async", "mlp/stream",
                    "glm4/relaxed")
+# the models whose remat on and off the world (1, 2) compares
+REMAT_MODELS = ("glm4", "hybrid")
+REMAT_WORLD = (1, 2)
 SWAP = 2
 WINDOW = 2
 WAIT_S = 240
@@ -275,6 +280,35 @@ def traffic_case(plan, group, mg) -> dict:
                            for k, v in state.opt_state.items()}}
 
 
+def remat_case(plan, mg) -> dict:
+    """Remat off, then on, on this rank's shards: the losses, the MoE aux
+    loss and the shards' gradients of each model of ``REMAT_MODELS``
+    (sequence parallel), its ghost ω̃, and the model-axis all-reduces the
+    pass sent (``COUNTS``: the recompute's are counted)."""
+    kw = dict(model_group=mg, seq_shard=True)
+    out = {}
+    for model in REMAT_MODELS:
+        spec = plan["models"][model]
+        specs = D.resolve_param_specs(_logical(spec), spec["params"], mg)
+        params = shard_tree(spec["params"], specs, *axis_info(mg))
+        batch = plan["batches"][model]
+        for remat in (False, True):
+            cfg = dataclasses.replace(spec["cfg"], remat=remat)
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            params)
+            collectives.reset_counts()
+            losses, aux = ttf.per_example_loss(live, cfg, batch, **kw)
+            grads = torch.autograd.grad(torch.mean(losses) + aux.aux_loss,
+                                        tree_leaves(live))
+            sent = collectives.COUNTS["model_all_reduce"]
+            scores = make_lm_scorer(cfg, "ghost", **kw)(params, batch)
+            out[(model, remat)] = {
+                "results": [losses.detach(), aux.aux_loss.detach(),
+                            *grads, scores.detach()],
+                "model_all_reduce": sent}
+    return out
+
+
 def _wait(path: str) -> None:
     t0 = time.time()
     while not os.path.exists(path):
@@ -297,6 +331,8 @@ def main(rank: str, n_data: int, m_size: int, port: int, plan_path: str,
     out = {}
     if mg is not None:      # first: the fallback warns once a parameter
         out["traffic"] = traffic_case(plan, group, mg)
+    if (n_data, m_size) == REMAT_WORLD and mg is not None:
+        out["remat"] = remat_case(plan, mg)
     out["scores"] = scores_case(plan, mg)
     root = os.path.dirname(out_dir)
     ref_path = os.path.join(root, "reference.pt")

@@ -7,7 +7,9 @@ Against the reference: the shape table, the long-context window and
 smoke forward (deepseek-7b, batch 4, seq 64) counts the FLOPs that
 ``hlo_cost.analyze`` walks in the compiled JAX forward, exactly.  Within
 the port: the live-byte tracker's peak and write bytes on a function whose
-allocations are known, the all-reduce bytes on the fake backend, the
+allocations are known, remat's recompute counted in the FLOPs and the
+written bytes of a fake training step, the all-reduce bytes on the fake
+backend, the
 smoke dry run of the reference test's two combinations (glm4-9b train_4k
 at 16×16, jamba-v0.1-52b decode_32k at 2×16×16) and the CLI, and at full
 size glm4-9b decode_32k at 16×16, whose argument bytes are the rank's
@@ -145,3 +147,38 @@ def test_full_size_decode_argument_bytes_from_the_config():
     assert r["fits_80gb"]
     np.testing.assert_array_less(r["memory"]["argument_bytes"],
                                  r["memory"]["peak_bytes"])
+
+
+def test_remat_recompute_is_counted_under_fake_tensors():
+    """A training forward and backward of glm4-9b-smoke × 4 on fake
+    tensors, remat off and on: with remat the FLOPs and the written bytes
+    count the backward's re-run of each period (more than without, less
+    than twice the forward's more), and the peak holds less."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.transformer import per_example_loss
+    from repro_torch.optim import tree_leaves
+    base = dataclasses.replace(configs.get_smoke_config("glm4-9b"),
+                               num_layers=4)
+
+    def step(cfg):
+        def fn(params, toks):
+            live = [p.requires_grad_(True) for p in tree_leaves(params)]
+            loss = per_example_loss(params, cfg, {"tokens": toks})[0].sum()
+            return torch.autograd.grad(loss, live)
+        return fn
+
+    cost = {}
+    with FakeTensorMode():
+        toks = torch.zeros(4, 129, dtype=torch.int32)
+        for remat in (False, True):
+            cfg = dataclasses.replace(base, remat=remat)
+            params = init_transformer(torch.Generator().manual_seed(0), cfg,
+                                      "cpu")
+            cost[remat] = op_cost.analyze(step(cfg), params, toks)
+        with torch.no_grad():
+            fwd = op_cost.analyze(lambda p, t: forward(p, base, t), params,
+                                  toks[:, :-1])
+    off, on = cost[False], cost[True]
+    assert off.flops < on.flops <= off.flops + fwd.flops
+    assert off.io_bytes < on.io_bytes <= off.io_bytes + fwd.io_bytes
+    assert on.peak_bytes < off.peak_bytes

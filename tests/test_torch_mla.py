@@ -2,7 +2,7 @@
 
 The MLA layer with and without ``q_lora_rank`` (query chunks shorter than
 S, and the prefill collector's latent and rope rows); the chunks
-recomputed in the backward (above ``MLA_KEEP_LOGITS_S``) against kept
+recomputed in the backward (above ``KEEP_LOGITS_S``) against kept
 ones; minicpm3-4b's smoke config through the forward and the per-example
 loss, both query paths; every LM strategy's scores; one relaxed train
 step; the refusals of the flash kernels and their score tap.
@@ -119,7 +119,7 @@ def _np_shape(leaf):
 
 
 def test_mla_recomputed_chunks_equal_kept_chunks(monkeypatch):
-    """Above MLA_KEEP_LOGITS_S the query chunks are recomputed in the
+    """Above KEEP_LOGITS_S the query chunks are recomputed in the
     backward (torch.utils.checkpoint); outputs and gradients equal the
     kept chunks' bitwise, and the reference's gradients at rtol 1e-5."""
     jcfg, cfg, jp, tp, x, pos = _layer(True, 3, 20)
@@ -127,7 +127,7 @@ def test_mla_recomputed_chunks_equal_kept_chunks(monkeypatch):
         (2, 20, cfg.d_model)).astype(np.float32)
 
     def grads(keep_s):
-        monkeypatch.setattr(tattn, "MLA_KEEP_LOGITS_S", keep_s)
+        monkeypatch.setattr(tattn, "KEEP_LOGITS_S", keep_s)
         live = jax.tree.map(lambda t: t.clone().requires_grad_(True), tp)
         tx = torch.from_numpy(x).requires_grad_(True)
         y = tattn.mla(live, tx, cfg, torch.from_numpy(pos.copy()), q_chunk=8)

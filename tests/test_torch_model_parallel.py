@@ -22,7 +22,8 @@ reference.  Within the port, bitwise: a data world of 2 equals data
 world 1 at the same M; the ranks of a model group agree on every
 replicated value; M = 1 is the run without the flag.  A rank holds 1/M
 of every sharded parameter and of its optimizer state, no model-axis
-message is parameter-sized, M = 4 replicates the MLP's 10-class layer
+message is parameter-sized, remat on ≡ off at (1, 2) (the recompute's
+model-axis messages counted), M = 4 replicates the MLP's 10-class layer
 with one warning a parameter and a step makes one single-tap and one
 multi-tap sq-norm call a rank.  A gather-free file of the (2, 2) world
 restores into the reference and the port's one-device state bit for
@@ -44,7 +45,8 @@ torch = pytest.importorskip("torch")
 
 from _helpers import REPO  # noqa: E402
 from _torch_model_parallel_rank import (CASES, REFERENCE_CASES,  # noqa: E402
-                                        SWAP, models_for)
+                                        REMAT_MODELS, REMAT_WORLD, SWAP,
+                                        models_for)
 from repro import configs as jconfigs  # noqa: E402
 from repro.checkpoint import restore_checkpoint as j_restore  # noqa: E402
 from repro.configs.mlp_svhn import smoke as j_smoke  # noqa: E402
@@ -450,6 +452,21 @@ def test_data_world_is_bitwise_data_world_1(worlds, case):
                 assert _same_tree(r[key], a[key]), key
         assert _same_store(_cat_store(lo["store"], hi["store"]),
                            a["store"])
+
+
+@pytest.mark.parametrize("model", REMAT_MODELS)
+def test_remat_is_bitwise_on_a_model_group(worlds, model):
+    """At (data, model) = (1, 2), sequence parallel: every rank's losses,
+    aux loss, shard gradients and ghost ω̃ are bitwise the same with
+    remat on and off; the recompute sends its model-axis messages again,
+    and ``COUNTS`` counts them."""
+    res, *_ = worlds
+    for r, got in enumerate(res[REMAT_WORLD]):
+        off, on = got["remat"][(model, False)], got["remat"][(model, True)]
+        assert len(on["results"]) == len(off["results"])
+        for i, (a, b) in enumerate(zip(on["results"], off["results"])):
+            assert torch.equal(a, b), f"rank {r} result {i}"
+        assert on["model_all_reduce"] > off["model_all_reduce"]
 
 
 @pytest.mark.parametrize("world", WORLDS)
