@@ -158,7 +158,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 the trainer's (16, 256, 8192, 16), with its L, L2 cold, CUDA
                 events, beside its plain version and its bound (exponentials
                 over the SFU rate vs bytes); a profiler window over a step
-                of 20a.
+                of 20a's trainer cut to 2 layers.
  23. fused    — mlp_svhn at full width (65,536 examples) through the train
                 entry point with --mode fused --probe-every 8, 40 steps,
                 every plain version forbidden: losses and √TrΣ finite, the
@@ -360,7 +360,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
  44. model parallel — --model-parallel over gloo ranks sharing the one
                 card (no speed figure: per-rank launches, model-axis
                 all-reduces and bytes a step, peak GiB), every plain
-                version forbidden: (a) phase 3's mlp_svhn at W = 4, 40
+                version forbidden: (a) phase 3's mlp_svhn at W = 4, 20
                 relaxed steps at (data, model) = (1, 4), (1, 2) and (2, 2)
                 against one device in the same call (its draws for the
                 first 5 steps or more, losses within 1e-4), the (2, 2)
@@ -377,7 +377,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 attn_scores="fused" step at phase 16's seq 512, batch
                 4; (c)
                 falcon-mamba-7b × 2, dbrx-132b × 1, minicpm3-4b × 2 and
-                jamba in phase 31's layout, 3 relaxed steps each, the same
+                jamba in phase 31's layout, 2 relaxed steps each, the same
                 checks (the MoE archs at the median, at most a quarter
                 of the rows beyond 5e-2: top-k routing flips near ties
                 under bf16 reassociation); (d) the M = 2 mlp_svhn run's gather-free file
@@ -407,7 +407,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 for real on the card (the fake backend on CUDA tensors):
                 glm4-9b decode_32k and deepseek-7b at seq 512, batch 32;
                 the fake run's argument bytes equal to the real tensors',
-                its peak beside torch.cuda.max_memory_allocated.
+                its peak beside torch.cuda.max_memory_allocated.  The
+                train step is the batch-split master, as the reference's
+                dry run has it: rank 0 trains on its 2 of the 32 rows.
  47. remat    — ModelConfig.remat (on by default since this phase, so
                 every earlier training phase remats, each trained flash
                 forward launched once more in its backward): (a) one
@@ -426,6 +428,28 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                 loss, every weight moved; (c) phase
                 46's train shape, which now remats: the dry run's peak
                 within 0.1 GiB of the allocator's.
+ 48. batch split — the batch-split master (make_sharded_train_step(...,
+                split_batch=True), the reference's constrain_batch; off
+                by default, so every earlier phase runs the unsplit
+                step): a world of 2 ranks sharing the card over gloo on
+                CUDA tensors, each rank training on its half of the
+                minibatch and the gradients summed over the ranks, every
+                plain version forbidden, against the one-device run of
+                the same call: (a) mlp_svhn at full width, relaxed,
+                ghost, W = 4, 10 steps; (b) glm4-9b at phase 7's cut on
+                the flash path with the fused score at phase 16's shape,
+                W = 2, 2 steps; (c) dbrx-132b × 1, capacity drops on, the
+                routing the whole minibatch's (BatchSplit), W = 2, 2
+                steps.  The draws equal one device's until the first
+                refresh, the losses and grad norms within 1e-4 (f32) or
+                5e-2 (bf16; dbrx's dropped shares and scored rows at the
+                median, at most a quarter beyond), the ranks alike, two
+                split runs bitwise equal; a rank's master at its B/2
+                rows; launches a step a rank: 1 multi-tap (a), 16 flash
+                forward, 8 backward (4 scored) and 5 ghost_norm (b), half
+                one device's scorer launches (b, c), every tensor-core
+                kernel on its tensor-core instance; the gradient
+                all-reduces a step counted.
 Then the card line, the kernels line, and last {"ok": true, "device": ...}.
 """
 from __future__ import annotations
@@ -569,6 +593,7 @@ SWEEP_RTOL = 1e-5
 # remat phase 47 trains all 64; seq 256 keeps every ghost tap on the Gram
 # path (x_proj: S·(8192 + 288) ≤ 8192·288 needs S ≤ 278)
 MAMBA_LAYERS = 10
+MAMBA_PROFILE_LAYERS = 2   # phase 22's profiler window: its events cost time
 MAMBA_S, MAMBA_B, MAMBA_SB = 256, 8, 16
 MAMBA_STEPS, MAMBA_GHOST_STEPS, MAMBA_WARMUP = 6, 4, 1
 MAMBA_ARGV = ["--arch", "falcon-mamba-7b", "--mode", "relaxed", "--seq",
@@ -2822,8 +2847,8 @@ def phase_mamba_times(train_mod, ss, ref, rounds=5):
     (u, Δ and y 268 MB each in bf16: every call finds them outside the 50
     MB L2) and the trainer's (67 MB each; two input sets rotated), against
     its plain version, CUDA events, in turns; a profiler window over a
-    step of phase 20a.  Returns the full-depth pass's row with the trainer's
-    under "shapes"."""
+    step of phase 20a's trainer at MAMBA_PROFILE_LAYERS.  Returns the
+    full-depth pass's row with the trainer's under "shapes"."""
     rows = {}
     for tag, (b, s, di, ds), sets in (
             ("full-depth pass", (SCAN_B, SCAN_S, 8192, 16), 1),
@@ -2854,12 +2879,13 @@ def phase_mamba_times(train_mod, ss, ref, rounds=5):
         del args
         torch.cuda.empty_cache()
     # one profiled step: with remat the master's ref scan dispatches each
-    # layer's ~23k ops twice, and reading three steps' events back took
-    # ~3.5 minutes
+    # layer's ~23k ops twice, and reading one 10-layer step's events back
+    # took ~80 s
     prof = phase_profile(train_mod, MAMBA_ARGV + ["--strategy",
                                                   "logit_grad"],
-                         mamba_config(), steps=1, warm=1,
-                         tag="mamba profile", ssm_mode="pallas")
+                         mamba_config(MAMBA_PROFILE_LAYERS), steps=1, warm=1,
+                         tag=f"mamba profile (× {MAMBA_PROFILE_LAYERS} "
+                             f"layers)", ssm_mode="pallas")
     row = dict(rows["full-depth pass"])
     row["shapes"] = rows
     return row, prof
@@ -5977,10 +6003,10 @@ def phase_lm_row_blocks(mesh) -> dict:
     fail("LM row blocks: no cut fits")
 
 
-MP_STEPS = 40             # (a): relaxed mlp_svhn steps a world
+MP_STEPS = 20             # (a): relaxed mlp_svhn steps a world
 MP_CHECK_STEPS = 5        # steps whose draws must equal one device's
 MP_PLANE_STEPS = 4        # (a): async and streamed steps at M = 2
-MP_LM_STEPS = 3           # (c): relaxed steps of the zoo's cuts
+MP_LM_STEPS = 2           # (c): relaxed steps of the zoo's cuts
 MP_GLM_STEPS = 2          # (b): relaxed glm4-9b steps a variant
 MP_W = 4                  # (a): logical scoring shards (row blocks of 64)
 MP_LM_SB = 32             # (b): glm4-9b's score batch (phase 7: 128)
@@ -6134,7 +6160,7 @@ def _scored_rel(r, one) -> dict:
 def phase_model_parallel(train_mod, ref):
     """44: model parallelism over the one card, ranks sharing it over
     gloo (no speed figure: per-rank counts, model-axis bytes and peak
-    GiB).  (a) mlp_svhn at phase 3's width, W = 4, 40 relaxed steps at
+    GiB).  (a) mlp_svhn at phase 3's width, W = 4, 20 relaxed steps at
     ``--model-parallel 4``, ``--model-parallel 2`` and ``--mesh 2
     --model-parallel 2`` against one device in the same call: the first
     steps' draws and losses (rtol 1e-4), the (2, 2) world bitwise the (1,
@@ -6148,7 +6174,7 @@ def phase_model_parallel(train_mod, ref):
     most MP_MOE_SHARE of the rows beyond it), 2 steps each; one flash
     ``attn_scores="fused"`` step at phase 16's seq 512, batch 4.  (c) falcon-mamba-7b
     × 2, dbrx-132b × 1, minicpm3-4b × 2 (the cuts two ranks on one card
-    hold in this phase's time) and jamba in phase 31's layout, 3 relaxed
+    hold in this phase's time) and jamba in phase 31's layout, 2 relaxed
     steps each against one device.  (d) the M = 2 mlp_svhn run's
     gather-free file restored on one device, bit for bit its shards."""
     from repro_torch.checkpoint import restore_checkpoint
@@ -6630,39 +6656,45 @@ def phase_serving_groups(train_mod, ref):
     31's layout and dbrx-132b × 1 through the (1, 2) batcher: teacher-
     forced logits against one device's (the MoE archs at the median
     row)."""
+    import gc
     t_phase = time.perf_counter()
     out = {}
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        w12 = pool.submit(sg_world, 1, 2, "chip_smoke_sg12")
-        w22 = pool.submit(sg_world, 2, 2, "chip_smoke_sg22")
-        # one device, the same call, while the worlds run
-        cfg = lm_config()
-        one = {"glm4": sg_serve(cfg, 45, None, 1, ref,
-                                sg_requests(cfg, SG_REQUESTS, SG_PROMPT,
-                                            SG_NEW, 46),
-                                (SG_TF_B, SG_TF_S, SG_TF_STEPS))}
-        for i, (name, zcfg) in enumerate(sg_zoo().items()):
-            one[name] = sg_serve(zcfg, 50 + i, None, 1, ref,
-                                 sg_requests(zcfg, SG_ZOO_REQUESTS,
-                                             SG_ZOO_PROMPT, SG_ZOO_NEW,
-                                             60 + i), SG_ZOO_TF)
-        # (b) --mesh 1 over NCCL, in this process
-        nccl = {}
-        for name, extra in (("no_serve", []), ("serve", SG_LOOP_SERVE)):
-            reset_counts()
-            res = run_forbidding_plain(ref, lambda: train_mod.main(
-                SG_LOOP_ARGV + ["--mesh", "1"] + extra, lm_config()))
-            nccl[name] = {"step_ms": res.step_ms, "launches": read_counts()}
-            if name == "serve":
-                built = res.built
-                from repro_torch.core.weight_store import EMPTY
-                store = built.state.store.write_buf
-                nccl[name]["ingested"] = built.serve.ingest.ingested
-                nccl[name]["live"] = int(
-                    (store.scored_at[1024:] != EMPTY).sum())
-            del res
-            torch.cuda.empty_cache()
-        worlds = {(1, 2): w12.result(), (2, 2): w22.result()}
+    # one device, the same call
+    cfg = lm_config()
+    one = {"glm4": sg_serve(cfg, 45, None, 1, ref,
+                            sg_requests(cfg, SG_REQUESTS, SG_PROMPT,
+                                        SG_NEW, 46),
+                            (SG_TF_B, SG_TF_S, SG_TF_STEPS))}
+    for i, (name, zcfg) in enumerate(sg_zoo().items()):
+        one[name] = sg_serve(zcfg, 50 + i, None, 1, ref,
+                             sg_requests(zcfg, SG_ZOO_REQUESTS,
+                                         SG_ZOO_PROMPT, SG_ZOO_NEW,
+                                         60 + i), SG_ZOO_TF)
+    # (b) --mesh 1 over NCCL, in this process
+    nccl = {}
+    for name, extra in (("no_serve", []), ("serve", SG_LOOP_SERVE)):
+        reset_counts()
+        res = run_forbidding_plain(ref, lambda: train_mod.main(
+            SG_LOOP_ARGV + ["--mesh", "1"] + extra, lm_config()))
+        nccl[name] = {"step_ms": res.step_ms, "launches": read_counts()}
+        if name == "serve":
+            built = res.built
+            from repro_torch.core.weight_store import EMPTY
+            store = built.state.store.write_buf
+            nccl[name]["ingested"] = built.serve.ingest.ingested
+            nccl[name]["live"] = int(
+                (store.scored_at[1024:] != EMPTY).sum())
+            del built, store
+        del res
+        torch.cuda.empty_cache()
+    # then the two worlds, one after the other: side by side (six ranks,
+    # each building the whole params on the card before it keeps its
+    # shards) while this process also served and trained, they once ran
+    # the card out of memory at a rank's init (79 GiB in use)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worlds = {(1, 2): sg_world(1, 2, "chip_smoke_sg12"),
+              (2, 2): sg_world(2, 2, "chip_smoke_sg22")}
 
     # (a)
     a = out["a_glm4"] = {"one_device_wall_s": one["glm4"]["wall_s"]}
@@ -6983,6 +7015,286 @@ def phase_remat(train_mod, ref, dry_card):
     return out
 
 
+# --- slice 21: the batch-split master (split_batch, off by default)
+SPLIT_MLP_STEPS = 10      # (a): refresh every 8: the draws equal to step 8
+SPLIT_LM_STEPS = 2        # (b): the flash trainer's steps
+SPLIT_DBRX_STEPS = 2      # (c): DBRX_ARGV refreshes every step, so that
+#                           the stale params alias the params (a copy would
+#                           be 8.4 GiB more a rank): equal draws at step 0
+SPLIT_LM_W = 2            # the LMs' logical scoring shards, one a rank
+
+
+def split_run(group, device, job):
+    """``mp_run`` of ``job`` with the launcher's ``make_sharded_train_step``
+    building the batch-split master (``split_batch=True``; on one device
+    the step is the unsplit one) and, for an MoE arch (``job["moe"]``),
+    the master's loss with the minibatch's ``BatchSplit``.  Beside what
+    ``mp_run`` saw: the rows each master loss call took, the parameter
+    leaves and elements, and the dropped share of each MoE layer in the
+    master's forwards."""
+    from repro_torch.dist import BatchSplit
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import remat, transformer
+    from repro_torch.optim import tree_leaves
+    orig, real_moe = train_mod.make_sharded_train_step, moe_mod.moe
+    seen = {"rows": [], "master": False, "dropped": [], "leaves": None}
+
+    def make(pel, scorer, opt, tcfg, n, group_, **kw):
+        if job.get("moe") and group_ is not None:
+            cfg = job["cfg"]
+            attn = (job.get("run_kw") or {}).get("attn_impl", "ref")
+            split = BatchSplit(group_, tcfg.batch_size)
+            pel = lambda p, b: transformer.per_example_loss(
+                p, cfg, b, attn_impl=attn, batch_split=split)[0]
+        inner = pel
+
+        def master_loss(p, b):
+            if seen["leaves"] is None:
+                leaves = tree_leaves(p)
+                seen["leaves"] = (len(leaves), sum(t.numel() for t in leaves))
+            seen["rows"].append(next(iter(b.values())).shape[0])
+            seen["master"] = True
+            try:
+                return inner(p, b)
+            finally:
+                seen["master"] = False
+        return orig(master_loss, scorer, opt, tcfg, n, group_,
+                    split_batch=True, **kw)
+
+    def spy(*a, **kw):
+        out = real_moe(*a, **kw)
+        if seen["master"] and not remat.recomputing():
+            seen["dropped"].append(out.dropped_frac.detach())
+        return out
+
+    train_mod.make_sharded_train_step, moe_mod.moe = make, spy
+    try:
+        res = mp_run(group, None, device, job["argv"], job.get("cfg"),
+                     job.get("run_kw"), job.get("allow", ()),
+                     keep_params=job.get("keep_params", False))
+    finally:
+        train_mod.make_sharded_train_step, moe_mod.moe = orig, real_moe
+    res["master_rows"] = seen["rows"]
+    res["param_leaves"], res["param_elements"] = seen["leaves"]
+    res["dropped"] = (torch.stack(seen["dropped"]).cpu() if seen["dropped"]
+                      else None)
+    return res
+
+
+def _split_rank(group, device, jobs, out_dir):
+    """One spawned rank of phase 48: each job's ``split_run`` twice."""
+    import os
+    if group.rank:
+        sys.stdout = open(os.devnull, "w")
+    out = {job["tag"]: [split_run(group, device, job) for _ in range(2)]
+           for job in jobs}
+    torch.save(out, f"{out_dir}/rank{group.rank}.pt")
+
+
+def _same_run(a, b) -> bool:
+    """Two runs' draws, metrics, store, dropped shares and (when kept)
+    params bitwise equal."""
+    return (torch.equal(a["indices"], b["indices"])
+            and all(torch.equal(a["metrics"][f], b["metrics"][f])
+                    for f in SHARD_FIELDS)
+            and all(torch.equal(x, y) for x, y in zip(a["store"],
+                                                      b["store"]))
+            and (a["dropped"] is None or torch.equal(a["dropped"],
+                                                     b["dropped"]))
+            and (a["params"] is None or same_tree(a["params"], b["params"])))
+
+
+def _median_share(a: torch.Tensor, b: torch.Tensor, tol: float) -> dict:
+    """Each element's relative difference of ``a`` from ``b``: its median
+    and the share of elements beyond ``tol``."""
+    each = ((a.double() - b.double()).abs()
+            / b.double().abs().clamp_min(1e-30))    # 0 where both are 0
+    return {"median": each.median().item(),
+            "share_over": (each > tol).double().mean().item()}
+
+
+def phase_batch_split(train_mod, ref):
+    """48: the batch-split master (``split_batch=True``, the reference's
+    ``constrain_batch``), a world of 2 ranks sharing the one card over
+    gloo on CUDA tensors, each split run against the one-device run of
+    the same call: (a) mlp_svhn at full width, relaxed, ghost, W = 4, 10
+    steps; (b) glm4-9b at phase 7's cut on the flash path with the fused
+    score (phase 16's shape), 2 steps; (c) dbrx-132b × 1, capacity drops
+    on, 2 steps.  The draws equal one device's until the first refresh,
+    the losses and grad norms within 1e-4 (f32) or 5e-2 (bf16; dbrx's
+    dropped shares and scores at the median, at most a quarter beyond),
+    the ranks alike and two split runs bitwise equal; a rank's master at
+    its B/2 rows; launches a step a rank: 1 multi-tap (a); 16 flash
+    forward, 8 backward (4 scored) and 5 ghost_norm (b); every
+    tensor-core kernel on its tensor-core instance; the gradient
+    all-reduces a step counted."""
+    import gc
+    import os
+    from repro_torch.dist import DataGroup, batch_block
+    from repro_torch.launch import mesh
+    from repro_torch.optim import tree_leaves
+    t_phase = time.perf_counter()
+    # blocks: the scorer's launches on one device over a rank's (the MLP's
+    # multi-tap kernel takes every row block in one launch)
+    jobs = [dict(tag="mlp", keep_params=True, tol=CARD_VS_CPU_RTOL, blocks=1,
+                 argv=mlp_argv("--steps", str(SPLIT_MLP_STEPS),
+                               "--score-shards", str(SHARD_W)),
+                 per_step={"per_example_sqnorm_multi": 1}),
+            dict(tag="glm4_flash", tol=MP_LM_RTOL, cfg=lm_config(),
+                 blocks=SPLIT_LM_W,
+                 argv=FLASH_ARGV + ["--steps", str(SPLIT_LM_STEPS),
+                                    "--score-shards", str(SPLIT_LM_W)],
+                 run_kw={"attn_impl": "flash", "attn_scores": "fused"},
+                 per_step={"flash_attention": 4 * LM_LAYERS,
+                           "flash_attention_bwd": 2 * LM_LAYERS,
+                           "ghost_norm": len(FLASH_GHOST)},
+                 scored=LM_LAYERS),
+            dict(tag="dbrx", tol=MP_LM_RTOL, moe=True, blocks=SPLIT_LM_W,
+                 cfg=zoo_config("dbrx-132b", num_layers=MP_DBRX_LAYERS),
+                 argv=DBRX_ARGV + ["--steps", str(SPLIT_DBRX_STEPS),
+                                   "--score-shards", str(SPLIT_LM_W)],
+                 allow=("ghost_norm_direct_ref",))]
+    one = {}
+    for job in jobs:
+        torch.cuda.empty_cache()
+        one[job["tag"]] = split_run(None, "cuda", job)
+    # two ranks of dbrx × 1 (~34 GiB each at the f32 grad norm) and this
+    # process share the card: free what the earlier phases left behind,
+    # and let the ranks' allocators grow their segments in place (with
+    # fixed segments ~5 GiB a rank stayed reserved but unallocated)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    d = scratch_dir("chip_smoke_batch_split")
+    t0 = time.perf_counter()
+    try:
+        mesh.run_world(_split_rank, 2, "cuda", backend="gloo",
+                       args=(jobs, str(d)))
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    out = {"wall_s_world_with_spawn": wall, "parent_at_spawn": held}
+    for job in jobs:
+        tag, tol = job["tag"], job["tol"]
+        what = f"batch split {tag}"
+        base = one[tag]
+        steps = base["steps"]
+        refresh, batch = (_argv_last(job["argv"], f)
+                          for f in ("--refresh-every", "--batch"))
+        if set(base["master_rows"]) != {batch}:
+            fail(f"{what}: the one-device master took {base['master_rows']}"
+                 f" rows")
+        runs = [x[tag] for x in ranks]
+        for r, (g, again) in enumerate(runs):
+            if not _same_run(g, again):
+                fail(f"{what} rank {r}: two split runs differ")
+            lo, hi = batch_block(batch, DataGroup(None, r, 2))
+            if set(g["master_rows"]) != {hi - lo}:
+                fail(f"{what} rank {r}: the master took {g['master_rows']} "
+                     f"rows; its block is {hi - lo}")
+            if "per_step" in job:
+                expect_launches(g["launches"], {
+                    k: v * steps for k, v in job["per_step"].items()},
+                    f"{what} rank {r}")
+            elif not any(g["launches"].values()):
+                fail(f"{what} rank {r}: no kernel launched")
+            if "scored" in job and g["scored"] != job["scored"] * steps:
+                fail(f"{what} rank {r}: {g['scored']} scored backward "
+                     f"launches in {steps} steps")
+            for k in TC_KERNELS:
+                if g["tc"][k] != g["launches"][k]:
+                    fail(f"{what} rank {r}: {k} launched {g['launches'][k]} "
+                         f"times, {g['tc'][k]} of them tensor-core")
+            # one device scores both shards' row blocks, a rank its own
+            scorer = ("ghost_norm", "per_example_sqnorm_multi")
+            if any(job["blocks"] * g["launches"][k] != base["launches"][k]
+                   for k in scorer):
+                fail(f"{what} rank {r}: scorer launches {g['launches']} "
+                     f"against one device's {base['launches']}")
+            c = g["collectives"]
+            leaves, elements = g["param_leaves"], g["param_elements"]
+            if c["all_reduce"] < steps * (leaves + 1) or \
+                    c["elements"] < steps * (elements + 1):
+                fail(f"{what} rank {r}: {c} in {steps} steps; the split "
+                     f"sums {leaves} leaves of {elements} elements a step")
+        r0, r1 = runs[0][0], runs[1][0]
+        if not (torch.equal(r0["indices"], r1["indices"]) and all(
+                torch.equal(r0["metrics"][f], r1["metrics"][f])
+                for f in ("loss", "grad_norm", "mean_weight"))):
+            fail(f"{what}: the two ranks' draws or metrics differ")
+        k = _first_divergence(r0["indices"], base["indices"])
+        if k < min(refresh, steps):
+            fail(f"{what}: one device's draws for {k} steps, before the "
+                 f"first refresh after step {refresh - 1}")
+        err = {f: rel_err(r0["metrics"][f][:k], base["metrics"][f][:k])
+               for f in ("loss", "grad_norm")}
+        if max(err.values()) > tol:
+            fail(f"{what}: losses and grad norms {err} from one device's "
+                 f"over {k} steps; bound {tol}")
+        store = [torch.cat([r0["store"][i], r1["store"][i]])
+                 for i in range(len(r0["store"]))]
+        scored = _scored_rel({"store": store}, base)
+        res = {"same_draws_steps": k, "steps": steps, "rel_err": err,
+               "scored_rel_err": scored,
+               "master_rows": [runs[r][0]["master_rows"][0]
+                               for r in range(2)],
+               "ranks": [_mp_rank_summary(x[0]) for x in runs],
+               "one_device": _mp_rank_summary(base),
+               "param_leaves": r0["param_leaves"],
+               "param_elements": r0["param_elements"]}
+        if job.get("moe"):
+            layers = job["cfg"].num_layers
+            drop = _median_share(r0["dropped"][:k * layers],
+                                 base["dropped"][:k * layers], tol)
+            res["dropped"] = {"split": r0["dropped"].tolist(),
+                              "one_device": base["dropped"].tolist(),
+                              **drop}
+            if drop["median"] > tol or drop["share_over"] > MP_MOE_SHARE \
+                    or not bool((base["dropped"] > 0).any()):
+                fail(f"{what}: dropped shares {res['dropped']} (one device "
+                     f"must drop some)")
+            bad = scored["median"] > tol or scored["share_over"] > \
+                MP_MOE_SHARE
+        else:
+            bad = scored["max"] > tol
+        if bad:
+            fail(f"{what}: the scored rows' ω̃ from one device's: {scored}")
+        if job.get("keep_params") and k == steps:
+            res["params_rel_err"] = max(
+                rel_err(a.float(), b.float()) for a, b in zip(
+                    tree_leaves(r0["params"]), tree_leaves(base["params"])))
+            if res["params_rel_err"] > tol:
+                fail(f"{what}: final params {res['params_rel_err']:.2e} "
+                     f"from one device's")
+        out[tag] = res
+        print(f"{what}: world 2 on one card (gloo), each rank's master at "
+              f"{res['master_rows']} of {batch} rows; one device's draws for {k} of {steps} steps, loss and "
+              f"grad norm within {err}, ω̃ {scored}"
+              f"{'; dropped ' + str(res['dropped']) if 'dropped' in res else ''}"
+              f"; two split runs bitwise equal, the ranks alike; a rank a "
+              f"step: {res['ranks'][0]}", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"batch split: phase 48 {out['wall_s']:.1f} s ({wall:.1f} s the "
+          f"world with its spawn; this process held "
+          f"{held['allocated_gib']:.2f} GiB allocated, "
+          f"{held['reserved_gib']:.2f} reserved at the spawn)", flush=True)
+    return out
+
+
+def _argv_last(argv, flag) -> int:
+    """The int value of ``flag``'s last occurrence (argparse's)."""
+    return int(argv[max(i for i, a in enumerate(argv) if a == flag) + 1])
+
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
@@ -7088,6 +7400,7 @@ def main() -> int:
     serving_groups = phase_serving_groups(train_mod, ref)
     dry_card = phase_dryrun_card()
     remat_res = phase_remat(train_mod, ref, dry_card)
+    split_res = phase_batch_split(train_mod, ref)
 
     print("times " + json.dumps({
         "card": card, "build_s": build_s, "step_ms_median": step_ms,
@@ -7167,6 +7480,9 @@ def main() -> int:
     print("slice 20 times " + json.dumps({
         "card": card, "remat": remat_res,
         "wall_s": time.perf_counter() - t_start}), flush=True)
+    print("slice 21 times " + json.dumps({
+        "card": card, "batch_split": split_res,
+        "wall_s": time.perf_counter() - t_start}), flush=True)
     mp4 = model_par["a_mlp"]["1x4"]["ranks"][0]["launches_a_step"]
     main_counts = {"per_example_sqnorm_multi": launches,
                    "per_example_sqnorm": {"per_example_sqnorm": round(
@@ -7199,7 +7515,7 @@ def main() -> int:
                               "--model-parallel 4 step (256, 2048 | 10), "
                               "its launch on the main path: 1 a step a "
                               "rank, launches counted on rank 0 of phase "
-                              "44's (1, 4) world over 40 steps",
+                              "44's (1, 4) world over 20 steps",
         "ghost_norm": "the 8 calls of one seq-64 LM step; 'steps' gives "
                       "the 5 of a flash-trainer step and the 4 of a "
                       "falcon-mamba ghost step",
@@ -7352,7 +7668,12 @@ def main() -> int:
                            "launches"][name]
                           for t in remat_res["a"] for w in ("off", "on")},
                        **{f"remat_{t}": remat_res["b"][t]["launches"][name]
-                          for t in remat_res["b"]}},
+                          for t in remat_res["b"]},
+                       **{f"batch_split_{t}_rank{r}_a_step":
+                          split_res[t]["ranks"][r]["launches_a_step"].get(
+                              name, 0)
+                          for t in ("mlp", "glm4_flash", "dbrx")
+                          for r in range(2)}},
         })
         if name in ("per_example_sqnorm_multi", "ghost_norm"):
             kernels[-1]["side_stream_launches"] = {

@@ -170,7 +170,7 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
                      gated: bool = False,
                      group: Optional[DataGroup] = None,
                      model_group: Optional[DataGroup] = None,
-                     param_specs=None
+                     param_specs=None, split_batch: bool = False
                      ) -> tuple[Callable, Callable]:
     """The two computations of the async pipeline:
 
@@ -200,7 +200,11 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
     ``model_group`` the params are this rank's shards under
     ``param_specs`` and the scorer and loss are model-axis-aware; the
     scoring step's model-axis sums run on the scoring stream, as its
-    kernels do, and the master's on the current one."""
+    kernels do, and the master's on the current one.  ``split_batch``
+    splits the master's minibatch over the data group
+    (``issgd.make_master_pass``; the reference's ``constrain_batch``,
+    ``src/repro/core/async_pipeline.py:76``); its all-reduces run on the
+    current stream with the master's."""
     if cfg.mode not in ("relaxed", "uniform"):
         raise ValueError(
             "async scoring supports mode='relaxed'/'uniform' (exact needs "
@@ -212,7 +216,8 @@ def make_async_steps(per_example_loss: Callable, scorer: Callable,
                                    num_examples, aux_loss=aux_loss,
                                    monitors=monitors, gated=gated,
                                    group=group, model_group=model_group,
-                                   param_specs=param_specs)
+                                   param_specs=param_specs,
+                                   split_batch=split_batch)
     sb = cfg.score_batch_size
 
     def scoring_step(stale_params, write_buf, step: int, data):

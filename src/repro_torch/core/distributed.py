@@ -13,7 +13,10 @@
     proposal weights and minibatch rows, the paper's "one float per
     sample instead of gradients";
   * parameters stay replicated and every rank computes the same master
-    update on the same gathered minibatch.
+    update on the same gathered minibatch; with ``split_batch`` (off by
+    default, as the reference's ``constrain_batch``) each rank takes its
+    block of the minibatch through the loss and the backward and the
+    gradients are summed over the group (``issgd.make_master_pass``).
 
 A rank runs the one-code-path step of ``core/issgd.py`` with the group
 (``make_train_step(..., group=...)``) on the state ``shard_train_state``
@@ -174,7 +177,7 @@ def make_sharded_train_step(per_example_loss: Callable, scorer: Callable,
                             fused_score: Optional[Callable] = None,
                             monitors=None, gated: bool = False,
                             model_group: Optional[DataGroup] = None,
-                            param_specs=None
+                            param_specs=None, split_batch: bool = False
                             ) -> tuple[Callable, ISSGDConfig]:
     """(step, cfg): the ISSGD step over ``group``, ``step(state, data[,
     use_is]) -> (state, metrics[, monitors])`` on the rank's state and
@@ -182,14 +185,16 @@ def make_sharded_train_step(per_example_loss: Callable, scorer: Callable,
     W resolved against the group.  Every rank calls it with the same
     arguments in the same order; the metrics and monitors come out the
     same on every rank.  A ``model_group`` and ``param_specs`` make it
-    the model-parallel step (``issgd.make_master_pass``)."""
+    the model-parallel step, ``split_batch`` the batch-split master
+    (``issgd.make_master_pass``)."""
     cfg = resolve_score_shards(cfg, group)
     _check_rows(num_examples, group)
     step = make_train_step(per_example_loss, scorer, optimizer, cfg,
                            num_examples, aux_loss=aux_loss,
                            fused_score=fused_score, monitors=monitors,
                            gated=gated, group=group,
-                           model_group=model_group, param_specs=param_specs)
+                           model_group=model_group, param_specs=param_specs,
+                           split_batch=split_batch)
     return step, cfg
 
 
@@ -210,7 +215,7 @@ def make_sharded_async_steps(per_example_loss: Callable, scorer: Callable,
                              monitor_traces: bool = True, monitors=None,
                              gated: bool = False,
                              model_group: Optional[DataGroup] = None,
-                             param_specs=None
+                             param_specs=None, split_batch: bool = False
                              ) -> tuple[Callable, Callable, ISSGDConfig]:
     """(scoring_step, master_step, cfg): the async pipeline's two steps
     over ``group`` (``async_pipeline.make_async_steps(..., group=)``),
@@ -218,7 +223,8 @@ def make_sharded_async_steps(per_example_loss: Callable, scorer: Callable,
     step writes the rank's rows of ``write_buf`` with no collective (with
     ``monitor_traces``, its trace sums are summed by the pipeline on the
     current stream); the master draws from the rank's rows of
-    ``read_buf`` with the hierarchical draw."""
+    ``read_buf`` with the hierarchical draw (split over the group with
+    ``split_batch``)."""
     from repro_torch.core.async_pipeline import make_async_steps
     cfg = resolve_score_shards(cfg, group)
     _check_rows(num_examples, group)
@@ -226,7 +232,8 @@ def make_sharded_async_steps(per_example_loss: Callable, scorer: Callable,
         per_example_loss, scorer, optimizer, cfg, num_examples,
         aux_loss=aux_loss, monitor_traces=monitor_traces,
         monitors=monitors, gated=gated, group=group,
-        model_group=model_group, param_specs=param_specs)
+        model_group=model_group, param_specs=param_specs,
+        split_batch=split_batch)
     return scoring_step, master_step, cfg
 
 
@@ -240,7 +247,7 @@ def make_sharded_streamed_steps(per_example_loss: Callable,
                                 monitor_traces: bool = True, monitors=None,
                                 gated: bool = False,
                                 model_group: Optional[DataGroup] = None,
-                                param_specs=None
+                                param_specs=None, split_batch: bool = False
                                 ) -> tuple[Callable, Callable, Callable,
                                            ISSGDConfig]:
     """(scoring_step, sample_step, master_step, cfg): the streamed step's
@@ -250,7 +257,7 @@ def make_sharded_streamed_steps(per_example_loss: Callable,
     rows of the rank's own shards' slices; the sample step draws the
     replicated indices and sums the rank's rows into its chunks' masses
     (no collective for them); the master takes the replicated
-    minibatch rows."""
+    minibatch rows (and its block of them with ``split_batch``)."""
     from repro_torch.data.streaming import make_streamed_steps
     cfg = resolve_score_shards(cfg, group)
     n_local = _check_rows(num_examples, group)
@@ -262,5 +269,6 @@ def make_sharded_streamed_steps(per_example_loss: Callable,
         per_example_loss, scorer, optimizer, cfg, num_examples, chunk_size,
         aux_loss=aux_loss, fused_score=fused_score, async_mode=async_mode,
         monitor_traces=monitor_traces, monitors=monitors, gated=gated,
-        group=group, model_group=model_group, param_specs=param_specs)
+        group=group, model_group=model_group, param_specs=param_specs,
+        split_batch=split_batch)
     return (*steps, cfg)

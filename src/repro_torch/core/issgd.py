@@ -40,6 +40,13 @@ same master update on the same gathered minibatch.  Because W, not the
 number of ranks, fixes the decomposition, a sharded run draws the
 indices of the one-device run.
 
+The batch-split master (``split_batch``, the reference's
+``constrain_batch``; off by default, as there): each data rank takes its
+``batch_block`` of the gathered minibatch through the loss and the
+backward, and one all-reduce a leaf sums the gradients before the
+replicated update.  The sums run in another order than one device's, so
+a split step is one device's within a tolerance, not bitwise.
+
 Model parallelism: the master pass also takes a model group and the
 parameters' spec tree (``dist/sharding.py``).  A rank then holds its
 column or row shards of the parameters, its loss is model-axis-aware,
@@ -57,7 +64,7 @@ import torch
 
 from repro_torch.core import variance
 from repro_torch.core.collectives import (axis_info, gather_rows,
-                                          model_sum, psum)
+                                          model_sum, owner_sum, psum)
 from repro_torch.core.importance import (ISConfig, effective_sample_size,
                                          is_loss_scale)
 from repro_torch.core.mass_index import block_masses
@@ -67,7 +74,7 @@ from repro_torch.core.weight_store import (EMPTY, WeightStore,
                                            read_proposal, write_scores,
                                            write_scores_global)
 from repro_torch.data.pipeline import gather_batch
-from repro_torch.dist import DataGroup
+from repro_torch.dist import DataGroup, batch_block
 from repro_torch.dist.sharding import is_sharded
 from repro_torch.optim import (Optimizer, clip_by_global_norm, global_norm,
                                tree_leaves, tree_map)
@@ -315,7 +322,8 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
                      streaming: bool = False,
                      group: Optional[DataGroup] = None,
                      model_group: Optional[DataGroup] = None,
-                     param_specs=None) -> Callable:
+                     param_specs=None, split_batch: bool = False
+                     ) -> Callable:
     """The master's half: ``master_pass(params, opt_state, stale_params,
     store, step, generator, data, fresh_scores=None, stale_slice=None,
     sample_indices=None, use_is=None) -> (params, opt_state,
@@ -353,7 +361,25 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     ``param_specs`` (the spec tree of ``dist/sharding.py``), the losses
     come from a model-axis-aware ``per_example_loss``/``fused_score``,
     and the grad norm (and ``grad_clip``) is the global one
-    (``grad_global_norm``)."""
+    (``grad_global_norm``).
+
+    ``split_batch`` (the reference's ``constrain_batch``,
+    ``src/repro/core/issgd.py:315``, applied at ``:431``; its dry run
+    passes one, ``src/repro/launch/dryrun.py:113-124``) splits the master
+    over a data group of N > 1 ranks.  The proposal read, the draw, the
+    scales and the one-owner gather of the minibatch are as above; then
+    rank r takes its ``batch_block`` of the B rows and of the scales, its
+    loss is Σ(losses·scales) over them divided by B, and its gradients
+    are summed over the data group (one all-reduce a leaf; a
+    model-sharded leaf stays this rank's shard), the reported loss too.
+    The norm, the clip, the update, the push and the monitors then run
+    on the same gradients on every rank.  In fused mode the rank's
+    scores go back to the whole (B,) by a one-owner sum before the store
+    write.  A mixture-of-experts loss must be built with
+    ``batch_split=BatchSplit(group, cfg.batch_size)`` so that its
+    capacity and drops are the whole minibatch's (``models/moe.py``).
+    ``aux_loss`` is refused with it.  With ``split_batch`` False, or a
+    data group of None or of one rank, the step is the one above."""
     _check_mode(cfg)
     if model_group is not None and param_specs is None:
         raise ValueError("a model group needs param_specs: the grad norm "
@@ -369,6 +395,38 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
     sb = n if cfg.mode == "exact" else cfg.score_batch_size
     n_dev = axis_info(group)[1]
     w_loc, n_w, _ = _resolve_shards(cfg, n, sb, n_dev)
+    split = split_batch and n_dev > 1
+    if split and aux_loss is not None:
+        raise ValueError("split_batch with an aux_loss: the aux term sees "
+                         "the whole batch and would count once a rank; "
+                         "leave one of them out")
+    if split and cfg.batch_size < n_dev:
+        raise ValueError(f"split_batch: batch_size={cfg.batch_size} gives "
+                         f"a rank of the {n_dev} data ranks no row")
+
+    def split_loss_and_grads(live, batch, scales):
+        """(loss, grads, fused scores or None) of the batch-split master:
+        this rank's block through the loss and the backward, the loss and
+        every gradient leaf summed over the data group."""
+        b = scales.shape[0]
+        lo, hi = batch_block(b, group)
+        block = {k: v[lo:hi] for k, v in batch.items()}
+        batch_scores = None
+        if cfg.mode == "fused":
+            losses, scores = fused_score(live, block)
+            rows = scores.new_zeros((b,) + scores.shape[1:])
+            rows[lo:hi] = scores.detach()
+            at = torch.arange(b, device=rows.device)
+            batch_scores = owner_sum(rows, (at >= lo) & (at < hi), group)
+        else:
+            losses = per_example_loss(live, block)
+        loss = torch.sum(losses * scales[lo:hi]) / b
+        flat = list(torch.autograd.grad(loss, tree_leaves(live)))
+        for i in range(len(flat)):    # each raw gradient freed once summed
+            flat[i] = psum(flat[i], group)
+        flat = iter(flat)
+        grads = tree_map(lambda _: next(flat), live)
+        return psum(loss.detach(), group), grads, batch_scores
 
     def master_pass(params, opt_state, stale_params, store: WeightStore,
                     step: int, generator: torch.Generator, data,
@@ -407,18 +465,22 @@ def make_master_pass(per_example_loss: Callable, optimizer: Optimizer,
 
         # ---- unbiased IS-scaled update (§4.1) -------------------------------
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        if cfg.mode == "fused":
-            losses, batch_scores = fused_score(live, batch)
-            batch_scores = batch_scores.detach()
+        if split:
+            loss, grads, batch_scores = split_loss_and_grads(live, batch,
+                                                             scales)
         else:
-            losses = per_example_loss(live, batch)
-        loss = torch.mean(losses * scales)
-        if aux_loss is not None:
-            loss = loss + aux_loss(live, batch)
-        leaves = tree_leaves(live)
-        flat = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _: next(flat), live)
-        loss = loss.detach()
+            if cfg.mode == "fused":
+                losses, batch_scores = fused_score(live, batch)
+                batch_scores = batch_scores.detach()
+            else:
+                losses = per_example_loss(live, batch)
+            loss = torch.mean(losses * scales)
+            if aux_loss is not None:
+                loss = loss + aux_loss(live, batch)
+            leaves = tree_leaves(live)
+            flat = iter(torch.autograd.grad(loss, leaves))
+            grads = tree_map(lambda _: next(flat), live)
+            loss = loss.detach()
         if cfg.mode == "fused":
             # the examples just trained on get their scores for free; the
             # monitors then read an importance-sampled slice (biased
@@ -480,7 +542,8 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
                     monitors=None, gated: bool = False,
                     group: Optional[DataGroup] = None,
                     model_group: Optional[DataGroup] = None,
-                    param_specs=None) -> Callable:
+                    param_specs=None, split_batch: bool = False
+                    ) -> Callable:
     """The synchronous step ``master_pass ∘ scoring_pass`` over one store:
     ``train_step(state, data, sample_indices=None) -> (state, metrics)``.
     Step t's master samples from a proposal that already holds step t's
@@ -494,15 +557,20 @@ def make_train_step(per_example_loss: Callable, scorer: Callable,
     ``make_master_pass``).  With a data ``group`` the state's store and
     ``data`` are this rank's rows (``core/distributed.py``); with a
     ``model_group`` its params are this rank's shards under
-    ``param_specs`` (``make_master_pass``)."""
+    ``param_specs`` (``make_master_pass``).  ``split_batch`` splits the
+    master's minibatch over the data group (``make_master_pass``; the
+    reference's ``constrain_batch``, ``src/repro/core/issgd.py:517``)."""
     monitors = monitors or None
+    # the reference constrains the score batch too (``issgd.py:282``): a
+    # rank of the port already scores only its own shards' slices
     scoring = (None if cfg.mode == "fused"
                else make_scoring_pass(scorer, cfg, num_examples, group=group))
     master = make_master_pass(per_example_loss, optimizer, cfg, num_examples,
                               aux_loss=aux_loss, fused_score=fused_score,
                               monitors=monitors, gated=gated, group=group,
                               model_group=model_group,
-                              param_specs=param_specs)
+                              param_specs=param_specs,
+                              split_batch=split_batch)
 
     def _train_step(state: TrainState, data: dict, use_is,
                     sample_indices: Optional[torch.Tensor]):

@@ -96,7 +96,7 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
                         monitors=None, gated: bool = False,
                         group: Optional[DataGroup] = None,
                         model_group: Optional[DataGroup] = None,
-                        param_specs=None
+                        param_specs=None, split_batch: bool = False
                         ) -> tuple[Callable, Callable, Callable]:
     """``(scoring_step, sample_step, master_step)`` of the streamed step:
 
@@ -124,7 +124,11 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
     no collective; ``batch_rows`` is the replicated minibatch.  A
     ``model_group`` and ``param_specs`` go to the master pass
     (``issgd.make_master_pass``): the rows and the draws are the same on
-    every rank of a model group, which shares one data rank's chunks."""
+    every rank of a model group, which shares one data rank's chunks.
+    ``split_batch`` splits the master over the data group
+    (``issgd.make_master_pass``; the reference's ``constrain_batch``,
+    ``src/repro/data/streaming.py:89``): a rank takes its block of the
+    replicated ``batch_rows``."""
     if cfg.mode == "exact":
         raise ValueError(
             "mode='exact' rescores the full dataset every step, which "
@@ -150,7 +154,8 @@ def make_streamed_steps(per_example_loss: Callable, scorer: Callable,
                                    monitors=monitors, gated=gated,
                                    streaming=True, group=group,
                                    model_group=model_group,
-                                   param_specs=param_specs)
+                                   param_specs=param_specs,
+                                   split_batch=split_batch)
 
     def scoring_step(score_params, store: WeightStore, step: int,
                      score_rows):

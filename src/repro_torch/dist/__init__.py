@@ -19,7 +19,11 @@ row ``g`` lives on data rank ``g // n_local``.  Parameters are split
 over the model group by the logical→mesh rules of ``dist/sharding.py``.
 The reference's ``dist/context.py::constrain_batch_dim`` is a hint to
 XLA's partitioner; a rank of the port holds only its own batch, so it
-has no counterpart here.
+has no counterpart here.  Its one use, the batch-split master
+(``make_train_step(..., constrain_batch=)``), is the port's
+``split_batch``: a rank takes its ``batch_block`` of the minibatch's
+rows, and a ``BatchSplit`` tells a mixture-of-experts layer that its
+tokens are one block of a larger batch.
 """
 from __future__ import annotations
 
@@ -50,4 +54,23 @@ def axis_info(group: Optional[DataGroup]) -> tuple[int, int]:
     return (0, 1) if group is None else (group.rank, group.size)
 
 
-__all__ = ["DataGroup", "axis_info", "data_axes"]
+class BatchSplit(NamedTuple):
+    """A minibatch of ``rows`` rows whose ``batch_block``s are spread over
+    the ranks of ``group``, one a rank: what a layer that mixes rows (the
+    MoE router's capacity) needs to act on the whole minibatch."""
+    group: DataGroup
+    rows: int
+
+
+def batch_block(rows: int, group: Optional[DataGroup]) -> tuple[int, int]:
+    """[lo, hi): this rank's contiguous block of ``rows`` rows, as
+    ``torch.tensor_split(·, size)[rank]`` cuts it (the first ``rows %
+    size`` ranks take one row more); (0, rows) for one device."""
+    rank, size = axis_info(group)
+    q, r = divmod(rows, size)
+    lo = rank * q + min(rank, r)
+    return lo, lo + q + (rank < r)
+
+
+__all__ = ["BatchSplit", "DataGroup", "axis_info", "batch_block",
+           "data_axes"]

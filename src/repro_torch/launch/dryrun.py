@@ -34,11 +34,14 @@ proposal and the minibatch, the master's IS-scaled loss, its backward
 (rematerialised: the configs keep ``remat=True``, the reference's
 default, and a train shape's ``loss_chunk`` of 512 checkpoints each
 chunk of the loss head), the global grad norm, the update and the trace
-monitors.  The port's
-master computes the whole minibatch on every data rank
-(``core/distributed.py``: the update is the same on every rank), where
-the reference's dry run lets XLA split it over the data axes.  The stale
-params are a copy of their own (the steady state between refreshes).
+monitors.  The master is the batch-split one (``split_batch=True``, as
+the reference's dry run passes ``constrain_batch``,
+``src/repro/launch/dryrun.py:113-124``): rank 0 takes its block of the
+minibatch (⌈B/N⌉ rows) through the loss and the backward, and its
+gradients are summed over the data group; an MoE layer routes with the
+whole minibatch's capacity (``models/moe.py``; under the fake backend
+the other ranks' counts are zeros).  The stale params are a copy of
+their own (the steady state between refreshes).
 
 Under fake tensors the mamba layers' ref scan, a Python loop of one
 step a position (S·~12 dispatched ops a layer), runs as the same
@@ -140,6 +143,7 @@ def build_train(cfg, shape: InputShape, group, mg, device="cpu"):
     from repro_torch.core.issgd import ISSGDConfig, TrainState
     from repro_torch.core.scorer import make_lm_scorer
     from repro_torch.core.weight_store import init_store
+    from repro_torch.dist import BatchSplit
     from repro_torch.models.transformer import per_example_loss
     from repro_torch.optim import sgd, tree_map
     n = 2 * shape.global_batch
@@ -150,11 +154,13 @@ def build_train(cfg, shape: InputShape, group, mg, device="cpu"):
                        score_batch_size=shape.global_batch,
                        refresh_every=8, mode="relaxed",
                        is_cfg=ISConfig(smoothing=1.0))
+    split = BatchSplit(group, shape.global_batch)
     step, _ = make_sharded_train_step(
         lambda p, b: per_example_loss(p, cfg, b, model_group=mg,
-                                      seq_shard=sp)[0],
+                                      seq_shard=sp, batch_split=split)[0],
         make_lm_scorer(cfg, "logit_grad", model_group=mg, seq_shard=sp),
-        opt, tcfg, n, group, model_group=mg, param_specs=specs)
+        opt, tcfg, n, group, model_group=mg, param_specs=specs,
+        split_batch=True)
     state = TrainState(params, opt.init(params),
                        tree_map(lambda t: t.clone(), params),
                        init_store(local_rows(n, group), device), 0,

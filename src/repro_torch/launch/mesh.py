@@ -2,7 +2,9 @@
 
 The reference builds a JAX mesh over devices (``src/repro/launch/mesh.py``);
 the port runs one process a rank and joins them in a ``torch.distributed``
-process group at ``tcp://localhost:<free port>``:
+process group over a TCP store on localhost (``run_world`` holds the
+store itself, on a port the system picks, so that no other process can
+take the port between its choice and the rendezvous):
 
   * ``backend="nccl"`` on the card, rank r on ``cuda:r`` (one card a
     rank; NCCL refuses two ranks on one device);
@@ -82,21 +84,31 @@ def mesh_groups(rank: int, world: int, model_parallel: int
 
 
 def init_rank(rank: int, world: int, port: int, backend: str,
-              device: str, model_parallel: int = 1):
+              device: str, model_parallel: int = 1, store=None):
     """Join this process to the world as ``rank``: its data group, or,
-    with ``model_parallel`` > 1, its (data group, model group)."""
+    with ``model_parallel`` > 1, its (data group, model group).  The
+    rendezvous is at ``tcp://localhost:<port>``, or through ``store``, a
+    ``TCPStore`` (or its port, as an int, to connect to one that
+    another process holds)."""
     import torch.distributed as dist
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
+    if isinstance(store, int):
+        store = dist.TCPStore("localhost", store, world, is_master=False)
+    if store is None:
+        dist.init_process_group(backend,
+                                init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank)
+    else:
+        dist.init_process_group(backend, store=store, world_size=world,
+                                rank=rank)
     if model_parallel > 1:
         return mesh_groups(rank, world, model_parallel)
     return data_axes()
 
 
-def _entry(rank: int, fn: Callable, world: int, port: int, backend: str,
+def _entry(rank: int, fn: Callable, world: int, store, backend: str,
            device: str, args: tuple, model_parallel: int = 1):
     import torch.distributed as dist
     if world > 1:
@@ -104,7 +116,8 @@ def _entry(rank: int, fn: Callable, world: int, port: int, backend: str,
         # threads would spin against each other at every collective
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     dev = rank_device(device, rank, backend)
-    groups = init_rank(rank, world, port, backend, dev, model_parallel)
+    groups = init_rank(rank, world, 0, backend, dev, model_parallel,
+                       store=store)
     try:
         if model_parallel > 1:
             group, model_group = groups
@@ -123,14 +136,17 @@ def run_world(fn: Callable, world: int, device: str,
     ``args`` must pickle; returns None).  With ``model_parallel`` M > 1
     the world holds ``world`` // M data ranks of M model ranks each, and
     ``fn`` also takes its model group, ``fn(group, device, *args,
-    model_group=...)``.  A rank that fails makes this raise."""
+    model_group=...)``.  A rank that fails makes this raise.  This
+    process holds the world's TCP store for as long as the ranks run."""
+    import torch.distributed as dist
     backend = backend or default_backend(device)
     check_world(world, device, backend)
-    port = free_port()
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False)
     if world == 1:
-        return _entry(0, fn, 1, port, backend, device, args)
+        return _entry(0, fn, 1, store, backend, device, args)
     import torch.multiprocessing as mp
-    mp.spawn(_entry, args=(fn, world, port, backend, device, args,
+    mp.spawn(_entry, args=(fn, world, store.port, backend, device, args,
                            model_parallel),
              nprocs=world, join=True)
     return None

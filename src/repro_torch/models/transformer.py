@@ -44,6 +44,11 @@ sub-layer reading its shardedness from its local shapes.
 (``_norm_segment``).  ``tap_structure_from_params`` gives the taps of
 the local shards and ``sharded_tap_names`` which of them are partial
 terms of the ghost norm.
+
+A ``batch_split`` (``dist.BatchSplit``) says that the tokens are this
+rank's block of a minibatch split over a data group (the batch-split
+master, ``core/issgd.py``); only the MoE layers read it, to route as
+the whole minibatch would (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ from repro_torch.models import remat as remat_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.core.collectives import (all_gather_replicated,
                                           psum_backward, scatter_seq)
-from repro_torch.dist import DataGroup
+from repro_torch.dist import BatchSplit, DataGroup
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (Params, Tape, dtype_of, embed,
                                        init_embed, init_mlp, init_rmsnorm,
@@ -186,12 +191,14 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
                  ssm_mode: str = "ref",
                  pad_mask: Optional[torch.Tensor] = None,
                  model_group: Optional[DataGroup] = None,
-                 seq_shard: bool = False
+                 seq_shard: bool = False,
+                 batch_split: Optional[BatchSplit] = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer: (h, its MoE load-balance loss, a 0-d f32 tensor).
     ``pad_mask`` reaches the mamba mixers only: causal attention is exact
     for the real rows of a right-padded batch by construction.
-    ``model_group`` and ``seq_shard``: see the module docstring."""
+    ``model_group``, ``seq_shard`` and ``batch_split``: see the module
+    docstring."""
     mg = model_group
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     hn = _norm_segment(lp["ln1"], h, cfg, mg, seq_shard)
@@ -221,7 +228,7 @@ def _apply_layer(lp: Params, h: torch.Tensor, cfg: ModelConfig,
     hn = _norm_segment(lp["ln2"], h, cfg, mg, seq_shard)
     if spec.ff == "moe":
         out = moe_mod.moe(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.moe",
-                          model_group=mg)
+                          model_group=mg, batch_split=batch_split)
         return h + out.y, out.aux_loss
     return h + mlp(lp["ff"], hn, cfg, tape, prefix=f"{prefix}.mlp",
                    model_group=mg), aux
@@ -241,7 +248,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             return_hidden: bool = False,
             pad_mask: Optional[torch.Tensor] = None,
             model_group: Optional[DataGroup] = None,
-            seq_shard: bool = False
+            seq_shard: bool = False,
+            batch_split: Optional[BatchSplit] = None
             ) -> tuple[torch.Tensor, Aux]:
     """tokens (B, S_text) → logits (B, S, vocab) (or the final hidden
     states with ``return_hidden``) and Aux, S = N_front + S_text.
@@ -266,7 +274,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     mamba layers read it.  ``Aux.aux_loss`` is the sum of the MoE
     layers' load-balance losses.  ``model_group``/``seq_shard`` run the
     stack on this rank's shards (module docstring); the logits are the
-    gathered, replicated ones."""
+    gathered, replicated ones.  ``batch_split``: the module docstring."""
     check_supported(cfg)
     specs = cfg.layer_specs()
     h = embed(params["embed"], tokens, cfg, model_group=model_group)
@@ -294,7 +302,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                   attn_impl=attn_impl,
                                   attn_scores=attn_scores, ssm_mode=ssm_mode,
                                   pad_mask=pad_mask, model_group=model_group,
-                                  seq_shard=seq_shard)
+                                  seq_shard=seq_shard,
+                                  batch_split=batch_split)
             aux_loss = aux_loss + aux
         return h, aux_loss, tape.records
 
@@ -505,12 +514,16 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
                      attn_scores: Optional[str] = None,
                      ssm_mode: str = "ref",
                      model_group: Optional[DataGroup] = None,
-                     seq_shard: bool = False) -> tuple[torch.Tensor, Aux]:
+                     seq_shard: bool = False,
+                     batch_split: Optional[BatchSplit] = None
+                     ) -> tuple[torch.Tensor, Aux]:
     """Mean next-token CE per example. batch: {tokens (B, S+1), [embeds
     (B, N_front, D)], [mask]}.  The embeds are prepended and the loss
     covers the token positions only.  ``attn_impl``/``attn_scores``/
-    ``ssm_mode``/``model_group``/``seq_shard`` go to ``forward``."""
-    mp = dict(model_group=model_group, seq_shard=seq_shard)
+    ``ssm_mode``/``model_group``/``seq_shard``/``batch_split`` go to
+    ``forward``."""
+    mp = dict(model_group=model_group, seq_shard=seq_shard,
+              batch_split=batch_split)
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
     n_front = embeds.shape[1] if embeds is not None else 0
@@ -543,20 +556,22 @@ def per_example_loss(params: Params, cfg: ModelConfig, batch: dict, *,
 def per_example_loss_and_score(params: Params, cfg: ModelConfig,
                                batch: dict, ssm_mode: str = "ref",
                                model_group: Optional[DataGroup] = None,
-                               seq_shard: bool = False
+                               seq_shard: bool = False,
+                               batch_split: Optional[BatchSplit] = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused-mode objective: (mean NLL (B,), logit-grad scores (B,)) from
     ONE forward: the score the workers' pass would compute falls out of
     the chunked head (``lm_head_metrics``), over the token positions.  The
     attention is the ref path, as in the reference.  Under a
     ``model_group`` the score comes from the gathered logits: replicated,
-    no sum needed."""
+    no sum needed.  ``batch_split`` goes to ``forward``."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
     n_front = embeds.shape[1] if embeds is not None else 0
     h, _ = forward(params, cfg, tokens[:, :-1], embeds=embeds,
                    ssm_mode=ssm_mode, return_hidden=True,
-                   model_group=model_group, seq_shard=seq_shard)
+                   model_group=model_group, seq_shard=seq_shard,
+                   batch_split=batch_split)
     mask = batch.get("mask")
     return lm_head_metrics(params, cfg, h[:, n_front:], tokens[:, 1:].long(),
                            None if mask is None else mask[:, 1:].float(),

@@ -35,6 +35,7 @@ from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.telemetry import EventSink, NullSink  # noqa: E402
 from repro_torch.telemetry.events import read_events  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 SCORE_RTOL = 1e-6
 

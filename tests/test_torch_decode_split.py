@@ -35,6 +35,7 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models.transformer import init_transformer  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATTN_BF16 = dict(rtol=2 ** -7, atol=1e-5)
 

@@ -35,6 +35,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core.collectives import psum  # noqa: E402
 from repro_torch.launch import dryrun, op_cost, shapes  # noqa: E402
 from repro_torch.models.transformer import forward, init_transformer  # noqa
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def test_shape_table_is_the_reference():

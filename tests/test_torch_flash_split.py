@@ -22,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATTN_F32 = dict(rtol=2e-5, atol=2e-6)
 ATTN_BF16 = dict(rtol=2 ** -7, atol=1e-5)

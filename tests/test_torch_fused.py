@@ -37,6 +37,7 @@ from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 64          # few examples, so that minibatches of 32 repeat rows

@@ -25,6 +25,7 @@ from repro_torch.core.scorer import make_lm_scorer  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 B, S = 5, 13

@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.ghost_norm import ghost_norm as j_ghost_kernel  # noqa: E402
 from repro_torch.kernels import ghost_norm as gn  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 GN_RTOL = 1e-4
 

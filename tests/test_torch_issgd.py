@@ -40,6 +40,7 @@ from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6

@@ -35,6 +35,7 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ghost_norm as gn  # noqa: E402
 from repro_torch.kernels import per_example_sqnorm as pes  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-5
 

@@ -35,6 +35,7 @@ from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 N_EXAMPLES = 128

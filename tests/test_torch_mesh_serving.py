@@ -44,6 +44,7 @@ from repro_torch.dist import DataGroup  # noqa: E402
 from repro_torch.launch.mesh import free_port  # noqa: E402
 from repro_torch.models.transformer import init_transformer  # noqa: E402
 from repro_torch.serving import decode_cache_specs  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = ((1, 2), (2, 2), (1, 4))
 LOOP_WORLD = (2, 2)

@@ -37,6 +37,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 B, S = 4, 12

@@ -75,6 +75,7 @@ from repro_torch.models.mlp import init_mlp_classifier, mlp_specs  # noqa
 from repro_torch.models.transformer import (init_transformer,  # noqa: E402
                                             transformer_specs)
 from repro_torch.optim import sgd, tree_leaves  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = ((1, 2), (2, 2), (1, 4))
 CKPT_WORLD = (2, 2)

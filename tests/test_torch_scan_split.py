@@ -36,6 +36,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.selective_scan import selective_scan as j_scan  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import selective_scan as tss  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-5        # chip_smoke.SCAN_RTOL: rtol and atol over max|y|
 JAX_RTOL = 1e-5    # tests/test_torch_ssm.py: f32 rtol 1e-5 ...

@@ -44,6 +44,7 @@ from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, Request,  # noqa: E402
                                  ServeLoop, TrafficIngest,
                                  make_synthetic_traffic)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _np(t):

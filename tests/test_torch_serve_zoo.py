@@ -35,6 +35,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 ALL_ARCHS = ("glm4-9b", "deepseek-7b", "internlm2-20b", "falcon-mamba-7b",

@@ -52,6 +52,7 @@ from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.models.mlp import init_mlp_classifier  # noqa: E402
 from repro_torch.models.transformer import init_transformer  # noqa: E402
 from repro_torch.optim import tree_leaves  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = (1, 2, 4)
 N = 1000                  # no width of the smoke MLP is 1000
@@ -387,7 +388,8 @@ def test_launcher_mesh_prints_the_unsharded_losses(capsys):
                         *argv, "--mesh", "2"], capture_output=True,
                        text=True, cwd=REPO, timeout=300,
                        env=dict(os.environ,
-                                PYTHONPATH=os.path.join(REPO, "src")))
+                                PYTHONPATH=os.path.join(REPO, "src"),
+                                OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "mesh: (2,)" in r.stdout
     ttrain.main(argv + ["--score-shards", "2"])
@@ -411,7 +413,8 @@ def test_launcher_mesh_restores_a_checkpoint(tmp_path, capsys):
                         "--mesh", "2"], capture_output=True, text=True,
                        cwd=REPO, timeout=300,
                        env=dict(os.environ,
-                                PYTHONPATH=os.path.join(REPO, "src")))
+                                PYTHONPATH=os.path.join(REPO, "src"),
+                                OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "restored" in r.stdout and "(step 3)" in r.stdout
     assert len(want) == 4 and _loss_lines(r.stdout) == want
@@ -428,7 +431,8 @@ def _launch(argv, timeout=300):
                            *argv], capture_output=True, text=True, cwd=REPO,
                           timeout=timeout,
                           env=dict(os.environ,
-                                   PYTHONPATH=os.path.join(REPO, "src")))
+                                   PYTHONPATH=os.path.join(REPO, "src"),
+                                   OMP_NUM_THREADS="1"))
 
 
 @pytest.mark.parametrize("flag", ["--stream", "--async-scoring",
@@ -463,7 +467,8 @@ def test_launcher_mesh_refusal_exits_1():
                         "--examples", "1024"], capture_output=True,
                        text=True, cwd=REPO, timeout=120,
                        env=dict(os.environ,
-                                PYTHONPATH=os.path.join(REPO, "src")))
+                                PYTHONPATH=os.path.join(REPO, "src"),
+                                OMP_NUM_THREADS="1"))
     assert r.returncode == 1
     assert "not divisible by --mesh 3" in r.stderr
 

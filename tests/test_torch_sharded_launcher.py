@@ -20,6 +20,7 @@ from _helpers import REPO  # noqa: E402
 from repro_torch.core.controller import replay_decisions  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.telemetry.events import read_events  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 BASE = ["--smoke", "--device", "cpu", "--examples", "1024", "--log-every",
         "1"]
@@ -32,7 +33,8 @@ def _mesh(argv, world):
                         *argv, "--mesh", str(world)], capture_output=True,
                        text=True, cwd=REPO, timeout=300,
                        env=dict(os.environ,
-                                PYTHONPATH=os.path.join(REPO, "src")))
+                                PYTHONPATH=os.path.join(REPO, "src"),
+                                OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert f"mesh: ({world},)" in r.stdout
     return r.stdout

@@ -55,6 +55,7 @@ from repro_torch.models.layers import params_from_jax  # noqa: E402
 from repro_torch.models.mlp import init_mlp_classifier  # noqa: E402
 from repro_torch.models.transformer import init_transformer  # noqa: E402
 from repro_torch.optim import tree_leaves  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLDS = (1, 2, 4)
 N = 1000                  # no width of the smoke MLP is 1000
@@ -384,7 +385,8 @@ def test_launcher_mesh_streams_async_with_the_one_device_losses(capsys):
                         *argv, "--mesh", "2"], capture_output=True,
                        text=True, cwd=REPO, timeout=300,
                        env=dict(os.environ,
-                                PYTHONPATH=os.path.join(REPO, "src")))
+                                PYTHONPATH=os.path.join(REPO, "src"),
+                                OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "mesh: (2,)" in r.stdout and "x 2 shard(s)" in r.stdout
     ttrain.main(argv + ["--score-shards", "2"])
@@ -404,7 +406,8 @@ def test_launcher_mesh_runs_the_serve_loop():
                         "--batch", "8", "--score-batch", "32"],
                        capture_output=True, text=True, cwd=REPO, timeout=300,
                        env=dict(os.environ,
-                                PYTHONPATH=os.path.join(REPO, "src")))
+                                PYTHONPATH=os.path.join(REPO, "src"),
+                                OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "32 reserved rows" in r.stdout
     got = [int(line.split()[2]) for line in r.stdout.splitlines()

@@ -41,6 +41,7 @@ from repro_torch.data.streaming import (StreamedISSGD,  # noqa: E402
 from repro_torch.data import make_svhn_like  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 N = 512
 
@@ -391,7 +392,8 @@ def test_quickstart_stream_half_on_cpu():
             [sys.executable, str(root / "examples" / "torch_quickstart.py"),
              "--device", "cpu", "--steps", "51", *extra],
             capture_output=True, text=True, timeout=300,
-            env={"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin"})
+            env={"PYTHONPATH": str(root / "src"), "PATH": "/usr/bin:/bin",
+                 "OMP_NUM_THREADS": "1"})
         assert proc.returncode == 0, proc.stderr
         outs.append(proc.stdout.splitlines())
     assert outs[1][:-1] == outs[0] and len(outs[0]) == 3

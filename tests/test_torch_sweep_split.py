@@ -31,6 +31,7 @@ from repro.kernels.per_example_sqnorm import \
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import per_example_sqnorm as pes  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-5
 # (B, S, rep, hd): every B in {1, 3}, S in {1, 17, 100}, rep in {1, 6, 16},

@@ -48,6 +48,7 @@ from repro_torch.telemetry import (MONITOR_NAMES, SCHEMA_VERSION,  # noqa: E402
 from repro_torch.telemetry.events import read_events  # noqa: E402
 from repro_torch.telemetry.monitors import proposal_monitors  # noqa: E402
 from repro_torch.telemetry.spans import span, timed  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parents[1]
 MON_RTOL = 1e-6

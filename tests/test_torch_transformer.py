@@ -33,6 +33,7 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.layers import params_from_jax  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
